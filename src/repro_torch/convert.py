@@ -1,0 +1,57 @@
+"""Carry a JAX-package solve across to the port.
+
+SVEN has no weights: what crosses is the problem, the solve settings and
+the warm-start carry. These functions take plain numpy arrays and dicts
+(`dataclasses.asdict` of a `repro.core.sven.SvenConfig`), so this package
+still imports nothing of `repro`.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core.sven import SvenConfig
+from repro_torch.device import DeviceLike, resolve_device
+
+#: JAX SvenConfig.backend -> port backend
+_BACKEND = {"xla": "torch", "auto": "auto", "pallas": "auto", "tpu": "auto",
+            "gpu": "auto", "tpu_interpret": "ref", "gpu_interpret": "ref",
+            "ref": "ref"}
+
+
+def problem_from_numpy(X, y, *, device: DeviceLike = None,
+                       dtype: torch.dtype = torch.float64):
+    """(X, y) as tensors of `dtype` on `device` (CUDA when none is named)."""
+    dev = resolve_device(device)
+    return (torch.tensor(np.asarray(X), dtype=dtype, device=dev),
+            torch.tensor(np.asarray(y), dtype=dtype, device=dev))
+
+
+def config_from_jax(fields: Mapping) -> SvenConfig:
+    """The port's SvenConfig from the fields of a JAX SvenConfig.
+
+    backend "xla" -> "torch"; "auto"/"pallas"/"tpu"/"gpu" -> "auto";
+    "*_interpret"/"ref" -> "ref". The deprecated `interpret` flag folds in
+    as JAX folds it (True -> an interpreted body -> "ref") and is dropped.
+    Every other field keeps its value.
+    """
+    fields = dict(fields)
+    interpret = fields.pop("interpret", None)
+    backend = fields.get("backend", "xla")
+    if backend not in _BACKEND:
+        raise ValueError(f"config_from_jax: unknown JAX backend {backend!r}")
+    backend = _BACKEND[backend]
+    if interpret and backend == "auto":
+        backend = "ref"
+    fields["backend"] = backend
+    return SvenConfig(**fields)
+
+
+def warm_from_jax(alpha, w, *, device: DeviceLike = None,
+                  dtype: torch.dtype = torch.float64):
+    """(warm_alpha, warm_w) for `sven` from a JAX solution's alpha and w."""
+    dev = resolve_device(device)
+    return (torch.tensor(np.asarray(alpha), dtype=dtype, device=dev),
+            torch.tensor(np.asarray(w), dtype=dtype, device=dev))

@@ -1,0 +1,282 @@
+"""SVEN solve entry points — the paper's Algorithm 1 in PyTorch.
+
+Dispatch (paper §3, "Implementation details"):
+    2p > n  -> primal solver over w in R^n   (cost driven by n)
+    else    -> dual solver over alpha in R^{2p}, kernel cached when it fits
+
+On the kernel backends the dual caches K = Zhat^T Zhat from the fused
+shifted-Gram kernel and the primal's CG mat-vec is the two-pass hinge
+Hessian kernel; the kernels take float32 operands (or bfloat16 storage)
+and their results are cast back to the problem dtype, which drives the
+solvers. Under "bf16"/"tf32" the dual gets one full-precision matrix-free
+refinement re-solve, warm-started from the low-precision alpha.
+
+PyTorch counterpart of `repro/core/sven.py`. JAX compiles the solve once
+per shape under `jit`; here it runs eagerly, with host loops (one host sync
+per loop test, see `core/svm/state.py`). `t` and `lambda2` are host floats.
+`sven_path` is a Python loop over the t-grid that carries the warm dual
+alpha AND primal w from zeros, as the JAX scan does.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.core import elastic_net as en
+from repro_torch.core import reduction as red
+from repro_torch.core.svm import solve_dual_newton, solve_primal_newton
+from repro_torch.device import resolve_device
+
+
+class SvenSolution(NamedTuple):
+    beta: torch.Tensor
+    alpha: torch.Tensor
+    mode: str                    # "primal" | "dual"
+    iters: int                   # outer (Newton) iterations
+    opt_residual: torch.Tensor   # solver's own optimality measure
+    kkt: torch.Tensor            # Elastic Net KKT violation at beta
+    w: torch.Tensor              # primal SVM iterate — warm-start carrier
+    cg_iters: int                # inner CG iterations (primal: H v products)
+
+
+#: every accepted SvenConfig.backend: "torch" = plain PyTorch products and
+#: no kernels (the role of JAX's "xla"); "auto" = the kernel body chosen
+#: from the operands' device (CUDA kernel on the card, plain version on the
+#: CPU); "cuda" / "ref" = that body, whatever the device.
+BACKENDS = ("torch", "auto", "cuda", "ref")
+PRECISIONS = ("f32", "bf16", "tf32")
+
+
+@dataclasses.dataclass(frozen=True)
+class SvenConfig:
+    """Solve settings; the fields of `repro.core.sven.SvenConfig` less the
+    deprecated `interpret`.
+
+    The default backend is "auto", so that `sven(X, y, t, lambda2)` runs
+    the hand-written kernels on a CUDA tensor and their plain versions on a
+    CPU tensor. The JAX default, "xla", runs no kernel at all; its
+    counterpart here is "torch".
+    """
+
+    mode: str = "auto"            # "auto" | "primal" | "dual"
+    matrix_free: bool = True      # SvenOperator vs explicit Xnew
+    cache_kernel: str = "auto"    # "auto" | "blocks" | "never" (dual only)
+    solver: str = "newton"        # "newton" ("fista" is not ported yet)
+    backend: str = "auto"         # one of BACKENDS
+    precision: str = "f32"        # kernel storage/multiply precision
+    tol: float = 1e-8
+    max_newton: int = 60
+    cg_iters: int = 300
+    kernel_cache_max_m: int = 8192   # cache K when 2p <= this
+    lambda2_floor: float = red.LAMBDA2_FLOOR  # Lasso limit: C capped at 1/(2*floor)
+
+    def __post_init__(self):
+        for name, allowed in (("backend", BACKENDS), ("precision", PRECISIONS),
+                              ("mode", ("auto", "primal", "dual")),
+                              ("cache_kernel", ("auto", "blocks", "never")),
+                              ("solver", ("newton", "fista"))):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"SvenConfig.{name} must be one of {allowed}, "
+                                 f"got {getattr(self, name)!r}")
+
+
+def _pick_mode(n: int, p: int, cfg: SvenConfig) -> str:
+    if cfg.mode != "auto":
+        return cfg.mode
+    return "primal" if 2 * p > n else "dual"
+
+
+def resolve_backend(config: SvenConfig, *tensors) -> SvenConfig:
+    """Pin "auto" to the kernel body of the operands' device ("cuda" or
+    "ref"); operands on different devices raise. A no-op for "torch" and
+    for an already-resolved backend."""
+    if config.backend == "torch":
+        return config
+    from repro_torch.kernels import registry
+
+    body = registry.resolve_kernel_backend(
+        None if config.backend == "auto" else config.backend, *tensors)
+    if body == config.backend:
+        return config
+    return dataclasses.replace(config, backend=body)
+
+
+def _operands(X, y):
+    """X and y as tensors on one device (X's, or CUDA for array-likes)."""
+    dev = resolve_device(None, X, y)
+    X = torch.as_tensor(X, device=dev)
+    y = torch.as_tensor(y, dtype=X.dtype, device=dev)
+    if X.dim() != 2 or y.shape != (X.shape[0],):
+        raise ValueError(f"sven: X must be (n, p) and y (n,), got "
+                         f"{tuple(X.shape)} and {tuple(y.shape)}")
+    return X, y
+
+
+def _floats(ts) -> list:
+    if isinstance(ts, torch.Tensor):
+        return [float(t) for t in ts.detach().cpu().tolist()]
+    return [float(t) for t in ts]
+
+
+def _sven_core(X, y, t: float, lambda2: float, warm_alpha, warm_w,
+               config: SvenConfig, keep=None) -> SvenSolution:
+    """One solve on resolved operands. `keep` is an optional (p,) screening
+    mask: masked columns are zeroed and the returned beta is scattered back
+    to exact zeros on them."""
+    n, p = X.shape
+    dtype = X.dtype
+    X_full = X    # KKT diagnostics stay on the ORIGINAL problem: an unsafe
+    keepf = None  # mask must show up as a large kkt, not pass trivially
+    if keep is not None:
+        keepf = keep.to(dtype)
+        X = X * keepf[None, :]
+        if warm_alpha is not None:
+            # symmetrize masked duplicate pairs so dual warm starts can't
+            # leave stale asymmetric mass on screened-out samples
+            warm_alpha = warm_alpha * torch.cat([keepf, keepf])
+    C = red.svm_C(lambda2, floor=config.lambda2_floor)
+    mode = _pick_mode(n, p, config)
+    op = red.SvenOperator(X=X, y=y, t=t)
+    kernels = config.backend != "torch"
+    if config.solver != "newton":
+        raise NotImplementedError(f"SvenConfig.solver={config.solver!r} is not "
+                                  "ported yet; use 'newton'")
+
+    if mode == "primal":
+        if config.matrix_free:
+            matvec, rmatvec = op.xhat_matvec, op.xhat_rmatvec
+        else:
+            Xhat, _ = red.build_svm_dataset(X, y, t)
+            matvec = lambda w: Xhat @ w          # noqa: E731
+            rmatvec = lambda v: Xhat.T @ v       # noqa: E731
+        yhat = torch.cat([X.new_ones(p), -X.new_ones(p)])
+        hess_matvec = None
+        if kernels:
+            from repro_torch.kernels.ops import _storage, hinge_hessian_matvec
+            # the kernel operands are made once per solve, not per CG step
+            Xk = _storage(X.to(torch.float32).contiguous(), config.precision)
+            yk = y.to(torch.float32).contiguous()
+
+            def hess_matvec(v, act, C_):  # the fused two-pass H v kernel
+                hv = hinge_hessian_matvec(
+                    Xk, yk, t, C_, act[:p].to(torch.float32),
+                    act[p:].to(torch.float32), v.to(torch.float32),
+                    backend=config.backend, precision=config.precision)
+                return hv.to(dtype)
+
+        res = solve_primal_newton(
+            matvec, rmatvec, yhat, C, n,
+            tol=config.tol, max_newton=config.max_newton, cg_iters=config.cg_iters,
+            w0=warm_w, hess_matvec=hess_matvec)
+        alpha = C * torch.clamp(1.0 - yhat * matvec(res.w), min=0.0)  # Alg.1 line 7
+        beta = red.recover_beta(alpha, t)
+        if keepf is not None:
+            beta = beta * keepf
+        return SvenSolution(beta=beta, alpha=alpha, mode=mode, w=res.w,
+                            iters=res.iters, opt_residual=res.grad_norm,
+                            kkt=en.kkt_violation(X_full, y, beta, lambda2),
+                            cg_iters=res.cg_iters)
+
+    # --- dual ---
+    m = 2 * p
+    cache = config.cache_kernel
+    if cache == "auto":
+        cache = "blocks" if m <= config.kernel_cache_max_m else "never"
+    refine = False
+    if cache == "blocks":
+        if kernels:
+            from repro_torch.kernels.ops import shifted_gram
+            K = shifted_gram(X.to(torch.float32).contiguous(),
+                             y.to(torch.float32).contiguous(), t,
+                             backend=config.backend,
+                             precision=config.precision).to(dtype)
+            refine = config.precision != "f32"
+        elif config.matrix_free:
+            K = red.gram_blocks(X, y, t)
+        else:
+            K = red.gram_reference(X, y, t)
+        kernel_matvec = lambda v: K @ v   # noqa: E731
+    else:
+        kernel_matvec = op.kernel_matvec
+
+    # the dual keeps the solver's own loop bounds, as JAX's `_sven_core` does
+    res = solve_dual_newton(kernel_matvec, m, C, dtype=dtype, device=X.device,
+                            tol=config.tol, alpha0=warm_alpha)
+    cg = res.cg_iters
+    if refine:
+        # one step of iterative refinement: re-solving MATRIX-FREE at full
+        # input precision, warm-started from the low-precision alpha,
+        # re-evaluates every Newton residual against exact Gram statistics
+        # at O(np) per iteration and restores <= 1e-10 parity.
+        res = solve_dual_newton(op.kernel_matvec, m, C, dtype=dtype,
+                                device=X.device, tol=config.tol, alpha0=res.alpha)
+        cg += res.cg_iters
+    beta = red.recover_beta(res.alpha, t)
+    if keepf is not None:
+        beta = beta * keepf
+    # w = Zhat @ alpha: the primal iterate this dual solution induces — carried
+    # so a following primal-mode solve can warm-start from it.
+    w = op.zhat_matvec(res.alpha)
+    return SvenSolution(beta=beta, alpha=res.alpha, mode=mode, w=w,
+                        iters=res.iters, opt_residual=res.pg_norm,
+                        kkt=en.kkt_violation(X_full, y, beta, lambda2),
+                        cg_iters=cg)
+
+
+def sven(
+    X,
+    y,
+    t,
+    lambda2,
+    config: SvenConfig = SvenConfig(),
+    *,
+    warm_alpha: Optional[torch.Tensor] = None,
+    warm_w: Optional[torch.Tensor] = None,
+    keep: Optional[torch.Tensor] = None,
+) -> SvenSolution:
+    """Solve the Elastic Net (paper eq. 1) via the SVM reduction.
+
+    Runs where X lies (array-likes go to the CUDA device). `keep` is an
+    optional (p,) safe screening mask: screened-out columns are zeroed and
+    their coefficients scattered back as exact zeros. `cg_iters` of the
+    result counts the inner CG iterations (over both solves of a refined
+    dual); `iters` is the last solve's Newton count, as in JAX.
+    """
+    X, y = _operands(X, y)
+    config = resolve_backend(config, X, y)
+    return _sven_core(X, y, float(t), float(lambda2), warm_alpha, warm_w, config,
+                      keep)
+
+
+def sven_path(X, y, ts, lambda2, config: SvenConfig = SvenConfig()) -> torch.Tensor:
+    """Regularization path over a grid of L1 budgets (Fig. 1), (len(ts), p).
+
+    Both warm starts — the dual alpha and the primal w — are carried from
+    point to point, starting from zeros, as the JAX scan does.
+    """
+    X, y = _operands(X, y)
+    config = resolve_backend(config, X, y)
+    n, p = X.shape
+    warm_a = X.new_zeros(2 * p)
+    warm_w = X.new_zeros(n)
+    betas = []
+    for t in _floats(ts):
+        sol = _sven_core(X, y, t, float(lambda2), warm_a, warm_w, config)
+        betas.append(sol.beta)
+        warm_a, warm_w = sol.alpha, sol.w
+    return torch.stack(betas)
+
+
+def sven_path_reference(X, y, ts, lambda2,
+                        config: SvenConfig = SvenConfig()) -> torch.Tensor:
+    """Reference path: one `sven` call per point, warm-started like
+    `sven_path` (alpha AND w), from no warm start at the first point."""
+    betas = []
+    warm_a, warm_w = None, None
+    for t in _floats(ts):
+        sol = sven(X, y, t, lambda2, config, warm_alpha=warm_a, warm_w=warm_w)
+        betas.append(sol.beta)
+        warm_a, warm_w = sol.alpha, sol.w
+    return torch.stack(betas)

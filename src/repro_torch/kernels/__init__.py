@@ -1,0 +1,25 @@
+"""Hand-written CUDA kernels of the SVEN main path, their plain PyTorch
+versions, and the ops that choose between them (see ops.py)."""
+from repro_torch.kernels import ops, ref, registry
+from repro_torch.kernels.gram import shifted_gram_cuda
+from repro_torch.kernels.hinge import hinge_xd_cuda, hinge_xtv_cuda
+from repro_torch.kernels.ops import hinge_hessian_matvec, shifted_gram
+
+#: every kernel wrapper of the main path (each has a `.launches` counter)
+WRAPPERS = (shifted_gram_cuda, hinge_xtv_cuda, hinge_xd_cuda)
+
+
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch counter to 0."""
+    for w in WRAPPERS:
+        w.launches = 0
+
+
+def launches() -> dict:
+    """{wrapper name: launches since the last reset}."""
+    return {w.__name__: w.launches for w in WRAPPERS}
+
+
+__all__ = ["WRAPPERS", "hinge_hessian_matvec", "hinge_xd_cuda", "hinge_xtv_cuda",
+           "launches", "ops", "ref", "registry", "reset_launches", "shifted_gram",
+           "shifted_gram_cuda"]

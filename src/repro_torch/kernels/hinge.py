@@ -1,0 +1,101 @@
+"""Wrappers of the hand-written CUDA hinge Hessian kernels (primal Newton-CG).
+
+`csrc/hinge.cu` holds the two passes of H v = v + 2C Xhat^T(act . (Xhat v)):
+
+  pass 1 (`hinge_xtv_cuda`) replaces `repro/kernels/hinge.py::_xtv_kernel`:
+      c = X^T v, byv = y.v/t, d = act_top (c - byv) + act_bot (c + byv), and
+      one partial of e = sum(u_b - u_t) per block of 32 columns.
+  pass 2 (`hinge_xd_cuda`) replaces `repro/kernels/hinge.py::_xd_kernel`:
+      H v = v + 2C (X d + (y/t) e), with e summed from the partials.
+
+Each wrapper counts its launches in `<wrapper>.launches` (a plain integer;
+callers reset it). The source says what bounds each pass and how it is laid
+out.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+_ptr, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_X_DTYPES = (torch.float32, torch.bfloat16)
+_F32 = (torch.float32,)
+
+
+def _lib():
+    lib = _build.load("hinge")
+    if not getattr(lib, "_typed", False):
+        lib.sven_hinge_xtv.argtypes = [_ptr, _int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
+                                       _int, _int, _float, _ptr]
+        lib.sven_hinge_xtv.restype = _int
+        lib.sven_hinge_xd.argtypes = [_ptr, _int, _ptr, _ptr, _int, _ptr, _ptr, _ptr,
+                                      _int, _int, _float, _float, _ptr]
+        lib.sven_hinge_xd.restype = _int
+        lib.sven_hinge_xtv_blocks.argtypes = [_int]
+        lib.sven_hinge_xtv_blocks.restype = _int
+        lib._typed = True
+    return lib
+
+
+def hinge_xtv_cuda(X: torch.Tensor, y: torch.Tensor, v: torch.Tensor, t: float,
+                   act_top: torch.Tensor, act_bot: torch.Tensor):
+    """Pass 1: returns (d (p,), e_part (ceil(p/32),)), float32; e = e_part.sum().
+
+    X (n, p) float32 or bfloat16; y, v (n,) and act_top, act_bot (p,) float32;
+    all contiguous on one CUDA device.
+    """
+    fn = "hinge_xtv_cuda"
+    n, p = _build.check_matrix(fn, X, _X_DTYPES)
+    for name, x, shape in (("y", y, (n,)), ("v", v, (n,)),
+                           ("act_top", act_top, (p,)), ("act_bot", act_bot, (p,))):
+        _build.check_operand(fn, name, x, shape, _F32, X.device)
+    lib = _lib()
+    d = torch.empty(p, dtype=torch.float32, device=X.device)
+    e_part = torch.empty(lib.sven_hinge_xtv_blocks(p), dtype=torch.float32,
+                         device=X.device)
+    with torch.cuda.device(X.device):
+        err = lib.sven_hinge_xtv(X.data_ptr(), int(X.dtype == torch.bfloat16),
+                                 v.data_ptr(), y.data_ptr(), act_top.data_ptr(),
+                                 act_bot.data_ptr(), d.data_ptr(), e_part.data_ptr(),
+                                 n, p, 1.0 / float(t),
+                                 torch.cuda.current_stream(X.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
+    hinge_xtv_cuda.launches += 1
+    return d, e_part
+
+
+def hinge_xd_cuda(X: torch.Tensor, y: torch.Tensor, d: torch.Tensor,
+                  e_part: torch.Tensor, v: torch.Tensor, t: float, C: float
+                  ) -> torch.Tensor:
+    """Pass 2: H v = v + 2C (X d + (y/t) e) with e = sum(e_part), float32 (n,).
+
+    X as for pass 1; d (p,), e_part (k,), y, v (n,) float32 on the same device.
+    """
+    fn = "hinge_xd_cuda"
+    n, p = _build.check_matrix(fn, X, _X_DTYPES)
+    if not (isinstance(e_part, torch.Tensor) and e_part.dim() == 1
+            and e_part.numel() > 0):
+        raise ValueError(f"{fn}: e_part must be a non-empty 1-D tensor")
+    for name, x, shape in (("y", y, (n,)), ("v", v, (n,)), ("d", d, (p,)),
+                           ("e_part", e_part, tuple(e_part.shape))):
+        _build.check_operand(fn, name, x, shape, _F32, X.device)
+    lib = _lib()
+    hv = torch.empty(n, dtype=torch.float32, device=X.device)
+    with torch.cuda.device(X.device):
+        err = lib.sven_hinge_xd(X.data_ptr(), int(X.dtype == torch.bfloat16),
+                                d.data_ptr(), e_part.data_ptr(), e_part.numel(),
+                                y.data_ptr(), v.data_ptr(), hv.data_ptr(), n, p,
+                                1.0 / float(t), 2.0 * float(C),
+                                torch.cuda.current_stream(X.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
+    hinge_xd_cuda.launches += 1
+    return hv
+
+
+hinge_xtv_cuda.launches = 0
+hinge_xd_cuda.launches = 0

@@ -1,0 +1,114 @@
+"""The port's package rules: it imports neither JAX nor the JAX package
+(nor triton), its entry points do not drop to the CPU on their own, and its
+kernel registry raises rather than falling back."""
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import device as tdevice
+from repro_torch.convert import config_from_jax, problem_from_numpy, warm_from_jax
+from repro_torch.core.sven import SvenConfig, resolve_backend, sven
+from repro_torch.data.synthetic import make_regression
+from repro_torch.kernels import ops, registry
+
+PKG = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+
+
+def test_import_leaves_jax_repro_and_triton_out():
+    code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
+            "repro_torch.convert, repro_torch.data\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'triton'))\n"
+            "print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_no_source_file_imports_jax_or_repro():
+    offenders = []
+    for path in sorted(PKG.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for name in names:
+                if name.split(".")[0] in ("jax", "jaxlib", "repro", "triton"):
+                    offenders.append(f"{path.relative_to(PKG)}:{node.lineno} {name}")
+    assert offenders == []
+    assert len(list(PKG.rglob("*.py"))) >= 15
+
+
+def test_no_device_and_no_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tdevice.default_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_regression(20, 5)
+    X = np.ones((8, 3))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sven(X, np.ones(8), 1.0, 1.0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        problem_from_numpy(X, np.ones(8))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        registry.resolve_kernel_backend(None)
+    # told the CPU, or given CPU tensors, it runs there
+    Xc, yc, _ = make_regression(20, 5, device="cpu")
+    assert Xc.device.type == "cpu"
+    assert sven(Xc, yc, 1.0, 1.0).beta.device.type == "cpu"
+
+
+def test_registry_resolves_from_the_operands_device():
+    cpu_t = torch.zeros(3)
+    assert registry.resolve_kernel_backend(None, cpu_t) == "ref"
+    assert registry.resolve_kernel_backend("auto", cpu_t, cpu_t) == "ref"
+    assert registry.resolve_kernel_backend("cuda", cpu_t) == "cuda"   # explicit wins
+    assert resolve_backend(SvenConfig(), cpu_t).backend == "ref"
+    assert resolve_backend(SvenConfig(backend="torch"), cpu_t).backend == "torch"
+    with pytest.raises(ValueError, match="unknown backend"):
+        registry.resolve_kernel_backend("tpu", cpu_t)
+
+
+def test_registry_raises_on_mixed_devices_and_missing_bodies():
+    cpu_t, meta_t = torch.zeros(3), torch.zeros(3, device="meta")
+    with pytest.raises(ValueError, match="different devices"):
+        registry.resolve_kernel_backend(None, cpu_t, meta_t)
+    with pytest.raises(ValueError, match="different devices"):
+        ops.shifted_gram(torch.zeros(4, 2), torch.zeros(4, device="meta"), 1.0)
+    with pytest.raises(ValueError, match="no kernel body for device"):
+        registry.resolve_kernel_backend(None, meta_t)
+    with pytest.raises(KeyError, match="no 'cuda' body"):
+        registry.lookup("hinge_stats", "cuda")
+    assert registry.kernel_backends("shifted_gram") == ("cuda", "ref")
+    assert registry.kernel_backends("hinge_xtv") == registry.kernel_backends("hinge_xd") \
+        == ("cuda", "ref")
+
+
+def test_config_from_jax_maps_backends_and_keeps_fields():
+    from repro.core.sven import SvenConfig as JaxConfig
+    for jax_backend, want in (("xla", "torch"), ("auto", "auto"), ("pallas", "auto"),
+                              ("tpu", "auto"), ("gpu", "auto"),
+                              ("tpu_interpret", "ref"), ("gpu_interpret", "ref"),
+                              ("ref", "ref")):
+        fields = dataclasses.asdict(JaxConfig(backend=jax_backend, mode="dual",
+                                              precision="bf16", tol=1e-11))
+        cfg = config_from_jax(fields)
+        assert cfg.backend == want
+        assert (cfg.mode, cfg.precision, cfg.tol) == ("dual", "bf16", 1e-11)
+        assert cfg.max_newton == fields["max_newton"]
+        assert cfg.lambda2_floor == fields["lambda2_floor"]
+    interp = dataclasses.asdict(JaxConfig(backend="auto", interpret=True))
+    assert config_from_jax(interp).backend == "ref"
+    wa, ww = warm_from_jax(np.zeros(4), np.ones(3), device="cpu")
+    assert wa.dtype == ww.dtype == torch.float64 and wa.shape == (4,)

@@ -1,0 +1,120 @@
+"""Port parity of the SVEN entry points: `repro_torch.core.sven` against
+`repro.core.sven` on the same float64 numpy problems, both modes.
+
+Bounds: plain "torch" vs JAX "xla" 1e-10 in beta; the kernel path ("ref"
+on the CPU, f32 kernels, no refinement) vs JAX "tpu_interpret"
+5e-4 * max|beta| (tests/test_sven_equivalence.py); bf16 dual + refinement
+1e-10 of the plain solve (tests/test_kernels_gpu.py)."""
+import dataclasses
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from _torch_parity import cpu, npy, problem
+from repro_torch.convert import config_from_jax, problem_from_numpy, warm_from_jax
+from repro_torch.core.sven import SvenConfig
+
+# the modules, not the `sven` functions their packages re-export
+jsven_mod = importlib.import_module("repro.core.sven")
+tsven_mod = importlib.import_module("repro_torch.core.sven")
+
+MODES = {"primal": (30, 50), "dual": (60, 12)}
+
+
+def _pair(mode, seed=11, **cfg):
+    n, p = MODES[mode]
+    X, y = problem(n, p, seed=seed, k_true=6)
+    jcfg = jsven_mod.SvenConfig(mode=mode, **cfg)
+    return (X, y), (jnp.asarray(X), jnp.asarray(y)), jcfg, \
+        config_from_jax(dataclasses.asdict(jcfg))
+
+
+@pytest.mark.parametrize("mode", ["primal", "dual"])
+def test_torch_backend_matches_jax_xla(mode):
+    (X, y), (Xj, yj), jcfg, tcfg = _pair(mode, backend="xla", tol=1e-10)
+    assert tcfg.backend == "torch"
+    js = jsven_mod.sven(Xj, yj, 1.8, 0.7, jcfg)
+    ts = tsven_mod.sven(*problem_from_numpy(X, y, device="cpu"), 1.8, 0.7, tcfg)
+    assert ts.mode == js.mode == mode
+    np.testing.assert_allclose(npy(ts.beta), npy(js.beta), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(npy(ts.w), npy(js.w), rtol=0, atol=1e-8)
+    assert ts.iters == int(js.iters)
+    assert float(ts.kkt) < 1e-7 and float(js.kkt) < 1e-7
+
+
+@pytest.mark.parametrize("mode", ["primal", "dual"])
+def test_kernel_path_matches_jax_interpret(mode):
+    """Default config on CPU tensors = the plain kernel bodies ("ref")."""
+    (X, y), (Xj, yj), jcfg, _ = _pair(mode, backend="tpu_interpret", tol=1e-6)
+    js = jsven_mod.sven(Xj, yj, 1.8, 0.7, jcfg)
+    ts = tsven_mod.sven(*problem_from_numpy(X, y, device="cpu"), 1.8, 0.7,
+                        SvenConfig(mode=mode, tol=1e-6))
+    scale = max(1.0, float(np.abs(npy(js.beta)).max()))
+    np.testing.assert_allclose(npy(ts.beta), npy(js.beta), rtol=0, atol=5e-4 * scale)
+
+
+@pytest.mark.parametrize("n,p,seed", [(120, 16, 0), (200, 24, 7)])
+@pytest.mark.parametrize("precision", ["bf16", "tf32"])
+def test_low_precision_dual_refines_to_the_plain_solve(n, p, seed, precision):
+    """Port side of tests/test_kernels_gpu.py::_check_bf16_refined."""
+    rng = np.random.default_rng(seed)
+    X, y = cpu(rng.standard_normal((n, p)) / np.sqrt(n), rng.standard_normal(n))
+    t = 1.0 + 0.01 * seed
+    plain = tsven_mod.sven(X, y, t, 0.5, SvenConfig(mode="dual", backend="torch",
+                                                    tol=1e-12))
+    low = tsven_mod.sven(X, y, t, 0.5, SvenConfig(mode="dual", precision=precision,
+                                                  tol=1e-12))
+    np.testing.assert_allclose(npy(low.beta), npy(plain.beta), rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("mode", ["primal", "dual"])
+def test_keep_mask_scatters_back_exact_zeros(mode):
+    n, p = MODES[mode]
+    X, y = cpu(*problem(n, p, seed=2, k_true=4))
+    keep = cpu(np.arange(p) % 3 != 0).bool()
+    for backend in ("torch", "auto"):
+        sol = tsven_mod.sven(X, y, 1.5, 0.5, SvenConfig(mode=mode, backend=backend),
+                             keep=keep)
+        assert np.all(npy(sol.beta)[~npy(keep).astype(bool)] == 0.0)
+        ref = tsven_mod.sven(X[:, keep], y, 1.5, 0.5,
+                             SvenConfig(mode=mode, backend=backend))
+        np.testing.assert_allclose(npy(sol.beta)[npy(keep).astype(bool)],
+                                   npy(ref.beta), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["primal", "dual"])
+def test_sven_path_matches_jax_and_reference(mode):
+    (X, y), (Xj, yj), jcfg, tcfg = _pair(mode, seed=5, backend="xla", tol=1e-10)
+    ts = np.linspace(0.4, 3.0, 6)
+    jb = jsven_mod.sven_path(Xj, yj, ts, 0.9, jcfg)
+    Xt, yt = problem_from_numpy(X, y, device="cpu")
+    tb = tsven_mod.sven_path(Xt, yt, ts, 0.9, tcfg)
+    assert tb.shape == (6, X.shape[1])
+    np.testing.assert_allclose(npy(tb), npy(jb), rtol=0, atol=1e-10)
+    rb = tsven_mod.sven_path_reference(Xt, yt, ts, 0.9, tcfg)
+    np.testing.assert_allclose(npy(rb), npy(tb), rtol=0, atol=1e-10)
+    kb = tsven_mod.sven_path(Xt, yt, ts, 0.9, SvenConfig(mode=mode))   # plain kernels
+    np.testing.assert_allclose(npy(kb), npy(tsven_mod.sven_path_reference(
+        Xt, yt, ts, 0.9, SvenConfig(mode=mode))), rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("mode", ["primal", "dual"])
+def test_warm_start_from_jax_reproduces_iteration_count(mode):
+    (X, y), (Xj, yj), jcfg, tcfg = _pair(mode, seed=3, backend="xla")
+    first = jsven_mod.sven(Xj, yj, 1.5, 0.7, jcfg)
+    jwarm = jsven_mod.sven(Xj, yj, 1.7, 0.7, jcfg, warm_alpha=first.alpha,
+                           warm_w=first.w)
+    wa, ww = warm_from_jax(np.asarray(first.alpha), np.asarray(first.w), device="cpu")
+    twarm = tsven_mod.sven(*problem_from_numpy(X, y, device="cpu"), 1.7, 0.7, tcfg,
+                           warm_alpha=wa, warm_w=ww)
+    assert twarm.iters == int(jwarm.iters) < int(jsven_mod.sven(
+        Xj, yj, 1.7, 0.7, jcfg).iters)
+    np.testing.assert_allclose(npy(twarm.beta), npy(jwarm.beta), rtol=0, atol=1e-10)
+
+
+def test_fista_is_not_ported_yet():
+    X, y = cpu(*problem(20, 5))
+    with pytest.raises(NotImplementedError, match="fista"):
+        tsven_mod.sven(X, y, 1.0, 1.0, SvenConfig(solver="fista"))
