@@ -17,7 +17,8 @@ port's main path through the entry points a user calls:
   4. the primal solve at the shape of GLA-BRA-180 (n = 180, p = 49,151),
      against the plain float64 solve;
   5. `sven_path` over an 8-point t-grid at the primal shape, against
-     `sven_path_reference`.
+     `sven_path_reference` (the same kernels, solved point by point) and
+     against the plain float64 path ("torch" backend).
 
 The data are synthetic (`repro_torch.data.make_regression`, fixed seeds).
 Each path runs with every launch counter set to 0 just before it and read
@@ -83,6 +84,28 @@ def cuda_ms(torch, fn, min_reps: int = 5, min_ms: float = 50.0) -> float:
         reps *= 4
 
 
+def cuda_ms_each(torch, fn, dev, flush_l2: bool, reps: int = 50) -> float:
+    """Mean device time of fn() in ms, each call between its own pair of CUDA
+    events. The device first sleeps for ~10 ms so that the host queues every
+    call before the first runs: no host gap falls inside a timed span. With
+    `flush_l2`, a 256 MB buffer is read before each call, outside its span,
+    so the call finds the 50 MB L2 cold."""
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev) if flush_l2 else None
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(reps)]
+    torch.cuda._sleep(20_000_000)
+    for start, end in pairs:
+        if flush is not None:
+            flush.sum()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in pairs) / reps
+
+
 def bound(nbytes: float, flops: float, kind: str):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[kind] * 1e3
@@ -97,35 +120,50 @@ def phase_kernels(torch, smoke, dev, gen):
 
     rows = {}
     for (n, p) in (YMSD, RAGGED):
-        X, y, _ = make_regression(n, p, seed=0, dtype=torch.float32, device=dev)
+        X, y, beta_true = make_regression(n, p, seed=0, dtype=torch.float32, device=dev)
+        Xd, yd = X.double(), y.double()
+        # Three radii: the main path's rule (half the truth's L1 norm), where
+        # the shift s = y^T y / t^2 dominates every entry; t_mix, where the
+        # u = X^T y / t terms equal s; and a huge t, where K = +-X^T X, so
+        # the P part is held at 1e-5 of its own size.
+        t_main = 0.5 * beta_true.abs().sum().item()
+        t_mix = (yd @ yd).item() / (Xd.T @ yd).abs().max().item()
+        radii = {"t_main": t_main, "t_mix": t_mix, "t_big": 1e6 * t_main}
+        del Xd, yd
         for prec in ("f32", "tf32", "bf16"):
             Xs, ys = _storage(X, prec), _storage(y, prec)
-            K = gram.shifted_gram_cuda(Xs, ys, 0.9, precision=prec)
-            Kr = ref.flatten_gram(ref.gram_blocks_ref(Xs, ys, 0.9, prec))
-            err = (K - Kr).abs().max().item()
-            scale = Kr.abs().max().item()
             # tf32: the plain version rounds X and y exactly as the kernel
             # does, and products of TF32 values are exact in f32, so only the
             # order of the f32 sums differs: the f32 bound applies.
             tol = {"f32": 1e-5, "tf32": 1e-5, "bf16": 2e-2}[prec]
-            smoke.check(err <= tol * scale, f"gram {n}x{p} {prec}: max|K-K_plain| = "
-                        f"{err:.3e} <= {tol:g} * max|K| = {tol * scale:.3e}")
-            Kb = gram.shifted_gram_cuda(Xs, ys, 0.9, precision=prec, flatten=False)
-            smoke.check(torch.equal(ref.flatten_gram(Kb), K),
-                        f"gram {n}x{p} {prec}: block layout equals the flat one")
+            for tname, t in radii.items():
+                K = gram.shifted_gram_cuda(Xs, ys, t, precision=prec)
+                Kr = ref.flatten_gram(ref.gram_blocks_ref(Xs, ys, t, prec))
+                err = (K - Kr).abs().max().item()
+                scale = Kr.abs().max().item()
+                smoke.check(err <= tol * scale, f"gram {n}x{p} {prec} {tname} = {t:.4g}: "
+                            f"max|K-K_plain| = {err:.3e} <= {tol:g} * max|K| = "
+                            f"{tol * scale:.3e}")
+                Kb = gram.shifted_gram_cuda(Xs, ys, t, precision=prec, flatten=False)
+                smoke.check(torch.equal(ref.flatten_gram(Kb), K),
+                            f"gram {n}x{p} {prec} {tname}: block layout equals the flat one")
+                if (n, p) == YMSD and prec == "f32" and tname == "t_main":
+                    row_err = err
             if (n, p) == YMSD:
-                ms = cuda_ms(torch, lambda: gram.shifted_gram_cuda(Xs, ys, 0.9,
+                ms = cuda_ms(torch, lambda: gram.shifted_gram_cuda(Xs, ys, t_main,
                                                                    precision=prec))
                 plain = cuda_ms(torch, lambda: ref.flatten_gram(
-                    ref.gram_blocks_ref(Xs, ys, 0.9, prec)))
+                    ref.gram_blocks_ref(Xs, ys, t_main, prec)))
                 size = Xs.element_size()
+                # A^T A of A = [X, y] is symmetric: (p+1)(p+2)/2 distinct
+                # entries of n multiply-adds each
                 b_ms, b_by = bound(n * p * size + n * size + 4 * p * p * 4,
-                                   2.0 * n * (p * p + p + 1), prec)
+                                   1.0 * n * (p + 1) * (p + 2), prec)
                 print(f"  gram {prec} at {n}x{p}: kernel {ms:.4f} ms, plain {plain:.4f} "
                       f"ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
                 if prec == "f32":
                     rows["shifted_gram_cuda"] = dict(
-                        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                        max_abs_err=row_err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                         bound_by=b_by, library_ms=None)
         del X, y
 
@@ -162,25 +200,33 @@ def phase_kernels(torch, smoke, dev, gen):
             if (n, p) == GLA_BRA:
                 size = Xs.element_size()
                 nblk = e_part.numel()
-                ms1 = cuda_ms(torch, lambda: hinge.hinge_xtv_cuda(Xs, y, v, t, at, ab))
-                pl1 = cuda_ms(torch, lambda: ref.hinge_xtv_ref(Xs, y, v, t, at, ab))
-                ms2 = cuda_ms(torch, lambda: hinge.hinge_xd_cuda(Xs, y, d, e_part, v, t, C))
-                pl2 = cuda_ms(torch, lambda: ref.hinge_xd_ref(Xs, y, dr, er, v, t, C))
-                b1 = bound(n * p * size + 4 * (2 * n + 3 * p + nblk),
-                           2.0 * n * p + 2.0 * n + 6.0 * p, "f32")
-                b2 = bound(n * p * size + 4 * (p + nblk + 3 * n),
-                           2.0 * n * p + 5.0 * n, "f32")
-                print(f"  hinge {prec} at {n}x{p}: xtv {ms1:.4f} ms (plain {pl1:.4f}, "
-                      f"bound {b1[0]:.4f} {b1[1]}), xd {ms2:.4f} ms (plain {pl2:.4f}, "
-                      f"bound {b2[0]:.4f} {b2[1]}); X = {n * p * size / 1e6:.1f} MB, "
-                      "warm in L2 between launches as in the CG loop", flush=True)
+                calls = {
+                    "xtv": (lambda: hinge.hinge_xtv_cuda(Xs, y, v, t, at, ab),
+                            lambda: ref.hinge_xtv_ref(Xs, y, v, t, at, ab)),
+                    "xd": (lambda: hinge.hinge_xd_cuda(Xs, y, d, e_part, v, t, C),
+                           lambda: ref.hinge_xd_ref(Xs, y, dr, er, v, t, C)),
+                }
+                # cold: L2 flushed before each launch, so the HBM bound holds;
+                # warm: X left in L2 between launches, as in the CG loop
+                cold = {k: (cuda_ms_each(torch, f, dev, True),
+                            cuda_ms_each(torch, g, dev, True)) for k, (f, g) in calls.items()}
+                warm = {k: (cuda_ms_each(torch, f, dev, False),
+                            cuda_ms_each(torch, g, dev, False)) for k, (f, g) in calls.items()}
+                bounds = {"xtv": bound(n * p * size + 4 * (2 * n + 3 * p + nblk),
+                                       2.0 * n * p + 2.0 * n + 6.0 * p, "f32"),
+                          "xd": bound(n * p * size + 4 * (p + nblk + 3 * n),
+                                      2.0 * n * p + 5.0 * n, "f32")}
+                for k in calls:
+                    print(f"  hinge {k} {prec} at {n}x{p}: L2 cold {cold[k][0]:.4f} ms "
+                          f"(plain {cold[k][1]:.4f}, HBM bound {bounds[k][0]:.4f} "
+                          f"{bounds[k][1]}); L2 warm {warm[k][0]:.4f} ms (plain "
+                          f"{warm[k][1]:.4f}); X = {n * p * size / 1e6:.1f} MB", flush=True)
                 if prec == "f32":
-                    rows["hinge_xtv_cuda"] = dict(max_abs_err=d_err, ms=ms1, plain_ms=pl1,
-                                                  bound_ms=b1[0], bound_by=b1[1],
-                                                  library_ms=None)
-                    rows["hinge_xd_cuda"] = dict(max_abs_err=xd_err, ms=ms2, plain_ms=pl2,
-                                                 bound_ms=b2[0], bound_by=b2[1],
-                                                 library_ms=None)
+                    errs = {"xtv": d_err, "xd": xd_err}
+                    for k in calls:
+                        rows[f"hinge_{k}_cuda"] = dict(
+                            max_abs_err=errs[k], ms=cold[k][0], plain_ms=cold[k][1],
+                            bound_ms=bounds[k][0], bound_by=bounds[k][1], library_ms=None)
         del X, y
     return rows
 
@@ -325,14 +371,21 @@ def main() -> int:
     count(launched)
     ref_betas, ref_s, _, _ = run_path(
         torch, kernels, svm_state, lambda: sven_path_reference(X, y, ts, LAMBDA2))
+    plain_betas, plain_s, _, _ = run_path(
+        torch, kernels, svm_state,
+        lambda: sven_path(X, y, ts, LAMBDA2, SvenConfig(backend="torch")))
     dev_p = max_dev(torch, betas, ref_betas)
+    dev_plain = max_dev(torch, betas, plain_betas)
+    scale = plain_betas.abs().max().item()
     print(f"    path {secs:.3f} s, {syncs} host syncs, launches {launched}; reference "
-          f"{ref_s:.3f} s", flush=True)
+          f"{ref_s:.3f} s; torch f64 path {plain_s:.3f} s", flush=True)
     smoke.check(betas.shape == (len(ts), p) and bool(torch.isfinite(betas).all()),
                 "path betas finite, shape (8, p)")
     smoke.check(launched["hinge_xtv_cuda"] > 0 and launched["hinge_xd_cuda"] > 0,
                 "the path ran the hinge kernels")
     smoke.check(dev_p <= 1e-10, f"max|path - path_reference| = {dev_p:.3e} <= 1e-10")
+    smoke.check(dev_plain <= 5e-4 * scale, f"max|path - path_torch| = {dev_plain:.3e} "
+                f"<= 5e-4 * max|beta| = {5e-4 * scale:.3e}")
 
     # -- summary ---------------------------------------------------------------
     for name, n_launch in path_launches.items():

@@ -8,9 +8,11 @@
 //     K[a,b][i,j] = s_a s_b (X^T X)_ij - s_a u_i - s_b u_j + s,
 //     u = X^T y / t,  s = y^T y / t^2,  s_0 = +1, s_1 = -1.
 //
-// What bounds it: 2 n p^2 multiply-adds against n p reads of X. At the YMSD
-// shape (n = 463,715, p = 90) that is 7.5 GFLOP over 167 MB (f32), so the f32
-// kernel is bound by the card's fp32 FMA rate, not by memory.
+// What bounds it: A^T A of the augmented A = [X, y] (below) is symmetric, so
+// the function needs its (p+1)(p+2)/2 distinct entries, n multiply-adds each:
+// n (p+1)(p+2) FLOPs against n (p+1) reads. At the YMSD shape (n = 463,715,
+// p = 90) that is 3.9 GFLOP over 167 MB (f32), so the f32 kernel is bound by
+// the card's fp32 FMA rate, not by memory.
 //
 // Design. The TPU kernel carries its sums across a sequential k grid axis in
 // VMEM scratch; CUDA blocks run in no order, so the sum over n is split
@@ -22,9 +24,10 @@
 //      shared memory), and writes it to part[k]. Only tiles with tj >= ti run
 //      (A^T A is symmetric). The row split gives the card enough blocks even
 //      when p is small (p = 90 has only 3 such tiles).
-//   2. gram_reduce: G = sum_k part[k], in a fixed order (deterministic: no
-//      float atomics).
-//   3. gram_epilogue: the four quadrants, from G, applied after the full sum.
+//   2. gram_epilogue: one block per row i of P sums the partials of the
+//      entries it reads (P_ij, u_i, u_j, s) over k in a fixed order
+//      (deterministic: no float atomics), then writes the four quadrants, so
+//      the epilogue runs only after the full sum.
 // Ragged edges are masked, never padded. Precision modes: 0 = f32 (true fp32
 // FMA; TF32 is not used), 1 = tf32 (operands rounded with cvt.rna.tf32.f32,
 // fp32 accumulation), 2 = bf16 storage of X and y, fp32 accumulation.
@@ -120,55 +123,53 @@ gram_partial(const T* __restrict__ X, const T* __restrict__ y,
   }
 }
 
-// G[i][j] = sum_k part[k][i][j] for the entries the partial pass wrote.
-__global__ void gram_reduce(const float* __restrict__ part, float* __restrict__ G,
-                            int q, int nsplit) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (int64_t)q * q) return;
-  const int i = idx / q, j = idx % q;
-  if (j / kTile < i / kTile) return;
+// sum_k part[k][idx], in the order k = 0, 1, ...
+__device__ __forceinline__ float sum_parts(const float* __restrict__ part, int64_t idx,
+                                           int64_t qq, int nsplit) {
   float s = 0.f;
-  for (int k = 0; k < nsplit; ++k) s += part[(int64_t)k * q * q + idx];
-  G[idx] = s;
+  for (int k = 0; k < nsplit; ++k) s += part[(int64_t)k * qq + idx];
+  return s;
 }
 
-// The four quadrants. flat: K is (2p, 2p); else block layout (2, 2, p, p).
-__global__ void gram_epilogue(const float* __restrict__ G, float* __restrict__ K,
-                              int p, float invt, int flat) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (int64_t)p * p) return;
-  const int i = idx / p, j = idx % p;
+// The four quadrants of row i (block i). flat: K is (2p, 2p); else block
+// layout (2, 2, p, p).
+__global__ void gram_epilogue(const float* __restrict__ part, float* __restrict__ K,
+                              int p, int nsplit, float invt, int flat) {
+  const int i = blockIdx.x;
   const int q = p + 1;
-  const float P = G[(int64_t)min(i, j) * q + max(i, j)];
-  const float a = G[(int64_t)i * q + p] * invt;
-  const float b = G[(int64_t)j * q + p] * invt;
-  const float s = G[(int64_t)p * q + p] * invt * invt;
-  const float v[2][2] = {{P - a - b + s, -P - a + b + s},
-                         {-P + a - b + s, P + a + b + s}};
-  for (int qa = 0; qa < 2; ++qa)
-    for (int qb = 0; qb < 2; ++qb) {
-      const int64_t o = flat ? ((int64_t)qa * p + i) * (2 * p) + (int64_t)qb * p + j
-                             : (((int64_t)qa * 2 + qb) * p + i) * p + j;
-      K[o] = v[qa][qb];
-    }
+  const int64_t qq = (int64_t)q * q;
+  __shared__ float ui_s[2];  // X_i^T y and y^T y
+  if (threadIdx.x < 2)
+    ui_s[threadIdx.x] = sum_parts(part, threadIdx.x == 0 ? (int64_t)i * q + p
+                                                         : (int64_t)p * q + p, qq, nsplit);
+  __syncthreads();
+  const float a = ui_s[0] * invt;
+  const float s = ui_s[1] * invt * invt;
+  for (int j = threadIdx.x; j < p; j += blockDim.x) {
+    const float P = sum_parts(part, (int64_t)min(i, j) * q + max(i, j), qq, nsplit);
+    const float b = sum_parts(part, (int64_t)j * q + p, qq, nsplit) * invt;
+    const float v[2][2] = {{P - a - b + s, -P - a + b + s},
+                           {-P + a - b + s, P + a + b + s}};
+    for (int qa = 0; qa < 2; ++qa)
+      for (int qb = 0; qb < 2; ++qb) {
+        const int64_t o = flat ? ((int64_t)qa * p + i) * (2 * p) + (int64_t)qb * p + j
+                               : (((int64_t)qa * 2 + qb) * p + i) * p + j;
+        K[o] = v[qa][qb];
+      }
+  }
 }
 
 template <typename T, bool TF32>
-cudaError_t launch_all(const void* X, const void* y, float* part, float* G, float* K,
-                       int n, int p, int rows_per_split, int nsplit, float invt,
-                       int flat, cudaStream_t stream) {
+cudaError_t launch_all(const void* X, const void* y, float* part, float* K, int n, int p,
+                       int rows_per_split, int nsplit, float invt, int flat,
+                       cudaStream_t stream) {
   const int q = p + 1;
   const int nt = (q + kTile - 1) / kTile;
   gram_partial<T, TF32><<<dim3(nt, nt, nsplit), kThreads, 0, stream>>>(
       static_cast<const T*>(X), static_cast<const T*>(y), part, n, p, rows_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int64_t qq = (int64_t)q * q;
-  gram_reduce<<<(unsigned)((qq + 255) / 256), 256, 0, stream>>>(part, G, q, nsplit);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int64_t pp = (int64_t)p * p;
-  gram_epilogue<<<(unsigned)((pp + 255) / 256), 256, 0, stream>>>(G, K, p, invt, flat);
+  gram_epilogue<<<p, 128, 0, stream>>>(part, K, p, nsplit, invt, flat);
   return cudaGetLastError();
 }
 
@@ -181,21 +182,21 @@ int sven_gram_tile() { return kTile; }
 int sven_gram_rows_step() { return kRows; }
 
 // X (n, p) and y (n,) row-major, float32 (mode 0, 1) or bfloat16 (mode 2);
-// part (nsplit, p+1, p+1), G (p+1, p+1) and K float32 scratch/output from the
-// caller. Returns the first CUDA error of the three launches (0 = none).
-int sven_gram(const void* X, const void* y, float* part, float* G, float* K, int n,
-              int p, int rows_per_split, int nsplit, float invt, int flat, int mode,
+// part (nsplit, p+1, p+1) and K float32 scratch/output from the caller.
+// Returns the first CUDA error of the two launches (0 = none).
+int sven_gram(const void* X, const void* y, float* part, float* K, int n, int p,
+              int rows_per_split, int nsplit, float invt, int flat, int mode,
               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case 0:
-      return launch_all<float, false>(X, y, part, G, K, n, p, rows_per_split, nsplit,
+      return launch_all<float, false>(X, y, part, K, n, p, rows_per_split, nsplit,
                                        invt, flat, s);
     case 1:
-      return launch_all<float, true>(X, y, part, G, K, n, p, rows_per_split, nsplit,
+      return launch_all<float, true>(X, y, part, K, n, p, rows_per_split, nsplit,
                                       invt, flat, s);
     case 2:
-      return launch_all<__nv_bfloat16, false>(X, y, part, G, K, n, p, rows_per_split,
+      return launch_all<__nv_bfloat16, false>(X, y, part, K, n, p, rows_per_split,
                                                nsplit, invt, flat, s);
     default:
       return (int)cudaErrorInvalidValue;

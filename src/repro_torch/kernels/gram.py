@@ -22,8 +22,8 @@ _ptr, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _lib():
     lib = _build.load("gram")
     if not getattr(lib, "_typed", False):
-        lib.sven_gram.argtypes = [_ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _int,
-                                  _int, _float, _int, _int, _ptr]
+        lib.sven_gram.argtypes = [_ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int,
+                                  _float, _int, _int, _ptr]
         lib.sven_gram.restype = _int
         lib.sven_gram_tile.restype = _int
         lib.sven_gram_rows_step.restype = _int
@@ -62,11 +62,10 @@ def shifted_gram_cuda(X: torch.Tensor, y: torch.Tensor, t: float, *,
                                   lib.sven_gram_rows_step())
         q = p + 1
         part = torch.empty((nsplit, q, q), dtype=torch.float32, device=X.device)
-        G = torch.empty((q, q), dtype=torch.float32, device=X.device)
         shape = (2 * p, 2 * p) if flatten else (2, 2, p, p)
         K = torch.empty(shape, dtype=torch.float32, device=X.device)
-        err = lib.sven_gram(X.data_ptr(), y.data_ptr(), part.data_ptr(), G.data_ptr(),
-                            K.data_ptr(), n, p, rows, nsplit, 1.0 / float(t),
+        err = lib.sven_gram(X.data_ptr(), y.data_ptr(), part.data_ptr(), K.data_ptr(),
+                            n, p, rows, nsplit, 1.0 / float(t),
                             int(flatten), _MODES[precision],
                             torch.cuda.current_stream(X.device).cuda_stream)
     if err != 0:

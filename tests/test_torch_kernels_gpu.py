@@ -57,14 +57,16 @@ def test_cuda_gram_matches_plain(cuda_device, n, p, precision, tol):
     X, y, *_ = _inputs(n, p)
     Xs = tops._storage(_f32(X).to(cuda_device), precision)
     ys = tops._storage(_f32(y).to(cuda_device), precision)
-    before = tgram.shifted_gram_cuda.launches
-    K = tgram.shifted_gram_cuda(Xs, ys, 0.9, precision=precision)
-    Kb = tgram.shifted_gram_cuda(Xs, ys, 0.9, precision=precision, flatten=False)
-    torch.cuda.synchronize()
-    assert tgram.shifted_gram_cuda.launches == before + 2
-    Kr = tref.flatten_gram(tref.gram_blocks_ref(Xs, ys, 0.9, precision))
-    _assert_scaled(K, Kr, tol)
-    np.testing.assert_array_equal(npy(tref.flatten_gram(Kb)), npy(K))
+    # at t = 1e6 the shift terms vanish, so X^T X is held at its own scale
+    for t in (0.9, 1e6):
+        before = tgram.shifted_gram_cuda.launches
+        K = tgram.shifted_gram_cuda(Xs, ys, t, precision=precision)
+        Kb = tgram.shifted_gram_cuda(Xs, ys, t, precision=precision, flatten=False)
+        torch.cuda.synchronize()
+        assert tgram.shifted_gram_cuda.launches == before + 2
+        Kr = tref.flatten_gram(tref.gram_blocks_ref(Xs, ys, t, precision))
+        _assert_scaled(K, Kr, tol)
+        np.testing.assert_array_equal(npy(tref.flatten_gram(Kb)), npy(K))
 
 
 @pytest.mark.gpu
