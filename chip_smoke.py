@@ -18,7 +18,16 @@ port's main path through the entry points a user calls:
      against the plain float64 solve;
   5. `sven_path` over an 8-point t-grid at the primal shape, against
      `sven_path_reference` (the same kernels, solved point by point) and
-     against the plain float64 path ("torch" backend).
+     against the plain float64 path ("torch" backend);
+  6. the public op `kernels.hinge_stats` (the hinge-stats kernel) at the
+     primal solve's w (GLA-BRA-180 shape), the dual solve's w (YMSD shape)
+     and a ragged shape, in f32 and bf16, against its plain version, with
+     its times, the plain version's and a GEMV's;
+  7. the penalized front end: `enet_path` over a 10-point lambda grid at the
+     YMSD shape (dual: one Gram launch per Illinois evaluation) and
+     `ElasticNet(...).fit` with standardization and intercept at the
+     GLA-BRA-180 shape (primal: one launch of each hinge pass per CG step),
+     each against the same call on the plain float64 backend.
 
 The data are synthetic (`repro_torch.data.make_regression`, fixed seeds).
 Each path runs with every launch counter set to 0 just before it and read
@@ -30,6 +39,7 @@ the rest of the repository beside this file.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import subprocess
 import sys
@@ -231,6 +241,153 @@ def phase_kernels(torch, smoke, dev, gen):
     return rows
 
 
+def phase_hinge_stats(torch, smoke, kernels, svm_state, dev, cases):
+    """The hinge-stats op against its plain version. `cases` is a list of
+    (label, X, y, t, w, C) with float64 X, y, w on the card. Returns
+    (JSON row, launches of the counted run)."""
+    from repro_torch.core.reduction import SvenOperator
+    from repro_torch.core.svm.primal_newton import _primal_obj
+    from repro_torch.kernels import ops, ref
+    ths = importlib.import_module("repro_torch.kernels.hinge_stats")
+
+    # the kernel's operands, made before the counted run
+    calls = []
+    for label, X, y, t, w, C in cases:
+        X32 = X.to(torch.float32).contiguous()
+        y32, w32 = y.to(torch.float32), w.to(torch.float32)
+        for prec in ("f32", "bf16"):
+            calls.append((label, prec, ops._storage(X32, prec), y32, w32, X, y, t, w, C))
+    outs, secs, launched, _ = run_path(
+        torch, kernels, svm_state,
+        lambda: [ops.hinge_stats(Xs, y32, t, w, C, precision=prec)
+                 for (_, prec, Xs, y32, _, _, _, t, w, C) in calls])
+    print(f"    {len(calls)} op calls, {secs:.3f} s, launches {launched}", flush=True)
+    smoke.check(launched["hinge_stats_cuda"] == len(calls),
+                "one hinge_stats_cuda launch per op call")
+
+    row = None
+    for (label, prec, Xs, y32, w32, X, y, t, w, C), (margin, act, loss, galpha) in zip(
+            calls, outs):
+        n, p = Xs.shape
+        pm, pa, pl, pg = ref.hinge_stats_ref(Xs, y32, t, w32, C)
+        S = (Xs.float().abs().T @ w32.abs()).max().item()
+        m_err = max_dev(torch, margin, pm.double())
+        g_err = max_dev(torch, galpha, pg.double())
+        clear = (pm - 1.0).abs() > 1e-5 * S
+        act_ok = torch.equal((act > 0)[clear], (pa > 0)[clear])
+        l_rel = abs(loss.item() - pl.item()) / abs(pl.item())
+        what = f"hinge_stats {label} {n}x{p} {prec}"
+        smoke.check(m_err <= 1e-5 * S and g_err <= 1e-5 * S,
+                    f"{what}: max|margin-plain| = {m_err:.3e}, max|galpha-plain| = "
+                    f"{g_err:.3e} <= 1e-5 * S = {1e-5 * S:.3e}")
+        smoke.check(act_ok, f"{what}: act equal outside |margin - 1| <= 1e-5 * S "
+                    f"({int((~clear).sum())} of {2 * p} inside)")
+        smoke.check(l_rel <= 1e-5, f"{what}: loss {loss.item():.9e} vs plain "
+                    f"{pl.item():.9e}, rel {l_rel:.2e} <= 1e-5")
+        if label == "primal w" and prec == "f32":
+            # the loss is the primal objective of the solver at its own w
+            yhat = torch.cat([X.new_ones(p), -X.new_ones(p)])
+            obj = _primal_obj(SvenOperator(X=X, y=y, t=t).xhat_matvec, yhat, w, C).item()
+            o_rel = abs(loss.item() - obj) / abs(obj)
+            smoke.check(o_rel <= 1e-5, f"{what}: loss vs float64 primal objective "
+                        f"{obj:.9e}: rel {o_rel:.2e} <= 1e-5")
+        if label == "ragged":
+            continue
+        size = Xs.element_size()
+        cold = (cuda_ms_each(torch, lambda: ths.hinge_stats_cuda(Xs, y32, t, w32, C), dev, True),
+                cuda_ms_each(torch, lambda: ref.hinge_stats_ref(Xs, y32, t, w32, C), dev, True))
+        warm = (cuda_ms_each(torch, lambda: ths.hinge_stats_cuda(Xs, y32, t, w32, C), dev, False),
+                cuda_ms_each(torch, lambda: ref.hinge_stats_ref(Xs, y32, t, w32, C), dev, False))
+        gemv = ""
+        if prec == "f32":   # a = X^T w alone, one cuBLAS call on the same operands
+            gemv = (f", GEMV X^T w cold {cuda_ms_each(torch, lambda: torch.mv(Xs.T, w32), dev, True):.4f}"
+                    f" warm {cuda_ms_each(torch, lambda: torch.mv(Xs.T, w32), dev, False):.4f}")
+        rows_, nchunk = ths.split_rows(n, p, torch.cuda.get_device_properties(dev)
+                                       .multi_processor_count, 32)
+        # X read once, w and y read, the four p-vectors written
+        b_ms, b_by = bound(n * p * size + 4 * (2 * n + 4 * p), 2.0 * n * p + 2.0 * n
+                           + 12.0 * p, "f32")
+        print(f"  hinge_stats {prec} at {n}x{p} ({nchunk} row chunk(s) of {rows_}): "
+              f"L2 cold {cold[0]:.4f} ms (plain {cold[1]:.4f}, HBM bound {b_ms:.4f} "
+              f"{b_by}); L2 warm {warm[0]:.4f} ms (plain {warm[1]:.4f}){gemv}; "
+              f"X = {n * p * size / 1e6:.1f} MB", flush=True)
+        if label == "primal w" and prec == "f32":
+            row = dict(max_abs_err=max(m_err, g_err), ms=cold[0], plain_ms=cold[1],
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return row, launched
+
+
+def phase_front_end(torch, smoke, kernels, svm_state, count, ymsd, glabra):
+    """`enet_path` at the YMSD shape and `ElasticNet.fit` at the GLA-BRA-180
+    shape, each against the same call on the plain float64 backend."""
+    from repro_torch.core import elastic_net as en
+    from repro_torch.core.api import ElasticNet, PathConfig, enet_path, standardize_fit
+    from repro_torch.core.sven import SvenConfig
+
+    plain = PathConfig(solver=SvenConfig(backend="torch", tol=1e-10))
+    X, y = ymsd
+    n, p = X.shape
+    print(f"[7a] enet_path, 10 lambdas, lambda2 = {LAMBDA2}, n = {n}, p = {p}", flush=True)
+    path, secs, launched, syncs = run_path(
+        torch, kernels, svm_state, lambda: enet_path(X, y, n_lambdas=10, lambda2=LAMBDA2))
+    count(launched)
+    ref, ref_s, _, ref_syncs = run_path(
+        torch, kernels, svm_state,
+        lambda: enet_path(X, y, n_lambdas=10, lambda2=LAMBDA2, config=plain))
+    scale = ref.betas.abs().max().item()
+    dev_b = max_dev(torch, path.betas, ref.betas)
+    print(f"    kernels: {secs:.3f} s, {syncs} host syncs, launches {launched}, evals "
+          f"per point {list(path.evals)}, Newton {list(path.sven_iters)}, CG "
+          f"{list(path.cg_iters)}, kept {path.n_kept.tolist()}, max KKT after the "
+          f"first point (beta = 0) {path.kkts[1:].max().item():.3e}, "
+          f"|nu - lambda1| / lambda1_max max "
+          f"{((path.nus - path.lambda1s).abs().max() / path.lambda1s[0]).item():.3e}",
+          flush=True)
+    print(f"    torch f64: {ref_s:.3f} s, {ref_syncs} host syncs, evals per point "
+          f"{list(ref.evals)}, max KKT after the first point "
+          f"{ref.kkts[1:].max().item():.3e}", flush=True)
+    smoke.check(path.betas.shape == (10, p) and bool(torch.isfinite(path.betas).all()),
+                "path betas finite, shape (10, p)")
+    smoke.check(launched["shifted_gram_cuda"] == sum(path.evals) > 0,
+                f"one Gram launch per Illinois evaluation ({sum(path.evals)})")
+    smoke.check(dev_b <= 5e-4 * scale, f"max|beta - beta_torch| = {dev_b:.3e} <= "
+                f"5e-4 * max|beta| = {5e-4 * scale:.3e}")
+    del path, ref
+
+    X, y = glabra
+    n, p = X.shape
+    Xs, ys, sc = standardize_fit(X, y)
+    lam1 = 0.1 * en.lambda1_max(Xs, ys).item()
+    print(f"[7b] ElasticNet(lambda1 = 0.1 lambda1_max = {lam1:.6g}, lambda2 = {LAMBDA2})"
+          f".fit, standardize + intercept, n = {n}, p = {p}", flush=True)
+    model, secs, launched, syncs = run_path(
+        torch, kernels, svm_state, lambda: ElasticNet(lam1, LAMBDA2).fit(X, y))
+    count(launched)
+    ref, ref_s, _, ref_syncs = run_path(
+        torch, kernels, svm_state,
+        lambda: ElasticNet(lam1, LAMBDA2, config=plain).fit(X, y))
+    res = model.result_
+    scale = ref.coef_.abs().max().item()
+    dev_b = max_dev(torch, model.coef_, ref.coef_)
+
+    def kkt(m):
+        return en.kkt_violation(Xs, ys, m.coef_ * sc.x_scale, LAMBDA2).item()
+
+    print(f"    kernels: {secs:.3f} s, {syncs} host syncs, launches {launched}, "
+          f"{res.evals} evals, {res.sven_iters} Newton / {res.cg_iters} CG, kept "
+          f"{int(model.n_kept_)}, KKT {kkt(model):.3e}, |nu - lambda1| / lambda1 "
+          f"{abs(model.nu_.item() - lam1) / lam1:.3e}, intercept dev "
+          f"{abs(model.intercept_.item() - ref.intercept_.item()):.3e}", flush=True)
+    print(f"    torch f64: {ref_s:.3f} s, {ref_syncs} host syncs, {ref.result_.evals} "
+          f"evals, {ref.result_.cg_iters} CG, KKT {kkt(ref):.3e}", flush=True)
+    smoke.check(bool(torch.isfinite(model.coef_).all()) and model.coef_.shape == (p,),
+                "coef_ finite, shape (p,)")
+    smoke.check(launched["hinge_xtv_cuda"] == launched["hinge_xd_cuda"] == res.cg_iters > 0,
+                "exactly one launch of each hinge pass per CG step")
+    smoke.check(dev_b <= 5e-4 * scale, f"max|coef - coef_torch| = {dev_b:.3e} <= "
+                f"5e-4 * max|coef| = {5e-4 * scale:.3e}")
+
+
 def run_path(torch, kernels, svm_state, fn):
     """Run fn with every launch counter and the sync counter at 0; return
     (result, seconds, launches, syncs)."""
@@ -262,6 +419,7 @@ def main() -> int:
 
     from repro_torch import kernels
     from repro_torch.core.svm import state as svm_state
+    from repro_torch.core.reduction import svm_C
     from repro_torch.core.sven import SvenConfig, sven, sven_path, sven_path_reference
     from repro_torch.data.synthetic import make_regression
     from repro_torch.kernels import _build
@@ -335,7 +493,8 @@ def main() -> int:
     smoke.check(lo_launched["shifted_gram_cuda"] == 1, "bf16 solve launched the Gram")
     smoke.check(dev_lo <= 1e-10, f"bf16 refined max|beta - beta_torch| = {dev_lo:.3e} "
                 "<= 1e-10")
-    del X, y, sol, ref_sol, ref12, lo
+    ymsd_case = ("dual w", X, y, t, sol.w, svm_C(LAMBDA2))
+    del sol, ref_sol, ref12, lo
     torch.cuda.empty_cache()
 
     # -- 4. primal at the GLA-BRA-180 shape ------------------------------------
@@ -362,6 +521,7 @@ def main() -> int:
                 "beta finite, shape (p,)")
     smoke.check(dev_b <= 5e-4 * scale, f"max|beta - beta_torch| = {dev_b:.3e} <= "
                 f"5e-4 * max|beta| = {5e-4 * scale:.3e}")
+    glabra_case = ("primal w", X, y, t, sol.w, svm_C(LAMBDA2))
 
     # -- 5. sven_path at the primal shape --------------------------------------
     ts = [t * f for f in (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)]
@@ -387,6 +547,22 @@ def main() -> int:
     smoke.check(dev_plain <= 5e-4 * scale, f"max|path - path_torch| = {dev_plain:.3e} "
                 f"<= 5e-4 * max|beta| = {5e-4 * scale:.3e}")
 
+    del betas, ref_betas, plain_betas, sol, ref_sol
+
+    # -- 6. the hinge-stats op vs plain ------------------------------------------
+    print("[6] kernels.hinge_stats vs its plain version", flush=True)
+    Xr, yr, _ = make_regression(*RAGGED, seed=3, device=dev)
+    wr = torch.randn(RAGGED[0], generator=gen, dtype=torch.float64).to(dev) * 0.3
+    rows["hinge_stats_cuda"], launched = phase_hinge_stats(
+        torch, smoke, kernels, svm_state, dev,
+        [glabra_case, ymsd_case, ("ragged", Xr, yr, 1.3, wr, 2.0)])
+    count(launched)
+    torch.cuda.empty_cache()
+
+    # -- 7. the penalized front end --------------------------------------------
+    phase_front_end(torch, smoke, kernels, svm_state, count, ymsd_case[1:3],
+                    glabra_case[1:3])
+
     # -- summary ---------------------------------------------------------------
     for name, n_launch in path_launches.items():
         smoke.check(n_launch > 0, f"{name} launched on the main path ({n_launch})")
@@ -397,6 +573,8 @@ def main() -> int:
                            "src/repro/kernels/hinge.py:25"),
         "hinge_xd_cuda": ("src/repro_torch/kernels/csrc/hinge.cu",
                           "src/repro/kernels/hinge.py:91"),
+        "hinge_stats_cuda": ("src/repro_torch/kernels/csrc/hinge_stats.cu",
+                             "src/repro/kernels/hinge_stats.py:22"),
     }
     line = {"kernels": [dict(name=name, route="cuda", source=meta[name][0],
                              replaces=meta[name][1], launches=path_launches[name],

@@ -2,8 +2,9 @@
 
 SVEN has no weights: what crosses is the problem, the solve settings and
 the warm-start carry. These functions take plain numpy arrays and dicts
-(`dataclasses.asdict` of a `repro.core.sven.SvenConfig`), so this package
-still imports nothing of `repro`.
+(`dataclasses.asdict` of a `repro.core.sven.SvenConfig` or of a
+`repro.core.api.PathConfig`), so this package still imports nothing of
+`repro`.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch.core.api import EnetCarry, PathConfig
 from repro_torch.core.sven import SvenConfig
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -55,3 +57,21 @@ def warm_from_jax(alpha, w, *, device: DeviceLike = None,
     dev = resolve_device(device)
     return (torch.tensor(np.asarray(alpha), dtype=dtype, device=dev),
             torch.tensor(np.asarray(w), dtype=dtype, device=dev))
+
+
+def path_config_from_jax(fields: Mapping) -> PathConfig:
+    """The port's PathConfig from the fields of a JAX PathConfig; the nested
+    solver settings go through `config_from_jax`."""
+    fields = dict(fields)
+    solver = fields.pop("solver", None)
+    if solver is not None:
+        fields["solver"] = config_from_jax(solver)
+    return PathConfig(**fields)
+
+
+def carry_from_jax(beta, alpha, w, t, nu, *, device: DeviceLike = None,
+                   dtype: torch.dtype = torch.float64) -> EnetCarry:
+    """The port's EnetCarry from the fields of a JAX `EnetCarry`."""
+    dev = resolve_device(device)
+    return EnetCarry(*(torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+                       for a in (beta, alpha, w, t, nu)))

@@ -1,4 +1,5 @@
-"""The paper's reduction and the constrained SVEN engine, in PyTorch."""
+"""The paper's reduction, the constrained SVEN engine, gap-safe screening
+and the glmnet-parity penalized front end, in PyTorch."""
 from repro_torch.core import elastic_net
 from repro_torch.core.reduction import (
     LAMBDA2_FLOOR,
@@ -16,6 +17,26 @@ from repro_torch.core.sven import (
     sven_path,
     sven_path_reference,
 )
+from repro_torch.core.screening import ScreenResult, gap_safe_screen, sven_with_screening
+from repro_torch.core.api import (
+    ElasticNet,
+    EnetCarry,
+    EnetPath,
+    EnetPoint,
+    EnetResult,
+    PathConfig,
+    Scaler,
+    cold_carry,
+    enet,
+    enet_path,
+    lambda_grid,
+    penalized_from_glmnet,
+    penalized_from_sklearn,
+    penalized_to_glmnet,
+    resolve_path_config,
+    standardize_fit,
+    unscale_coef,
+)
 
 __all__ = [
     "LAMBDA2_FLOOR",
@@ -31,4 +52,26 @@ __all__ = [
     "sven_path",
     "sven_path_reference",
     "svm_C",
+    # screening (core/screening.py)
+    "ScreenResult",
+    "gap_safe_screen",
+    "sven_with_screening",
+    # penalized front end (core/api.py)
+    "ElasticNet",
+    "EnetCarry",
+    "EnetPath",
+    "EnetPoint",
+    "EnetResult",
+    "PathConfig",
+    "Scaler",
+    "cold_carry",
+    "enet",
+    "enet_path",
+    "lambda_grid",
+    "penalized_from_glmnet",
+    "penalized_from_sklearn",
+    "penalized_to_glmnet",
+    "resolve_path_config",
+    "standardize_fit",
+    "unscale_coef",
 ]

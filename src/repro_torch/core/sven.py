@@ -26,7 +26,8 @@ import torch
 
 from repro_torch.core import elastic_net as en
 from repro_torch.core import reduction as red
-from repro_torch.core.svm import solve_dual_newton, solve_primal_newton
+from repro_torch.core.svm import (solve_dual_fista, solve_dual_newton,
+                                  solve_primal_newton)
 from repro_torch.device import resolve_device
 
 
@@ -63,7 +64,7 @@ class SvenConfig:
     mode: str = "auto"            # "auto" | "primal" | "dual"
     matrix_free: bool = True      # SvenOperator vs explicit Xnew
     cache_kernel: str = "auto"    # "auto" | "blocks" | "never" (dual only)
-    solver: str = "newton"        # "newton" ("fista" is not ported yet)
+    solver: str = "newton"        # "newton" | "fista" (dual only)
     backend: str = "auto"         # one of BACKENDS
     precision: str = "f32"        # kernel storage/multiply precision
     tol: float = 1e-8
@@ -140,9 +141,6 @@ def _sven_core(X, y, t: float, lambda2: float, warm_alpha, warm_w,
     mode = _pick_mode(n, p, config)
     op = red.SvenOperator(X=X, y=y, t=t)
     kernels = config.backend != "torch"
-    if config.solver != "newton":
-        raise NotImplementedError(f"SvenConfig.solver={config.solver!r} is not "
-                                  "ported yet; use 'newton'")
 
     if mode == "primal":
         if config.matrix_free:
@@ -202,16 +200,17 @@ def _sven_core(X, y, t: float, lambda2: float, warm_alpha, warm_w,
         kernel_matvec = op.kernel_matvec
 
     # the dual keeps the solver's own loop bounds, as JAX's `_sven_core` does
-    res = solve_dual_newton(kernel_matvec, m, C, dtype=dtype, device=X.device,
-                            tol=config.tol, alpha0=warm_alpha)
+    solver = solve_dual_newton if config.solver == "newton" else solve_dual_fista
+    res = solver(kernel_matvec, m, C, dtype=dtype, device=X.device, tol=config.tol,
+                 alpha0=warm_alpha)
     cg = res.cg_iters
     if refine:
         # one step of iterative refinement: re-solving MATRIX-FREE at full
         # input precision, warm-started from the low-precision alpha,
-        # re-evaluates every Newton residual against exact Gram statistics
-        # at O(np) per iteration and restores <= 1e-10 parity.
-        res = solve_dual_newton(op.kernel_matvec, m, C, dtype=dtype,
-                                device=X.device, tol=config.tol, alpha0=res.alpha)
+        # re-evaluates every residual against exact Gram statistics at O(np)
+        # per iteration and restores <= 1e-10 parity.
+        res = solver(op.kernel_matvec, m, C, dtype=dtype, device=X.device,
+                     tol=config.tol, alpha0=res.alpha)
         cg += res.cg_iters
     beta = red.recover_beta(res.alpha, t)
     if keepf is not None:

@@ -33,6 +33,13 @@ def host_bool(x: torch.Tensor) -> bool:
 host_bool.syncs = 0
 
 
+def host_float(x: torch.Tensor) -> float:
+    """A 0-d tensor read on the host as a float: one host sync, counted in
+    `host_bool.syncs` beside the loop tests."""
+    host_bool.syncs += 1
+    return float(x)
+
+
 class Hyper(NamedTuple):
     """Solver hyperparameters, as host scalars."""
 

@@ -1,12 +1,13 @@
-"""Hand-written CUDA kernels of the SVEN main path, their plain PyTorch
-versions, and the ops that choose between them (see ops.py)."""
+"""Hand-written CUDA kernels of the SVEN solvers and the hinge-stats op,
+their plain PyTorch versions, and the ops that choose between them (see ops.py)."""
 from repro_torch.kernels import ops, ref, registry
 from repro_torch.kernels.gram import shifted_gram_cuda
 from repro_torch.kernels.hinge import hinge_xd_cuda, hinge_xtv_cuda
-from repro_torch.kernels.ops import hinge_hessian_matvec, shifted_gram
+from repro_torch.kernels.hinge_stats import hinge_stats_cuda
+from repro_torch.kernels.ops import hinge_hessian_matvec, hinge_stats, shifted_gram
 
-#: every kernel wrapper of the main path (each has a `.launches` counter)
-WRAPPERS = (shifted_gram_cuda, hinge_xtv_cuda, hinge_xd_cuda)
+#: every kernel wrapper (each has a `.launches` counter)
+WRAPPERS = (shifted_gram_cuda, hinge_xtv_cuda, hinge_xd_cuda, hinge_stats_cuda)
 
 
 def reset_launches() -> None:
@@ -20,6 +21,6 @@ def launches() -> dict:
     return {w.__name__: w.launches for w in WRAPPERS}
 
 
-__all__ = ["WRAPPERS", "hinge_hessian_matvec", "hinge_xd_cuda", "hinge_xtv_cuda",
-           "launches", "ops", "ref", "registry", "reset_launches", "shifted_gram",
-           "shifted_gram_cuda"]
+__all__ = ["WRAPPERS", "hinge_hessian_matvec", "hinge_stats", "hinge_stats_cuda",
+           "hinge_xd_cuda", "hinge_xtv_cuda", "launches", "ops", "ref", "registry",
+           "reset_launches", "shifted_gram", "shifted_gram_cuda"]

@@ -8,7 +8,8 @@ raises; nothing drops to the plain version.
 `precision` ("f32" | "bf16" | "tf32") selects the storage dtype of X (and
 of y in the Gram) and the Gram's multiply mode; sums are float32 in every
 mode. PyTorch counterpart of `repro/kernels/ops.py` (`shifted_gram`,
-`hinge_hessian_matvec`); the Pallas tile arguments have no counterpart.
+`hinge_hessian_matvec`, `hinge_stats`); the Pallas tile arguments have no
+counterpart.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch.kernels import gram as _gram
 from repro_torch.kernels import hinge as _hinge
+from repro_torch.kernels import hinge_stats as _hinge_stats
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import registry
 
@@ -35,6 +37,8 @@ registry.register("hinge_xtv", "cuda")(_hinge.hinge_xtv_cuda)
 registry.register("hinge_xtv", "ref")(_ref.hinge_xtv_ref)
 registry.register("hinge_xd", "cuda")(_hinge.hinge_xd_cuda)
 registry.register("hinge_xd", "ref")(_ref.hinge_xd_ref)
+registry.register("hinge_stats", "cuda")(_hinge_stats.hinge_stats_cuda)
+registry.register("hinge_stats", "ref")(_ref.hinge_stats_ref)
 
 
 def _check_precision(precision: str) -> None:
@@ -87,3 +91,40 @@ def hinge_hessian_matvec(
     Xs = _storage(X, precision)
     d, e = registry.lookup("hinge_xtv", body)(Xs, y, v, t, act_top, act_bot)
     return registry.lookup("hinge_xd", body)(Xs, y, d, e, v, t, C)
+
+
+def hinge_stats(
+    X: torch.Tensor,
+    y: torch.Tensor,
+    t: float,
+    w: torch.Tensor,
+    C: float,
+    *,
+    backend: Optional[str] = None,
+    precision: str = "f32",
+):
+    """Fused Newton outer-step stats: (margin (2p,), act (2p,), loss (),
+    galpha (2p,)) in w's dtype, loss = 0.5 w.w + C sum(xi^2).
+
+    Both bodies take X in its storage dtype (float32 unless it is, or
+    `precision` makes it, bfloat16) and y, w in float32, as the kernel does.
+    The "cuda" body returns the raw halves and per-block loss partials,
+    assembled here; a masked kernel has no padded columns, so unlike the JAX
+    op no padding correction is subtracted.
+    """
+    _check_precision(precision)
+    body = registry.resolve_kernel_backend(backend, X, w)
+    impl = registry.lookup("hinge_stats", body)
+    if X.dtype not in (torch.float32, torch.bfloat16):
+        X = X.to(torch.float32)
+    Xs = _storage(X.contiguous(), precision)
+    y32 = y.to(torch.float32).contiguous()
+    w32 = w.to(torch.float32).contiguous()
+    if body == "ref":
+        return tuple(o.to(w.dtype) for o in impl(Xs, y32, t, w32, C))
+    mt, mb, gt, gb, loss_part = impl(Xs, y32, t, w32, C)
+    margin = torch.cat([mt, mb]).to(w.dtype)
+    act = (margin < 1.0).to(w.dtype)
+    galpha = torch.cat([gt, gb]).to(w.dtype)
+    loss = (0.5 * (w @ w) + loss_part.sum()).to(w.dtype)
+    return margin, act, loss, galpha

@@ -1,8 +1,10 @@
 """Per-backend kernel registry: which body computes a logical op.
 
-Every logical op (`shifted_gram`, `hinge_xtv`, `hinge_xd`) has two BODIES:
+Every logical op (`shifted_gram`, `hinge_xtv`, `hinge_xd`, `hinge_stats`)
+has two BODIES:
 
-    "cuda"  the hand-written CUDA kernel (kernels/gram.py, hinge.py)
+    "cuda"  the hand-written CUDA kernel (kernels/gram.py, hinge.py,
+            hinge_stats.py)
     "ref"   the plain PyTorch version (kernels/ref.py)
 
 The body is chosen from the operands' device: tensors on a CUDA device get

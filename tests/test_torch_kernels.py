@@ -7,6 +7,8 @@ storage 2e-2 * scale. Shapes include ragged edges.
 The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_kernels_gpu.py.
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +21,9 @@ from repro_torch.kernels import gram as tgram
 from repro_torch.kernels import hinge as thinge
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+
+# the module: `repro_torch.kernels` re-exports the op under the same name
+ths = importlib.import_module("repro_torch.kernels.hinge_stats")
 
 SHAPES = [(33, 57), (96, 130), (57, 33), (48, 256)]
 DTYPES = [("f32", 1e-5), ("bf16", 2e-2)]
@@ -124,13 +129,71 @@ def test_hinge_passes_match_jax_oracle(n, p, precision, tol):
 
 @pytest.mark.parametrize("n,p", [(57, 33), (30, 80)])
 def test_hinge_stats_oracle_matches_jax(n, p):
-    """The plain hinge-stats oracle (no kernel yet) against JAX's, float64."""
+    """The plain hinge-stats function against JAX's oracle, float64."""
     X, y = problem(n, p, seed=4)
     w = np.random.default_rng(5).standard_normal(n) * 0.1
     got = tref.hinge_stats_ref(*cpu(X, y), 0.8, cpu(w), 3.0)
     want = jref.hinge_stats_ref(jnp.asarray(X), jnp.asarray(y), 0.8, jnp.asarray(w), 3.0)
     for a, b in zip(got, want):
         np.testing.assert_allclose(npy(a), npy(b), rtol=0, atol=1e-12)
+
+
+HSTAT_SHAPES = [(64, 64), (130, 150), (57, 33), (200, 40)]
+
+
+@pytest.mark.parametrize("n,p", HSTAT_SHAPES)
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_hinge_stats_op_matches_jax_interpret(n, p, precision):
+    """The op's plain body ("ref", the CPU default) against the JAX op at its
+    CPU default (the Pallas kernel in interpret mode), on float32 inputs, at
+    the bounds of tests/test_kernels.py::test_hinge_stats_sweep: margin and
+    galpha 3e-6 * scale, act exactly, loss to rtol 1e-5."""
+    X, y = problem(n, p, seed=3)
+    w = np.random.default_rng(7).standard_normal(n) * 0.1
+    Xf, yf, wf = _f32(X, y, w)
+    got = tops.hinge_stats(Xf, yf, 1.3, wf, 2.0, precision=precision)
+    want = jops.hinge_stats(*(jnp.asarray(npy(a), jnp.float32) for a in (Xf, yf)), 1.3,
+                            jnp.asarray(npy(wf), jnp.float32), 2.0, bp=32, bk=32,
+                            precision=precision)
+    margin, act, loss, galpha = got
+    assert margin.shape == act.shape == galpha.shape == (2 * p,)
+    assert loss.shape == () and all(o.dtype == torch.float32 for o in got)
+    scale = max(1.0, float(np.abs(npy(want[0])).max()))
+    np.testing.assert_allclose(npy(margin), npy(want[0]), rtol=0, atol=3e-6 * scale)
+    np.testing.assert_array_equal(npy(act), npy(want[1]))
+    np.testing.assert_allclose(float(loss), float(want[2]), rtol=1e-5)
+    np.testing.assert_allclose(npy(galpha), npy(want[3]), rtol=0, atol=3e-6 * scale)
+
+
+def test_hinge_stats_op_returns_w_dtype_and_the_primal_objective():
+    """float64 w and X: outputs come back in float64 (computed in float32, as
+    the kernel does), and loss is the primal objective 0.5 w.w + C sum xi^2
+    of the port's Newton solver at that w."""
+    from repro_torch.core.reduction import SvenOperator
+    from repro_torch.core.svm.primal_newton import _primal_obj
+    X, y = cpu(*problem(40, 90, seed=6))
+    w = cpu(np.random.default_rng(8).standard_normal(40) * 0.05)
+    margin, act, loss, galpha = tops.hinge_stats(X, y, 0.7, w, 1.5)
+    assert all(o.dtype == torch.float64 for o in (margin, act, loss, galpha))
+    op = SvenOperator(X=X, y=y, t=0.7)
+    yhat = torch.cat([X.new_ones(90), -X.new_ones(90)])
+    obj = _primal_obj(op.xhat_matvec, yhat, w, 1.5)
+    np.testing.assert_allclose(float(loss), float(obj), rtol=1e-5)
+    np.testing.assert_allclose(npy(margin), npy(yhat * op.xhat_matvec(w)), rtol=0,
+                               atol=1e-5 * max(1.0, float(margin.abs().max())))
+
+
+def test_hinge_stats_row_split():
+    """One chunk when the column blocks fill the card; else chunks of at
+    least MIN_ROWS rows, a multiple of 32, that cover every row, about four
+    blocks per SM (so at most 4 * 132 row chunks: gridDim.y is safe)."""
+    assert ths.split_rows(180, 49_151, 132, 32) == (180, 1)
+    assert ths.split_rows(33, 57, 132, 32) == (33, 1)
+    for n, p in ((463_715, 90), (100_000, 1000), (5000, 7)):
+        rows, nchunk = ths.split_rows(n, p, 132, 32)
+        assert nchunk > 1 and rows % 32 == 0 and rows >= ths.MIN_ROWS
+        assert rows * nchunk >= n > rows * (nchunk - 1)
+        assert nchunk * -(-p // 32) <= 4 * 132 + -(-p // 32)
 
 
 def test_tf32_rounding_is_round_to_nearest_away():
@@ -163,11 +226,15 @@ def test_wrappers_raise_on_cpu_tensors_instead_of_falling_back():
         thinge.hinge_xtv_cuda(X, y, v, 1.1, at, ab)
     with pytest.raises(ValueError, match="CUDA"):
         thinge.hinge_xd_cuda(X, y, at, at[:2], v, 1.1, 2.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        ths.hinge_stats_cuda(X, y, 1.1, v, 2.5)
     # an explicit "cuda" body on CPU operands raises too: no silent plain run
     with pytest.raises(ValueError, match="CUDA"):
         tops.shifted_gram(X, y, 0.9, backend="cuda")
     with pytest.raises(ValueError, match="CUDA"):
         tops.hinge_hessian_matvec(X, y, 1.1, 2.5, at, ab, v, backend="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.hinge_stats(X, y, 1.1, v, 2.5, backend="cuda")
     with pytest.raises(ValueError, match="precision"):
         tops.shifted_gram(X, y, 0.9, precision="fp8")
 
@@ -178,8 +245,9 @@ def test_plain_ops_launch_no_kernel():
     X, y, v, at, ab = _f32(*_inputs(33, 57))
     tops.shifted_gram(X, y, 0.9)
     tops.hinge_hessian_matvec(X, y, 1.1, 2.5, at, ab, v)
+    tops.hinge_stats(X, y, 1.1, v, 2.5)
     assert kernels.launches() == {"shifted_gram_cuda": 0, "hinge_xtv_cuda": 0,
-                                  "hinge_xd_cuda": 0}
+                                  "hinge_xd_cuda": 0, "hinge_stats_cuda": 0}
 
 
 def test_gram_row_split_covers_all_rows():

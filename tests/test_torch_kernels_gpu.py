@@ -9,6 +9,8 @@ Bounds: float32 and tf32 1e-5 * scale (the plain tf32 version rounds the
 operands exactly as the kernel does, so only the order of f32 sums
 differs); bfloat16 storage 2e-2 * scale (tests/test_kernels.py).
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,8 @@ from repro_torch.kernels import gram as tgram
 from repro_torch.kernels import hinge as thinge
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+
+ths = importlib.import_module("repro_torch.kernels.hinge_stats")
 
 SHAPES = [(33, 57), (96, 130), (57, 33), (48, 256)]
 DTYPES = [("f32", 1e-5), ("bf16", 2e-2)]
@@ -88,6 +92,41 @@ def test_cuda_hinge_matches_plain(cuda_device, n, p, precision, tol):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,p", SHAPES + [(180, 2000), (5000, 90), (20_000, 33)])
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_cuda_hinge_stats_matches_plain(cuda_device, n, p, precision):
+    """Both forms of the kernel against the plain version: one launch (the
+    SHAPES and 180 x 2000) and row chunks plus a fixed-order finish launch
+    (5000 x 90 and 20,000 x 33: ragged last chunk and column block). Bounds:
+    margin and galpha 1e-5 * S with S = max_j sum_i |X_ij w_i| (f32 rounding
+    in any summation order), act equal outside that band around 1, loss to
+    rtol 1e-5."""
+    X, y, *_ = _inputs(n, p)
+    w = np.random.default_rng(3).standard_normal(n) * 0.1
+    Xf, yf, wf = (a.to(cuda_device) for a in _f32(X, y, w))
+    Xs = tops._storage(Xf, precision)
+    before = ths.hinge_stats_cuda.launches
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert (ths.split_rows(n, p, sms, 32)[1] > 1) == (n >= 5000)
+    mt, mb, gt, gb, lp = ths.hinge_stats_cuda(Xs, yf, 1.3, wf, 2.0)
+    torch.cuda.synchronize()
+    assert ths.hinge_stats_cuda.launches == before + 1
+    margin, act, loss, galpha = tref.hinge_stats_ref(Xs, yf, 1.3, wf, 2.0)
+    S = float((Xs.float().abs().T @ wf.abs()).max())
+    np.testing.assert_allclose(npy(torch.cat([mt, mb])), npy(margin), rtol=0,
+                               atol=1e-5 * S)
+    np.testing.assert_allclose(npy(torch.cat([gt, gb])), npy(galpha), rtol=0,
+                               atol=1e-5 * S)
+    clear = (margin - 1.0).abs() > 1e-5 * S
+    assert torch.equal((torch.cat([mt, mb]) < 1.0)[clear], (act > 0)[clear])
+    np.testing.assert_allclose(float(0.5 * (wf @ wf) + lp.sum()), float(loss), rtol=1e-5)
+    # the public op on CUDA tensors runs the kernel
+    got = tops.hinge_stats(Xf, yf, 1.3, wf, 2.0, precision=precision)
+    assert ths.hinge_stats_cuda.launches == before + 2
+    np.testing.assert_allclose(float(got[2]), float(loss), rtol=1e-5)
+
+
+@pytest.mark.gpu
 def test_cuda_wrappers_reject_bad_operands(cuda_device):
     X, y, v, at, ab = (a.to(cuda_device) for a in _f32(*_inputs(33, 57)))
     with pytest.raises(TypeError):
@@ -100,3 +139,7 @@ def test_cuda_wrappers_reject_bad_operands(cuda_device):
         thinge.hinge_xd_cuda(X, y, at[:10], at[:2], v, 1.1, 2.5)
     with pytest.raises(ValueError, match="is on cpu"):
         thinge.hinge_xtv_cuda(X, y.cpu(), v, 1.1, at, ab)
+    with pytest.raises(TypeError):
+        ths.hinge_stats_cuda(X, y, 1.1, v.double(), 2.5)
+    with pytest.raises(ValueError, match="shape"):
+        ths.hinge_stats_cuda(X, y, 1.1, v[:5], 2.5)

@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from repro_torch import device as tdevice
-from repro_torch.convert import config_from_jax, problem_from_numpy, warm_from_jax
+from repro_torch.convert import (carry_from_jax, config_from_jax, path_config_from_jax,
+                                 problem_from_numpy, warm_from_jax)
 from repro_torch.core.sven import SvenConfig, resolve_backend, sven
 from repro_torch.data.synthetic import make_regression
 from repro_torch.kernels import ops, registry
@@ -89,10 +90,10 @@ def test_registry_raises_on_mixed_devices_and_missing_bodies():
     with pytest.raises(ValueError, match="no kernel body for device"):
         registry.resolve_kernel_backend(None, meta_t)
     with pytest.raises(KeyError, match="no 'cuda' body"):
-        registry.lookup("hinge_stats", "cuda")
-    assert registry.kernel_backends("shifted_gram") == ("cuda", "ref")
-    assert registry.kernel_backends("hinge_xtv") == registry.kernel_backends("hinge_xd") \
-        == ("cuda", "ref")
+        registry.lookup("no_such_op", "cuda")
+    for op in ("shifted_gram", "hinge_xtv", "hinge_xd", "hinge_stats"):
+        assert registry.kernel_backends(op) == ("cuda", "ref")
+    assert registry.kernel_backends("no_such_op") == ()
 
 
 def test_config_from_jax_maps_backends_and_keeps_fields():
@@ -112,3 +113,22 @@ def test_config_from_jax_maps_backends_and_keeps_fields():
     assert config_from_jax(interp).backend == "ref"
     wa, ww = warm_from_jax(np.zeros(4), np.ones(3), device="cpu")
     assert wa.dtype == ww.dtype == torch.float64 and wa.shape == (4,)
+
+
+def test_path_config_and_carry_from_jax():
+    from repro.core.api import PathConfig as JaxPathConfig
+    from repro.core.sven import SvenConfig as JaxConfig
+    jcfg = JaxPathConfig(solver=JaxConfig(backend="tpu_interpret", tol=1e-9,
+                                          precision="bf16"),
+                         screen=False, max_evals=12, f_rtol=1e-8)
+    cfg = path_config_from_jax(dataclasses.asdict(jcfg))
+    assert (cfg.screen, cfg.max_evals, cfg.f_rtol) == (False, 12, 1e-8)
+    assert cfg.t_floor_rel == jcfg.t_floor_rel
+    assert (cfg.solver.backend, cfg.solver.tol, cfg.solver.precision) == \
+        ("ref", 1e-9, "bf16")
+    default = path_config_from_jax(dataclasses.asdict(JaxPathConfig()))
+    assert default.solver.backend == "torch" and default.solver.tol == 1e-10
+    carry = carry_from_jax(np.ones(3), np.zeros(6), np.ones(5), 2.5, 0.7, device="cpu")
+    assert carry.beta.shape == (3,) and carry.alpha.shape == (6,) and carry.w.shape == (5,)
+    assert carry.t.shape == carry.nu.shape == () and float(carry.nu) == 0.7
+    assert carry.t.dtype == torch.float64 and carry.t.device.type == "cpu"

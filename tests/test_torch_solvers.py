@@ -7,10 +7,12 @@ import pytest
 
 from _torch_parity import cpu, npy, problem
 from repro.core import reduction as jred
+from repro.core.svm import dual_fista as jfista
 from repro.core.svm import dual_newton as jdual
 from repro.core.svm import make_hyper as jmake_hyper
 from repro.core.svm import primal_newton as jprimal
 from repro_torch.core import reduction as tred
+from repro_torch.core.svm import dual_fista as tfista
 from repro_torch.core.svm import dual_newton as tdual
 from repro_torch.core.svm import host_bool, make_hyper
 from repro_torch.core.svm import primal_newton as tprimal
@@ -124,3 +126,30 @@ def test_host_loop_counts_its_syncs():
     # one read per loop test: Newton tests (iters + 1), CG tests (cg + one
     # per Newton step), and at least one line-search test per Newton step
     assert host_bool.syncs >= (r.iters + 1) + (r.cg_iters + r.iters) + r.iters
+
+
+@pytest.mark.parametrize("n,p,seed", [(60, 12, 0), (40, 30, 3)])
+def test_dual_fista_machine_matches_jax(n, p, seed):
+    """Projected FISTA: the power-iteration step size, every iterate and the
+    momentum carry step by step, then the whole solve, within 1e-10."""
+    top, jop = _ops(n, p, 1.5, seed)
+    K = tred.gram_blocks(top.X, top.y, 1.5)
+    Kj = jnp.asarray(npy(K))
+    tmv, jmv = (lambda v: K @ v), (lambda v: Kj @ v)
+    C, tol = 0.5 / 0.7, 1e-8
+    tm = tfista.dual_fista_machine(tmv, 2 * p, max_iters=5000)
+    jm = jfista.dual_fista_machine(jmv, 2 * p, max_iters=5000)
+    th, jh = make_hyper(C, tol), jmake_hyper(C, tol, jnp.float64)
+    ts, js = tm.init(th), jm.init(jh)
+    np.testing.assert_allclose(float(ts.aux[2]), float(js.aux[2]), rtol=1e-12)
+    for _ in range(5):
+        ts, js = tm.step(ts, th), jm.step(js, jh)
+        _close(ts.x, js.x)
+        _close(ts.aux[0], js.aux[0])
+        _close(ts.residual, js.residual)
+        assert ts.iters == int(js.iters)
+    tr = tfista.solve_dual_fista(tmv, 2 * p, C, tol=tol)
+    jr = jfista.solve_dual_fista(jmv, 2 * p, C, tol=tol)
+    _close(tr.alpha, jr.alpha)
+    assert tr.iters == int(jr.iters) and tr.cg_iters == 0
+    _close(tr.objective, jr.objective)

@@ -115,6 +115,20 @@ def test_warm_start_from_jax_reproduces_iteration_count(mode):
 
 
 def test_fista_is_not_ported_yet():
-    X, y = cpu(*problem(20, 5))
-    with pytest.raises(NotImplementedError, match="fista"):
-        tsven_mod.sven(X, y, 1.0, 1.0, SvenConfig(solver="fista"))
+    """`solver="fista"` on the dual (plain "torch" vs JAX "xla"): beta within
+    1e-10 and the same iteration count; the primal ignores the setting, as
+    in JAX."""
+    (X, y), (Xj, yj), jcfg, tcfg = _pair("dual", solver="fista", backend="xla",
+                                         tol=1e-9)
+    assert tcfg.solver == "fista"
+    js = jsven_mod.sven(Xj, yj, 1.8, 0.7, jcfg)
+    ts = tsven_mod.sven(*problem_from_numpy(X, y, device="cpu"), 1.8, 0.7, tcfg)
+    np.testing.assert_allclose(npy(ts.beta), npy(js.beta), rtol=0, atol=1e-10)
+    assert ts.iters == int(js.iters) and ts.cg_iters == 0
+    newton = tsven_mod.sven(*problem_from_numpy(X, y, device="cpu"), 1.8, 0.7,
+                            dataclasses.replace(tcfg, solver="newton", tol=1e-10))
+    np.testing.assert_allclose(npy(ts.beta), npy(newton.beta), rtol=0, atol=1e-6)
+    Xp, yp = cpu(*problem(20, 30))
+    np.testing.assert_array_equal(
+        npy(tsven_mod.sven(Xp, yp, 1.0, 1.0, SvenConfig(solver="fista")).beta),
+        npy(tsven_mod.sven(Xp, yp, 1.0, 1.0, SvenConfig()).beta))
