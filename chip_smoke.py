@@ -10,10 +10,12 @@ port's main path through the entry points a user calls:
   1. setup: card name and power limit, kernel build, TF32 off for matmuls;
   2. each kernel vs its plain version at the main path's shapes and at a
      ragged small shape, with its time, the plain version's time and the
-     least time the card could take (its bound);
+     least time the card could take (its bound); the Gram in f32, tf32,
+     bf16 and float64 (what a float64 problem runs at the default
+     precision), hinge pass 2 beside the cuBLAS GEMV X d;
   3. the dual solve at the shape of UCI YearPredictionMSD (n = 463,715,
-     p = 90), default config and bf16 + refinement, against the plain
-     float64 solve ("torch" backend) on the card;
+     p = 90), default config (float64 Gram) and bf16 + refinement, against
+     the plain float64 solve ("torch" backend) on the card;
   4. the primal solve at the shape of GLA-BRA-180 (n = 180, p = 49,151),
      against the plain float64 solve;
   5. `sven_path` over an 8-point t-grid at the primal shape, against
@@ -50,7 +52,7 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12}
+PEAK_FLOPS = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12, "f64": 67e12}
 
 YMSD = (463_715, 90)       # UCI YearPredictionMSD: n >> p, dual
 GLA_BRA = (180, 49_151)    # GLA-BRA-180 (scikit-feature): p >> n, primal
@@ -139,43 +141,50 @@ def phase_kernels(torch, smoke, dev, gen):
         t_main = 0.5 * beta_true.abs().sum().item()
         t_mix = (yd @ yd).item() / (Xd.T @ yd).abs().max().item()
         radii = {"t_main": t_main, "t_mix": t_mix, "t_big": 1e6 * t_main}
-        del Xd, yd
-        for prec in ("f32", "tf32", "bf16"):
-            Xs, ys = _storage(X, prec), _storage(y, prec)
+        for prec in ("f32", "tf32", "bf16", "f64"):
+            # f64: float64 operands at precision "f32", the kernel's float64
+            # body, which a float64 problem runs on the main path
+            mode = "f32" if prec == "f64" else prec
+            Xs, ys = (Xd, yd) if prec == "f64" else (_storage(X, prec), _storage(y, prec))
             # tf32: the plain version rounds X and y exactly as the kernel
             # does, and products of TF32 values are exact in f32, so only the
-            # order of the f32 sums differs: the f32 bound applies.
-            tol = {"f32": 1e-5, "tf32": 1e-5, "bf16": 2e-2}[prec]
+            # order of the f32 sums differs: the f32 bound applies. f64: the
+            # worst case of a float64 sum in another order, n eps = 5.1e-11
+            # at n = 463,715, is under 1e-10.
+            tol = {"f32": 1e-5, "tf32": 1e-5, "bf16": 2e-2, "f64": 1e-10}[prec]
             for tname, t in radii.items():
-                K = gram.shifted_gram_cuda(Xs, ys, t, precision=prec)
-                Kr = ref.flatten_gram(ref.gram_blocks_ref(Xs, ys, t, prec))
+                K = gram.shifted_gram_cuda(Xs, ys, t, precision=mode)
+                Kr = ref.flatten_gram(ref.gram_blocks_ref(Xs, ys, t, mode))
                 err = (K - Kr).abs().max().item()
                 scale = Kr.abs().max().item()
+                want = torch.float64 if prec == "f64" else torch.float32
+                smoke.check(K.dtype == want, f"gram {n}x{p} {prec} {tname}: K is {K.dtype}")
                 smoke.check(err <= tol * scale, f"gram {n}x{p} {prec} {tname} = {t:.4g}: "
                             f"max|K-K_plain| = {err:.3e} <= {tol:g} * max|K| = "
                             f"{tol * scale:.3e}")
-                Kb = gram.shifted_gram_cuda(Xs, ys, t, precision=prec, flatten=False)
+                Kb = gram.shifted_gram_cuda(Xs, ys, t, precision=mode, flatten=False)
                 smoke.check(torch.equal(ref.flatten_gram(Kb), K),
                             f"gram {n}x{p} {prec} {tname}: block layout equals the flat one")
-                if (n, p) == YMSD and prec == "f32" and tname == "t_main":
-                    row_err = err
+                if tname == "t_main":
+                    main_err = err
             if (n, p) == YMSD:
                 ms = cuda_ms(torch, lambda: gram.shifted_gram_cuda(Xs, ys, t_main,
-                                                                   precision=prec))
+                                                                   precision=mode))
                 plain = cuda_ms(torch, lambda: ref.flatten_gram(
-                    ref.gram_blocks_ref(Xs, ys, t_main, prec)))
+                    ref.gram_blocks_ref(Xs, ys, t_main, mode)))
                 size = Xs.element_size()
                 # A^T A of A = [X, y] is symmetric: (p+1)(p+2)/2 distinct
-                # entries of n multiply-adds each
-                b_ms, b_by = bound(n * p * size + n * size + 4 * p * p * 4,
+                # entries of n multiply-adds each; K (2p x 2p) is written in
+                # the summing dtype
+                b_ms, b_by = bound(n * p * size + n * size + 4 * p * p * (8 if prec == "f64" else 4),
                                    1.0 * n * (p + 1) * (p + 2), prec)
                 print(f"  gram {prec} at {n}x{p}: kernel {ms:.4f} ms, plain {plain:.4f} "
                       f"ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
-                if prec == "f32":
+                if prec == "f64":   # what the main path runs on its float64 data
                     rows["shifted_gram_cuda"] = dict(
-                        max_abs_err=row_err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                        max_abs_err=main_err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                         bound_by=b_by, library_ms=None)
-        del X, y
+        del X, y, Xd, yd, Xs, ys
 
     for (n, p) in (GLA_BRA, RAGGED):
         X, y, _ = make_regression(n, p, seed=0, dtype=torch.float32, device=dev)
@@ -207,6 +216,10 @@ def phase_kernels(torch, smoke, dev, gen):
             hv_err = (hv2 - ref.hessian_matvec_ref(Xs, y, t, C, at, ab, v)).abs().max().item()
             smoke.check(hv_err <= tol * h_scale, f"H v {n}x{p} {prec}: both kernels vs "
                         f"plain {hv_err:.3e} <= {tol * h_scale:.3e}")
+            # a fixed summation order, and the ticket counters back at 0
+            smoke.check(all(torch.equal(hinge.hinge_xd_cuda(Xs, y, d, e_part, v, t, C), hv2)
+                            for _ in range(3)),
+                        f"hinge_xd {n}x{p} {prec}: three more launches give equal H v")
             if (n, p) == GLA_BRA:
                 size = Xs.element_size()
                 nblk = e_part.numel()
@@ -231,6 +244,11 @@ def phase_kernels(torch, smoke, dev, gen):
                           f"(plain {cold[k][1]:.4f}, HBM bound {bounds[k][0]:.4f} "
                           f"{bounds[k][1]}); L2 warm {warm[k][0]:.4f} ms (plain "
                           f"{warm[k][1]:.4f}); X = {n * p * size / 1e6:.1f} MB", flush=True)
+                if prec == "f32":   # X d alone, one cuBLAS call on the same operands
+                    print(f"  GEMV X d (torch.mv) f32 at {n}x{p}: L2 cold "
+                          f"{cuda_ms_each(torch, lambda: torch.mv(Xs, d), dev, True):.4f} ms, "
+                          f"warm {cuda_ms_each(torch, lambda: torch.mv(Xs, d), dev, False):.4f} ms",
+                          flush=True)
                 if prec == "f32":
                     errs = {"xtv": d_err, "xd": xd_err}
                     for k in calls:
@@ -334,6 +352,9 @@ def phase_front_end(torch, smoke, kernels, svm_state, count, ymsd, glabra):
     ref, ref_s, _, ref_syncs = run_path(
         torch, kernels, svm_state,
         lambda: enet_path(X, y, n_lambdas=10, lambda2=LAMBDA2, config=plain))
+    # the kernel run again, now that both runs have paid their first calls
+    again, again_s, _, _ = run_path(
+        torch, kernels, svm_state, lambda: enet_path(X, y, n_lambdas=10, lambda2=LAMBDA2))
     scale = ref.betas.abs().max().item()
     dev_b = max_dev(torch, path.betas, ref.betas)
     print(f"    kernels: {secs:.3f} s, {syncs} host syncs, launches {launched}, evals "
@@ -345,14 +366,24 @@ def phase_front_end(torch, smoke, kernels, svm_state, count, ymsd, glabra):
           flush=True)
     print(f"    torch f64: {ref_s:.3f} s, {ref_syncs} host syncs, evals per point "
           f"{list(ref.evals)}, max KKT after the first point "
-          f"{ref.kkts[1:].max().item():.3e}", flush=True)
+          f"{ref.kkts[1:].max().item():.3e}; kernels again: {again_s:.3f} s", flush=True)
+    kkt = path.kkts[1:].max().item()
+    smoke.check(again.evals == path.evals and torch.equal(again.betas, path.betas),
+                "a second kernel run gives the same evaluations and betas")
     smoke.check(path.betas.shape == (10, p) and bool(torch.isfinite(path.betas).all()),
                 "path betas finite, shape (10, p)")
     smoke.check(launched["shifted_gram_cuda"] == sum(path.evals) > 0,
                 f"one Gram launch per Illinois evaluation ({sum(path.evals)})")
     smoke.check(dev_b <= 5e-4 * scale, f"max|beta - beta_torch| = {dev_b:.3e} <= "
                 f"5e-4 * max|beta| = {5e-4 * scale:.3e}")
-    del path, ref
+    # the float64 Gram gives the reference's stop: its evaluations and answer
+    smoke.check(sum(path.evals) <= sum(ref.evals) + 2,
+                f"evaluations {sum(path.evals)} {list(path.evals)} <= float64's "
+                f"{sum(ref.evals)} {list(ref.evals)} + 2")
+    smoke.check(kkt <= 1e-9, f"max KKT after the first point {kkt:.3e} <= 1e-9")
+    smoke.check(dev_b <= 1e-8 * scale, f"max|beta - beta_torch| = {dev_b:.3e} <= "
+                f"1e-8 * max|beta| = {1e-8 * scale:.3e}")
+    del path, ref, again
 
     X, y = glabra
     n, p = X.shape
@@ -470,16 +501,17 @@ def main() -> int:
     count(launched)
     scale = ref_sol.beta.abs().max().item()
     dev_b = max_dev(torch, sol.beta, ref_sol.beta)
-    print(f"    default: mode {sol.mode}, {sol.iters} Newton / {sol.cg_iters} CG "
-          f"iterations, kkt {sol.kkt.item():.3e}, {secs:.3f} s, {syncs} host syncs, "
-          f"launches {launched}; torch f64: {ref_sol.iters} Newton, {ref_s:.3f} s, "
+    print(f"    default (float64 Gram): mode {sol.mode}, {sol.iters} Newton / "
+          f"{sol.cg_iters} CG iterations, kkt {sol.kkt.item():.3e}, {secs:.3f} s, "
+          f"{syncs} host syncs, launches {launched}; torch f64: {ref_sol.iters} Newton / "
+          f"{ref_sol.cg_iters} CG, kkt {ref_sol.kkt.item():.3e}, {ref_s:.3f} s, "
           f"{ref_syncs} syncs", flush=True)
     smoke.check(sol.mode == "dual", "YMSD shape takes the dual branch")
     smoke.check(launched["shifted_gram_cuda"] == 1, "one Gram launch per dual solve")
     smoke.check(bool(torch.isfinite(sol.beta).all()) and sol.beta.shape == (p,),
                 "beta finite, shape (p,)")
-    smoke.check(dev_b <= 5e-4 * scale, f"max|beta - beta_torch| = {dev_b:.3e} <= "
-                f"5e-4 * max|beta| = {5e-4 * scale:.3e}")
+    smoke.check(dev_b <= 1e-10 * scale, f"max|beta - beta_torch| = {dev_b:.3e} <= "
+                f"1e-10 * max|beta| = {1e-10 * scale:.3e}")
     ref12, ref12_s, _, _ = run_path(
         torch, kernels, svm_state,
         lambda: sven(X, y, t, LAMBDA2, SvenConfig(backend="torch", tol=1e-12)))

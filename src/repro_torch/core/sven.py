@@ -6,10 +6,15 @@ Dispatch (paper §3, "Implementation details"):
 
 On the kernel backends the dual caches K = Zhat^T Zhat from the fused
 shifted-Gram kernel and the primal's CG mat-vec is the two-pass hinge
-Hessian kernel; the kernels take float32 operands (or bfloat16 storage)
-and their results are cast back to the problem dtype, which drives the
-solvers. Under "bf16"/"tf32" the dual gets one full-precision matrix-free
-refinement re-solve, warm-started from the low-precision alpha.
+Hessian kernel. At the default precision "f32" a float64 problem hands the
+Gram its float64 X and y, and the kernel sums in float64, so the dual
+solves on the problem's own K, as the plain backend does; a float32
+problem hands it float32 operands. The hinge kernels take float32 operands
+(or bfloat16 storage), and their results are cast back to the problem
+dtype, which drives the solvers. Under "bf16"/"tf32" the Gram takes
+float32 (or bfloat16) operands and sums in float32, and the dual gets one
+full-precision matrix-free refinement re-solve, warm-started from the
+low-precision alpha.
 
 PyTorch counterpart of `repro/core/sven.py`. JAX compiles the solve once
 per shape under `jit`; here it runs eagerly, with host loops (one host sync
@@ -58,7 +63,10 @@ class SvenConfig:
     The default backend is "auto", so that `sven(X, y, t, lambda2)` runs
     the hand-written kernels on a CUDA tensor and their plain versions on a
     CPU tensor. The JAX default, "xla", runs no kernel at all; its
-    counterpart here is "torch".
+    counterpart here is "torch". At the default precision "f32" the dual's
+    Gram of a float64 problem is summed in float64, so the default dual
+    gives the plain solve's answer; "bf16"/"tf32" sum it in float32 and
+    refine once at full precision.
     """
 
     mode: str = "auto"            # "auto" | "primal" | "dual"
@@ -186,8 +194,11 @@ def _sven_core(X, y, t: float, lambda2: float, warm_alpha, warm_w,
     if cache == "blocks":
         if kernels:
             from repro_torch.kernels.ops import shifted_gram
-            K = shifted_gram(X.to(torch.float32).contiguous(),
-                             y.to(torch.float32).contiguous(), t,
+            # a float64 problem at "f32" keeps its float64 operands (the
+            # Gram then sums in float64); everything else is float32
+            wide = dtype == torch.float64 and config.precision == "f32"
+            kdtype = torch.float64 if wide else torch.float32
+            K = shifted_gram(X.to(kdtype).contiguous(), y.to(kdtype).contiguous(), t,
                              backend=config.backend,
                              precision=config.precision).to(dtype)
             refine = config.precision != "f32"

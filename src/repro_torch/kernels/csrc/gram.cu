@@ -30,10 +30,19 @@
 //      the epilogue runs only after the full sum.
 // Ragged edges are masked, never padded. Precision modes: 0 = f32 (true fp32
 // FMA; TF32 is not used), 1 = tf32 (operands rounded with cvt.rna.tf32.f32,
-// fp32 accumulation), 2 = bf16 storage of X and y, fp32 accumulation.
+// fp32 accumulation), 2 = bf16 storage of X and y, fp32 accumulation,
+// 3 = f64: float64 X and y, and float64 throughout (loads, shared tiles,
+// accumulators, partials, epilogue and K), with FP64 FMAs (not the FP64
+// tensor cores). Mode 3 is what a float64 problem runs at precision "f32", so
+// that K is the problem's own float64 Gram. Its bound at the YMSD shape:
+// bytes 463,715 x 91 x 8 = 337.6 MB / 3.35 TB/s = 0.101 ms; operations
+// n (p+1)(p+2) = 3.88 GFLOP / 67 TFLOP/s (FP64 tensor peak) = 0.058 ms; so
+// bytes bound it. The tiles hold doubles: 16 KB of shared memory per block.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -48,8 +57,13 @@ __device__ __forceinline__ float to_tf32(float x) {
   return __uint_as_float(u & 0xFFFFE000u);
 }
 
-template <typename T> __device__ __forceinline__ float ld(const T* p, int64_t i);
-template <> __device__ __forceinline__ float ld<float>(const float* p, int64_t i) {
+// The type every product and sum of a mode is taken in: float, except for
+// float64 storage, which is summed in double.
+template <typename T> struct AccOf { using type = float; };
+template <> struct AccOf<double> { using type = double; };
+template <typename T> using acc_t = typename AccOf<T>::type;
+
+template <typename T> __device__ __forceinline__ acc_t<T> ld(const T* p, int64_t i) {
   return p[i];
 }
 template <> __device__ __forceinline__ float ld<__nv_bfloat16>(const __nv_bfloat16* p,
@@ -59,17 +73,33 @@ template <> __device__ __forceinline__ float ld<__nv_bfloat16>(const __nv_bfloat
 
 // Entry (r, c) of A = [X, y]; 0 past the last column.
 template <typename T, bool TF32>
-__device__ __forceinline__ float aug(const T* X, const T* y, int64_t r, int c, int p) {
-  float v = 0.f;
+__device__ __forceinline__ acc_t<T> aug(const T* X, const T* y, int64_t r, int c, int p) {
+  acc_t<T> v = 0;
   if (c < p) v = ld<T>(X, r * p + c);
   else if (c == p) v = ld<T>(y, r);
-  return TF32 ? to_tf32(v) : v;
+  if constexpr (TF32) v = to_tf32(v);
+  return v;
+}
+
+__device__ __forceinline__ float mad(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double mad(double a, double b, double c) { return fma(a, b, c); }
+
+// Four neighbouring shared-memory entries: one float4, or two double2.
+__device__ __forceinline__ void ld4(const float* s, float (&a)[kMicro]) {
+  const float4 v = *reinterpret_cast<const float4*>(s);
+  a[0] = v.x; a[1] = v.y; a[2] = v.z; a[3] = v.w;
+}
+__device__ __forceinline__ void ld4(const double* s, double (&a)[kMicro]) {
+  const double2 v0 = *reinterpret_cast<const double2*>(s);
+  const double2 v1 = *reinterpret_cast<const double2*>(s + 2);
+  a[0] = v0.x; a[1] = v0.y; a[2] = v1.x; a[3] = v1.y;
 }
 
 template <typename T, bool TF32>
 __global__ void __launch_bounds__(kThreads)
 gram_partial(const T* __restrict__ X, const T* __restrict__ y,
-             float* __restrict__ part, int n, int p, int rows_per_split) {
+             acc_t<T>* __restrict__ part, int n, int p, int rows_per_split) {
+  using A = acc_t<T>;
   const int ti = blockIdx.x, tj = blockIdx.y, ks = blockIdx.z;
   if (tj < ti) return;  // symmetric: the lower tiles are never read
   const int q = p + 1;
@@ -78,13 +108,13 @@ gram_partial(const T* __restrict__ X, const T* __restrict__ y,
   const int tx = threadIdx.x % (kTile / kMicro);
   const int ty = threadIdx.x / (kTile / kMicro);
 
-  __shared__ __align__(16) float As[kRows][kTile];
-  __shared__ __align__(16) float Bs[kRows][kTile];
-  float acc[kMicro][kMicro];
+  __shared__ __align__(16) A As[kRows][kTile];
+  __shared__ __align__(16) A Bs[kRows][kTile];
+  A acc[kMicro][kMicro];
 #pragma unroll
   for (int a = 0; a < kMicro; ++a)
 #pragma unroll
-    for (int b = 0; b < kMicro; ++b) acc[a][b] = 0.f;
+    for (int b = 0; b < kMicro; ++b) acc[a][b] = 0;
 
   for (int rb = r0; rb < r1; rb += kRows) {
     // neighbouring threads load neighbouring columns of one row: coalesced
@@ -92,25 +122,24 @@ gram_partial(const T* __restrict__ X, const T* __restrict__ y,
       const int rr = e / kTile, cc = e % kTile;
       const int64_t r = rb + rr;
       const bool in = r < r1;
-      As[rr][cc] = in ? aug<T, TF32>(X, y, r, ti * kTile + cc, p) : 0.f;
-      Bs[rr][cc] = in ? aug<T, TF32>(X, y, r, tj * kTile + cc, p) : 0.f;
+      As[rr][cc] = in ? aug<T, TF32>(X, y, r, ti * kTile + cc, p) : A(0);
+      Bs[rr][cc] = in ? aug<T, TF32>(X, y, r, tj * kTile + cc, p) : A(0);
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < kRows; ++kk) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&As[kk][ty * kMicro]);
-      const float4 b4 = *reinterpret_cast<const float4*>(&Bs[kk][tx * kMicro]);
-      const float a[kMicro] = {a4.x, a4.y, a4.z, a4.w};
-      const float b[kMicro] = {b4.x, b4.y, b4.z, b4.w};
+      A a[kMicro], b[kMicro];
+      ld4(&As[kk][ty * kMicro], a);
+      ld4(&Bs[kk][tx * kMicro], b);
 #pragma unroll
       for (int i = 0; i < kMicro; ++i)
 #pragma unroll
-        for (int j = 0; j < kMicro; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < kMicro; ++j) acc[i][j] = mad(a[i], b[j], acc[i][j]);
     }
     __syncthreads();
   }
 
-  float* out = part + (int64_t)ks * q * q;
+  A* out = part + (int64_t)ks * q * q;
 #pragma unroll
   for (int i = 0; i < kMicro; ++i) {
     const int gi = ti * kTile + ty * kMicro + i;
@@ -124,32 +153,43 @@ gram_partial(const T* __restrict__ X, const T* __restrict__ y,
 }
 
 // sum_k part[k][idx], in the order k = 0, 1, ...
-__device__ __forceinline__ float sum_parts(const float* __restrict__ part, int64_t idx,
-                                           int64_t qq, int nsplit) {
-  float s = 0.f;
+template <typename A>
+__device__ __forceinline__ A sum_parts(const A* __restrict__ part, int64_t idx,
+                                       int64_t qq, int nsplit) {
+  A s = 0;
   for (int k = 0; k < nsplit; ++k) s += part[(int64_t)k * qq + idx];
   return s;
 }
 
 // The four quadrants of row i (block i). flat: K is (2p, 2p); else block
-// layout (2, 2, p, p).
-__global__ void gram_epilogue(const float* __restrict__ part, float* __restrict__ K,
-                              int p, int nsplit, float invt, int flat) {
+// layout (2, 2, p, p). `scale` is 1/t rounded to float in the f32 modes,
+// which multiply by it, and t in f64, which divides by it as the plain
+// version does.
+template <typename A>
+__global__ void gram_epilogue(const A* __restrict__ part, A* __restrict__ K, int p,
+                              int nsplit, A scale, int flat) {
+  constexpr bool kF64 = std::is_same<A, double>::value;
   const int i = blockIdx.x;
   const int q = p + 1;
   const int64_t qq = (int64_t)q * q;
-  __shared__ float ui_s[2];  // X_i^T y and y^T y
+  auto over_t = [&](A x) -> A {
+    if constexpr (kF64) return x / scale;
+    else return x * scale;
+  };
+  __shared__ A ui_s[2];  // X_i^T y and y^T y
   if (threadIdx.x < 2)
     ui_s[threadIdx.x] = sum_parts(part, threadIdx.x == 0 ? (int64_t)i * q + p
                                                          : (int64_t)p * q + p, qq, nsplit);
   __syncthreads();
-  const float a = ui_s[0] * invt;
-  const float s = ui_s[1] * invt * invt;
+  const A a = over_t(ui_s[0]);
+  A s;
+  if constexpr (kF64) s = ui_s[1] / (scale * scale);
+  else s = ui_s[1] * scale * scale;
   for (int j = threadIdx.x; j < p; j += blockDim.x) {
-    const float P = sum_parts(part, (int64_t)min(i, j) * q + max(i, j), qq, nsplit);
-    const float b = sum_parts(part, (int64_t)j * q + p, qq, nsplit) * invt;
-    const float v[2][2] = {{P - a - b + s, -P - a + b + s},
-                           {-P + a - b + s, P + a + b + s}};
+    const A P = sum_parts(part, (int64_t)min(i, j) * q + max(i, j), qq, nsplit);
+    const A b = over_t(sum_parts(part, (int64_t)j * q + p, qq, nsplit));
+    const A v[2][2] = {{P - a - b + s, -P - a + b + s},
+                       {-P + a - b + s, P + a + b + s}};
     for (int qa = 0; qa < 2; ++qa)
       for (int qb = 0; qb < 2; ++qb) {
         const int64_t o = flat ? ((int64_t)qa * p + i) * (2 * p) + (int64_t)qb * p + j
@@ -160,16 +200,20 @@ __global__ void gram_epilogue(const float* __restrict__ part, float* __restrict_
 }
 
 template <typename T, bool TF32>
-cudaError_t launch_all(const void* X, const void* y, float* part, float* K, int n, int p,
-                       int rows_per_split, int nsplit, float invt, int flat,
+cudaError_t launch_all(const void* X, const void* y, void* part, void* K, int n, int p,
+                       int rows_per_split, int nsplit, double t, int flat,
                        cudaStream_t stream) {
+  using A = acc_t<T>;
   const int q = p + 1;
   const int nt = (q + kTile - 1) / kTile;
   gram_partial<T, TF32><<<dim3(nt, nt, nsplit), kThreads, 0, stream>>>(
-      static_cast<const T*>(X), static_cast<const T*>(y), part, n, p, rows_per_split);
+      static_cast<const T*>(X), static_cast<const T*>(y), static_cast<A*>(part), n, p,
+      rows_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  gram_epilogue<<<p, 128, 0, stream>>>(part, K, p, nsplit, invt, flat);
+  const A scale = std::is_same<A, double>::value ? A(t) : A(1.0 / t);
+  gram_epilogue<A><<<p, 128, 0, stream>>>(static_cast<const A*>(part),
+                                          static_cast<A*>(K), p, nsplit, scale, flat);
   return cudaGetLastError();
 }
 
@@ -181,23 +225,27 @@ extern "C" {
 int sven_gram_tile() { return kTile; }
 int sven_gram_rows_step() { return kRows; }
 
-// X (n, p) and y (n,) row-major, float32 (mode 0, 1) or bfloat16 (mode 2);
-// part (nsplit, p+1, p+1) and K float32 scratch/output from the caller.
-// Returns the first CUDA error of the two launches (0 = none).
-int sven_gram(const void* X, const void* y, float* part, float* K, int n, int p,
-              int rows_per_split, int nsplit, float invt, int flat, int mode,
+// X (n, p) and y (n,) row-major, float32 (mode 0, 1), bfloat16 (mode 2) or
+// float64 (mode 3); part (nsplit, p+1, p+1) scratch and K from the caller,
+// float64 in mode 3 and float32 otherwise. Returns the first CUDA error of
+// the two launches (0 = none).
+int sven_gram(const void* X, const void* y, void* part, void* K, int n, int p,
+              int rows_per_split, int nsplit, double t, int flat, int mode,
               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case 0:
-      return launch_all<float, false>(X, y, part, K, n, p, rows_per_split, nsplit,
-                                       invt, flat, s);
+      return launch_all<float, false>(X, y, part, K, n, p, rows_per_split, nsplit, t,
+                                       flat, s);
     case 1:
-      return launch_all<float, true>(X, y, part, K, n, p, rows_per_split, nsplit,
-                                      invt, flat, s);
+      return launch_all<float, true>(X, y, part, K, n, p, rows_per_split, nsplit, t,
+                                      flat, s);
     case 2:
       return launch_all<__nv_bfloat16, false>(X, y, part, K, n, p, rows_per_split,
-                                               nsplit, invt, flat, s);
+                                               nsplit, t, flat, s);
+    case 3:
+      return launch_all<double, false>(X, y, part, K, n, p, rows_per_split, nsplit, t,
+                                        flat, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -18,11 +18,22 @@
 // pass 2: no float atomics.
 //
 // Pass 2, hinge_xd, replaces repro/kernels/hinge.py::_xd_kernel. It is a dot
-// product over p for each row. Bound: one read of X again. Design: one warp
-// per row for narrow X; for p >= 1024 all 8 warps of a block share one row
-// (n = 180 rows would give only 180 warps on 132 SMs otherwise). Lanes read
-// neighbouring addresses, four independent accumulators per lane hide load
-// latency, and a warp-shuffle reduction ends the row.
+// product over p for each row. Bound: one read of X again (10.6 us in f32 at
+// the GLA-BRA-180 shape). Design: a 2-D grid of (row group x column chunk).
+// A block of 256 threads takes R rows and one chunk of up to 4,096 columns:
+// it stages its chunk of d in shared memory once (16 KB f32, with one pad
+// word every 32, so that a warp's reads of d meet at most 2-way bank
+// conflicts, against 4-way (f32) or 8-way (bf16) without) and reuses it for
+// its R rows. At GLA-BRA-180 (R = 4) that is 45 x 12 = 540 blocks, about 4
+// per SM (one block per row would give 180 on 132 SMs). X is read in 16-byte
+// vectors (4 f32 or 8 bf16), with a scalar head and tail per row: p is odd
+// there, so most rows do not start on a 16-byte boundary, and the head is
+// taken from each row's own address. Each (row, chunk) writes one partial;
+// the last block of a row group to finish, found by an integer atomicAdd
+// ticket, sums the partials of its rows in chunk order, adds the e term and
+// writes H v, then sets the ticket back to 0 for the next launch. So it is
+// one launch, deterministic, with no float atomics. For p < 1024 a block
+// takes R = 8 rows, one warp per row, in one chunk, and writes H v itself.
 //
 // X is float32 or bfloat16 storage; everything else is float32 and every sum
 // is float32.
@@ -113,44 +124,131 @@ hinge_xtv(const T* __restrict__ X, const float* __restrict__ v,
 }
 
 // ---------------------------------------------------------------- pass 2 ---
-// WPR warps per row; kWarps / WPR rows per block.
-template <typename T, int WPR>
+constexpr int kChunk = 4096;                    // columns of d per block
+constexpr int kChunkPad = kChunk + kChunk / 32;  // one pad word every 32
+constexpr int kWideP = 1024;                    // from here, R = 4 and chunks
+
+// Shared-memory slot of column i of the chunk: one pad word every 32, for
+// the reads of 4 (f32) or 8 (bf16) neighbouring columns per lane.
+__device__ __forceinline__ int slot(int i) { return i + (i >> 5); }
+
+// A 16-byte vector of X: 4 floats, or 8 bf16 in a uint4.
+template <typename T> struct Vec;
+template <> struct Vec<float> {
+  using type = float4;
+  static constexpr int n = 4;
+};
+template <> struct Vec<__nv_bfloat16> {
+  using type = uint4;
+  static constexpr int n = 8;
+};
+
+// acc + the vector x times columns i .. i+n-1 of the staged d.
+__device__ __forceinline__ float vdot(const float4& x, const float* ds, int i, float acc) {
+  acc = fmaf(x.x, ds[slot(i)], acc);
+  acc = fmaf(x.y, ds[slot(i + 1)], acc);
+  acc = fmaf(x.z, ds[slot(i + 2)], acc);
+  return fmaf(x.w, ds[slot(i + 3)], acc);
+}
+__device__ __forceinline__ float vdot(const uint4& x, const float* ds, int i, float acc) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = __bfloat1622float2(h[k]);
+    acc = fmaf(f.x, ds[slot(i + 2 * k)], acc);
+    acc = fmaf(f.y, ds[slot(i + 2 * k + 1)], acc);
+  }
+  return acc;
+}
+
+// grid (ceil(n / R), chunks); R rows of one chunk per block, 256 / R threads
+// per row. With more than one chunk, part (n, chunks) holds the partials and
+// ticket (ceil(n / R),) counts the finished chunks of each row group; it is
+// 0 before the launch and 0 again after it.
+template <typename T, int R>
 __global__ void __launch_bounds__(kThreads)
 hinge_xd(const T* __restrict__ X, const float* __restrict__ d,
          const float* __restrict__ e_part, int n_epart, const float* __restrict__ y,
-         const float* __restrict__ v, float* __restrict__ hv, int n, int p, float invt,
-         float twoC) {
+         const float* __restrict__ v, float* __restrict__ hv, float* __restrict__ part,
+         int* __restrict__ ticket, int n, int p, float invt, float twoC) {
+  constexpr int TPR = kThreads / R;   // threads per row
+  constexpr int WPR = TPR / 32;       // warps per row
+  constexpr int VEC = Vec<T>::n;
+  using VT = typename Vec<T>::type;
+  __shared__ float ds[kChunkPad];
   __shared__ float red[kWarps];
-  __shared__ float rowpart[kWarps];
-  float es = 0.f;
-  for (int i = threadIdx.x; i < n_epart; i += kThreads) es += e_part[i];
-  const float e = block_sum(es, red, threadIdx.x);
+  __shared__ float wsum[kWarps];
+  __shared__ int last;
 
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int row = blockIdx.x * (kWarps / WPR) + warp / WPR;
-  const int sub = warp % WPR;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int nchunk = gridDim.y;
+  const int j0 = blockIdx.y * kChunk;
+  const int len = min(kChunk, p - j0);
+  for (int i = tid; i < len; i += kThreads) ds[slot(i)] = d[j0 + i];
+  __syncthreads();
+
+  const int lt = tid % TPR;
+  const int row = blockIdx.x * R + tid / TPR;
   float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
   if (row < n) {
-    const int64_t base = (int64_t)row * p;
-    const int stride = 32 * WPR;
-    int j = sub * 32 + lane;
-    for (; j + 3 * stride < p; j += 4 * stride) {
-      a0 = fmaf(ld<T>(X, base + j), d[j], a0);
-      a1 = fmaf(ld<T>(X, base + j + stride), d[j + stride], a1);
-      a2 = fmaf(ld<T>(X, base + j + 2 * stride), d[j + 2 * stride], a2);
-      a3 = fmaf(ld<T>(X, base + j + 3 * stride), d[j + 3 * stride], a3);
+    const T* xr = X + (int64_t)row * p + j0;
+    // columns before the first 16-byte boundary of this row's chunk
+    const int mis = (int)(reinterpret_cast<uintptr_t>(xr) & 15u);
+    const int head = min(len, ((16 - mis) & 15) / (int)sizeof(T));
+    if (lt < head) a0 = ld<T>(xr, lt) * ds[slot(lt)];   // head < VEC <= TPR
+    const int nv = (len - head) / VEC;
+    const VT* xv = reinterpret_cast<const VT*>(xr + head);
+    int k = lt;
+    for (; k + 3 * TPR < nv; k += 4 * TPR) {
+      const VT x0 = __ldg(xv + k), x1 = __ldg(xv + k + TPR);
+      const VT x2 = __ldg(xv + k + 2 * TPR), x3 = __ldg(xv + k + 3 * TPR);
+      a0 = vdot(x0, ds, head + k * VEC, a0);
+      a1 = vdot(x1, ds, head + (k + TPR) * VEC, a1);
+      a2 = vdot(x2, ds, head + (k + 2 * TPR) * VEC, a2);
+      a3 = vdot(x3, ds, head + (k + 3 * TPR) * VEC, a3);
     }
-    for (; j < p; j += stride) a0 = fmaf(ld<T>(X, base + j), d[j], a0);
+    for (; k < nv; k += TPR) a0 = vdot(__ldg(xv + k), ds, head + k * VEC, a0);
+    const int tail = head + nv * VEC + lt;              // fewer than VEC left
+    if (tail < len) a1 = fmaf(ld<T>(xr, tail), ds[slot(tail)], a1);
   }
   const float acc = warp_sum((a0 + a1) + (a2 + a3));
-  if (lane == 0) rowpart[warp] = acc;
+  if (lane == 0) wsum[warp] = acc;
   __syncthreads();
-  if (sub == 0 && lane == 0 && row < n) {
-    float tot = 0.f;
+
+  // thread r < R owns row r of the block from here on
+  const int mine_row = blockIdx.x * R + tid;
+  const bool owner = tid < R && mine_row < n;
+  float dot = 0.f;
+  if (tid < R) {
 #pragma unroll
-    for (int w = 0; w < WPR; ++w) tot += rowpart[warp + w];
-    hv[row] = v[row] + twoC * (tot + y[row] * invt * e);
+    for (int w = 0; w < WPR; ++w) dot += wsum[tid * WPR + w];
   }
+  if (nchunk > 1) {
+    if (owner) {
+      part[(int64_t)mine_row * nchunk + blockIdx.y] = dot;
+      __threadfence();
+    }
+    __syncthreads();
+    if (tid == 0) last = atomicAdd(&ticket[blockIdx.x], 1) == nchunk - 1;
+    __syncthreads();
+    if (!last) return;                 // block-uniform
+    __threadfence();
+    if (owner) {
+      dot = 0.f;
+      for (int c = 0; c < nchunk; ++c) dot += __ldcg(&part[(int64_t)mine_row * nchunk + c]);
+    }
+    if (tid == 0) ticket[blockIdx.x] = 0;   // every block of the group has counted
+  }
+  float es = 0.f;
+  for (int i = tid; i < n_epart; i += kThreads) es += e_part[i];
+  const float e = block_sum(es, red, tid);
+  if (owner) hv[mine_row] = v[mine_row] + twoC * (dot + y[mine_row] * invt * e);
+}
+
+// Rows per block and column chunks of pass 2 for a row length p.
+__host__ __device__ inline int xd_rows(int p) { return p >= kWideP ? 4 : 8; }
+__host__ __device__ inline int xd_chunks(int p) {
+  return p >= kWideP ? (p + kChunk - 1) / kChunk : 1;
 }
 
 template <typename T>
@@ -164,15 +262,17 @@ cudaError_t launch_xtv(const void* X, const float* v, const float* y, const floa
 
 template <typename T>
 cudaError_t launch_xd(const void* X, const float* d, const float* e_part, int n_epart,
-                      const float* y, const float* v, float* hv, int n, int p,
-                      float invt, float twoC, cudaStream_t s) {
+                      const float* y, const float* v, float* hv, float* part,
+                      int* ticket, int n, int p, float invt, float twoC, cudaStream_t s) {
   const T* Xt = static_cast<const T*>(X);
-  if (p >= 1024) {
-    hinge_xd<T, kWarps><<<n, kThreads, 0, s>>>(Xt, d, e_part, n_epart, y, v, hv, n, p,
-                                               invt, twoC);
+  const int R = xd_rows(p);
+  const dim3 grid((n + R - 1) / R, xd_chunks(p));
+  if (R == 4) {
+    hinge_xd<T, 4><<<grid, kThreads, 0, s>>>(Xt, d, e_part, n_epart, y, v, hv, part,
+                                             ticket, n, p, invt, twoC);
   } else {
-    hinge_xd<T, 1><<<(n + kWarps - 1) / kWarps, kThreads, 0, s>>>(
-        Xt, d, e_part, n_epart, y, v, hv, n, p, invt, twoC);
+    hinge_xd<T, 8><<<grid, kThreads, 0, s>>>(Xt, d, e_part, n_epart, y, v, hv, part,
+                                             ticket, n, p, invt, twoC);
   }
   return cudaGetLastError();
 }
@@ -195,14 +295,24 @@ int sven_hinge_xtv(const void* X, int bf16, const float* v, const float* y,
               : launch_xtv<float>(X, v, y, at, ab, d, e_part, n, p, invt, s);
 }
 
+// Rows per row group and column chunks of pass 2 (the wrapper sizes part as
+// (n, chunks) and ticket as (ceil(n / rows),) from these).
+int sven_hinge_xd_rows(int p) { return xd_rows(p); }
+int sven_hinge_xd_chunks(int p) { return xd_chunks(p); }
+
 // X as above; d (p,), e_part (n_epart,), y, v (n,) float32 in; hv (n,) out.
+// With more than one chunk: part (n, chunks) float32 scratch, and ticket
+// (ceil(n / rows),) int32, all 0 on entry and left 0 (else both may be null).
+// One launch on `stream`; launches that share a ticket buffer must be
+// ordered (one stream).
 int sven_hinge_xd(const void* X, int bf16, const float* d, const float* e_part,
-                  int n_epart, const float* y, const float* v, float* hv, int n, int p,
-                  float invt, float twoC, void* stream) {
+                  int n_epart, const float* y, const float* v, float* hv, float* part,
+                  int* ticket, int n, int p, float invt, float twoC, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_xd<__nv_bfloat16>(X, d, e_part, n_epart, y, v, hv, n, p, invt,
-                                         twoC, s)
-              : launch_xd<float>(X, d, e_part, n_epart, y, v, hv, n, p, invt, twoC, s);
+  return bf16 ? launch_xd<__nv_bfloat16>(X, d, e_part, n_epart, y, v, hv, part, ticket,
+                                         n, p, invt, twoC, s)
+              : launch_xd<float>(X, d, e_part, n_epart, y, v, hv, part, ticket, n, p,
+                                 invt, twoC, s);
 }
 
 }  // extern "C"

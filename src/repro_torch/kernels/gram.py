@@ -3,8 +3,10 @@
 The kernel (`csrc/gram.cu`) replaces the Pallas TPU kernel
 `repro/kernels/gram.py::_gram_kernel` (and its Pallas-Triton twin
 `repro/kernels/gram_gpu.py::_gram_gpu_kernel`): K = Zhat^T Zhat of the SVEN
-dual, from the original (n, p) X, in one pass over X. The source says what
-bounds it and how it is laid out. `shifted_gram_cuda.launches` counts the
+dual, from the original (n, p) X, in one pass over X. Float64 operands at
+precision "f32" are summed in float64 (the kernel's mode 3); every other
+mode sums in float32. The source says what bounds it and how it is laid
+out. `shifted_gram_cuda.launches` counts the
 launches (a plain integer; callers reset it).
 """
 from __future__ import annotations
@@ -16,14 +18,18 @@ import torch
 from repro_torch.kernels import _build
 
 _MODES = {"f32": 0, "tf32": 1, "bf16": 2}
-_ptr, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_F64_MODE = 3
+#: the operand dtypes each precision takes; nothing is cast here
+_DTYPES = {"f32": (torch.float32, torch.float64), "tf32": (torch.float32,),
+           "bf16": (torch.bfloat16,)}
+_ptr, _int, _double = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 
 
 def _lib():
     lib = _build.load("gram")
     if not getattr(lib, "_typed", False):
         lib.sven_gram.argtypes = [_ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int,
-                                  _float, _int, _int, _ptr]
+                                  _double, _int, _int, _ptr]
         lib.sven_gram.restype = _int
         lib.sven_gram_tile.restype = _int
         lib.sven_gram_rows_step.restype = _int
@@ -43,30 +49,33 @@ def split_rows(n: int, p: int, sm_count: int, tile: int, step: int):
 
 def shifted_gram_cuda(X: torch.Tensor, y: torch.Tensor, t: float, *,
                       precision: str = "f32", flatten: bool = True) -> torch.Tensor:
-    """K = Zhat^T Zhat, (2p, 2p) if `flatten` else (2, 2, p, p), float32.
+    """K = Zhat^T Zhat, (2p, 2p) if `flatten` else (2, 2, p, p).
 
-    X (n, p) and y (n,) are float32 for precision "f32"/"tf32" and bfloat16
-    for "bf16", contiguous, on one CUDA device. Launches on the current
-    stream; raises on a wrong operand or a refused launch.
+    X (n, p) and y (n,) share one dtype: float32 or float64 for precision
+    "f32", float32 for "tf32", bfloat16 for "bf16"; contiguous, on one CUDA
+    device. K is float64 for float64 operands (summed in float64) and
+    float32 otherwise. Launches on the current stream; raises on a wrong
+    operand or a refused launch.
     """
     if precision not in _MODES:
         raise ValueError(f"shifted_gram_cuda: precision must be one of "
                          f"{tuple(_MODES)}, got {precision!r}")
-    want = (torch.bfloat16,) if precision == "bf16" else (torch.float32,)
-    n, p = _build.check_matrix("shifted_gram_cuda", X, want)
-    _build.check_operand("shifted_gram_cuda", "y", y, (n,), want, X.device)
+    n, p = _build.check_matrix("shifted_gram_cuda", X, _DTYPES[precision])
+    _build.check_operand("shifted_gram_cuda", "y", y, (n,), (X.dtype,), X.device)
+    f64 = X.dtype == torch.float64
+    acc = torch.float64 if f64 else torch.float32
     lib = _lib()
     with torch.cuda.device(X.device):
         sms = torch.cuda.get_device_properties(X.device).multi_processor_count
         rows, nsplit = split_rows(n, p, sms, lib.sven_gram_tile(),
                                   lib.sven_gram_rows_step())
         q = p + 1
-        part = torch.empty((nsplit, q, q), dtype=torch.float32, device=X.device)
+        part = torch.empty((nsplit, q, q), dtype=acc, device=X.device)
         shape = (2 * p, 2 * p) if flatten else (2, 2, p, p)
-        K = torch.empty(shape, dtype=torch.float32, device=X.device)
+        K = torch.empty(shape, dtype=acc, device=X.device)
         err = lib.sven_gram(X.data_ptr(), y.data_ptr(), part.data_ptr(), K.data_ptr(),
-                            n, p, rows, nsplit, 1.0 / float(t),
-                            int(flatten), _MODES[precision],
+                            n, p, rows, nsplit, float(t), int(flatten),
+                            _F64_MODE if f64 else _MODES[precision],
                             torch.cuda.current_stream(X.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"shifted_gram_cuda: launch failed with CUDA error {err}")

@@ -10,7 +10,10 @@
 
 Each wrapper counts its launches in `<wrapper>.launches` (a plain integer;
 callers reset it). The source says what bounds each pass and how it is laid
-out.
+out. Pass 2 cuts wide rows into column chunks: its wrapper allocates the
+per-chunk partials for each call, and keeps one zeroed int32 ticket buffer
+per device and size, which every launch leaves at zero again. Launches that
+share a buffer must therefore be ordered on one stream, as the solver's are.
 """
 from __future__ import annotations
 
@@ -32,12 +35,27 @@ def _lib():
                                        _int, _int, _float, _ptr]
         lib.sven_hinge_xtv.restype = _int
         lib.sven_hinge_xd.argtypes = [_ptr, _int, _ptr, _ptr, _int, _ptr, _ptr, _ptr,
-                                      _int, _int, _float, _float, _ptr]
+                                      _ptr, _ptr, _int, _int, _float, _float, _ptr]
         lib.sven_hinge_xd.restype = _int
-        lib.sven_hinge_xtv_blocks.argtypes = [_int]
-        lib.sven_hinge_xtv_blocks.restype = _int
+        for fn in (lib.sven_hinge_xtv_blocks, lib.sven_hinge_xd_rows,
+                   lib.sven_hinge_xd_chunks):
+            fn.argtypes = [_int]
+            fn.restype = _int
         lib._typed = True
     return lib
+
+
+#: (device, row groups) -> the int32 ticket counters of pass 2, all zero
+#: between launches
+_TICKETS = {}
+
+
+def _tickets(device: torch.device, groups: int) -> torch.Tensor:
+    buf = _TICKETS.get((device, groups))
+    if buf is None:
+        buf = _TICKETS[(device, groups)] = torch.zeros(groups, dtype=torch.int32,
+                                                       device=device)
+    return buf
 
 
 def hinge_xtv_cuda(X: torch.Tensor, y: torch.Tensor, v: torch.Tensor, t: float,
@@ -85,11 +103,18 @@ def hinge_xd_cuda(X: torch.Tensor, y: torch.Tensor, d: torch.Tensor,
         _build.check_operand(fn, name, x, shape, _F32, X.device)
     lib = _lib()
     hv = torch.empty(n, dtype=torch.float32, device=X.device)
+    chunks = lib.sven_hinge_xd_chunks(p)
+    part = ticket = None
+    if chunks > 1:
+        part = torch.empty((n, chunks), dtype=torch.float32, device=X.device)
+        ticket = _tickets(X.device, -(-n // lib.sven_hinge_xd_rows(p)))
     with torch.cuda.device(X.device):
         err = lib.sven_hinge_xd(X.data_ptr(), int(X.dtype == torch.bfloat16),
                                 d.data_ptr(), e_part.data_ptr(), e_part.numel(),
-                                y.data_ptr(), v.data_ptr(), hv.data_ptr(), n, p,
-                                1.0 / float(t), 2.0 * float(C),
+                                y.data_ptr(), v.data_ptr(), hv.data_ptr(),
+                                None if part is None else part.data_ptr(),
+                                None if ticket is None else ticket.data_ptr(),
+                                n, p, 1.0 / float(t), 2.0 * float(C),
                                 torch.cuda.current_stream(X.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")

@@ -6,8 +6,10 @@ from the operands' device. On a CUDA tensor the kernel runs or the call
 raises; nothing drops to the plain version.
 
 `precision` ("f32" | "bf16" | "tf32") selects the storage dtype of X (and
-of y in the Gram) and the Gram's multiply mode; sums are float32 in every
-mode. PyTorch counterpart of `repro/kernels/ops.py` (`shifted_gram`,
+of y in the Gram) and the Gram's multiply mode. Sums are float32 in every
+mode, except that float64 operands of the Gram at "f32" are summed in
+float64 (the kernel's float64 body, and the plain version in the operands'
+dtype), so a float64 problem gets its own float64 K. PyTorch counterpart of `repro/kernels/ops.py` (`shifted_gram`,
 `hinge_hessian_matvec`, `hinge_stats`); the Pallas tile arguments have no
 counterpart.
 """

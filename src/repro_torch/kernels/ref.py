@@ -19,7 +19,10 @@ def _acc(x: torch.Tensor) -> torch.Tensor:
 
 def round_tf32(x: torch.Tensor) -> torch.Tensor:
     """Round float32 to TF32 (10 mantissa bits), to nearest with ties away
-    from zero: the `cvt.rna.tf32.f32` rounding of the CUDA Gram kernel."""
+    from zero: the `cvt.rna.tf32.f32` rounding of the CUDA Gram kernel.
+    Takes float32 only, as the kernel's tf32 mode does."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"round_tf32: x is {x.dtype}, expected torch.float32")
     bits = x.contiguous().view(torch.int32)
     bits = (bits + 0x1000) & ~0x1FFF
     return bits.view(torch.float32)
@@ -31,8 +34,10 @@ def gram_blocks_ref(X: torch.Tensor, y: torch.Tensor, t: float,
 
         K[a, b, i, j] = s_a s_b G_ij - s_a u_i - s_b u_j + s
 
-    with s_0=+1, s_1=-1, G = X^T X, u = X^T y / t, s = y^T y / t^2.
-    `precision="tf32"` rounds X and y to TF32 first, as the kernel does.
+    with s_0=+1, s_1=-1, G = X^T X, u = X^T y / t, s = y^T y / t^2, in the
+    operands' dtype (float32 for bfloat16 storage; float64 operands give
+    the float64 K of the kernel's float64 body). `precision="tf32"` rounds
+    float32 X and y to TF32 first, as the kernel does.
     """
     X, y = _acc(X), _acc(y)
     if precision == "tf32":

@@ -7,7 +7,9 @@ multiplier nu within 1e-10 * lambda1_max and the budget t within
 against warm-started coordinate descent within 1e-5 on a 40-point grid
 (tests/test_api_cv.py::test_enet_path_matches_cd_40_points); the default
 config on CPU tensors (the kernels' plain float32 versions, "ref") within
-the f32 kernel path's 5e-4 * max|beta| (tests/test_sven_equivalence.py).
+the f32 kernel path's 5e-4 * max|beta| (tests/test_sven_equivalence.py);
+both packages' defaults on a float64 dual problem (the port's Gram summed
+in float64) beta within 1e-10, with the same Illinois evaluations.
 """
 import dataclasses
 
@@ -121,6 +123,18 @@ def test_default_config_runs_the_plain_kernels_on_cpu():
                                atol=5e-4 * scale)
     assert sum(kp.evals) > 0 and sum(kp.cg_iters) > 0
     assert tapi.resolve_path_config(tapi.PathConfig(), Xt).solver.backend == "ref"
+
+
+def test_default_path_config_matches_jax_default():
+    """`enet_path` with both packages' default PathConfig() on a float64
+    dual problem (one Gram per evaluation): the port's "ref" Gram body sums
+    in float64, so every point takes JAX "xla"'s evaluations and beta."""
+    (X, y), (Xj, yj), (Xt, yt) = _problem("dual", seed=5)
+    assert tapi.resolve_path_config(tapi.PathConfig(), Xt).solver.backend == "ref"
+    jp = japi.enet_path(Xj, yj, n_lambdas=12, lambda2=0.9)
+    tp = tapi.enet_path(Xt, yt, n_lambdas=12, lambda2=0.9)
+    assert tp.evals == tuple(int(e) for e in np.asarray(jp.evals))
+    np.testing.assert_allclose(npy(tp.betas), npy(jp.betas), rtol=0, atol=TOL)
 
 
 def test_screen_on_off_identical():

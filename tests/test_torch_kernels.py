@@ -237,6 +237,9 @@ def test_wrappers_raise_on_cpu_tensors_instead_of_falling_back():
         tops.hinge_stats(X, y, 1.1, v, 2.5, backend="cuda")
     with pytest.raises(ValueError, match="precision"):
         tops.shifted_gram(X, y, 0.9, precision="fp8")
+    # tf32 rounds float32 only, in the plain version as in the kernel
+    with pytest.raises(TypeError, match="float32"):
+        tops.shifted_gram(X.double(), y.double(), 0.9, precision="tf32")
 
 
 def test_plain_ops_launch_no_kernel():

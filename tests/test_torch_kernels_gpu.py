@@ -7,7 +7,9 @@ it (tests/conftest.py imports JAX, hence `--noconftest`):
 
 Bounds: float32 and tf32 1e-5 * scale (the plain tf32 version rounds the
 operands exactly as the kernel does, so only the order of f32 sums
-differs); bfloat16 storage 2e-2 * scale (tests/test_kernels.py).
+differs); bfloat16 storage 2e-2 * scale (tests/test_kernels.py); the
+float64 Gram 1e-10 * max|K| (float64 sums in another order: n eps is
+1.1e-13 at n = 1000, 5.1e-11 at the YMSD shape's n = 463,715).
 """
 import importlib
 
@@ -74,6 +76,67 @@ def test_cuda_gram_matches_plain(cuda_device, n, p, precision, tol):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,p", [(33, 57), (1000, 130)])
+def test_cuda_gram_f64_matches_plain(cuda_device, n, p):
+    """Float64 operands at precision "f32" run the float64 body: K is
+    float64, within 1e-10 * max|K| of the plain float64 Gram. 1000 x 130
+    spans three 64-column tiles and many row splits."""
+    X, y, *_ = _inputs(n, p)
+    Xd, yd = (a.to(cuda_device) for a in cpu(X, y))
+    for t in (0.9, 1e6):
+        before = tgram.shifted_gram_cuda.launches
+        K = tgram.shifted_gram_cuda(Xd, yd, t)
+        Kb = tgram.shifted_gram_cuda(Xd, yd, t, flatten=False)
+        torch.cuda.synchronize()
+        assert tgram.shifted_gram_cuda.launches == before + 2
+        assert K.dtype == torch.float64 and K.shape == (2 * p, 2 * p)
+        _assert_scaled(K, tref.flatten_gram(tref.gram_blocks_ref(Xd, yd, t)), 1e-10)
+        np.testing.assert_array_equal(npy(tref.flatten_gram(Kb)), npy(K))
+        # the op hands float64 operands at "f32" to the same body
+        np.testing.assert_array_equal(npy(tops.shifted_gram(Xd, yd, t)), npy(K))
+
+
+#: pass 2's layouts: odd p >= 1024 in several 4,096-column chunks (the
+#: GLA-BRA-180 shape among them), p >= 1024 in one chunk, and p < 1024 (one
+#: warp per row); n not a multiple of the row group (4, or 8 below 1024)
+XD_SHAPES = [(37, 4099), (180, 49_151), (37, 1500), (33, 57), (57, 33), (7, 513)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,p", XD_SHAPES)
+@pytest.mark.parametrize("precision,tol", DTYPES)
+def test_cuda_hinge_xd_matches_plain(cuda_device, n, p, precision, tol):
+    X, y, v, at, ab = (a.to(cuda_device) for a in _f32(*_inputs(n, p)))
+    Xs = tops._storage(X, precision)
+    dr, er = tref.hinge_xtv_ref(Xs, y, v, 1.1, at, ab)
+    before = thinge.hinge_xd_cuda.launches
+    hv = thinge.hinge_xd_cuda(Xs, y, dr, er.reshape(1), v, 1.1, 2.5)
+    torch.cuda.synchronize()
+    assert thinge.hinge_xd_cuda.launches == before + 1
+    _assert_scaled(hv, tref.hinge_xd_ref(Xs, y, dr, er, v, 1.1, 2.5), tol, floor=1.0)
+    # both passes, as the solver calls them
+    d, e_part = thinge.hinge_xtv_cuda(Xs, y, v, 1.1, at, ab)
+    _assert_scaled(thinge.hinge_xd_cuda(Xs, y, d, e_part, v, 1.1, 2.5),
+                   tref.hessian_matvec_ref(Xs, y, 1.1, 2.5, at, ab, v), tol, floor=1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,p", [(37, 4099), (180, 49_151)])
+def test_cuda_hinge_xd_repeats_exactly(cuda_device, n, p):
+    """Launches in a row give equal H v (a fixed summation order, no float
+    atomics) and leave the ticket counters at 0, so the next launch finds
+    its last block again."""
+    X, y, v, at, ab = (a.to(cuda_device) for a in _f32(*_inputs(n, p)))
+    d, e_part = thinge.hinge_xtv_cuda(X, y, v, 1.1, at, ab)
+    first = thinge.hinge_xd_cuda(X, y, d, e_part, v, 1.1, 2.5)
+    for _ in range(3):
+        assert torch.equal(thinge.hinge_xd_cuda(X, y, d, e_part, v, 1.1, 2.5), first)
+    torch.cuda.synchronize()
+    tickets = [b for (dev, _), b in thinge._TICKETS.items() if dev == X.device]
+    assert tickets and all(int(b.abs().sum()) == 0 for b in tickets)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n,p", SHAPES + [(180, 2000)])
 @pytest.mark.parametrize("precision,tol", DTYPES)
 def test_cuda_hinge_matches_plain(cuda_device, n, p, precision, tol):
@@ -129,8 +192,12 @@ def test_cuda_hinge_stats_matches_plain(cuda_device, n, p, precision):
 @pytest.mark.gpu
 def test_cuda_wrappers_reject_bad_operands(cuda_device):
     X, y, v, at, ab = (a.to(cuda_device) for a in _f32(*_inputs(33, 57)))
+    # float64 operands run only at "f32" (the float64 body): nothing is cast
+    for precision in ("tf32", "bf16"):
+        with pytest.raises(TypeError):
+            tgram.shifted_gram_cuda(X.double(), y.double(), 0.9, precision=precision)
     with pytest.raises(TypeError):
-        tgram.shifted_gram_cuda(X.double(), y.double(), 0.9)
+        tgram.shifted_gram_cuda(X.double(), y, 0.9)             # y must match X
     with pytest.raises(TypeError):
         tgram.shifted_gram_cuda(X, y, 0.9, precision="bf16")   # needs bf16 storage
     with pytest.raises(ValueError, match="contiguous"):

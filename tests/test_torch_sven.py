@@ -4,13 +4,16 @@
 Bounds: plain "torch" vs JAX "xla" 1e-10 in beta; the kernel path ("ref"
 on the CPU, f32 kernels, no refinement) vs JAX "tpu_interpret"
 5e-4 * max|beta| (tests/test_sven_equivalence.py); bf16 dual + refinement
-1e-10 of the plain solve (tests/test_kernels_gpu.py)."""
+1e-10 of the plain solve (tests/test_kernels_gpu.py); the default config on
+a float64 dual problem (its Gram summed in float64) vs JAX's default "xla"
+1e-10 with equal Newton iterations."""
 import dataclasses
 import importlib
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from _torch_parity import cpu, npy, problem
 from repro_torch.convert import config_from_jax, problem_from_numpy, warm_from_jax
@@ -53,6 +56,46 @@ def test_kernel_path_matches_jax_interpret(mode):
                         SvenConfig(mode=mode, tol=1e-6))
     scale = max(1.0, float(np.abs(npy(js.beta)).max()))
     np.testing.assert_allclose(npy(ts.beta), npy(js.beta), rtol=0, atol=5e-4 * scale)
+
+
+def test_default_dual_matches_jax_default():
+    """Both packages' default SvenConfig() on a float64 dual problem: the
+    port's "ref" Gram body sums the float64 operands in float64, so it gives
+    JAX "xla"'s answer, with the same Newton iterations."""
+    n, p = MODES["dual"]
+    X, y = problem(n, p, seed=11, k_true=6)
+    jcfg = jsven_mod.SvenConfig()
+    assert jcfg.backend == "xla" and SvenConfig().backend == "auto"
+    js = jsven_mod.sven(jnp.asarray(X), jnp.asarray(y), 1.8, 0.7, jcfg)
+    ts = tsven_mod.sven(*problem_from_numpy(X, y, device="cpu"), 1.8, 0.7, SvenConfig())
+    assert ts.mode == js.mode == "dual"
+    np.testing.assert_allclose(npy(ts.beta), npy(js.beta), rtol=0, atol=1e-10)
+    assert ts.iters == int(js.iters)
+
+
+@pytest.mark.parametrize("dtype,precision,want", [
+    (torch.float64, "f32", torch.float64), (torch.float32, "f32", torch.float32),
+    (torch.float64, "tf32", torch.float32), (torch.float64, "bf16", torch.bfloat16)])
+def test_gram_operands_follow_problem_dtype_and_precision(monkeypatch, dtype, precision,
+                                                          want):
+    """The dual's one Gram call gets float64 operands only for a float64
+    problem at "f32"; a float32 problem, and tf32/bf16, get float32 (bf16
+    storage), as before. Seen through a counting stand-in for the
+    registry's "ref" body."""
+    from repro_torch.kernels import registry
+    body = registry.lookup("shifted_gram", "ref")
+    seen = []
+
+    def counting(X, y, t, **kw):
+        seen.append((X.dtype, y.dtype, kw["precision"]))
+        return body(X, y, t, **kw)
+
+    monkeypatch.setitem(registry._REGISTRY, ("shifted_gram", "ref"), counting)
+    n, p = MODES["dual"]
+    X, y = cpu(*problem(n, p, seed=11, k_true=6), dtype=dtype)
+    sol = tsven_mod.sven(X, y, 1.8, 0.7, SvenConfig(precision=precision))
+    assert sol.mode == "dual" and sol.beta.dtype == dtype
+    assert seen == [(want, want, precision)]
 
 
 @pytest.mark.parametrize("n,p,seed", [(120, 16, 0), (200, 24, 7)])
