@@ -11,16 +11,18 @@ port's main path through the entry points a user calls:
   2. each kernel vs its plain version at the main path's shapes and at a
      ragged small shape, with its time, the plain version's time and the
      least time the card could take (its bound); the Gram in f32, tf32,
-     bf16 and float64 (what a float64 problem runs at the default
-     precision), hinge pass 2 beside the cuBLAS GEMV X d;
+     bf16 and float64, both hinge passes in f32, bf16 and float64 (what a
+     float64 problem runs at the default precision), the hinge passes
+     beside the cuBLAS GEMVs X^T v and X d;
   3. the dual solve at the shape of UCI YearPredictionMSD (n = 463,715,
      p = 90), default config (float64 Gram) and bf16 + refinement, against
      the plain float64 solve ("torch" backend) on the card;
   4. the primal solve at the shape of GLA-BRA-180 (n = 180, p = 49,151),
-     against the plain float64 solve;
+     default config (float64 hinge passes), against the plain float64
+     solve: its answer, Newton steps and CG steps;
   5. `sven_path` over an 8-point t-grid at the primal shape, against
      `sven_path_reference` (the same kernels, solved point by point) and
-     against the plain float64 path ("torch" backend);
+     against the plain float64 path ("torch" backend), with both CG counts;
   6. the public op `kernels.hinge_stats` (the hinge-stats kernel) at the
      primal solve's w (GLA-BRA-180 shape), the dual solve's w (YMSD shape)
      and a ragged shape, in f32 and bf16, against its plain version, with
@@ -192,11 +194,19 @@ def phase_kernels(torch, smoke, dev, gen):
         at = (torch.rand(p, generator=gen, dtype=torch.float64) > 0.4).to(dev, torch.float32)
         ab = (torch.rand(p, generator=gen, dtype=torch.float64) > 0.6).to(dev, torch.float32)
         t, C = 1.1, 2.5
-        for prec in ("f32", "bf16"):
-            Xs = _storage(X, prec)
-            tol = {"f32": 1e-5, "bf16": 2e-2}[prec]
-            d, e_part = hinge.hinge_xtv_cuda(Xs, y, v, t, at, ab)
-            dr, er = ref.hinge_xtv_ref(Xs, y, v, t, at, ab)
+        for prec in ("f32", "bf16", "f64"):
+            # f64: float64 operands, the kernels' float64 bodies, which a
+            # float64 problem runs on the main path
+            if prec == "f64":
+                Xs, ys, vs, ats, abs_ = (a.double() for a in (X, y, v, at, ab))
+            else:
+                Xs, ys, vs, ats, abs_ = _storage(X, prec), y, v, at, ab
+            # f64: float64 sums in another order, far under 1e-10 at these n, p
+            tol = {"f32": 1e-5, "bf16": 2e-2, "f64": 1e-10}[prec]
+            d, e_part = hinge.hinge_xtv_cuda(Xs, ys, vs, t, ats, abs_)
+            dr, er = ref.hinge_xtv_ref(Xs, ys, vs, t, ats, abs_)
+            smoke.check(d.dtype == e_part.dtype == ys.dtype,
+                        f"hinge_xtv {n}x{p} {prec}: d and e_part are {d.dtype}")
             d_err = (d - dr).abs().max().item()
             d_scale = max(1.0, dr.abs().max().item())
             smoke.check(d_err <= tol * d_scale, f"hinge_xtv {n}x{p} {prec}: max|d-d_plain|"
@@ -204,57 +214,70 @@ def phase_kernels(torch, smoke, dev, gen):
             e_err = abs(e_part.sum().item() - er.item())
             print(f"  hinge_xtv {n}x{p} {prec}: |e - e_plain| = {e_err:.3e} "
                   f"(e_plain = {er.item():.6e})", flush=True)
+            # a fixed summation order
+            smoke.check(all(torch.equal(a, b) for _ in range(3) for a, b in zip(
+                hinge.hinge_xtv_cuda(Xs, ys, vs, t, ats, abs_), (d, e_part))),
+                f"hinge_xtv {n}x{p} {prec}: three more launches give equal d and e_part")
             # pass 2 alone, from the plain (d, e)
-            hv = hinge.hinge_xd_cuda(Xs, y, dr, er.reshape(1), v, t, C)
-            hr = ref.hinge_xd_ref(Xs, y, dr, er, v, t, C)
+            hv = hinge.hinge_xd_cuda(Xs, ys, dr, er.reshape(1), vs, t, C)
+            hr = ref.hinge_xd_ref(Xs, ys, dr, er, vs, t, C)
             xd_err = (hv - hr).abs().max().item()
             h_scale = max(1.0, hr.abs().max().item())
-            smoke.check(xd_err <= tol * h_scale, f"hinge_xd {n}x{p} {prec}: "
+            smoke.check(hv.dtype == ys.dtype and xd_err <= tol * h_scale,
+                        f"hinge_xd {n}x{p} {prec}: H v is {hv.dtype}, "
                         f"max|Hv-Hv_plain| = {xd_err:.3e} <= {tol * h_scale:.3e}")
             # both passes, as the solver calls them
-            hv2 = hinge.hinge_xd_cuda(Xs, y, d, e_part, v, t, C)
-            hv_err = (hv2 - ref.hessian_matvec_ref(Xs, y, t, C, at, ab, v)).abs().max().item()
+            hv2 = hinge.hinge_xd_cuda(Xs, ys, d, e_part, vs, t, C)
+            hv_err = (hv2 - ref.hessian_matvec_ref(Xs, ys, t, C, ats, abs_, vs)
+                      ).abs().max().item()
             smoke.check(hv_err <= tol * h_scale, f"H v {n}x{p} {prec}: both kernels vs "
                         f"plain {hv_err:.3e} <= {tol * h_scale:.3e}")
             # a fixed summation order, and the ticket counters back at 0
-            smoke.check(all(torch.equal(hinge.hinge_xd_cuda(Xs, y, d, e_part, v, t, C), hv2)
-                            for _ in range(3)),
+            smoke.check(all(torch.equal(hinge.hinge_xd_cuda(Xs, ys, d, e_part, vs, t, C),
+                                        hv2) for _ in range(3)),
                         f"hinge_xd {n}x{p} {prec}: three more launches give equal H v")
             if (n, p) == GLA_BRA:
-                size = Xs.element_size()
+                size, osize = Xs.element_size(), ys.element_size()
                 nblk = e_part.numel()
                 calls = {
-                    "xtv": (lambda: hinge.hinge_xtv_cuda(Xs, y, v, t, at, ab),
-                            lambda: ref.hinge_xtv_ref(Xs, y, v, t, at, ab)),
-                    "xd": (lambda: hinge.hinge_xd_cuda(Xs, y, d, e_part, v, t, C),
-                           lambda: ref.hinge_xd_ref(Xs, y, dr, er, v, t, C)),
+                    "xtv": (lambda: hinge.hinge_xtv_cuda(Xs, ys, vs, t, ats, abs_),
+                            lambda: ref.hinge_xtv_ref(Xs, ys, vs, t, ats, abs_)),
+                    "xd": (lambda: hinge.hinge_xd_cuda(Xs, ys, d, e_part, vs, t, C),
+                           lambda: ref.hinge_xd_ref(Xs, ys, dr, er, vs, t, C)),
                 }
+                if prec != "bf16":   # one cuBLAS call on the same operands each
+                    calls["GEMV X^T v"] = (lambda: torch.mv(Xs.T, vs), None)
+                    calls["GEMV X d"] = (lambda: torch.mv(Xs, d), None)
                 # cold: L2 flushed before each launch, so the HBM bound holds;
-                # warm: X left in L2 between launches, as in the CG loop
-                cold = {k: (cuda_ms_each(torch, f, dev, True),
-                            cuda_ms_each(torch, g, dev, True)) for k, (f, g) in calls.items()}
-                warm = {k: (cuda_ms_each(torch, f, dev, False),
-                            cuda_ms_each(torch, g, dev, False)) for k, (f, g) in calls.items()}
-                bounds = {"xtv": bound(n * p * size + 4 * (2 * n + 3 * p + nblk),
-                                       2.0 * n * p + 2.0 * n + 6.0 * p, "f32"),
-                          "xd": bound(n * p * size + 4 * (p + nblk + 3 * n),
-                                      2.0 * n * p + 5.0 * n, "f32")}
-                for k in calls:
+                # warm: X left in L2 between launches, as in the CG loop (in
+                # f64, X is larger than the L2)
+                cold = {k: [cuda_ms_each(torch, f, dev, True) if f else None
+                            for f in fs] for k, fs in calls.items()}
+                warm = {k: [cuda_ms_each(torch, f, dev, False) if f else None
+                            for f in fs] for k, fs in calls.items()}
+                kind = "f64" if prec == "f64" else "f32"
+                bounds = {"xtv": bound(n * p * size + osize * (2 * n + 3 * p + nblk),
+                                       2.0 * n * p + 2.0 * n + 6.0 * p, kind),
+                          "xd": bound(n * p * size + osize * (p + nblk + 3 * n),
+                                      2.0 * n * p + 5.0 * n, kind)}
+                for k in ("xtv", "xd"):
                     print(f"  hinge {k} {prec} at {n}x{p}: L2 cold {cold[k][0]:.4f} ms "
                           f"(plain {cold[k][1]:.4f}, HBM bound {bounds[k][0]:.4f} "
                           f"{bounds[k][1]}); L2 warm {warm[k][0]:.4f} ms (plain "
                           f"{warm[k][1]:.4f}); X = {n * p * size / 1e6:.1f} MB", flush=True)
-                if prec == "f32":   # X d alone, one cuBLAS call on the same operands
-                    print(f"  GEMV X d (torch.mv) f32 at {n}x{p}: L2 cold "
-                          f"{cuda_ms_each(torch, lambda: torch.mv(Xs, d), dev, True):.4f} ms, "
-                          f"warm {cuda_ms_each(torch, lambda: torch.mv(Xs, d), dev, False):.4f} ms",
-                          flush=True)
-                if prec == "f32":
+                for k in calls:
+                    if k.startswith("GEMV"):
+                        print(f"  {k} (torch.mv) {prec} at {n}x{p}: L2 cold "
+                              f"{cold[k][0]:.4f} ms, warm {warm[k][0]:.4f} ms", flush=True)
+                if prec == "f64":   # what the main path runs on its float64 data
                     errs = {"xtv": d_err, "xd": xd_err}
-                    for k in calls:
+                    gemv = {"xtv": "GEMV X^T v", "xd": "GEMV X d"}
+                    for k in ("xtv", "xd"):
                         rows[f"hinge_{k}_cuda"] = dict(
                             max_abs_err=errs[k], ms=cold[k][0], plain_ms=cold[k][1],
-                            bound_ms=bounds[k][0], bound_by=bounds[k][1], library_ms=None)
+                            bound_ms=bounds[k][0], bound_by=bounds[k][1],
+                            library_ms=cold[gemv[k]][0])
+            del Xs, ys, vs, ats, abs_
         del X, y
     return rows
 
@@ -410,13 +433,20 @@ def phase_front_end(torch, smoke, kernels, svm_state, count, ymsd, glabra):
           f"{abs(model.nu_.item() - lam1) / lam1:.3e}, intercept dev "
           f"{abs(model.intercept_.item() - ref.intercept_.item()):.3e}", flush=True)
     print(f"    torch f64: {ref_s:.3f} s, {ref_syncs} host syncs, {ref.result_.evals} "
-          f"evals, {ref.result_.cg_iters} CG, KKT {kkt(ref):.3e}", flush=True)
+          f"evals, {ref.result_.sven_iters} Newton / {ref.result_.cg_iters} CG, KKT "
+          f"{kkt(ref):.3e}", flush=True)
     smoke.check(bool(torch.isfinite(model.coef_).all()) and model.coef_.shape == (p,),
                 "coef_ finite, shape (p,)")
     smoke.check(launched["hinge_xtv_cuda"] == launched["hinge_xd_cuda"] == res.cg_iters > 0,
                 "exactly one launch of each hinge pass per CG step")
-    smoke.check(dev_b <= 5e-4 * scale, f"max|coef - coef_torch| = {dev_b:.3e} <= "
-                f"5e-4 * max|coef| = {5e-4 * scale:.3e}")
+    # the float64 hinge passes give the reference's fit
+    smoke.check(res.evals == ref.result_.evals,
+                f"evaluations {res.evals} = float64's {ref.result_.evals}")
+    cg_rel = abs(res.cg_iters - ref.result_.cg_iters) / ref.result_.cg_iters
+    smoke.check(cg_rel <= 0.02, f"CG steps {res.cg_iters} within 2 % of float64's "
+                f"{ref.result_.cg_iters} ({100 * cg_rel:.2f} %)")
+    smoke.check(dev_b <= 1e-8 * scale, f"max|coef - coef_torch| = {dev_b:.3e} <= "
+                f"1e-8 * max|coef| = {1e-8 * scale:.3e}")
 
 
 def run_path(torch, kernels, svm_state, fn):
@@ -542,17 +572,25 @@ def main() -> int:
     count(launched)
     scale = ref_sol.beta.abs().max().item()
     dev_b = max_dev(torch, sol.beta, ref_sol.beta)
-    print(f"    default: mode {sol.mode}, {sol.iters} Newton / {sol.cg_iters} CG "
-          f"iterations (= H v products), kkt {sol.kkt.item():.3e}, {secs:.3f} s, "
-          f"{syncs} host syncs, launches {launched}; torch f64: {ref_sol.iters} Newton "
-          f"/ {ref_sol.cg_iters} CG, {ref_s:.3f} s, {ref_syncs} syncs", flush=True)
+    print(f"    default (float64 hinge passes): mode {sol.mode}, {sol.iters} Newton / "
+          f"{sol.cg_iters} CG iterations (= H v products), kkt {sol.kkt.item():.3e}, "
+          f"{secs:.3f} s, {syncs} host syncs, launches {launched}; torch f64: "
+          f"{ref_sol.iters} Newton / {ref_sol.cg_iters} CG, kkt {ref_sol.kkt.item():.3e}, "
+          f"{ref_s:.3f} s, {ref_syncs} syncs", flush=True)
     smoke.check(sol.mode == "primal", "GLA-BRA-180 shape takes the primal branch")
     smoke.check(launched["hinge_xtv_cuda"] == launched["hinge_xd_cuda"] == sol.cg_iters > 0,
                 "exactly one launch of each hinge pass per H v product")
     smoke.check(bool(torch.isfinite(sol.beta).all()) and sol.beta.shape == (p,),
                 "beta finite, shape (p,)")
-    smoke.check(dev_b <= 5e-4 * scale, f"max|beta - beta_torch| = {dev_b:.3e} <= "
-                f"5e-4 * max|beta| = {5e-4 * scale:.3e}")
+    # the float64 hinge passes give the reference's solve: its Newton steps,
+    # its CG steps up to the summation order, and its answer
+    smoke.check(sol.iters == ref_sol.iters,
+                f"Newton steps {sol.iters} = float64's {ref_sol.iters}")
+    cg_rel = abs(sol.cg_iters - ref_sol.cg_iters) / ref_sol.cg_iters
+    smoke.check(cg_rel <= 0.01, f"CG steps {sol.cg_iters} within 1 % of float64's "
+                f"{ref_sol.cg_iters} ({100 * cg_rel:.2f} %)")
+    smoke.check(dev_b <= 1e-8 * scale, f"max|beta - beta_torch| = {dev_b:.3e} <= "
+                f"1e-8 * max|beta| = {1e-8 * scale:.3e}")
     glabra_case = ("primal w", X, y, t, sol.w, svm_C(LAMBDA2))
 
     # -- 5. sven_path at the primal shape --------------------------------------
@@ -563,21 +601,32 @@ def main() -> int:
     count(launched)
     ref_betas, ref_s, _, _ = run_path(
         torch, kernels, svm_state, lambda: sven_path_reference(X, y, ts, LAMBDA2))
-    plain_betas, plain_s, _, _ = run_path(
-        torch, kernels, svm_state,
-        lambda: sven_path(X, y, ts, LAMBDA2, SvenConfig(backend="torch")))
+    def plain_path():
+        """`sven_path` on the plain float64 backend, solved point by point
+        with its warm starts (`sven_path_reference`), counting CG steps."""
+        out, cg, warm = [], 0, {}
+        for tt in ts:
+            s_ = sven(X, y, tt, LAMBDA2, SvenConfig(backend="torch"), **warm)
+            out.append(s_.beta)
+            cg += s_.cg_iters
+            warm = dict(warm_alpha=s_.alpha, warm_w=s_.w)
+        return torch.stack(out), cg
+
+    (plain_betas, plain_cg), plain_s, _, _ = run_path(torch, kernels, svm_state,
+                                                      plain_path)
     dev_p = max_dev(torch, betas, ref_betas)
     dev_plain = max_dev(torch, betas, plain_betas)
     scale = plain_betas.abs().max().item()
-    print(f"    path {secs:.3f} s, {syncs} host syncs, launches {launched}; reference "
-          f"{ref_s:.3f} s; torch f64 path {plain_s:.3f} s", flush=True)
+    print(f"    path {secs:.3f} s, {syncs} host syncs, launches {launched}, "
+          f"{launched['hinge_xtv_cuda']} CG; reference {ref_s:.3f} s; torch f64 path "
+          f"(point by point) {plain_s:.3f} s, {plain_cg} CG", flush=True)
     smoke.check(betas.shape == (len(ts), p) and bool(torch.isfinite(betas).all()),
                 "path betas finite, shape (8, p)")
     smoke.check(launched["hinge_xtv_cuda"] > 0 and launched["hinge_xd_cuda"] > 0,
                 "the path ran the hinge kernels")
     smoke.check(dev_p <= 1e-10, f"max|path - path_reference| = {dev_p:.3e} <= 1e-10")
-    smoke.check(dev_plain <= 5e-4 * scale, f"max|path - path_torch| = {dev_plain:.3e} "
-                f"<= 5e-4 * max|beta| = {5e-4 * scale:.3e}")
+    smoke.check(dev_plain <= 1e-8 * scale, f"max|path - path_torch| = {dev_plain:.3e} "
+                f"<= 1e-8 * max|beta| = {1e-8 * scale:.3e}")
 
     del betas, ref_betas, plain_betas, sol, ref_sol
 

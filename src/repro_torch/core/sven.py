@@ -6,13 +6,13 @@ Dispatch (paper §3, "Implementation details"):
 
 On the kernel backends the dual caches K = Zhat^T Zhat from the fused
 shifted-Gram kernel and the primal's CG mat-vec is the two-pass hinge
-Hessian kernel. At the default precision "f32" a float64 problem hands the
-Gram its float64 X and y, and the kernel sums in float64, so the dual
-solves on the problem's own K, as the plain backend does; a float32
-problem hands it float32 operands. The hinge kernels take float32 operands
-(or bfloat16 storage), and their results are cast back to the problem
-dtype, which drives the solvers. Under "bf16"/"tf32" the Gram takes
-float32 (or bfloat16) operands and sums in float32, and the dual gets one
+Hessian kernel. At the default precision "f32" a float64 problem hands
+both its float64 operands, and the kernels sum in float64: the dual solves
+on the problem's own K and the primal's H v is the problem's own float64
+product, as on the plain backend. A float32 problem hands them float32
+operands. Under "bf16"/"tf32" the kernels take float32 operands (bfloat16
+storage of X under "bf16") and sum in float32; their results are cast back
+to the problem dtype, which drives the solvers, and the dual gets one
 full-precision matrix-free refinement re-solve, warm-started from the
 low-precision alpha.
 
@@ -123,6 +123,14 @@ def _operands(X, y):
     return X, y
 
 
+def _kernel_dtype(dtype: torch.dtype, precision: str) -> torch.dtype:
+    """The dtype a solve hands the kernels: a float64 problem at "f32" keeps
+    float64 (the kernels then sum in float64); everything else is float32
+    (stored as bfloat16 under "bf16")."""
+    wide = dtype == torch.float64 and precision == "f32"
+    return torch.float64 if wide else torch.float32
+
+
 def _floats(ts) -> list:
     if isinstance(ts, torch.Tensor):
         return [float(t) for t in ts.detach().cpu().tolist()]
@@ -161,15 +169,16 @@ def _sven_core(X, y, t: float, lambda2: float, warm_alpha, warm_w,
         hess_matvec = None
         if kernels:
             from repro_torch.kernels.ops import _storage, hinge_hessian_matvec
-            # the kernel operands are made once per solve, not per CG step
-            Xk = _storage(X.to(torch.float32).contiguous(), config.precision)
-            yk = y.to(torch.float32).contiguous()
+            # the kernel operands are made once per solve, not per CG step;
+            # float64 ones are the problem's own tensors, cast nowhere
+            kdtype = _kernel_dtype(dtype, config.precision)
+            Xk = _storage(X.to(kdtype).contiguous(), config.precision)
+            yk = y.to(kdtype).contiguous()
 
             def hess_matvec(v, act, C_):  # the fused two-pass H v kernel
                 hv = hinge_hessian_matvec(
-                    Xk, yk, t, C_, act[:p].to(torch.float32),
-                    act[p:].to(torch.float32), v.to(torch.float32),
-                    backend=config.backend, precision=config.precision)
+                    Xk, yk, t, C_, act[:p].to(kdtype), act[p:].to(kdtype),
+                    v.to(kdtype), backend=config.backend, precision=config.precision)
                 return hv.to(dtype)
 
         res = solve_primal_newton(
@@ -194,10 +203,7 @@ def _sven_core(X, y, t: float, lambda2: float, warm_alpha, warm_w,
     if cache == "blocks":
         if kernels:
             from repro_torch.kernels.ops import shifted_gram
-            # a float64 problem at "f32" keeps its float64 operands (the
-            # Gram then sums in float64); everything else is float32
-            wide = dtype == torch.float64 and config.precision == "f32"
-            kdtype = torch.float64 if wide else torch.float32
+            kdtype = _kernel_dtype(dtype, config.precision)
             K = shifted_gram(X.to(kdtype).contiguous(), y.to(kdtype).contiguous(), t,
                              backend=config.backend,
                              precision=config.precision).to(dtype)

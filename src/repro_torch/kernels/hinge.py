@@ -8,6 +8,9 @@
   pass 2 (`hinge_xd_cuda`) replaces `repro/kernels/hinge.py::_xd_kernel`:
       H v = v + 2C (X d + (y/t) e), with e summed from the partials.
 
+X is float32 or bfloat16 storage, with every other operand and every sum
+float32, or float64, with every other operand and every sum float64 (the
+kernels' float64 mode, which a float64 problem runs at precision "f32").
 Each wrapper counts its launches in `<wrapper>.launches` (a plain integer;
 callers reset it). The source says what bounds each pass and how it is laid
 out. Pass 2 cuts wide rows into column chunks: its wrapper allocates the
@@ -23,19 +26,26 @@ import torch
 
 from repro_torch.kernels import _build
 
-_ptr, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_X_DTYPES = (torch.float32, torch.bfloat16)
-_F32 = (torch.float32,)
+_ptr, _int, _double = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+#: X's dtype -> the kernels' mode
+_MODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
+_X_DTYPES = tuple(_MODES)
+
+
+def _operand_dtype(X: torch.Tensor) -> torch.dtype:
+    """The dtype of every operand but X, and of every result: float64 for
+    float64 X, else float32."""
+    return torch.float64 if X.dtype == torch.float64 else torch.float32
 
 
 def _lib():
     lib = _build.load("hinge")
     if not getattr(lib, "_typed", False):
         lib.sven_hinge_xtv.argtypes = [_ptr, _int, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
-                                       _int, _int, _float, _ptr]
+                                       _int, _int, _double, _ptr]
         lib.sven_hinge_xtv.restype = _int
         lib.sven_hinge_xd.argtypes = [_ptr, _int, _ptr, _ptr, _int, _ptr, _ptr, _ptr,
-                                      _ptr, _ptr, _int, _int, _float, _float, _ptr]
+                                      _ptr, _ptr, _int, _int, _double, _double, _ptr]
         lib.sven_hinge_xd.restype = _int
         for fn in (lib.sven_hinge_xtv_blocks, lib.sven_hinge_xd_rows,
                    lib.sven_hinge_xd_chunks):
@@ -60,22 +70,24 @@ def _tickets(device: torch.device, groups: int) -> torch.Tensor:
 
 def hinge_xtv_cuda(X: torch.Tensor, y: torch.Tensor, v: torch.Tensor, t: float,
                    act_top: torch.Tensor, act_bot: torch.Tensor):
-    """Pass 1: returns (d (p,), e_part (ceil(p/32),)), float32; e = e_part.sum().
+    """Pass 1: returns (d (p,), e_part (k,)) with e = e_part.sum(), float64
+    for float64 X and float32 otherwise.
 
-    X (n, p) float32 or bfloat16; y, v (n,) and act_top, act_bot (p,) float32;
-    all contiguous on one CUDA device.
+    X (n, p) float32, bfloat16 or float64; y, v (n,) and act_top, act_bot
+    (p,) float64 with float64 X, else float32; all contiguous on one CUDA
+    device. Nothing is cast: another dtype raises.
     """
     fn = "hinge_xtv_cuda"
     n, p = _build.check_matrix(fn, X, _X_DTYPES)
+    acc = _operand_dtype(X)
     for name, x, shape in (("y", y, (n,)), ("v", v, (n,)),
                            ("act_top", act_top, (p,)), ("act_bot", act_bot, (p,))):
-        _build.check_operand(fn, name, x, shape, _F32, X.device)
+        _build.check_operand(fn, name, x, shape, (acc,), X.device)
     lib = _lib()
-    d = torch.empty(p, dtype=torch.float32, device=X.device)
-    e_part = torch.empty(lib.sven_hinge_xtv_blocks(p), dtype=torch.float32,
-                         device=X.device)
+    d = torch.empty(p, dtype=acc, device=X.device)
+    e_part = torch.empty(lib.sven_hinge_xtv_blocks(p), dtype=acc, device=X.device)
     with torch.cuda.device(X.device):
-        err = lib.sven_hinge_xtv(X.data_ptr(), int(X.dtype == torch.bfloat16),
+        err = lib.sven_hinge_xtv(X.data_ptr(), _MODES[X.dtype],
                                  v.data_ptr(), y.data_ptr(), act_top.data_ptr(),
                                  act_bot.data_ptr(), d.data_ptr(), e_part.data_ptr(),
                                  n, p, 1.0 / float(t),
@@ -89,27 +101,30 @@ def hinge_xtv_cuda(X: torch.Tensor, y: torch.Tensor, v: torch.Tensor, t: float,
 def hinge_xd_cuda(X: torch.Tensor, y: torch.Tensor, d: torch.Tensor,
                   e_part: torch.Tensor, v: torch.Tensor, t: float, C: float
                   ) -> torch.Tensor:
-    """Pass 2: H v = v + 2C (X d + (y/t) e) with e = sum(e_part), float32 (n,).
+    """Pass 2: H v = v + 2C (X d + (y/t) e) with e = sum(e_part), (n,) in
+    the operands' dtype.
 
-    X as for pass 1; d (p,), e_part (k,), y, v (n,) float32 on the same device.
+    X as for pass 1; d (p,), e_part (k,), y, v (n,) of pass 1's operand
+    dtype, on the same device.
     """
     fn = "hinge_xd_cuda"
     n, p = _build.check_matrix(fn, X, _X_DTYPES)
     if not (isinstance(e_part, torch.Tensor) and e_part.dim() == 1
             and e_part.numel() > 0):
         raise ValueError(f"{fn}: e_part must be a non-empty 1-D tensor")
+    acc = _operand_dtype(X)
     for name, x, shape in (("y", y, (n,)), ("v", v, (n,)), ("d", d, (p,)),
                            ("e_part", e_part, tuple(e_part.shape))):
-        _build.check_operand(fn, name, x, shape, _F32, X.device)
+        _build.check_operand(fn, name, x, shape, (acc,), X.device)
     lib = _lib()
-    hv = torch.empty(n, dtype=torch.float32, device=X.device)
+    hv = torch.empty(n, dtype=acc, device=X.device)
     chunks = lib.sven_hinge_xd_chunks(p)
     part = ticket = None
     if chunks > 1:
-        part = torch.empty((n, chunks), dtype=torch.float32, device=X.device)
+        part = torch.empty((n, chunks), dtype=acc, device=X.device)
         ticket = _tickets(X.device, -(-n // lib.sven_hinge_xd_rows(p)))
     with torch.cuda.device(X.device):
-        err = lib.sven_hinge_xd(X.data_ptr(), int(X.dtype == torch.bfloat16),
+        err = lib.sven_hinge_xd(X.data_ptr(), _MODES[X.dtype],
                                 d.data_ptr(), e_part.data_ptr(), e_part.numel(),
                                 y.data_ptr(), v.data_ptr(), hv.data_ptr(),
                                 None if part is None else part.data_ptr(),

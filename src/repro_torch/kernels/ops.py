@@ -7,9 +7,11 @@ raises; nothing drops to the plain version.
 
 `precision` ("f32" | "bf16" | "tf32") selects the storage dtype of X (and
 of y in the Gram) and the Gram's multiply mode. Sums are float32 in every
-mode, except that float64 operands of the Gram at "f32" are summed in
-float64 (the kernel's float64 body, and the plain version in the operands'
-dtype), so a float64 problem gets its own float64 K. PyTorch counterpart of `repro/kernels/ops.py` (`shifted_gram`,
+mode, except that float64 operands at "f32" are summed in float64, by the
+Gram and by both hinge passes (the kernels' float64 bodies, and the plain
+versions in the operands' dtype), so a float64 problem gets its own float64
+K and H v. `hinge_stats` takes float32 (or bfloat16) X in every mode.
+PyTorch counterpart of `repro/kernels/ops.py` (`shifted_gram`,
 `hinge_hessian_matvec`, `hinge_stats`); the Pallas tile arguments have no
 counterpart.
 """
@@ -85,7 +87,9 @@ def hinge_hessian_matvec(
 ) -> torch.Tensor:
     """H v = v + 2C Xhat^T(act . (Xhat v)) via two fused GEMV passes.
 
-    Pass 1 returns e in the body's own form (a 0-d sum for "ref", per-block
+    y, act_top, act_bot and v share one dtype, float64 or float32, and X is
+    of that dtype too (or bfloat16 storage beside float32); H v comes back
+    in it. Pass 1 returns e in the body's own form (a 0-d sum for "ref", per-block
     partials for "cuda"), which pass 2 of the same body takes as it is.
     """
     _check_precision(precision)

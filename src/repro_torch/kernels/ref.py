@@ -1,8 +1,11 @@
 """Plain PyTorch versions of the hand-written kernels.
 
 One function per kernel, computing the same function from the same
-operands: the X storage dtype is taken as given (float32 or bfloat16) and
-the products accumulate in float32. These are what the CPU runs, what the
+operands: the X storage dtype is taken as given (float32, bfloat16 or
+float64) and the products accumulate in the operands' dtype, float32 for
+bfloat16 storage. On float64 operands the hinge passes are the plain
+float64 product of `repro/core/svm/primal_newton.py`, in its order of
+operations. These are what the CPU runs, what the
 tests hold the JAX package against, and what `chip_smoke.py` holds each
 CUDA kernel against on the card. Nothing on the main path calls them on a
 CUDA tensor. PyTorch counterpart of `repro/kernels/ref.py`.

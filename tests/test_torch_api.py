@@ -6,10 +6,10 @@ multiplier nu within 1e-10 * lambda1_max and the budget t within
 1e-10 * t_ridge, with the same Illinois evaluations per point; the path
 against warm-started coordinate descent within 1e-5 on a 40-point grid
 (tests/test_api_cv.py::test_enet_path_matches_cd_40_points); the default
-config on CPU tensors (the kernels' plain float32 versions, "ref") within
-the f32 kernel path's 5e-4 * max|beta| (tests/test_sven_equivalence.py);
-both packages' defaults on a float64 dual problem (the port's Gram summed
-in float64) beta within 1e-10, with the same Illinois evaluations.
+config on CPU tensors (the kernels' plain versions, "ref") within the f32
+kernel path's 5e-4 * max|beta| (tests/test_sven_equivalence.py); both
+packages' defaults on a float64 problem (the port's Gram and hinge passes
+summed in float64) beta within 1e-10, with the same Illinois evaluations.
 """
 import dataclasses
 
@@ -108,9 +108,9 @@ def test_enet_path_matches_cd_40_points():
 
 
 def test_default_config_runs_the_plain_kernels_on_cpu():
-    """CPU tensors + the default PathConfig = the kernels' plain float32
-    versions ("ref"); no kernel launches, and beta within the f32 kernel
-    path's bound of the plain float64 path."""
+    """CPU tensors + the default PathConfig = the kernels' plain versions
+    ("ref", which sum this float64 data in float64); no kernel launches, and
+    beta within the f32 kernel path's bound of the plain float64 path."""
     from repro_torch import kernels
     (X, y), _, (Xt, yt) = _problem("primal", seed=7)
     grid = tapi.lambda_grid(Xt, yt, n_lambdas=8)
@@ -135,6 +135,30 @@ def test_default_path_config_matches_jax_default():
     tp = tapi.enet_path(Xt, yt, n_lambdas=12, lambda2=0.9)
     assert tp.evals == tuple(int(e) for e in np.asarray(jp.evals))
     np.testing.assert_allclose(npy(tp.betas), npy(jp.betas), rtol=0, atol=TOL)
+
+
+def test_default_estimator_matches_jax_default():
+    """`ElasticNet(...).fit` with both packages' defaults (standardize and
+    intercept, default PathConfig()) at a wide, primal-mode shape: the
+    port's "ref" hinge bodies sum in float64, so the fit takes JAX's
+    evaluations and Newton steps (through `enet`, which JAX's fit calls and
+    which reports them), the plain float64 fit's CG steps, and JAX's coef
+    within 1e-10."""
+    X, y = problem(30, 120, seed=3, k_true=6)
+    X, y = X * 2.0 + 0.5, y + 4.0
+    l1 = 0.2 * float(2.0 * np.abs(X.T @ y).max())
+    jm = japi.ElasticNet(l1, 0.8).fit(jnp.asarray(X), jnp.asarray(y))
+    jr = japi.enet(jnp.asarray(X), jnp.asarray(y), l1, 0.8, standardize=True,
+                   fit_intercept=True)
+    tm = tapi.ElasticNet(l1, 0.8).fit(*cpu(X, y))
+    plain = tapi.ElasticNet(l1, 0.8, config=PLAIN).fit(*cpu(X, y))
+    assert tapi.resolve_path_config(tapi.PathConfig(), cpu(X)).solver.backend == "ref"
+    np.testing.assert_allclose(npy(tm.coef_), npy(jm.coef_), rtol=0, atol=TOL)
+    np.testing.assert_allclose(float(tm.intercept_), float(jm.intercept_), rtol=0,
+                               atol=TOL * abs(float(jm.intercept_)))
+    assert tm.result_.evals == int(jr.evals) > 0
+    assert tm.result_.sven_iters == int(jr.sven_iters)
+    assert tm.result_.cg_iters == plain.result_.cg_iters > 0
 
 
 def test_screen_on_off_identical():

@@ -9,7 +9,8 @@ Bounds: float32 and tf32 1e-5 * scale (the plain tf32 version rounds the
 operands exactly as the kernel does, so only the order of f32 sums
 differs); bfloat16 storage 2e-2 * scale (tests/test_kernels.py); the
 float64 Gram 1e-10 * max|K| (float64 sums in another order: n eps is
-1.1e-13 at n = 1000, 5.1e-11 at the YMSD shape's n = 463,715).
+1.1e-13 at n = 1000, 5.1e-11 at the YMSD shape's n = 463,715); the float64
+hinge passes 1e-10 * max(1, |ref|) (p eps is 5.5e-12 at p = 49,151).
 """
 import importlib
 
@@ -27,6 +28,7 @@ ths = importlib.import_module("repro_torch.kernels.hinge_stats")
 
 SHAPES = [(33, 57), (96, 130), (57, 33), (48, 256)]
 DTYPES = [("f32", 1e-5), ("bf16", 2e-2)]
+F64 = ("f64", 1e-10)
 
 
 def _inputs(n, p, seed=0):
@@ -40,6 +42,17 @@ def _inputs(n, p, seed=0):
 
 def _f32(*arrays):
     return cpu(*arrays, dtype=torch.float32)
+
+
+def _hinge_operands(dev, n, p, precision):
+    """(X, y, v, act_top, act_bot) on `dev` as the primal hands them to the
+    hinge passes: all float64 for "f64", else float32 with X in the
+    precision's storage."""
+    arrays = _inputs(n, p)
+    if precision == "f64":
+        return tuple(a.to(dev) for a in cpu(*arrays))
+    X, y, v, at, ab = (a.to(dev) for a in _f32(*arrays))
+    return (tops._storage(X, precision), y, v, at, ab)
 
 
 def _assert_scaled(a, b, tol, floor=0.0):
@@ -100,6 +113,8 @@ def test_cuda_gram_f64_matches_plain(cuda_device, n, p):
 #: GLA-BRA-180 shape among them), p >= 1024 in one chunk, and p < 1024 (one
 #: warp per row); n not a multiple of the row group (4, or 8 below 1024)
 XD_SHAPES = [(37, 4099), (180, 49_151), (37, 1500), (33, 57), (57, 33), (7, 513)]
+#: and a single row, and fewer columns than a warp
+HINGE_SHAPES = XD_SHAPES + [(1, 4099), (1, 20), (9, 31)]
 
 
 @pytest.mark.gpu
@@ -118,6 +133,81 @@ def test_cuda_hinge_xd_matches_plain(cuda_device, n, p, precision, tol):
     d, e_part = thinge.hinge_xtv_cuda(Xs, y, v, 1.1, at, ab)
     _assert_scaled(thinge.hinge_xd_cuda(Xs, y, d, e_part, v, 1.1, 2.5),
                    tref.hessian_matvec_ref(Xs, y, 1.1, 2.5, at, ab, v), tol, floor=1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,p", HINGE_SHAPES)
+@pytest.mark.parametrize("precision,tol", DTYPES + [F64])
+def test_cuda_hinge_xtv_matches_plain(cuda_device, n, p, precision, tol):
+    """Pass 1 alone: d and e against the plain version, in its summing
+    dtype (float64 for float64 operands). e is a difference of sums, so it
+    is held at the scale of its terms."""
+    X, y, v, at, ab = _hinge_operands(cuda_device, n, p, precision)
+    before = thinge.hinge_xtv_cuda.launches
+    d, e_part = thinge.hinge_xtv_cuda(X, y, v, 1.1, at, ab)
+    torch.cuda.synchronize()
+    assert thinge.hinge_xtv_cuda.launches == before + 1
+    assert d.dtype == e_part.dtype == y.dtype and d.shape == (p,)
+    dr, er = tref.hinge_xtv_ref(X, y, v, 1.1, at, ab)
+    _assert_scaled(d, dr, tol, floor=1.0)
+    c, byv = tref._acc(X).T @ v, (y @ v) / 1.1
+    terms = float((at * (c - byv)).abs().sum() + (ab * (c + byv)).abs().sum())
+    assert abs(float(e_part.sum()) - float(er)) <= tol * max(1.0, terms)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,p", HINGE_SHAPES)
+def test_cuda_hinge_f64_matches_plain(cuda_device, n, p):
+    """Float64 operands run both passes' float64 bodies: pass 2 alone from
+    the plain (d, e), and both passes as the solver calls them, within
+    1e-10 * max(1, |H v|) of the plain float64 product."""
+    X, y, v, at, ab = _hinge_operands(cuda_device, n, p, "f64")
+    dr, er = tref.hinge_xtv_ref(X, y, v, 1.1, at, ab)
+    hv = thinge.hinge_xd_cuda(X, y, dr, er.reshape(1), v, 1.1, 2.5)
+    torch.cuda.synchronize()
+    assert hv.dtype == torch.float64
+    _assert_scaled(hv, tref.hinge_xd_ref(X, y, dr, er, v, 1.1, 2.5), 1e-10, floor=1.0)
+    want = tref.hessian_matvec_ref(X, y, 1.1, 2.5, at, ab, v)
+    _assert_scaled(tops.hinge_hessian_matvec(X, y, 1.1, 2.5, at, ab, v), want, 1e-10,
+                   floor=1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,p", [(37, 4099), (180, 49_151), (9, 31)])
+@pytest.mark.parametrize("precision", ["f32", "bf16", "f64"])
+def test_cuda_hinge_repeats_exactly_in_every_mode(cuda_device, n, p, precision):
+    """Three more launches of each pass give bitwise-equal d, e partials
+    and H v: a fixed summation order in every mode."""
+    X, y, v, at, ab = _hinge_operands(cuda_device, n, p, precision)
+    d, e_part = thinge.hinge_xtv_cuda(X, y, v, 1.1, at, ab)
+    hv = thinge.hinge_xd_cuda(X, y, d, e_part, v, 1.1, 2.5)
+    for _ in range(3):
+        d2, e2 = thinge.hinge_xtv_cuda(X, y, v, 1.1, at, ab)
+        assert torch.equal(d2, d) and torch.equal(e2, e_part)
+        assert torch.equal(thinge.hinge_xd_cuda(X, y, d2, e2, v, 1.1, 2.5), hv)
+
+
+@pytest.mark.gpu
+def test_cuda_hinge_rejects_mixed_float64_and_float32(cuda_device):
+    """Float64 X takes float64 operands only, float32 or bfloat16 X float32
+    ones only: nothing is cast."""
+    X, y, v, at, ab = _hinge_operands(cuda_device, 33, 57, "f64")
+    d, e_part = thinge.hinge_xtv_cuda(X, y, v, 1.1, at, ab)
+    for i in range(5):   # each float64 operand of pass 1 in float32
+        args = [X, y, v, at, ab]
+        args[i] = args[i].float()
+        with pytest.raises(TypeError):
+            thinge.hinge_xtv_cuda(*args[:3], 1.1, *args[3:])
+    for i in range(5):   # each operand of pass 2
+        args = [X, y, d, e_part, v]
+        args[i] = args[i].float()
+        with pytest.raises(TypeError):
+            thinge.hinge_xd_cuda(*args, 1.1, 2.5)
+    for Xs in (X.float(), X.to(torch.bfloat16)):
+        with pytest.raises(TypeError):
+            thinge.hinge_xtv_cuda(Xs, y, v, 1.1, at, ab)
+        with pytest.raises(TypeError):
+            thinge.hinge_xd_cuda(Xs, y, d, e_part, v, 1.1, 2.5)
 
 
 @pytest.mark.gpu

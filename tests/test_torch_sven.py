@@ -2,11 +2,14 @@
 `repro.core.sven` on the same float64 numpy problems, both modes.
 
 Bounds: plain "torch" vs JAX "xla" 1e-10 in beta; the kernel path ("ref"
-on the CPU, f32 kernels, no refinement) vs JAX "tpu_interpret"
+on the CPU: the kernels' plain versions, which sum this float64 data in
+float64) vs JAX "tpu_interpret" (f32 kernels, no refinement)
 5e-4 * max|beta| (tests/test_sven_equivalence.py); bf16 dual + refinement
 1e-10 of the plain solve (tests/test_kernels_gpu.py); the default config on
-a float64 dual problem (its Gram summed in float64) vs JAX's default "xla"
-1e-10 with equal Newton iterations."""
+a float64 problem (its Gram and both hinge passes summed in float64) vs
+JAX's default "xla" 1e-10 with equal Newton iterations, and on the primal
+with the CG steps of the port's plain "torch" solve, which is JAX "xla"'s
+arithmetic (JAX reports no CG count)."""
 import dataclasses
 import importlib
 
@@ -71,6 +74,91 @@ def test_default_dual_matches_jax_default():
     assert ts.mode == js.mode == "dual"
     np.testing.assert_allclose(npy(ts.beta), npy(js.beta), rtol=0, atol=1e-10)
     assert ts.iters == int(js.iters)
+
+
+def test_default_primal_matches_jax_default():
+    """Both packages' default SvenConfig() on a float64 primal problem: the
+    port's "ref" hinge bodies take the float64 operands and sum in float64,
+    so the default solve is JAX "xla"'s, with its Newton iterations and the
+    CG steps of the plain float64 solve."""
+    n, p = MODES["primal"]
+    X, y = problem(n, p, seed=11, k_true=6)
+    js = jsven_mod.sven(jnp.asarray(X), jnp.asarray(y), 1.8, 0.7, jsven_mod.SvenConfig())
+    Xt, yt = problem_from_numpy(X, y, device="cpu")
+    ts = tsven_mod.sven(Xt, yt, 1.8, 0.7, SvenConfig())
+    plain = tsven_mod.sven(Xt, yt, 1.8, 0.7, SvenConfig(backend="torch"))
+    assert ts.mode == js.mode == "primal"
+    np.testing.assert_allclose(npy(ts.beta), npy(js.beta), rtol=0, atol=1e-10)
+    assert ts.iters == int(js.iters) == plain.iters
+    assert ts.cg_iters == plain.cg_iters > 0
+
+
+def test_default_primal_path_matches_jax_default(monkeypatch):
+    """`sven_path` with both packages' defaults at the primal shape: betas
+    within 1e-10 of JAX's, and one call of each hinge pass per CG step of
+    the plain float64 path, solved point by point with the same warm
+    starts."""
+    from repro_torch.kernels import registry
+    calls = {"hinge_xtv": 0, "hinge_xd": 0}
+    for op in calls:
+        body = registry.lookup(op, "ref")
+
+        def counting(*a, _op=op, _body=body):
+            calls[_op] += 1
+            return _body(*a)
+
+        monkeypatch.setitem(registry._REGISTRY, (op, "ref"), counting)
+    n, p = MODES["primal"]
+    X, y = problem(n, p, seed=5, k_true=6)
+    grid = np.linspace(0.4, 3.0, 6)
+    jb = jsven_mod.sven_path(jnp.asarray(X), jnp.asarray(y), grid, 0.9,
+                             jsven_mod.SvenConfig())
+    Xt, yt = problem_from_numpy(X, y, device="cpu")
+    tb = tsven_mod.sven_path(Xt, yt, grid, 0.9)
+    np.testing.assert_allclose(npy(tb), npy(jb), rtol=0, atol=1e-10)
+    plain_cg, warm = 0, {}
+    for t in grid:
+        sol = tsven_mod.sven(Xt, yt, t, 0.9, SvenConfig(backend="torch"), **warm)
+        plain_cg += sol.cg_iters
+        warm = dict(warm_alpha=sol.alpha, warm_w=sol.w)
+    assert calls["hinge_xtv"] == calls["hinge_xd"] == plain_cg > 0
+
+
+@pytest.mark.parametrize("dtype,precision,want", [
+    (torch.float64, "f32", torch.float64), (torch.float32, "f32", torch.float32),
+    (torch.float64, "tf32", torch.float32), (torch.float64, "bf16", torch.bfloat16)])
+def test_hinge_operands_follow_problem_dtype_and_precision(monkeypatch, dtype, precision,
+                                                           want):
+    """The primal's hinge passes get float64 operands only for a float64
+    problem at "f32"; a float32 problem and tf32 get float32, and bf16
+    bfloat16 storage of X beside float32 operands, whose passes sum in
+    float32. Seen through counting stand-ins for the registry's "ref"
+    bodies; one call of each per CG step."""
+    from repro_torch.kernels import registry
+    xtv, xd = registry.lookup("hinge_xtv", "ref"), registry.lookup("hinge_xd", "ref")
+    seen = {"hinge_xtv": [], "hinge_xd": []}
+
+    def counting_xtv(X, y, v, t, at, ab):
+        d, e = xtv(X, y, v, t, at, ab)
+        seen["hinge_xtv"].append((X.dtype, y.dtype, v.dtype, at.dtype, ab.dtype,
+                                  d.dtype))
+        return d, e
+
+    def counting_xd(X, y, d, e, v, t, C):
+        hv = xd(X, y, d, e, v, t, C)
+        seen["hinge_xd"].append((X.dtype, y.dtype, d.dtype, v.dtype, hv.dtype))
+        return hv
+
+    monkeypatch.setitem(registry._REGISTRY, ("hinge_xtv", "ref"), counting_xtv)
+    monkeypatch.setitem(registry._REGISTRY, ("hinge_xd", "ref"), counting_xd)
+    n, p = MODES["primal"]
+    X, y = cpu(*problem(n, p, seed=11, k_true=6), dtype=dtype)
+    sol = tsven_mod.sven(X, y, 1.8, 0.7, SvenConfig(precision=precision))
+    assert sol.mode == "primal" and sol.beta.dtype == dtype
+    acc = torch.float64 if want == torch.float64 else torch.float32
+    assert len(seen["hinge_xtv"]) == len(seen["hinge_xd"]) == sol.cg_iters > 0
+    assert set(seen["hinge_xtv"]) == {(want, acc, acc, acc, acc, acc)}
+    assert set(seen["hinge_xd"]) == {(want, acc, acc, acc, acc)}
 
 
 @pytest.mark.parametrize("dtype,precision,want", [
