@@ -260,11 +260,13 @@ def phase_kernels(torch, smoke, dev, gen):
                                        2.0 * n * p + 2.0 * n + 6.0 * p, kind),
                           "xd": bound(n * p * size + osize * (p + nblk + 3 * n),
                                       2.0 * n * p + 5.0 * n, kind)}
+                grids = {"xtv": f" ({nblk} blocks)", "xd": ""}
                 for k in ("xtv", "xd"):
-                    print(f"  hinge {k} {prec} at {n}x{p}: L2 cold {cold[k][0]:.4f} ms "
-                          f"(plain {cold[k][1]:.4f}, HBM bound {bounds[k][0]:.4f} "
-                          f"{bounds[k][1]}); L2 warm {warm[k][0]:.4f} ms (plain "
-                          f"{warm[k][1]:.4f}); X = {n * p * size / 1e6:.1f} MB", flush=True)
+                    print(f"  hinge {k} {prec} at {n}x{p}{grids[k]}: L2 cold "
+                          f"{cold[k][0]:.4f} ms (plain {cold[k][1]:.4f}, HBM bound "
+                          f"{bounds[k][0]:.4f} {bounds[k][1]}); L2 warm {warm[k][0]:.4f} ms "
+                          f"(plain {warm[k][1]:.4f}); X = {n * p * size / 1e6:.1f} MB",
+                          flush=True)
                 for k in calls:
                     if k.startswith("GEMV"):
                         print(f"  {k} (torch.mv) {prec} at {n}x{p}: L2 cold "
