@@ -7,7 +7,7 @@ Dispatch (paper §3, "Implementation details"):
 On the kernel backends the dual caches K = Zhat^T Zhat from the fused
 shifted-Gram kernel and the primal's CG mat-vec is the two-pass hinge
 Hessian kernel. At the default precision "f32" a float64 problem hands
-both its float64 operands, and the kernels sum in float64: the dual solves
+the kernels its float64 operands, and they sum in float64: the dual solves
 on the problem's own K and the primal's H v is the problem's own float64
 product, as on the plain backend. A float32 problem hands them float32
 operands. Under "bf16"/"tf32" the kernels take float32 operands (bfloat16
@@ -64,9 +64,10 @@ class SvenConfig:
     the hand-written kernels on a CUDA tensor and their plain versions on a
     CPU tensor. The JAX default, "xla", runs no kernel at all; its
     counterpart here is "torch". At the default precision "f32" the dual's
-    Gram of a float64 problem is summed in float64, so the default dual
-    gives the plain solve's answer; "bf16"/"tf32" sum it in float32 and
-    refine once at full precision.
+    Gram and the primal's hinge passes of a float64 problem are summed in
+    float64, so the default solve gives the plain solve's answer;
+    "bf16"/"tf32" sum them in float32, and the dual refines once at full
+    precision.
     """
 
     mode: str = "auto"            # "auto" | "primal" | "dual"
