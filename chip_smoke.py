@@ -483,7 +483,8 @@ def main() -> int:
     from repro_torch import kernels
     from repro_torch.core.svm import state as svm_state
     from repro_torch.core.reduction import svm_C
-    from repro_torch.core.sven import SvenConfig, sven, sven_path, sven_path_reference
+    from repro_torch.core.sven import (SvenConfig, sven, sven_path, sven_path_reference,
+                                       sven_path_solutions)
     from repro_torch.data.synthetic import make_regression
     from repro_torch.kernels import _build
 
@@ -603,25 +604,17 @@ def main() -> int:
     count(launched)
     ref_betas, ref_s, _, _ = run_path(
         torch, kernels, svm_state, lambda: sven_path_reference(X, y, ts, LAMBDA2))
-    def plain_path():
-        """`sven_path` on the plain float64 backend, solved point by point
-        with its warm starts (`sven_path_reference`), counting CG steps."""
-        out, cg, warm = [], 0, {}
-        for tt in ts:
-            s_ = sven(X, y, tt, LAMBDA2, SvenConfig(backend="torch"), **warm)
-            out.append(s_.beta)
-            cg += s_.cg_iters
-            warm = dict(warm_alpha=s_.alpha, warm_w=s_.w)
-        return torch.stack(out), cg
-
-    (plain_betas, plain_cg), plain_s, _, _ = run_path(torch, kernels, svm_state,
-                                                      plain_path)
+    plain_sols, plain_s, _, _ = run_path(
+        torch, kernels, svm_state,
+        lambda: sven_path_solutions(X, y, ts, LAMBDA2, SvenConfig(backend="torch")))
+    plain_betas = torch.stack([s_.beta for s_ in plain_sols])
+    plain_cg = sum(s_.cg_iters for s_ in plain_sols)
     dev_p = max_dev(torch, betas, ref_betas)
     dev_plain = max_dev(torch, betas, plain_betas)
     scale = plain_betas.abs().max().item()
     print(f"    path {secs:.3f} s, {syncs} host syncs, launches {launched}, "
           f"{launched['hinge_xtv_cuda']} CG; reference {ref_s:.3f} s; torch f64 path "
-          f"(point by point) {plain_s:.3f} s, {plain_cg} CG", flush=True)
+          f"{plain_s:.3f} s, {plain_cg} CG", flush=True)
     smoke.check(betas.shape == (len(ts), p) and bool(torch.isfinite(betas).all()),
                 "path betas finite, shape (8, p)")
     smoke.check(launched["hinge_xtv_cuda"] > 0 and launched["hinge_xd_cuda"] > 0,
@@ -630,7 +623,7 @@ def main() -> int:
     smoke.check(dev_plain <= 1e-8 * scale, f"max|path - path_torch| = {dev_plain:.3e} "
                 f"<= 1e-8 * max|beta| = {1e-8 * scale:.3e}")
 
-    del betas, ref_betas, plain_betas, sol, ref_sol
+    del betas, ref_betas, plain_betas, plain_sols, sol, ref_sol
 
     # -- 6. the hinge-stats op vs plain ------------------------------------------
     print("[6] kernels.hinge_stats vs its plain version", flush=True)

@@ -16,6 +16,7 @@ from repro_torch.core.sven import (
     sven,
     sven_path,
     sven_path_reference,
+    sven_path_solutions,
 )
 from repro_torch.core.screening import ScreenResult, gap_safe_screen, sven_with_screening
 from repro_torch.core.api import (
@@ -51,6 +52,7 @@ __all__ = [
     "sven",
     "sven_path",
     "sven_path_reference",
+    "sven_path_solutions",
     "svm_C",
     # screening (core/screening.py)
     "ScreenResult",

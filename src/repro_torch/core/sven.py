@@ -267,8 +267,10 @@ def sven(
                       keep)
 
 
-def sven_path(X, y, ts, lambda2, config: SvenConfig = SvenConfig()) -> torch.Tensor:
-    """Regularization path over a grid of L1 budgets (Fig. 1), (len(ts), p).
+def sven_path_solutions(X, y, ts, lambda2,
+                        config: SvenConfig = SvenConfig()) -> list:
+    """The solves of `sven_path`, one `SvenSolution` per point of `ts`, with
+    each point's Newton and CG counts.
 
     Both warm starts — the dual alpha and the primal w — are carried from
     point to point, starting from zeros, as the JAX scan does.
@@ -278,12 +280,18 @@ def sven_path(X, y, ts, lambda2, config: SvenConfig = SvenConfig()) -> torch.Ten
     n, p = X.shape
     warm_a = X.new_zeros(2 * p)
     warm_w = X.new_zeros(n)
-    betas = []
+    sols = []
     for t in _floats(ts):
-        sol = _sven_core(X, y, t, float(lambda2), warm_a, warm_w, config)
-        betas.append(sol.beta)
-        warm_a, warm_w = sol.alpha, sol.w
-    return torch.stack(betas)
+        sols.append(_sven_core(X, y, t, float(lambda2), warm_a, warm_w, config))
+        warm_a, warm_w = sols[-1].alpha, sols[-1].w
+    return sols
+
+
+def sven_path(X, y, ts, lambda2, config: SvenConfig = SvenConfig()) -> torch.Tensor:
+    """Regularization path over a grid of L1 budgets (Fig. 1), (len(ts), p):
+    the betas of `sven_path_solutions`."""
+    return torch.stack([sol.beta for sol in
+                        sven_path_solutions(X, y, ts, lambda2, config)])
 
 
 def sven_path_reference(X, y, ts, lambda2,

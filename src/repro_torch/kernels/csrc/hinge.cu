@@ -15,9 +15,9 @@
 // the 8 warps of a block split the rows and meet in shared memory. Three
 // choices serve the bound. The loads of X are the first thing a block
 // issues: byv, which only the epilogue needs, is summed after them. Each
-// thread takes CPT columns 32 apart, the fewest that put the whole grid in
-// one wave of resident blocks (32 columns per block gave 1,536 blocks at that
-// shape, 1.45 waves). Each step of a thread's row loop issues 64 bytes of
+// thread takes 4 columns 32 apart, 128 columns per block: at that shape 384
+// blocks, one wave of resident blocks (32 columns per block gave 1,536
+// blocks, 1.45 waves). Each step of a thread's row loop issues 64 bytes of
 // loads (16 f32 or bf16, 8 f64) before its first FMA. p is odd there, so rows
 // are not 16-byte aligned and each lane reads one element per row; TMA needs
 // row strides that are multiples of 16 bytes, which 4 p and 8 p are not. byv
@@ -102,20 +102,22 @@ template <typename A> __device__ __forceinline__ A block_sum(A v, A* red, int ti
 template <typename A> struct InFlight { static constexpr int loads = 16; };
 template <> struct InFlight<double> { static constexpr int loads = 8; };
 
+constexpr int CPT = 4;              // columns per thread of pass 1
+constexpr int kCols = 32 * CPT;     // columns per block of pass 1
+
 // 256 threads = 8 warps. Lane l of warp w owns columns j0 + l + 32 k
-// (k < CPT) of the block's 32 CPT columns, and rows w, w + 8, w + 16, ...
+// (k < CPT) of the block's kCols columns, and rows w, w + 8, w + 16, ...
 // A step of its row loop issues U x CPT loads (U rows), each a warp-wide
 // 128-byte (f32) or 256-byte (f64) read of one row, before its first FMA.
 // Every column is summed over its rows in row order within a warp and over
-// the warps in warp order, whatever CPT and U are.
-template <typename T, int CPT, typename A = acc_t<T>>
+// the warps in warp order.
+template <typename T, typename A = acc_t<T>>
 __global__ void __launch_bounds__(kThreads, 4)
 hinge_xtv(const T* __restrict__ X, const A* __restrict__ v,
           const A* __restrict__ y, const A* __restrict__ at,
           const A* __restrict__ ab, A* __restrict__ d,
           A* __restrict__ e_part, int n, int p, A invt) {
-  constexpr int U = InFlight<A>::loads / CPT > 0 ? InFlight<A>::loads / CPT : 1;
-  constexpr int kCols = 32 * CPT;
+  constexpr int U = InFlight<A>::loads / CPT;
   __shared__ A colsum[kWarps][kCols];
   __shared__ A red[kWarps];
   __shared__ A esum[CPT];
@@ -326,71 +328,18 @@ __host__ __device__ inline int xd_chunks(int p) {
   return p >= kWideP ? (p + kChunk - 1) / kChunk : 1;
 }
 
-// Columns per thread of pass 1 (1, 2, 4 or 8) for a row length p on the
-// current device: the fewest whose grid of ceil(p / (32 CPT)) blocks fits in
-// one wave of resident blocks, so that no second wave leaves most of the card
-// idle; 8 when none does. The residency of each (mode, CPT) is read once per
-// device from the occupancy calculator.
-constexpr int kMaxDevices = 64;
-int g_xtv_slots[kMaxDevices][3][4];   // 0 = not read yet
-
-template <typename T, int CPT> int xtv_per_sm() {
-  int per_sm = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, hinge_xtv<T, CPT>, kThreads, 0);
-  return per_sm;
-}
-
-template <typename T> int xtv_per_sm_of(int i) {
-  switch (i) {
-    case 0: return xtv_per_sm<T, 1>();
-    case 1: return xtv_per_sm<T, 2>();
-    case 2: return xtv_per_sm<T, 4>();
-    default: return xtv_per_sm<T, 8>();
-  }
-}
-
-int xtv_cpt(int p, int mode) {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  for (int i = 0; i < 4; ++i) {
-    const int cpt = 1 << i;
-    int& slots = g_xtv_slots[dev % kMaxDevices][mode][i];
-    if (slots == 0) {
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      const int per_sm = mode == 2 ? xtv_per_sm_of<double>(i)
-                         : mode == 1 ? xtv_per_sm_of<__nv_bfloat16>(i)
-                                     : xtv_per_sm_of<float>(i);
-      slots = per_sm * sms > 0 ? per_sm * sms : -1;
-    }
-    if ((p + 32 * cpt - 1) / (32 * cpt) <= slots) return cpt;
-  }
-  return 8;
-}
-
 // The scalars come in as double and are rounded to the summing type here:
 // the f32 and bf16 modes multiply by the same float 1/t and 2C as ever.
-template <typename T, int CPT>
-cudaError_t launch_xtv_cols(const void* X, const void* v, const void* y, const void* at,
-                            const void* ab, void* d, void* e_part, int n, int p,
-                            double invt, cudaStream_t s) {
+template <typename T>
+cudaError_t launch_xtv(const void* X, const void* v, const void* y, const void* at,
+                       const void* ab, void* d, void* e_part, int n, int p, double invt,
+                       cudaStream_t s) {
   using A = acc_t<T>;
-  hinge_xtv<T, CPT><<<(p + 32 * CPT - 1) / (32 * CPT), kThreads, 0, s>>>(
+  hinge_xtv<T><<<(p + kCols - 1) / kCols, kThreads, 0, s>>>(
       static_cast<const T*>(X), static_cast<const A*>(v), static_cast<const A*>(y),
       static_cast<const A*>(at), static_cast<const A*>(ab), static_cast<A*>(d),
       static_cast<A*>(e_part), n, p, A(invt));
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_xtv(const void* X, const void* v, const void* y, const void* at,
-                       const void* ab, void* d, void* e_part, int n, int p, double invt,
-                       int cpt, cudaStream_t s) {
-  switch (cpt) {
-    case 1: return launch_xtv_cols<T, 1>(X, v, y, at, ab, d, e_part, n, p, invt, s);
-    case 2: return launch_xtv_cols<T, 2>(X, v, y, at, ab, d, e_part, n, p, invt, s);
-    case 4: return launch_xtv_cols<T, 4>(X, v, y, at, ab, d, e_part, n, p, invt, s);
-    default: return launch_xtv_cols<T, 8>(X, v, y, at, ab, d, e_part, n, p, invt, s);
-  }
 }
 
 template <typename T>
@@ -418,31 +367,22 @@ cudaError_t launch_xd(const void* X, const void* d, const void* e_part, int n_ep
 
 extern "C" {
 
-// Number of e partials pass 1 writes for a row length p in `mode` (below)
-// on the current device: one per block of 32 CPT columns.
-int sven_hinge_xtv_blocks(int p, int mode) {
-  if (mode < 0 || mode > 2) return -1;
-  const int cols = 32 * xtv_cpt(p, mode);
-  return (p + cols - 1) / cols;
-}
+// Number of e partials pass 1 writes for a row length p: one per block of
+// kCols columns.
+int sven_hinge_xtv_blocks(int p) { return (p + kCols - 1) / kCols; }
 
 // X (n, p) row-major: float32 (mode 0), bfloat16 (mode 1) or float64 (mode
-// 2). v, y (n,), at, ab (p,) in and d (p,), e_part
-// (sven_hinge_xtv_blocks(p, mode),) out are float64 in mode 2 and float32
-// otherwise. Returns the CUDA error of
+// 2). v, y (n,), at, ab (p,) in and d (p,), e_part (sven_hinge_xtv_blocks(p),)
+// out are float64 in mode 2 and float32 otherwise. Returns the CUDA error of
 // the launch (0 = none; an unknown mode is cudaErrorInvalidValue).
 int sven_hinge_xtv(const void* X, int mode, const void* v, const void* y, const void* at,
                    const void* ab, void* d, void* e_part, int n, int p, double invt,
                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case 0:
-      return launch_xtv<float>(X, v, y, at, ab, d, e_part, n, p, invt, xtv_cpt(p, 0), s);
-    case 1:
-      return launch_xtv<__nv_bfloat16>(X, v, y, at, ab, d, e_part, n, p, invt,
-                                       xtv_cpt(p, 1), s);
-    case 2:
-      return launch_xtv<double>(X, v, y, at, ab, d, e_part, n, p, invt, xtv_cpt(p, 2), s);
+    case 0: return launch_xtv<float>(X, v, y, at, ab, d, e_part, n, p, invt, s);
+    case 1: return launch_xtv<__nv_bfloat16>(X, v, y, at, ab, d, e_part, n, p, invt, s);
+    case 2: return launch_xtv<double>(X, v, y, at, ab, d, e_part, n, p, invt, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -4,8 +4,7 @@
 
   pass 1 (`hinge_xtv_cuda`) replaces `repro/kernels/hinge.py::_xtv_kernel`:
       c = X^T v, byv = y.v/t, d = act_top (c - byv) + act_bot (c + byv), and
-      one partial of e = sum(u_b - u_t) per block of columns (how many
-      columns a block takes depends on p and on the device).
+      one partial of e = sum(u_b - u_t) per block of 128 columns.
   pass 2 (`hinge_xd_cuda`) replaces `repro/kernels/hinge.py::_xd_kernel`:
       H v = v + 2C (X d + (y/t) e), with e summed from the partials.
 
@@ -48,11 +47,9 @@ def _lib():
         lib.sven_hinge_xd.argtypes = [_ptr, _int, _ptr, _ptr, _int, _ptr, _ptr, _ptr,
                                       _ptr, _ptr, _int, _int, _double, _double, _ptr]
         lib.sven_hinge_xd.restype = _int
-        lib.sven_hinge_xtv_blocks.argtypes = [_int, _int]
-        for fn in (lib.sven_hinge_xd_rows, lib.sven_hinge_xd_chunks):
-            fn.argtypes = [_int]
         for fn in (lib.sven_hinge_xtv_blocks, lib.sven_hinge_xd_rows,
                    lib.sven_hinge_xd_chunks):
+            fn.argtypes = [_int]
             fn.restype = _int
         lib._typed = True
     return lib
@@ -88,10 +85,8 @@ def hinge_xtv_cuda(X: torch.Tensor, y: torch.Tensor, v: torch.Tensor, t: float,
         _build.check_operand(fn, name, x, shape, (acc,), X.device)
     lib = _lib()
     d = torch.empty(p, dtype=acc, device=X.device)
+    e_part = torch.empty(lib.sven_hinge_xtv_blocks(p), dtype=acc, device=X.device)
     with torch.cuda.device(X.device):
-        # the grid depends on the device: one partial of e per block
-        e_part = torch.empty(lib.sven_hinge_xtv_blocks(p, _MODES[X.dtype]), dtype=acc,
-                             device=X.device)
         err = lib.sven_hinge_xtv(X.data_ptr(), _MODES[X.dtype],
                                  v.data_ptr(), y.data_ptr(), act_top.data_ptr(),
                                  act_bot.data_ptr(), d.data_ptr(), e_part.data_ptr(),

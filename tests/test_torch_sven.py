@@ -96,8 +96,7 @@ def test_default_primal_matches_jax_default():
 def test_default_primal_path_matches_jax_default(monkeypatch):
     """`sven_path` with both packages' defaults at the primal shape: betas
     within 1e-10 of JAX's, and one call of each hinge pass per CG step of
-    the plain float64 path, solved point by point with the same warm
-    starts."""
+    the same path on the plain float64 backend."""
     from repro_torch.kernels import registry
     calls = {"hinge_xtv": 0, "hinge_xd": 0}
     for op in calls:
@@ -116,11 +115,8 @@ def test_default_primal_path_matches_jax_default(monkeypatch):
     Xt, yt = problem_from_numpy(X, y, device="cpu")
     tb = tsven_mod.sven_path(Xt, yt, grid, 0.9)
     np.testing.assert_allclose(npy(tb), npy(jb), rtol=0, atol=1e-10)
-    plain_cg, warm = 0, {}
-    for t in grid:
-        sol = tsven_mod.sven(Xt, yt, t, 0.9, SvenConfig(backend="torch"), **warm)
-        plain_cg += sol.cg_iters
-        warm = dict(warm_alpha=sol.alpha, warm_w=sol.w)
+    plain_cg = sum(sol.cg_iters for sol in tsven_mod.sven_path_solutions(
+        Xt, yt, grid, 0.9, SvenConfig(backend="torch")))
     assert calls["hinge_xtv"] == calls["hinge_xd"] == plain_cg > 0
 
 
