@@ -4,10 +4,12 @@ The kernel (`csrc/gram.cu`) replaces the Pallas TPU kernel
 `repro/kernels/gram.py::_gram_kernel` (and its Pallas-Triton twin
 `repro/kernels/gram_gpu.py::_gram_gpu_kernel`): K = Zhat^T Zhat of the SVEN
 dual, from the original (n, p) X, in one pass over X. Float64 operands at
-precision "f32" are summed in float64 (the kernel's mode 3); every other
-mode sums in float32. The source says what bounds it and how it is laid
-out. `shifted_gram_cuda.launches` counts the
-launches (a plain integer; callers reset it).
+precision "f32" are summed in float64 (the kernel's mode 3) on the FP64
+tensor cores: 96-column tile pairs, 32-row stages, one block per SM, bound
+by the bytes of X (0.101 ms at the YMSD shape on an H100). Every other mode
+sums in float32 in 64-column tiles, about four blocks per SM. The source
+says what bounds each and how it is laid out. `shifted_gram_cuda.launches`
+counts the launches (a plain integer; callers reset it).
 """
 from __future__ import annotations
 
@@ -31,20 +33,41 @@ def _lib():
         lib.sven_gram.argtypes = [_ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int,
                                   _double, _int, _int, _ptr]
         lib.sven_gram.restype = _int
-        lib.sven_gram_tile.restype = _int
-        lib.sven_gram_rows_step.restype = _int
+        for fn in ("sven_gram_tile", "sven_gram_rows_step", "sven_gram_tile_f64",
+                   "sven_gram_rows_step_f64"):
+            getattr(lib, fn).restype = _int
+        lib.sven_gram_f64_probe.argtypes = [_ptr, _ptr, _ptr]
+        lib.sven_gram_f64_probe.restype = _int
         lib._typed = True
     return lib
 
 
-def split_rows(n: int, p: int, sm_count: int, tile: int, step: int):
-    """(rows_per_split, nsplit): enough (tile, tile, split) blocks for about
-    four per SM, each split a whole number of `step`-row stages."""
+def _pairs(p: int, tile: int) -> int:
+    """Tile pairs (ti <= tj) that cover the upper triangle of A^T A."""
     nt = -(-(p + 1) // tile)
-    upper = nt * (nt + 1) // 2
-    want = max(1, min(-(-n // step), -(-4 * sm_count // upper), 65535))
+    return nt * (nt + 1) // 2
+
+
+def _split(n: int, step: int, want: int):
+    """(rows_per_split, nsplit <= want): whole `step`-row stages each."""
+    want = max(1, min(-(-n // step), want, 65535))
     rows = -(-(-(-n // want)) // step) * step
     return rows, -(-n // rows)
+
+
+def split_rows(n: int, p: int, sm_count: int, tile: int, step: int):
+    """(rows_per_split, nsplit) of the float32 modes: enough (tile, tile,
+    split) blocks for about four per SM, each split a whole number of
+    `step`-row stages."""
+    return _split(n, step, -(-4 * sm_count // _pairs(p, tile)))
+
+
+def split_rows_f64(n: int, p: int, sm_count: int, tile: int, step: int):
+    """(rows_per_split, nsplit) of the float64 body, which runs one block per
+    SM: tile pairs x splits fit one wave of `sm_count` blocks (one split when
+    the pairs alone outnumber the SMs), each split a whole number of
+    `step`-row stages."""
+    return _split(n, step, sm_count // _pairs(p, tile))
 
 
 def shifted_gram_cuda(X: torch.Tensor, y: torch.Tensor, t: float, *,
@@ -67,8 +90,12 @@ def shifted_gram_cuda(X: torch.Tensor, y: torch.Tensor, t: float, *,
     lib = _lib()
     with torch.cuda.device(X.device):
         sms = torch.cuda.get_device_properties(X.device).multi_processor_count
-        rows, nsplit = split_rows(n, p, sms, lib.sven_gram_tile(),
-                                  lib.sven_gram_rows_step())
+        if f64:
+            rows, nsplit = split_rows_f64(n, p, sms, lib.sven_gram_tile_f64(),
+                                          lib.sven_gram_rows_step_f64())
+        else:
+            rows, nsplit = split_rows(n, p, sms, lib.sven_gram_tile(),
+                                      lib.sven_gram_rows_step())
         q = p + 1
         part = torch.empty((nsplit, q, q), dtype=acc, device=X.device)
         shape = (2 * p, 2 * p) if flatten else (2, 2, p, p)
@@ -84,3 +111,18 @@ def shifted_gram_cuda(X: torch.Tensor, y: torch.Tensor, t: float, *,
 
 
 shifted_gram_cuda.launches = 0
+
+
+def f64_mma_probe(S: torch.Tensor) -> torch.Tensor:
+    """The float64 body's fragment loads, FP64 tensor-core products and
+    stores on one 4 x 64 float64 S (CUDA): D (64 x 64) holds S^T S at the
+    entries i <= j of its first 32 rows and zeros elsewhere. Not a launch
+    of the Gram (not counted)."""
+    _build.check_operand("f64_mma_probe", "S", S, (4, 64), (torch.float64,), S.device)
+    D = torch.zeros((64, 64), dtype=torch.float64, device=S.device)
+    with torch.cuda.device(S.device):
+        err = _lib().sven_gram_f64_probe(S.data_ptr(), D.data_ptr(),
+                                         torch.cuda.current_stream(S.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"f64_mma_probe: launch failed with CUDA error {err}")
+    return D

@@ -258,3 +258,19 @@ def test_gram_row_split_covers_all_rows():
         rows, nsplit = tgram.split_rows(n, p, sms, 64, 16)
         assert rows % 16 == 0 and rows * nsplit >= n and rows * (nsplit - 1) < n
         assert nsplit <= 65535
+
+
+@pytest.mark.parametrize("n,p,sms", [(463715, 90, 132), (33, 57, 132), (10, 4096, 132),
+                                     (7, 3, 1)])
+def test_gram_f64_row_split_covers_all_rows(n, p, sms):
+    """The float64 body's split: 96-column tile pairs, 32-row stages, one
+    block per SM. Every row in exactly one split, whole stages, one wave
+    (tile pairs x splits <= SMs, or one split when the pairs alone
+    outnumber the SMs)."""
+    rows, nsplit = tgram.split_rows_f64(n, p, sms, 96, 32)
+    pairs = tgram._pairs(p, 96)
+    assert rows % 32 == 0 and rows * nsplit >= n and rows * (nsplit - 1) < n
+    assert pairs * nsplit <= sms or nsplit == 1
+    assert 1 <= nsplit <= 65535
+    if (n, p, sms) == (463715, 90, 132):   # the YMSD shape: one pair, 132 splits
+        assert (pairs, nsplit, rows) == (1, 132, 3520)

@@ -109,6 +109,74 @@ def test_cuda_gram_f64_matches_plain(cuda_device, n, p):
         np.testing.assert_array_equal(npy(tops.shifted_gram(Xd, yd, t)), npy(K))
 
 
+@pytest.mark.gpu
+def test_cuda_gram_f64_mma_layout(cuda_device):
+    """The float64 body's fragment layout, on the card, before anything
+    built on it: one diagonal and one off-diagonal warp tile of 4 rows
+    through the kernel's own loads, m16n8k4 products and stores give S^T S
+    at every entry i <= j of the first 32 rows, and nothing elsewhere."""
+    S = torch.tensor(np.random.default_rng(5).standard_normal((4, 64)), device=cuda_device)
+    D = npy(tgram.f64_mma_probe(S))
+    Sn = npy(S)
+    want = np.triu(Sn.T @ Sn)
+    want[32:] = 0.0
+    np.testing.assert_allclose(D, want, rtol=0, atol=1e-13 * np.abs(want).max())
+
+
+#: the float64 body's edges: p + 1 across the 8-column groups, the 32-column
+#: warp tiles and the 96-column tiles (p = 191: two tiles, three pairs; p =
+#: 500: six tiles, 21 pairs); n below one 32-row stage, not a multiple of 4,
+#: and 1000
+F64_P = [1, 7, 8, 9, 90, 95, 96, 97, 191, 500]
+F64_N = [13, 1003, 1000]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", F64_P)
+@pytest.mark.parametrize("n", F64_N)
+def test_cuda_gram_f64_edges(cuda_device, n, p):
+    """The float64 Gram within 1e-10 * max|K| of the plain float64 Gram at
+    the body's edges, in both layouts (the block one equal to the flat
+    one)."""
+    X, y, *_ = _inputs(n, p)
+    Xd, yd = (a.to(cuda_device) for a in cpu(X, y))
+    for t in (0.9, 1e6):
+        K = tgram.shifted_gram_cuda(Xd, yd, t)
+        Kb = tgram.shifted_gram_cuda(Xd, yd, t, flatten=False)
+        torch.cuda.synchronize()
+        assert K.dtype == torch.float64 and K.shape == (2 * p, 2 * p)
+        _assert_scaled(K, tref.flatten_gram(tref.gram_blocks_ref(Xd, yd, t)), 1e-10)
+        np.testing.assert_array_equal(npy(tref.flatten_gram(Kb)), npy(K))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,p", [(1000, 90), (1003, 191), (13, 500)])
+def test_cuda_gram_f64_repeats_exactly(cuda_device, n, p):
+    """Three more launches give bitwise-equal K: every entry is summed in a
+    fixed order, with no float atomics."""
+    X, y, *_ = _inputs(n, p)
+    Xd, yd = (a.to(cuda_device) for a in cpu(X, y))
+    K = tgram.shifted_gram_cuda(Xd, yd, 0.9)
+    for _ in range(3):
+        assert torch.equal(tgram.shifted_gram_cuda(Xd, yd, 0.9), K)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,p", [(1003, 90), (13, 97)])
+@pytest.mark.parametrize("flatten", [True, False])
+def test_cuda_gram_f64_op_equals_wrapper(cuda_device, n, p, flatten):
+    """`ops.shifted_gram` on float64 CUDA operands runs the float64 body:
+    one launch, K equal to the wrapper's."""
+    X, y, *_ = _inputs(n, p)
+    Xd, yd = (a.to(cuda_device) for a in cpu(X, y))
+    want = tgram.shifted_gram_cuda(Xd, yd, 0.9, flatten=flatten)
+    before = tgram.shifted_gram_cuda.launches
+    got = tops.shifted_gram(Xd, yd, 0.9, flatten=flatten)
+    assert tgram.shifted_gram_cuda.launches == before + 1
+    assert got.dtype == torch.float64
+    assert torch.equal(got, want)
+
+
 #: pass 2's layouts: odd p >= 1024 in several 4,096-column chunks (the
 #: GLA-BRA-180 shape among them), p >= 1024 in one chunk, and p < 1024 (one
 #: warp per row); n not a multiple of the row group (4, or 8 below 1024)
