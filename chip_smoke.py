@@ -12,8 +12,10 @@ port's main path through the entry points a user calls:
      ragged small shape, with its time, the plain version's time and the
      least time the card could take (its bound); the Gram in f32, tf32,
      bf16 and float64, both hinge passes in f32, bf16 and float64 (what a
-     float64 problem runs at the default precision), the hinge passes
-     beside the cuBLAS GEMVs X^T v and X d;
+     float64 problem runs at the default precision), the float64 Gram's two
+     launches apart (device times from torch.profiler) and beside cuBLAS's
+     A^T A of A = [X, y], the hinge passes beside the cuBLAS GEMVs X^T v
+     and X d;
   3. the dual solve at the shape of UCI YearPredictionMSD (n = 463,715,
      p = 90), default config (float64 Gram) and bf16 + refinement, against
      the plain float64 solve ("torch" backend) on the card;
@@ -40,11 +42,19 @@ The last two lines are a JSON object with every kernel's numbers and
 `{"ok": true, "device": {...}}`. Any failed check exits non-zero without
 that last line. Exits non-zero at once without a CUDA device, or without
 the rest of the repository beside this file.
+
+    python3 chip_smoke.py --gram-split
+
+times only the float64 Gram at the YMSD shape (together, its launches
+apart, cuBLAS's A^T A) and prints no result line. It needs nothing of the
+checkout but `shifted_gram_cuda`, so a copy of this file placed in a
+checkout of another commit times that commit's Gram.
 """
 from __future__ import annotations
 
 import importlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -120,6 +130,40 @@ def cuda_ms_each(torch, fn, dev, flush_l2: bool, reps: int = 50) -> float:
     return sum(start.elapsed_time(end) for start, end in pairs) / reps
 
 
+def kernel_ms(torch, fn, reps: int = 20) -> dict:
+    """{kernel name: mean device ms per call of fn()} from torch.profiler's
+    CUDA activity records, over `reps` calls after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.device_time_total / reps / 1e3 for e in prof.key_averages()
+            if e.device_time_total > 0}
+
+
+def gram_f64_times(torch, gram, Xd, yd, t) -> dict:
+    """Print the float64 Gram's time at (Xd, yd, t) (back-to-back launches,
+    CUDA events), each of its launches apart (profiler), and cuBLAS's A^T A
+    on a prebuilt contiguous A = [X, y], one DGEMM that holds all of the
+    kernel's O(n) work; return the first and the last (ms, library_ms)."""
+    n, p = Xd.shape
+    ms = cuda_ms(torch, lambda: gram.shifted_gram_cuda(Xd, yd, t))
+    apart = kernel_ms(torch, lambda: gram.shifted_gram_cuda(Xd, yd, t))
+    A = torch.cat([Xd, yd[:, None]], 1).contiguous()
+    library = cuda_ms(torch, lambda: A.T @ A)
+    del A
+    names = {k: re.search(r"::(\w+(?:<[^>]*>)?)\(", k) for k in apart}
+    print(f"  gram f64 at {n}x{p}: kernel {ms:.4f} ms together; apart (profiler) "
+          + ", ".join(f"{names[k].group(1) if names[k] else k[:40]} {v:.4f} ms"
+                      for k, v in apart.items())
+          + f"; cuBLAS A^T A {library:.4f} ms", flush=True)
+    return dict(ms=ms, library_ms=library)
+
+
 def bound(nbytes: float, flops: float, kind: str):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[kind] * 1e3
@@ -170,8 +214,12 @@ def phase_kernels(torch, smoke, dev, gen):
                 if tname == "t_main":
                     main_err = err
             if (n, p) == YMSD:
-                ms = cuda_ms(torch, lambda: gram.shifted_gram_cuda(Xs, ys, t_main,
-                                                                   precision=mode))
+                if prec == "f64":
+                    f64_times = gram_f64_times(torch, gram, Xs, ys, t_main)
+                    ms = f64_times["ms"]
+                else:
+                    ms = cuda_ms(torch, lambda: gram.shifted_gram_cuda(Xs, ys, t_main,
+                                                                       precision=mode))
                 plain = cuda_ms(torch, lambda: ref.flatten_gram(
                     ref.gram_blocks_ref(Xs, ys, t_main, mode)))
                 size = Xs.element_size()
@@ -185,7 +233,7 @@ def phase_kernels(torch, smoke, dev, gen):
                 if prec == "f64":   # what the main path runs on its float64 data
                     rows["shifted_gram_cuda"] = dict(
                         max_abs_err=main_err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=None)
+                        bound_by=b_by, library_ms=f64_times["library_ms"])
         del X, y, Xd, yd, Xs, ys
 
     for (n, p) in (GLA_BRA, RAGGED):
@@ -451,6 +499,18 @@ def phase_front_end(torch, smoke, kernels, svm_state, count, ymsd, glabra):
                 f"1e-8 * max|coef| = {1e-8 * scale:.3e}")
 
 
+def gram_split_only(torch) -> int:
+    """`--gram-split`: the float64 Gram at the YMSD shape, on phase 2's data."""
+    from repro_torch.data.synthetic import make_regression
+    from repro_torch.kernels import gram
+
+    print(f"card: {nvidia_smi()}", flush=True)
+    X, y, beta_true = make_regression(*YMSD, seed=0, dtype=torch.float32,
+                                      device=torch.device("cuda", 0))
+    gram_f64_times(torch, gram, X.double(), y.double(), 0.5 * beta_true.abs().sum().item())
+    return 0
+
+
 def run_path(torch, kernels, svm_state, fn):
     """Run fn with every launch counter and the sync counter at 0; return
     (result, seconds, launches, syncs)."""
@@ -479,6 +539,11 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    if sys.argv[1:] == ["--gram-split"]:
+        return gram_split_only(torch)
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
+        return 2
 
     from repro_torch import kernels
     from repro_torch.core.svm import state as svm_state
