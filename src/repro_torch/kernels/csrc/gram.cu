@@ -34,7 +34,7 @@
 // n q 8 = 337.6 MB / 3.35 TB/s = 0.101 ms; operations n q (q+1) = 3.88 GFLOP
 // / 67 TFLOP/s (FP64 tensor peak) = 0.058 ms; so bytes bound it. Its partial
 // kernel (gram_partial_f64) runs on the FP64 tensor cores:
-//   - mma.sync m16n8k4 f64 (m8n8k4 issues at a lower rate on this card). With
+//   - mma.sync m16n8k4 f64 (m8n8k4 runs at a lower rate on Hopper). With
 //     the rows as the k dimension, lane l's element of the A fragment of an
 //     8-column group g and 4 rows r0.. is A[r0 + (l & 3)][8g + (l >> 2)], and
 //     its element of the B fragment of group g is the same: one 8-byte
