@@ -11,14 +11,15 @@ port's main path through the entry points a user calls:
   2. each kernel vs its plain version at the main path's shapes and at a
      ragged small shape, with its time, the plain version's time and the
      least time the card could take (its bound); the Gram in f32, tf32,
-     bf16 and float64, both hinge passes in f32, bf16 and float64 (what a
-     float64 problem runs at the default precision), the float64 Gram
-     beside cuBLAS's A^T A of A = [X, y] and its two launches apart (device
-     times from torch.profiler, in a child process: `--gram-split`), the
-     hinge passes beside the cuBLAS GEMVs X^T v and X d;
+     bf16 and float64, each beside cuBLAS's A^T A of A = [X, y] in the
+     same type, its two launches apart in float64, bf16 and tf32 (device
+     times from torch.profiler, in a child process: `--gram-split`); both
+     hinge passes in f32, bf16 and float64 (what a float64 problem runs at
+     the default precision), beside the cuBLAS GEMVs X^T v and X d;
   3. the dual solve at the shape of UCI YearPredictionMSD (n = 463,715,
-     p = 90), default config (float64 Gram) and bf16 + refinement, against
-     the plain float64 solve ("torch" backend) on the card;
+     p = 90), default config (float64 Gram), bf16 + refinement and tf32 +
+     refinement, against the plain float64 solve ("torch" backend) on the
+     card;
   4. the primal solve at the shape of GLA-BRA-180 (n = 180, p = 49,151),
      default config (float64 hinge passes), against the plain float64
      solve: its answer, Newton steps and CG steps;
@@ -38,17 +39,19 @@ port's main path through the entry points a user calls:
 The data are synthetic (`repro_torch.data.make_regression`, fixed seeds).
 Each path runs with every launch counter set to 0 just before it and read
 just after it; a kernel of the path that was never launched fails the run.
-The last two lines are a JSON object with every kernel's numbers and
-`{"ok": true, "device": {...}}`. Any failed check exits non-zero without
+The last two lines are a JSON object with every kernel's numbers (the
+Gram's row counts its float64 body's launches and gives each body's under
+`launches_by_mode`) and `{"ok": true, "device": {...}}`. Any failed check exits non-zero without
 that last line. Exits non-zero at once without a CUDA device, or without
 the rest of the repository beside this file.
 
-    python3 chip_smoke.py --gram-split
+    python3 chip_smoke.py --gram-split [f64|f32|tf32|bf16 ...]
 
-times only the float64 Gram at the YMSD shape (together, its launches
-apart, cuBLAS's A^T A) and prints no result line. It needs nothing of the
-checkout but `shifted_gram_cuda`, so a copy of this file placed in a
-checkout of another commit times that commit's Gram.
+times only the Gram at the YMSD shape in the modes named (float64 when
+none is: together, its launches apart, cuBLAS's A^T A in the same type)
+and prints no result line. It needs nothing of the checkout but
+`shifted_gram_cuda`, so a copy of this file placed in a checkout of
+another commit times that commit's Gram.
 """
 from __future__ import annotations
 
@@ -145,23 +148,34 @@ def kernel_ms(torch, fn, reps: int = 20) -> dict:
             if e.device_time_total > 0}
 
 
-def cublas_gram_ms(torch, Xd, yd) -> float:
-    """cuBLAS's A^T A on a prebuilt contiguous A = [X, y]: one DGEMM that
-    holds all of the Gram kernel's O(n) work."""
-    A = torch.cat([Xd, yd[:, None]], 1).contiguous()
-    return cuda_ms(torch, lambda: A.T @ A)
+def cublas_gram_ms(torch, Xs, ys, prec: str) -> float:
+    """cuBLAS's A^T A on a prebuilt contiguous A = [X, y] in the Gram mode's
+    working type: one GEMM that holds all of the Gram kernel's O(n) work.
+    f32 and f64 in full precision; tf32 the float32 call with TF32 allowed
+    for it alone; bf16 on bfloat16 A (float32 accumulation, bfloat16
+    output)."""
+    A = torch.cat([Xs, ys[:, None]], 1).contiguous()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = prec == "tf32"
+    try:
+        return cuda_ms(torch, lambda: A.T @ A)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+GRAM_SPLIT_MODES = ("f64", "bf16", "tf32")
 
 
 def gram_split_child(smoke) -> None:
-    """Run `--gram-split` in a child process and print its line: the
-    profiler's CUDA activity tracing then stays out of this process, whose
-    later phases time the host loop."""
-    out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--gram-split"],
-                         capture_output=True, text=True, timeout=600)
-    lines = [ln for ln in out.stdout.splitlines() if "gram f64" in ln]
+    """Run `--gram-split` for GRAM_SPLIT_MODES in a child process and print
+    its lines: the profiler's CUDA activity tracing then stays out of this
+    process, whose later phases time the host loop."""
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--gram-split",
+                          *GRAM_SPLIT_MODES], capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("  gram ")]
     for ln in lines:
         print(ln, flush=True)
-    smoke.check(out.returncode == 0 and len(lines) == 1,
+    smoke.check(out.returncode == 0 and len(lines) == len(GRAM_SPLIT_MODES),
                 f"--gram-split child: exit {out.returncode}, {out.stderr[-300:]!r}")
 
 
@@ -193,12 +207,14 @@ def phase_kernels(torch, smoke, dev, gen):
             # body, which a float64 problem runs on the main path
             mode = "f32" if prec == "f64" else prec
             Xs, ys = (Xd, yd) if prec == "f64" else (_storage(X, prec), _storage(y, prec))
-            # tf32: the plain version rounds X and y exactly as the kernel
-            # does, and products of TF32 values are exact in f32, so only the
-            # order of the f32 sums differs: the f32 bound applies. f64: the
-            # worst case of a float64 sum in another order, n eps = 5.1e-11
-            # at n = 463,715, is under 1e-10.
-            tol = {"f32": 1e-5, "tf32": 1e-5, "bf16": 2e-2, "f64": 1e-10}[prec]
+            # tf32 and bf16: the plain version sums the same rounded operands
+            # (X and y rounded to TF32 as the kernel rounds them; bfloat16
+            # storage), whose products are exact in f32, so only the f32 sums
+            # differ (their order, and the tensor cores' rounding inside a
+            # product): the f32 bound applies. f64: the worst case of a
+            # float64 sum in another order, n eps = 5.1e-11 at n = 463,715,
+            # is under 1e-10.
+            tol = {"f32": 1e-5, "tf32": 1e-5, "bf16": 1e-5, "f64": 1e-10}[prec]
             for tname, t in radii.items():
                 K = gram.shifted_gram_cuda(Xs, ys, t, precision=mode)
                 Kr = ref.flatten_gram(ref.gram_blocks_ref(Xs, ys, t, mode))
@@ -213,7 +229,11 @@ def phase_kernels(torch, smoke, dev, gen):
                 smoke.check(torch.equal(ref.flatten_gram(Kb), K),
                             f"gram {n}x{p} {prec} {tname}: block layout equals the flat one")
                 if tname == "t_main":
-                    main_err = err
+                    main_err, main_scale = err, scale
+                    # a fixed summation order
+                    smoke.check(all(torch.equal(gram.shifted_gram_cuda(
+                        Xs, ys, t, precision=mode), K) for _ in range(3)),
+                        f"gram {n}x{p} {prec} {tname}: three more launches give equal K")
             if (n, p) == YMSD:
                 ms = cuda_ms(torch, lambda: gram.shifted_gram_cuda(Xs, ys, t_main,
                                                                    precision=mode))
@@ -225,11 +245,17 @@ def phase_kernels(torch, smoke, dev, gen):
                 # the summing dtype
                 b_ms, b_by = bound(n * p * size + n * size + 4 * p * p * (8 if prec == "f64" else 4),
                                    1.0 * n * (p + 1) * (p + 2), prec)
+                library = cublas_gram_ms(torch, Xs, ys, prec)
+                # the read rate one PyTorch reduction reaches on the same X
+                read = cuda_ms(torch, lambda: Xs.sum(dtype=torch.float32 if size < 8
+                                                      else torch.float64))
+                note = " (bfloat16 output, float32 accumulation)" if prec == "bf16" else ""
                 print(f"  gram {prec} at {n}x{p}: kernel {ms:.4f} ms, plain {plain:.4f} "
-                      f"ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+                      f"ms, bound {b_ms:.4f} ms ({b_by}), cuBLAS A^T A {library:.4f} ms"
+                      f"{note}; max|K-K_plain| / max|K| at t_main {main_err / main_scale:.2e}"
+                      f"; torch.sum of X {read:.4f} ms ({n * p * size / read / 1e9:.2f} TB/s)",
+                      flush=True)
                 if prec == "f64":   # what the main path runs on its float64 data
-                    library = cublas_gram_ms(torch, Xs, ys)
-                    print(f"  cuBLAS A^T A f64 at {n}x{p}: {library:.4f} ms", flush=True)
                     gram_split_child(smoke)
                     rows["shifted_gram_cuda"] = dict(
                         max_abs_err=main_err, ms=ms, plain_ms=plain, bound_ms=b_ms,
@@ -499,24 +525,35 @@ def phase_front_end(torch, smoke, kernels, svm_state, count, ymsd, glabra):
                 f"1e-8 * max|coef| = {1e-8 * scale:.3e}")
 
 
-def gram_split_only(torch) -> int:
-    """`--gram-split`: the float64 Gram at the YMSD shape, on phase 2's data:
-    its time (back-to-back launches, CUDA events), each of its launches
-    apart (profiler), and cuBLAS's A^T A."""
+def gram_split_only(torch, modes) -> int:
+    """`--gram-split`: the Gram at the YMSD shape in each of `modes` (f64:
+    float64 operands at "f32"), on phase 2's data: its time (back-to-back
+    launches, CUDA events), each of its launches apart (profiler), and
+    cuBLAS's A^T A in the same type."""
     from repro_torch.data.synthetic import make_regression
     from repro_torch.kernels import gram
+    from repro_torch.kernels.ops import _storage
 
     print(f"card: {nvidia_smi()}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
     X, y, beta_true = make_regression(*YMSD, seed=0, dtype=torch.float32,
                                       device=torch.device("cuda", 0))
-    Xd, yd, t = X.double(), y.double(), 0.5 * beta_true.abs().sum().item()
-    ms = cuda_ms(torch, lambda: gram.shifted_gram_cuda(Xd, yd, t))
-    apart = kernel_ms(torch, lambda: gram.shifted_gram_cuda(Xd, yd, t))
-    names = {k: re.search(r"::(\w+(?:<[^>]*>)?)\(", k) for k in apart}
-    print(f"  gram f64 at {YMSD[0]}x{YMSD[1]}: kernel {ms:.4f} ms together; apart "
-          "(profiler) " + ", ".join(f"{names[k].group(1) if names[k] else k[:40]} "
-                                    f"{v:.4f} ms" for k, v in apart.items())
-          + f"; cuBLAS A^T A {cublas_gram_ms(torch, Xd, yd):.4f} ms", flush=True)
+    t = 0.5 * beta_true.abs().sum().item()
+    lines = []
+    for prec in modes:   # every mode's launches timed before the profiler runs
+        mode = "f32" if prec == "f64" else prec
+        Xs, ys = ((X.double(), y.double()) if prec == "f64"
+                  else (_storage(X, prec), _storage(y, prec)))
+        call = (lambda Xs=Xs, ys=ys, mode=mode:
+                gram.shifted_gram_cuda(Xs, ys, t, precision=mode))
+        lines.append((prec, call, cuda_ms(torch, call), cublas_gram_ms(torch, Xs, ys, prec)))
+    for prec, call, ms, library in lines:
+        apart = kernel_ms(torch, call)
+        names = {k: re.search(r"::(\w+(?:<[^>]*>)?)\(", k) for k in apart}
+        print(f"  gram {prec} at {YMSD[0]}x{YMSD[1]}: kernel {ms:.4f} ms together; apart "
+              "(profiler) " + ", ".join(f"{names[k].group(1) if names[k] else k[:40]} "
+                                        f"{v:.4f} ms" for k, v in apart.items())
+              + f"; cuBLAS A^T A {library:.4f} ms", flush=True)
     return 0
 
 
@@ -548,8 +585,12 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    if sys.argv[1:] == ["--gram-split"]:
-        return gram_split_only(torch)
+    if sys.argv[1:2] == ["--gram-split"]:
+        modes = sys.argv[2:] or ["f64"]
+        if not set(modes) <= {"f64", "f32", "tf32", "bf16"}:
+            print(f"chip_smoke: unknown Gram modes {modes}", file=sys.stderr)
+            return 2
+        return gram_split_only(torch, modes)
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -629,11 +670,27 @@ def main() -> int:
     print(f"    bf16 + refinement, tol 1e-12: {lo.iters} Newton (refinement) / "
           f"{lo.cg_iters} CG, kkt {lo.kkt.item():.3e}, {lo_s:.3f} s, {lo_syncs} syncs; "
           f"torch f64 tol 1e-12: {ref12.iters} Newton, {ref12_s:.3f} s", flush=True)
-    smoke.check(lo_launched["shifted_gram_cuda"] == 1, "bf16 solve launched the Gram")
+    # the Gram row's launches are its float64 body's; the bf16 and tf32
+    # bodies' are counted apart, under the row's "launches_by_mode"
+    gram_modes = {"bf16": lo_launched.pop("shifted_gram_cuda")}
+    count(lo_launched)
+    smoke.check(gram_modes["bf16"] == 1, "bf16 solve launched the Gram once")
     smoke.check(dev_lo <= 1e-10, f"bf16 refined max|beta - beta_torch| = {dev_lo:.3e} "
                 "<= 1e-10")
+    tf, tf_s, tf_launched, tf_syncs = run_path(
+        torch, kernels, svm_state,
+        lambda: sven(X, y, t, LAMBDA2, SvenConfig(precision="tf32", tol=1e-12)))
+    gram_modes["tf32"] = tf_launched.pop("shifted_gram_cuda")
+    count(tf_launched)
+    dev_tf = max_dev(torch, tf.beta, ref12.beta)
+    print(f"    tf32 + refinement, tol 1e-12: {tf.iters} Newton (refinement) / "
+          f"{tf.cg_iters} CG, kkt {tf.kkt.item():.3e}, {tf_s:.3f} s, {tf_syncs} syncs",
+          flush=True)
+    smoke.check(gram_modes["tf32"] == 1, "tf32 solve launched the Gram once")
+    smoke.check(dev_tf <= 1e-10, f"tf32 refined max|beta - beta_torch| = {dev_tf:.3e} "
+                "<= 1e-10")
     ymsd_case = ("dual w", X, y, t, sol.w, svm_C(LAMBDA2))
-    del sol, ref_sol, ref12, lo
+    del sol, ref_sol, ref12, lo, tf
     torch.cuda.empty_cache()
 
     # -- 4. primal at the GLA-BRA-180 shape ------------------------------------
@@ -716,6 +773,11 @@ def main() -> int:
     # -- summary ---------------------------------------------------------------
     for name, n_launch in path_launches.items():
         smoke.check(n_launch > 0, f"{name} launched on the main path ({n_launch})")
+    for prec, n_launch in gram_modes.items():
+        smoke.check(n_launch > 0, f"shifted_gram_cuda {prec} body launched on the main "
+                    f"path ({n_launch})")
+    rows["shifted_gram_cuda"]["launches_by_mode"] = {
+        "f64": path_launches["shifted_gram_cuda"], **gram_modes}
     meta = {
         "shifted_gram_cuda": ("src/repro_torch/kernels/csrc/gram.cu",
                               "src/repro/kernels/gram.py:25"),

@@ -19,21 +19,24 @@
 //   2. gram_epilogue: one block per row i of P sums the partials of the
 //      entries it reads (P_ij, u_i, u_j, s) over k in a fixed order
 //      (deterministic: no float atomics), then writes the four quadrants.
-// Ragged edges are masked, never padded in memory.
+// Ragged edges are masked, never padded in memory. Each mode has its own
+// partial kernel and shares the epilogue (float sums in modes 0-2, double in
+// mode 3). At the YMSD shape (n = 463,715, p = 90) on an H100:
 //
-// Modes 0-2 (float32 sums): 0 = f32 (true fp32 FMA; TF32 is not used), 1 =
-// tf32 (operands rounded with cvt.rna.tf32.f32, fp32 accumulation), 2 = bf16
-// storage of X and y, fp32 accumulation. Their partial kernel (gram_partial)
-// sums 64 x 64 tiles of A^T A in registers, 4 x 4 per thread, operands staged
-// through shared memory; only tiles with tj >= ti run. At the YMSD shape (n =
-// 463,715, p = 90) the f32 function is 3.9 GFLOP over 167 MB: bound by the
-// card's fp32 FMA rate.
+//   mode  X, y      products            partial kernel         bound
+//   0 f32  float    fp32 FMA (no TF32)  gram_partial           3.9 GFLOP / 67 TFLOP/s = 0.058 ms
+//   1 tf32 float    TF32 tensor cores   tc::gram_partial       168.8 MB / 3.35 TB/s = 0.050 ms
+//   2 bf16 bfloat16 BF16 tensor cores   tc::gram_partial       84.5 MB / 3.35 TB/s = 0.025 ms
+//   3 f64  double   FP64 tensor cores   f64::gram_partial_f64  337.6 MB / 3.35 TB/s = 0.101 ms
+//
+// Mode 0 sums 64 x 64 tiles of A^T A in registers, 4 x 4 per thread, operands
+// staged through shared memory, about four blocks per SM; only tiles with
+// tj >= ti run. It is what a float32 problem runs at precision "f32".
 //
 // Mode 3 (float64: X, y, partials, epilogue and K all double) is what a
-// float64 problem runs at precision "f32". Its bound at the YMSD shape: bytes
-// n q 8 = 337.6 MB / 3.35 TB/s = 0.101 ms; operations n q (q+1) = 3.88 GFLOP
-// / 67 TFLOP/s (FP64 tensor peak) = 0.058 ms; so bytes bound it. Its partial
-// kernel (gram_partial_f64) runs on the FP64 tensor cores:
+// float64 problem runs at precision "f32". Its operations, n q (q+1) = 3.88
+// GFLOP / 67 TFLOP/s (FP64 tensor peak) = 0.058 ms, are under its bytes.
+// Its partial kernel (f64::gram_partial_f64):
 //   - mma.sync m16n8k4 f64 (m8n8k4 runs at a lower rate on Hopper). With
 //     the rows as the k dimension, lane l's element of the A fragment of an
 //     8-column group g and 4 rows r0.. is A[r0 + (l & 3)][8g + (l >> 2)], and
@@ -61,6 +64,57 @@
 //     row order within a warp, the two warps of a diagonal tile in warp
 //     order, the blocks' partials in k order in the epilogue), so K is
 //     bitwise repeatable.
+//
+// Modes 1 and 2 (tf32, bf16: float32 sums of products taken on the tensor
+// cores, what the TPU kernel's Precision.DEFAULT does on its matrix unit)
+// share one partial kernel, tc::gram_partial, on the float64 body's plan:
+//   - mma.sync m16n8k8 tf32 (operands rounded to nearest by cvt.rna.tf32.f32,
+//     as the plain version rounds them; products of TF32 values are exact in
+//     float32) and m16n8k16 bf16, float32 accumulators. Rows are the k
+//     dimension, and one fragment per 8-column group serves both operands:
+//     lane l works on column 8c + (l >> 2) of group c and holds rows
+//     (l & 3) and (l & 3) + 4 of an 8-row step (tf32), or the row pairs
+//     2(l & 3), +1 and 2(l & 3) + 8, +9 of a 16-row step packed into one
+//     register each (bf16). Those two registers are the A fragment's (a0, a2)
+//     or (a1, a3), as the group is the upper or lower half of an m16 tile,
+//     and the B fragment's (b0, b1).
+//   - Reads bound both modes: their padded products take 5 GFLOP, 0.005-0.01
+//     ms at the tensor peaks. But mma.sync is the one tensor-core path here
+//     (no wgmma), and at YMSD the products alone take most of the reads'
+//     time (bf16) or more (tf32), so the design keeps the loads per product
+//     low. A block takes one pair of 96-column tiles and a chunk of rows, one
+//     8-warp block per SM, in one wave. A diagonal pair's triangle (42
+//     products per step: 6 bands of 16 columns, band h against column groups
+//     2h..11) is split between two warps as bands 0-1 (22 products, 12
+//     fragments) and 2-5 (20, 8), each on every fourth step: each fragment,
+//     loaded once a warp, feeds 2-12 products. An off-diagonal pair's 96 x
+//     96 block is four 48 x 48 quadrants (18 products, 12 fragments), each on
+//     every other step. The warps of a part are added in phase order at the
+//     end, through shared memory.
+//   - Stages are sized by bytes: 128 rows of bf16 or 64 of float32, 23 KB at
+//     p = 90. One tile (q <= 96, the main path) is staged flat: a chunk of
+//     rows of a contiguous X is one byte range; its whole 16-byte lines go by
+//     one cp.async.bulk on the copy engine, counted by the stage's mbarrier,
+//     and the last part line by cp.async, so X lands at a shift of (address
+//     mod 16) and no alignment of X or parity of p is needed. Four buffers
+//     keep three stages (69 KB) in flight per SM, past the ~25 KB that 3.35
+//     TB/s x ~1 us / 132 SMs asks for; more buffers, the copy cut in pieces,
+//     or twice the rows did not read faster. Wider A reads only its two
+//     tiles' columns: each row's 96 columns by 4-byte cp.async from the
+//     4-byte word that holds the first (shift 0 or 1 bf16 element by row),
+//     three buffers of 200-element rows. y is staged flat beside X and stands
+//     in for the lane's column where that column is p; other columns past p
+//     are read as whatever lies there, which reaches only the products of
+//     rows or columns past p, never stored; rows past the chunk read a zeroed
+//     strip. Fragments are built by 2-byte (bf16) or 4-byte shared-memory
+//     loads, since a flat row of 180 bytes is not 16-byte aligned for
+//     ldmatrix.
+//   - Accumulation: bf16 chains each accumulator through its warp's products
+//     (56 at the YMSD split) and lands as close to the plain version as
+//     shorter chains did. The tensor cores' tf32 sums round in their own way
+//     and drift over a chain (the y^T y entry is a sum of positive terms), so
+//     every tf32 product starts from zero and its sums are added to the
+//     accumulators in float32, as an FMA chain would add them.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,28 +134,14 @@ __device__ __forceinline__ float to_tf32(float x) {
   return __uint_as_float(u & 0xFFFFE000u);
 }
 
-// The type every product and sum of modes 0-2 is taken in.
-template <typename T> using acc_t = float;
-
-template <typename T> __device__ __forceinline__ acc_t<T> ld(const T* p, int64_t i) {
-  return p[i];
-}
-template <> __device__ __forceinline__ float ld<__nv_bfloat16>(const __nv_bfloat16* p,
-                                                               int64_t i) {
-  return __bfloat162float(p[i]);
-}
-
 // Entry (r, c) of A = [X, y]; 0 past the last column.
-template <typename T, bool TF32>
-__device__ __forceinline__ acc_t<T> aug(const T* X, const T* y, int64_t r, int c, int p) {
-  acc_t<T> v = 0;
-  if (c < p) v = ld<T>(X, r * p + c);
-  else if (c == p) v = ld<T>(y, r);
-  if constexpr (TF32) v = to_tf32(v);
+__device__ __forceinline__ float aug(const float* X, const float* y, int64_t r, int c,
+                                     int p) {
+  float v = 0;
+  if (c < p) v = X[r * p + c];
+  else if (c == p) v = y[r];
   return v;
 }
-
-__device__ __forceinline__ float mad(float a, float b, float c) { return fmaf(a, b, c); }
 
 // Four neighbouring shared-memory entries: one float4.
 __device__ __forceinline__ void ld4(const float* s, float (&a)[kMicro]) {
@@ -109,11 +149,11 @@ __device__ __forceinline__ void ld4(const float* s, float (&a)[kMicro]) {
   a[0] = v.x; a[1] = v.y; a[2] = v.z; a[3] = v.w;
 }
 
-template <typename T, bool TF32>
+// ---- mode 0: the float32 partial kernel (fp32 FMA) --------------------------
+
 __global__ void __launch_bounds__(kThreads)
-gram_partial(const T* __restrict__ X, const T* __restrict__ y,
-             acc_t<T>* __restrict__ part, int n, int p, int rows_per_split) {
-  using A = acc_t<T>;
+gram_partial(const float* __restrict__ X, const float* __restrict__ y,
+             float* __restrict__ part, int n, int p, int rows_per_split) {
   const int ti = blockIdx.x, tj = blockIdx.y, ks = blockIdx.z;
   if (tj < ti) return;  // symmetric: the lower tiles are never read
   const int q = p + 1;
@@ -122,9 +162,9 @@ gram_partial(const T* __restrict__ X, const T* __restrict__ y,
   const int tx = threadIdx.x % (kTile / kMicro);
   const int ty = threadIdx.x / (kTile / kMicro);
 
-  __shared__ __align__(16) A As[kRows][kTile];
-  __shared__ __align__(16) A Bs[kRows][kTile];
-  A acc[kMicro][kMicro];
+  __shared__ __align__(16) float As[kRows][kTile];
+  __shared__ __align__(16) float Bs[kRows][kTile];
+  float acc[kMicro][kMicro];
 #pragma unroll
   for (int a = 0; a < kMicro; ++a)
 #pragma unroll
@@ -136,24 +176,24 @@ gram_partial(const T* __restrict__ X, const T* __restrict__ y,
       const int rr = e / kTile, cc = e % kTile;
       const int64_t r = rb + rr;
       const bool in = r < r1;
-      As[rr][cc] = in ? aug<T, TF32>(X, y, r, ti * kTile + cc, p) : A(0);
-      Bs[rr][cc] = in ? aug<T, TF32>(X, y, r, tj * kTile + cc, p) : A(0);
+      As[rr][cc] = in ? aug(X, y, r, ti * kTile + cc, p) : 0.0f;
+      Bs[rr][cc] = in ? aug(X, y, r, tj * kTile + cc, p) : 0.0f;
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < kRows; ++kk) {
-      A a[kMicro], b[kMicro];
+      float a[kMicro], b[kMicro];
       ld4(&As[kk][ty * kMicro], a);
       ld4(&Bs[kk][tx * kMicro], b);
 #pragma unroll
       for (int i = 0; i < kMicro; ++i)
 #pragma unroll
-        for (int j = 0; j < kMicro; ++j) acc[i][j] = mad(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < kMicro; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
     __syncthreads();
   }
 
-  A* out = part + (int64_t)ks * q * q;
+  float* out = part + (int64_t)ks * q * q;
 #pragma unroll
   for (int i = 0; i < kMicro; ++i) {
     const int gi = ti * kTile + ty * kMicro + i;
@@ -366,6 +406,420 @@ __global__ void mma_probe(const double* __restrict__ S, double* __restrict__ D) 
 
 }  // namespace f64
 
+// ---- modes 1 and 2: the tf32 and bf16 partial kernel on the tensor cores ---
+
+namespace tc {
+
+using f64::cp_async_commit;
+using f64::cp_async_wait;
+
+constexpr int kEdge = 96;           // columns of a tile: 12 groups of 8
+constexpr int kGroups = kEdge / 8;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kSegOff = 100;        // wide rows: where tile J's columns are staged
+constexpr int kZero = 208;          // zeros read in place of rows past the chunk
+// m16n8 products a warp sums per step, at most. A diagonal pair's triangle
+// has 42 (6 row bands of 16 columns, band h against column groups 2h..11),
+// split between two warps as bands 0-1 (22) and 2-5 (20); an off-diagonal
+// pair's 96 x 96 block has 72, in four 48 x 48 quadrants (18).
+constexpr int kMmas = 22;
+// Shared memory of the end's sum over the warps of a role.
+constexpr int kRedBytes = kWarps * kMmas * 4 * 32 * (int)sizeof(float);
+// Staged row pitch of the wide route, in elements: one tile (diagonal pair)
+// or two. A fragment load of lane l reads row 2(l & 3) (bf16) or l & 3
+// (tf32), 4 (l & 3) pitch bytes from lane l & ~3's either way: 104 and 200
+// put lanes l & 3 = 0..3 in distinct banks.
+__host__ __device__ constexpr int pitch(bool diag) { return diag ? 104 : 200; }
+// Product (h, j) of a diagonal pair's triangle.
+__host__ __device__ constexpr int tri(int h, int j) { return h * (13 - h) + j - 2 * h; }
+
+// dst = the first `bytes` of the 16 (4) bytes at src, zero-filled after them.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// The `count` elements at src, copied from the 16-byte line that holds src:
+// the first lands at dst + (src mod 16) / sizeof(T).
+template <typename T>
+__device__ __forceinline__ void copy_flat(T* dst, const T* src, int count) {
+  const uintptr_t a0 = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t a1 = a0 + (uintptr_t)count * sizeof(T);
+  const uintptr_t line = a0 & ~(uintptr_t)15;
+  const int chunks = (int)((a1 - line + 15) >> 4);
+  for (int c = threadIdx.x; c < chunks; c += kThreads) {
+    const uintptr_t s = line + 16 * (uintptr_t)c;
+    cp_async16(reinterpret_cast<char*>(dst) + 16 * c, reinterpret_cast<const void*>(s),
+               (int)(a1 - s < 16 ? a1 - s : 16));
+  }
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+}
+// One bulk copy of `bytes` (a multiple of 16, 16-byte aligned ends) on the
+// copy engine, counted by `bar`, whose phase then completes (also for 0 bytes).
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  if (bytes)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];" ::"r"(smem_addr(dst)),
+        "l"(src), "r"(bytes), "r"(smem_addr(bar))
+        : "memory");
+}
+__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{ .reg .pred P; mbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2; "
+        "selp.u32 %0, 1, 0, P; }"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+template <typename T>
+__device__ __forceinline__ int shift_of(const T* src, uintptr_t align) {
+  return (int)((reinterpret_cast<uintptr_t>(src) & (align - 1)) / sizeof(T));
+}
+
+template <typename T> struct Mma;
+
+// bf16: m16n8k16. Lane rows 2t, 2t+1, 2t+8, 2t+9 of a 16-row step (t = l & 3),
+// packed in pairs, the lower row in the low half.
+template <> struct Mma<__nv_bfloat16> {
+  static constexpr int kStep = 16;    // rows of one product (its k)
+  static constexpr int kStage = 128;  // rows of one stage
+  static constexpr int kLaneRows = 4;
+  static __device__ int row(int i, int t) { return (i >> 1) * 8 + 2 * t + (i & 1); }
+  // The fragment of the lane's column at offset kk of the staged rows at o.
+  static __device__ void frag(const __nv_bfloat16* s, const int (&o)[kLaneRows], int kk,
+                              uint32_t (&f)[2]) {
+    const unsigned short* h = reinterpret_cast<const unsigned short*>(s);
+    f[0] = h[o[0] + kk] | (uint32_t)h[o[1] + kk] << 16;
+    f[1] = h[o[2] + kk] | (uint32_t)h[o[3] + kk] << 16;
+  }
+  // D += A B, A 16 x 16, B 16 x 8, D chained through the tensor cores.
+  static __device__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+};
+
+// tf32: m16n8k8. Lane rows t, t+4 of an 8-row step, rounded to TF32.
+template <> struct Mma<float> {
+  static constexpr int kStep = 8;
+  static constexpr int kStage = 64;
+  static constexpr int kLaneRows = 2;
+  static __device__ int row(int i, int t) { return 4 * i + t; }
+  static __device__ void frag(const float* s, const int (&o)[kLaneRows], int kk,
+                              uint32_t (&f)[2]) {
+    f[0] = __float_as_uint(to_tf32(s[o[0] + kk]));
+    f[1] = __float_as_uint(to_tf32(s[o[1] + kk]));
+  }
+  // D += A B, A 16 x 8, B 8 x 8: the product from zero, its sums added to D
+  // in float32 (a chain through the tensor cores drifts in tf32).
+  static __device__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+    float c[4];
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};"
+        : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.0f));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[e] += c[e];
+  }
+};
+
+// A warp's sums; product m's 16 x 8 block: lane l holds rows l/4 and l/4 + 8,
+// columns 2(l%4) and 2(l%4) + 1.
+using Acc = float[kMmas][4];
+
+// The fragment of column group c (lane column at staged offset kk + 8c, which
+// is column p where 8c + (l >> 2) == pc); y stands in there.
+template <typename T>
+__device__ __forceinline__ void group(const T* s, const int (&o)[Mma<T>::kLaneRows],
+                                      const uint32_t (&fy)[2], int kk, int pc, int c,
+                                      uint32_t (&f)[2]) {
+  Mma<T>::frag(s, o, kk + 8 * c, f);
+  if (8 * c + ((threadIdx.x & 31) >> 2) == pc) f[0] = fy[0], f[1] = fy[1];
+}
+
+// One step of bands H0..H1-1 of a diagonal pair's triangle: the fragments of
+// column groups 2 H0..11 (staged from offset 0), each serving both operands,
+// and the products of band h (groups 2h, 2h + 1) with groups 2h..11; product
+// (h, j) into acc[tri(h, j) - tri(H0, 2 H0)]. Its block below the diagonal
+// is summed and not stored.
+template <int H0, int H1, typename T>
+__device__ __forceinline__ void step_bands(const T* s, const int (&o)[Mma<T>::kLaneRows],
+                                           const uint32_t (&fy)[2], int pc, Acc& acc) {
+  uint32_t f[kGroups][2];
+#pragma unroll
+  for (int c = 2 * H0; c < kGroups; ++c) group(s, o, fy, 0, pc, c, f[c]);
+#pragma unroll
+  for (int h = H0; h < H1; ++h) {
+    const uint32_t a[4] = {f[2 * h][0], f[2 * h + 1][0], f[2 * h][1], f[2 * h + 1][1]};
+#pragma unroll
+    for (int j = 2 * h; j < kGroups; ++j)
+      Mma<T>::mma(acc[tri(h, j) - tri(H0, 2 * H0)], a, f[j]);
+  }
+}
+
+// One step of a 48 x 48 quadrant of an off-diagonal pair: six row groups at
+// staged offset ka (tile I), six column groups at kb (tile J), 18 products.
+template <typename T>
+__device__ __forceinline__ void step_quad(const T* s, const int (&o)[Mma<T>::kLaneRows],
+                                          const uint32_t (&fy)[2], int ka, int pa, int kb,
+                                          int pb, Acc& acc) {
+  uint32_t fa[6][2], fb[6][2];
+#pragma unroll
+  for (int c = 0; c < 6; ++c) {
+    group(s, o, fy, ka, pa, c, fa[c]);
+    group(s, o, fy, kb, pb, c, fb[c]);
+  }
+#pragma unroll
+  for (int h = 0; h < 3; ++h) {
+    const uint32_t a[4] = {fa[2 * h][0], fa[2 * h + 1][0], fa[2 * h][1], fa[2 * h + 1][1]};
+#pragma unroll
+    for (int j = 0; j < 6; ++j) Mma<T>::mma(acc[6 * h + j], a, fb[j]);
+  }
+}
+
+// Sum e of the lane's part of a product whose row groups start at gi and
+// column group is gj, into out (leading dimension q) where i <= c < q.
+__device__ __forceinline__ void put(float v, float* out, int q, int gi, int gj, int e) {
+  const int lane = threadIdx.x & 31;
+  const int i = 8 * (gi + (e >> 1)) + (lane >> 2);
+  const int c = 8 * gj + 2 * (lane & 3) + (e & 1);
+  if (i <= c && c < q) out[(int64_t)i * q + c] = v;
+}
+
+// The sums of step_bands<H0, H1> on a diagonal pair whose first group is g0.
+template <int H0, int H1>
+__device__ __forceinline__ void store_bands(const Acc& acc, float* out, int q, int g0) {
+#pragma unroll
+  for (int h = H0; h < H1; ++h)
+#pragma unroll
+    for (int j = 2 * h; j < kGroups; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        put(acc[tri(h, j) - tri(H0, 2 * H0)][e], out, q, g0 + 2 * h, g0 + j, e);
+}
+
+// The sums of step_quad: row groups from gi, column groups from gj.
+__device__ __forceinline__ void store_quad(const Acc& acc, float* out, int q, int gi,
+                                           int gj) {
+#pragma unroll
+  for (int h = 0; h < 3; ++h)
+#pragma unroll
+    for (int j = 0; j < 6; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) put(acc[6 * h + j][e], out, q, gi + 2 * h, gj + j, e);
+}
+
+// Block (x, k): tile pair x of the nt (nt + 1) / 2 upper pairs (row-major),
+// rows [k R, min(n, (k+1) R)) with R = rows_per_split. kFlat (nt = 1): rows
+// staged flat, xstage elements a buffer; else each row's tile columns.
+__host__ __device__ constexpr int buffers(bool flat) { return flat ? 4 : 3; }
+template <typename T, bool kFlat>
+__global__ void __launch_bounds__(kThreads, 1)
+gram_partial(const T* __restrict__ X, const T* __restrict__ y, float* __restrict__ part,
+             int n, int p, int rows_per_split, int nt, int xstage) {
+  using M = Mma<T>;
+  constexpr int kBuf = buffers(kFlat);
+  constexpr int kVec = 16 / (int)sizeof(T);   // elements of a 16-byte copy
+  constexpr int kYStage = M::kStage + kVec;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint64_t bars[kBuf];             // flat X stages' copy barriers
+  T* const s = reinterpret_cast<T*>(smem);    // offsets below are into s
+  const int ybase = kBuf * xstage, zbase = ybase + kBuf * kYStage;
+
+  int I = 0, rem = blockIdx.x;
+  while (rem >= nt - I) rem -= nt - I++;
+  const int J = I + rem;
+  const bool diag = I == J;
+  const int q = p + 1;
+  const int64_t r0 = (int64_t)blockIdx.y * rows_per_split;
+  const int64_t r1 = r0 + rows_per_split < n ? r0 + rows_per_split : (int64_t)n;
+  const int nstage = (int)((r1 - r0 + M::kStage - 1) / M::kStage);
+  const int rowp = kFlat ? p : pitch(diag);
+  auto rows_of = [&](int st) {
+    const int64_t left = r1 - r0 - (int64_t)st * M::kStage;
+    return (int)(left < M::kStage ? left : M::kStage);
+  };
+
+  for (int e = threadIdx.x; e < kZero * (int)sizeof(T) / 4; e += kThreads)
+    reinterpret_cast<uint32_t*>(s + zbase)[e] = 0u;
+  if (kFlat && threadIdx.x == 0) {
+    for (int b = 0; b < kBuf; ++b) bar_init(&bars[b]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  auto load = [&](int st) {
+    const int64_t rs = r0 + (int64_t)st * M::kStage;
+    const int rows = rows_of(st);
+    T* dx = s + (st % kBuf) * xstage;
+    copy_flat(s + ybase + (st % kBuf) * kYStage, y + rs, rows);
+    if constexpr (kFlat) {
+      // the whole 16-byte lines by one bulk copy, the last part line apart
+      const uintptr_t a0 = reinterpret_cast<uintptr_t>(X + rs * p);
+      const uintptr_t a1 = a0 + (uintptr_t)rows * p * sizeof(T);
+      const uintptr_t line = a0 & ~(uintptr_t)15, body = a1 & ~(uintptr_t)15;
+      const unsigned bytes = body > line ? (unsigned)(body - line) : 0u;
+      if (threadIdx.x == 0)
+        bulk_copy(dx, reinterpret_cast<const void*>(line), bytes, &bars[st % kBuf]);
+      if (threadIdx.x == 32 && a1 > body)
+        cp_async16(reinterpret_cast<char*>(dx) + (body - line),
+                   reinterpret_cast<const void*>(body), (int)(a1 - body));
+    } else {
+      // each row's tile columns as 4-byte words from the word that holds the
+      // first: kWords covers 96 columns and a shift of one bf16 element
+      constexpr int kWords = kEdge * (int)sizeof(T) / 4 + (sizeof(T) < 4 ? 1 : 0);
+      const int nseg = diag ? 1 : 2;
+      for (int e = threadIdx.x; e < rows * nseg * kWords; e += kThreads) {
+        const int w = e % kWords, rs2 = e / kWords;
+        const int seg = diag ? 0 : rs2 & 1, r = diag ? rs2 : rs2 >> 1;
+        const int c0 = (seg ? J : I) * kEdge;
+        const int cols = p - c0 < kEdge ? p - c0 : kEdge;
+        const uintptr_t a0 = reinterpret_cast<uintptr_t>(X + (rs + r) * p + c0);
+        const uintptr_t a1 = a0 + (uintptr_t)cols * sizeof(T);
+        const uintptr_t src = (a0 & ~(uintptr_t)3) + 4 * (uintptr_t)w;
+        if (src < a1)
+          cp_async4(dx + r * rowp + seg * kSegOff + w * (4 / (int)sizeof(T)),
+                    reinterpret_cast<const void*>(src), (int)(a1 - src < 4 ? a1 - src : 4));
+      }
+    }
+  };
+
+  // This warp's part (role) and steps. Diagonal pair: bands 0-1 (w even) or
+  // 2-5 (w odd), every fourth step from w / 2. Off-diagonal pair: quadrant
+  // (qa, qb) = ((w % 4) / 2, w % 2), every other step from w / 4.
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nrole = diag ? 2 : 4, role = warp % nrole;
+  const int ph = warp / nrole, nph = kWarps / nrole;
+  const int qa = role >> 1, qb = role & 1;
+  const int t = lane & 3;
+  const int ka = 48 * qa, kb = kSegOff + 48 * qb;
+  const int pa = p - (I * kEdge + (diag ? 0 : 48 * qa)), pb = p - (J * kEdge + 48 * qb);
+  Acc acc = {};
+
+  for (int st = 0; st < kBuf - 1; ++st) {
+    if (st < nstage) load(st);
+    cp_async_commit();
+  }
+  for (int st = 0; st < nstage; ++st) {
+    cp_async_wait<kBuf - 2>();  // stage st has landed (this thread's copies)
+    if (kFlat) bar_wait(&bars[st % kBuf], (st / kBuf) & 1);
+    __syncthreads();            // ... everyone's; and stage st - 1 is consumed
+    if (st + kBuf - 1 < nstage) load(st + kBuf - 1);
+    cp_async_commit();
+    const int64_t rs = r0 + (int64_t)st * M::kStage;
+    const int rows = rows_of(st);
+    const int xs = (st % kBuf) * xstage + (kFlat ? shift_of(X + rs * p, 16) : 0);
+    const int ys = ybase + (st % kBuf) * kYStage + shift_of(y + rs, 16);
+    for (int k = ph; k * M::kStep < rows; k += nph) {
+      int xo[M::kLaneRows], yo[M::kLaneRows];
+#pragma unroll
+      for (int i = 0; i < M::kLaneRows; ++i) {
+        const int r = k * M::kStep + M::row(i, t);
+        const int x = kFlat ? xs + r * p : xs + r * rowp + shift_of(X + (rs + r) * p, 4);
+        xo[i] = (r < rows ? x : zbase) + (lane >> 2);
+        yo[i] = r < rows ? ys + r : zbase;
+      }
+      uint32_t fy[2];
+      M::frag(s, yo, 0, fy);
+      if (!diag) step_quad(s, xo, fy, ka, pa, kb, pb, acc);
+      else if (role == 0) step_bands<0, 2>(s, xo, fy, pa, acc);
+      else step_bands<2, 6>(s, xo, fy, pa, acc);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // The warps of a role add their sums to its first warp's in phase order,
+  // through shared memory (lane-major: no bank conflicts).
+  float* const red = reinterpret_cast<float*>(smem) + lane;
+  if (ph > 0) {
+#pragma unroll
+    for (int m = 0; m < kMmas; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) red[((warp * kMmas + m) * 4 + e) * 32] = acc[m][e];
+  }
+  __syncthreads();
+  if (ph > 0) return;
+  for (int f = 1; f < nph; ++f) {
+    const float* other = red + (f * nrole + role) * kMmas * 4 * 32;
+#pragma unroll
+    for (int m = 0; m < kMmas; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][e] += other[(m * 4 + e) * 32];
+  }
+  float* out = part + (int64_t)blockIdx.y * q * q;
+  if (!diag) store_quad(acc, out, q, I * kGroups + 6 * qa, J * kGroups + 6 * qb);
+  else if (role == 0) store_bands<0, 2>(acc, out, q, I * kGroups);
+  else store_bands<2, 6>(acc, out, q, I * kGroups);
+}
+
+// One warp: S (kStep x 192, row-major) staged as the wide route stages an
+// off-diagonal pair; D (192 x 192) gets the entries i <= j of S^T S that a
+// diagonal pair's two parts (columns 0-95) and an off-diagonal pair's four
+// quadrants (rows 0-95, columns 96-191) compute in one step, through the
+// kernel's own fragment loads, products and stores. Checks the fragment
+// layouts on the card.
+template <typename T>
+__global__ void mma_probe(const T* __restrict__ S, float* __restrict__ D) {
+  using M = Mma<T>;
+  __shared__ __align__(16) T st[M::kStep * pitch(false)];
+  const int lane = threadIdx.x & 31;
+  for (int e = lane; e < M::kStep * 2 * kEdge; e += 32) {
+    const int r = e / (2 * kEdge), c = e % (2 * kEdge);
+    st[r * pitch(false) + (c < kEdge ? c : kSegOff + c - kEdge)] = S[e];
+  }
+  __syncwarp();
+  int o[M::kLaneRows];
+#pragma unroll
+  for (int i = 0; i < M::kLaneRows; ++i) o[i] = M::row(i, lane & 3) * pitch(false) + (lane >> 2);
+  const uint32_t fy[2] = {0u, 0u};
+  constexpr int kD = 2 * kEdge;
+  for (int part = 0; part < 6; ++part) {
+    Acc acc = {};
+    if (part == 0) {
+      step_bands<0, 2>(st, o, fy, -1, acc);
+      store_bands<0, 2>(acc, D, kD, 0);
+    } else if (part == 1) {
+      step_bands<2, 6>(st, o, fy, -1, acc);
+      store_bands<2, 6>(acc, D, kD, 0);
+    } else {
+      const int qa = (part - 2) >> 1, qb = (part - 2) & 1;
+      step_quad(st, o, fy, 48 * qa, -1, kSegOff + 48 * qb, -1, acc);
+      store_quad(acc, D, kD, 6 * qa, kGroups + 6 * qb);
+    }
+  }
+}
+
+}  // namespace tc
+
+
 // sum_k part[k][idx], in the order k = 0, 1, ...
 template <typename A>
 __device__ __forceinline__ A sum_parts(const A* __restrict__ part, int64_t idx,
@@ -413,21 +867,50 @@ __global__ void gram_epilogue(const A* __restrict__ part, A* __restrict__ K, int
   }
 }
 
-template <typename T, bool TF32>
-cudaError_t launch_all(const void* X, const void* y, void* part, void* K, int n, int p,
+cudaError_t launch_f32(const void* X, const void* y, void* part, void* K, int n, int p,
                        int rows_per_split, int nsplit, double t, int flat,
                        cudaStream_t stream) {
-  using A = acc_t<T>;
   const int q = p + 1;
   const int nt = (q + kTile - 1) / kTile;
-  gram_partial<T, TF32><<<dim3(nt, nt, nsplit), kThreads, 0, stream>>>(
-      static_cast<const T*>(X), static_cast<const T*>(y), static_cast<A*>(part), n, p,
-      rows_per_split);
+  gram_partial<<<dim3(nt, nt, nsplit), kThreads, 0, stream>>>(
+      static_cast<const float*>(X), static_cast<const float*>(y), static_cast<float*>(part),
+      n, p, rows_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const A scale = A(1.0 / t);
-  gram_epilogue<A><<<p, 128, 0, stream>>>(static_cast<const A*>(part),
-                                          static_cast<A*>(K), p, nsplit, scale, flat);
+  gram_epilogue<float><<<p, 128, 0, stream>>>(static_cast<const float*>(part),
+                                              static_cast<float*>(K), p, nsplit,
+                                              float(1.0 / t), flat);
+  return cudaGetLastError();
+}
+
+// Modes 1 (T = float, tf32 products) and 2 (T = bfloat16).
+template <typename T>
+cudaError_t launch_tc(const void* X, const void* y, void* part, void* K, int n, int p,
+                      int rows_per_split, int nsplit, double t, int flat,
+                      cudaStream_t stream) {
+  using M = tc::Mma<T>;
+  constexpr int kVec = 16 / (int)sizeof(T);
+  const int nt = (p + 1 + tc::kEdge - 1) / tc::kEdge;
+  const bool one = nt == 1;
+  // a flat stage: its rows, a shift of up to kVec - 1 and the 96 columns a
+  // lane may read past the last row's start; a wide one: rows at the widest pitch
+  const int xstage = one ? (M::kStage * p + kVec + tc::kEdge + kVec - 1) / kVec * kVec
+                         : M::kStage * tc::pitch(false);
+  const int stages = tc::buffers(one) * (xstage + M::kStage + kVec) + tc::kZero;
+  const int smem = stages * (int)sizeof(T) > tc::kRedBytes ? stages * (int)sizeof(T)
+                                                           : tc::kRedBytes;
+  auto kernel = one ? tc::gram_partial<T, true> : tc::gram_partial<T, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(nt * (nt + 1) / 2, nsplit), tc::kThreads, smem, stream>>>(
+      static_cast<const T*>(X), static_cast<const T*>(y), static_cast<float*>(part), n, p,
+      rows_per_split, nt, xstage);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gram_epilogue<float><<<p, 128, 0, stream>>>(static_cast<const float*>(part),
+                                              static_cast<float*>(K), p, nsplit,
+                                              float(1.0 / t), flat);
   return cudaGetLastError();
 }
 
@@ -456,9 +939,13 @@ cudaError_t launch_f64(const void* X, const void* y, void* part, void* K, int n,
 extern "C" {
 
 // Rows of each split and the tile edge the Python wrapper sizes `part` by:
-// modes 0-2, and mode 3 (float64).
+// mode 0, modes 1-2 (the tensor-core body; rows by mode), and mode 3.
 int sven_gram_tile() { return kTile; }
 int sven_gram_rows_step() { return kRows; }
+int sven_gram_tile_tc() { return tc::kEdge; }
+int sven_gram_rows_step_tc(int mode) {
+  return mode == 2 ? tc::Mma<__nv_bfloat16>::kStage : tc::Mma<float>::kStage;
+}
 int sven_gram_tile_f64() { return f64::kEdge; }
 int sven_gram_rows_step_f64() { return f64::kStage; }
 
@@ -472,14 +959,12 @@ int sven_gram(const void* X, const void* y, void* part, void* K, int n, int p,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case 0:
-      return launch_all<float, false>(X, y, part, K, n, p, rows_per_split, nsplit, t,
-                                       flat, s);
+      return launch_f32(X, y, part, K, n, p, rows_per_split, nsplit, t, flat, s);
     case 1:
-      return launch_all<float, true>(X, y, part, K, n, p, rows_per_split, nsplit, t,
-                                      flat, s);
+      return launch_tc<float>(X, y, part, K, n, p, rows_per_split, nsplit, t, flat, s);
     case 2:
-      return launch_all<__nv_bfloat16, false>(X, y, part, K, n, p, rows_per_split,
-                                               nsplit, t, flat, s);
+      return launch_tc<__nv_bfloat16>(X, y, part, K, n, p, rows_per_split, nsplit, t,
+                                      flat, s);
     case 3:
       return launch_f64(X, y, part, K, n, p, rows_per_split, nsplit, t, flat, s);
     default:
@@ -491,6 +976,21 @@ int sven_gram(const void* X, const void* y, void* part, void* K, int n, int p,
 int sven_gram_f64_probe(const void* S, void* D, void* stream) {
   f64::mma_probe<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const double*>(S), static_cast<double*>(D));
+  return (int)cudaGetLastError();
+}
+
+// S (8, 192) float32 (mode 1) or (16, 192) bfloat16 (mode 2) and D (192,
+// 192) float32 on the card: see tc::mma_probe.
+int sven_gram_tc_probe(const void* S, void* D, int mode, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode == 1)
+    tc::mma_probe<float><<<1, 32, 0, s>>>(static_cast<const float*>(S),
+                                          static_cast<float*>(D));
+  else if (mode == 2)
+    tc::mma_probe<__nv_bfloat16><<<1, 32, 0, s>>>(static_cast<const __nv_bfloat16*>(S),
+                                                  static_cast<float*>(D));
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

@@ -3,13 +3,21 @@
 The kernel (`csrc/gram.cu`) replaces the Pallas TPU kernel
 `repro/kernels/gram.py::_gram_kernel` (and its Pallas-Triton twin
 `repro/kernels/gram_gpu.py::_gram_gpu_kernel`): K = Zhat^T Zhat of the SVEN
-dual, from the original (n, p) X, in one pass over X. Float64 operands at
-precision "f32" are summed in float64 (the kernel's mode 3) on the FP64
-tensor cores: 96-column tile pairs, 32-row stages, one block per SM, bound
-by the bytes of X (0.101 ms at the YMSD shape on an H100). Every other mode
-sums in float32 in 64-column tiles, about four blocks per SM. The source
-says what bounds each and how it is laid out. `shifted_gram_cuda.launches`
-counts the launches (a plain integer; callers reset it).
+dual, from the original (n, p) X, in one pass over X. Each mode has its own
+partial kernel and one epilogue sums the partials in a fixed order:
+
+- float64 operands at precision "f32" (mode 3) sum in float64 on the FP64
+  tensor cores, bound by the bytes of X (0.101 ms at the YMSD shape on an
+  H100);
+- "tf32" (mode 1) and "bf16" (mode 2) take their products on the TF32 and
+  BF16 tensor cores (`mma.sync`) with float32 sums, bound by the bytes of X
+  (0.050 and 0.025 ms), from stages of rows copied flat by the copy engine;
+- float32 operands at "f32" (mode 0) sum true float32 FMAs in 64-column
+  tiles, about four blocks per SM, bound by the FP32 rate (0.058 ms).
+
+Modes 1-3 take 96-column tile pairs, one block per SM in one wave. The
+source says how each is laid out. `shifted_gram_cuda.launches` counts the
+launches (a plain integer; callers reset it).
 """
 from __future__ import annotations
 
@@ -33,11 +41,15 @@ def _lib():
         lib.sven_gram.argtypes = [_ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int,
                                   _double, _int, _int, _ptr]
         lib.sven_gram.restype = _int
-        for fn in ("sven_gram_tile", "sven_gram_rows_step", "sven_gram_tile_f64",
+        for fn in ("sven_gram_tile", "sven_gram_rows_step", "sven_gram_tile_tc",
+                   "sven_gram_rows_step_tc", "sven_gram_tile_f64",
                    "sven_gram_rows_step_f64"):
             getattr(lib, fn).restype = _int
+        lib.sven_gram_rows_step_tc.argtypes = [_int]
         lib.sven_gram_f64_probe.argtypes = [_ptr, _ptr, _ptr]
         lib.sven_gram_f64_probe.restype = _int
+        lib.sven_gram_tc_probe.argtypes = [_ptr, _ptr, _int, _ptr]
+        lib.sven_gram_tc_probe.restype = _int
         lib._typed = True
     return lib
 
@@ -62,11 +74,11 @@ def split_rows(n: int, p: int, sm_count: int, tile: int, step: int):
     return _split(n, step, -(-4 * sm_count // _pairs(p, tile)))
 
 
-def split_rows_f64(n: int, p: int, sm_count: int, tile: int, step: int):
-    """(rows_per_split, nsplit) of the float64 body, which runs one block per
-    SM: tile pairs x splits fit one wave of `sm_count` blocks (one split when
-    the pairs alone outnumber the SMs), each split a whole number of
-    `step`-row stages."""
+def split_rows_wave(n: int, p: int, sm_count: int, tile: int, step: int):
+    """(rows_per_split, nsplit) of the tensor-core bodies (float64, tf32,
+    bf16), which run one block per SM: tile pairs x splits fit one wave of
+    `sm_count` blocks (one split when the pairs alone outnumber the SMs),
+    each split a whole number of the body's `step`-row stages."""
     return _split(n, step, sm_count // _pairs(p, tile))
 
 
@@ -90,19 +102,22 @@ def shifted_gram_cuda(X: torch.Tensor, y: torch.Tensor, t: float, *,
     lib = _lib()
     with torch.cuda.device(X.device):
         sms = torch.cuda.get_device_properties(X.device).multi_processor_count
+        mode = _F64_MODE if f64 else _MODES[precision]
         if f64:
-            rows, nsplit = split_rows_f64(n, p, sms, lib.sven_gram_tile_f64(),
-                                          lib.sven_gram_rows_step_f64())
-        else:
+            rows, nsplit = split_rows_wave(n, p, sms, lib.sven_gram_tile_f64(),
+                                           lib.sven_gram_rows_step_f64())
+        elif precision == "f32":
             rows, nsplit = split_rows(n, p, sms, lib.sven_gram_tile(),
                                       lib.sven_gram_rows_step())
+        else:
+            rows, nsplit = split_rows_wave(n, p, sms, lib.sven_gram_tile_tc(),
+                                           lib.sven_gram_rows_step_tc(mode))
         q = p + 1
         part = torch.empty((nsplit, q, q), dtype=acc, device=X.device)
         shape = (2 * p, 2 * p) if flatten else (2, 2, p, p)
         K = torch.empty(shape, dtype=acc, device=X.device)
         err = lib.sven_gram(X.data_ptr(), y.data_ptr(), part.data_ptr(), K.data_ptr(),
-                            n, p, rows, nsplit, float(t), int(flatten),
-                            _F64_MODE if f64 else _MODES[precision],
+                            n, p, rows, nsplit, float(t), int(flatten), mode,
                             torch.cuda.current_stream(X.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"shifted_gram_cuda: launch failed with CUDA error {err}")
@@ -125,4 +140,24 @@ def f64_mma_probe(S: torch.Tensor) -> torch.Tensor:
                                          torch.cuda.current_stream(S.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"f64_mma_probe: launch failed with CUDA error {err}")
+    return D
+
+
+def tc_mma_probe(S: torch.Tensor) -> torch.Tensor:
+    """The tf32 and bf16 bodies' fragment loads, tensor-core products and
+    stores on one step of rows: S (8, 192) float32 (tf32 products of its
+    TF32-rounded entries) or (16, 192) bfloat16, on CUDA, staged as an
+    off-diagonal pair of 96-column tiles. D (192, 192) float32 holds S^T S at
+    the entries i <= j of its first 96 rows (a diagonal pair's step, then
+    both halves of an off-diagonal pair's) and zeros elsewhere. Not a launch
+    of the Gram (not counted)."""
+    rows, mode = {torch.float32: (8, 1), torch.bfloat16: (16, 2)}.get(S.dtype, (0, 0))
+    _build.check_operand("tc_mma_probe", "S", S, (rows, 192),
+                         (torch.float32, torch.bfloat16), S.device)
+    D = torch.zeros((192, 192), dtype=torch.float32, device=S.device)
+    with torch.cuda.device(S.device):
+        err = _lib().sven_gram_tc_probe(S.data_ptr(), D.data_ptr(), mode,
+                                        torch.cuda.current_stream(S.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"tc_mma_probe: launch failed with CUDA error {err}")
     return D

@@ -267,10 +267,27 @@ def test_gram_f64_row_split_covers_all_rows(n, p, sms):
     block per SM. Every row in exactly one split, whole stages, one wave
     (tile pairs x splits <= SMs, or one split when the pairs alone
     outnumber the SMs)."""
-    rows, nsplit = tgram.split_rows_f64(n, p, sms, 96, 32)
+    rows, nsplit = tgram.split_rows_wave(n, p, sms, 96, 32)
     pairs = tgram._pairs(p, 96)
     assert rows % 32 == 0 and rows * nsplit >= n and rows * (nsplit - 1) < n
     assert pairs * nsplit <= sms or nsplit == 1
     assert 1 <= nsplit <= 65535
     if (n, p, sms) == (463715, 90, 132):   # the YMSD shape: one pair, 132 splits
         assert (pairs, nsplit, rows) == (1, 132, 3520)
+
+
+@pytest.mark.parametrize("n,p,sms", [(463715, 90, 132), (33, 57, 132), (10, 4096, 132),
+                                     (7, 3, 1)])
+@pytest.mark.parametrize("step", [64, 128])
+def test_gram_tc_row_split_covers_all_rows(n, p, sms, step):
+    """The tf32 (64-row stages) and bf16 (128-row stages) bodies' split:
+    96-column tile pairs, one block per SM. Every row in exactly one split,
+    whole stages, one wave (tile pairs x splits <= SMs, or one split when
+    the pairs alone outnumber the SMs)."""
+    rows, nsplit = tgram.split_rows_wave(n, p, sms, 96, step)
+    pairs = tgram._pairs(p, 96)
+    assert rows % step == 0 and rows * nsplit >= n and rows * (nsplit - 1) < n
+    assert pairs * nsplit <= sms or nsplit == 1
+    assert 1 <= nsplit <= 65535
+    if (n, p, sms) == (463715, 90, 132):   # the YMSD shape: one pair
+        assert (pairs, nsplit, rows) == {64: (1, 132, 3520), 128: (1, 130, 3584)}[step]

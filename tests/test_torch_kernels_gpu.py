@@ -5,9 +5,12 @@ it (tests/conftest.py imports JAX, hence `--noconftest`):
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
-Bounds: float32 and tf32 1e-5 * scale (the plain tf32 version rounds the
-operands exactly as the kernel does, so only the order of f32 sums
-differs); bfloat16 storage 2e-2 * scale (tests/test_kernels.py); the
+Bounds: the float32, tf32 and bfloat16 Gram 1e-5 * scale (the plain
+version sums the same operands, rounded to TF32 exactly as the kernel
+rounds them or in bfloat16 storage, and their products are exact in
+float32, so only the float32 sums differ: their order, and the tensor
+cores' own rounding inside a product); the hinge passes in bfloat16
+storage 2e-2 * scale (tests/test_kernels.py); the
 float64 Gram 1e-10 * max|K| (float64 sums in another order: n eps is
 1.1e-13 at n = 1000, 5.1e-11 at the YMSD shape's n = 463,715); the float64
 hinge passes 1e-10 * max(1, |ref|) (p eps is 5.5e-12 at p = 49,151).
@@ -29,6 +32,8 @@ ths = importlib.import_module("repro_torch.kernels.hinge_stats")
 SHAPES = [(33, 57), (96, 130), (57, 33), (48, 256)]
 DTYPES = [("f32", 1e-5), ("bf16", 2e-2)]
 F64 = ("f64", 1e-10)
+#: the Gram's float32 modes: the plain version sums the kernel's operands
+GRAM_TOL = {"f32": 1e-5, "tf32": 1e-5, "bf16": 1e-5}
 
 
 def _inputs(n, p, seed=0):
@@ -71,7 +76,7 @@ def cuda_device():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,p", SHAPES + [(1000, 90)])
-@pytest.mark.parametrize("precision,tol", DTYPES + [("tf32", 1e-5)])
+@pytest.mark.parametrize("precision,tol", list(GRAM_TOL.items()))
 def test_cuda_gram_matches_plain(cuda_device, n, p, precision, tol):
     X, y, *_ = _inputs(n, p)
     Xs = tops._storage(_f32(X).to(cuda_device), precision)
@@ -174,6 +179,141 @@ def test_cuda_gram_f64_op_equals_wrapper(cuda_device, n, p, flatten):
     got = tops.shifted_gram(Xd, yd, 0.9, flatten=flatten)
     assert tgram.shifted_gram_cuda.launches == before + 1
     assert got.dtype == torch.float64
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["tf32", "bf16"])
+def test_cuda_gram_tc_mma_layout(cuda_device, precision):
+    """The tf32 and bf16 bodies' fragment layouts, on the card, before
+    anything built on them: one step of rows (8 for tf32, 16 for bf16)
+    through the kernel's own loads, tensor-core products and stores, for a
+    diagonal pair of 96-column tiles and both halves of an off-diagonal one,
+    gives S^T S (of the TF32-rounded or bfloat16 entries) at every entry i
+    <= j of the first 96 rows, and nothing elsewhere. The products are exact
+    in float32, so only the tensor cores' float32 sums of 8 or 16 terms
+    differ."""
+    rows = 8 if precision == "tf32" else 16
+    S = torch.tensor(np.random.default_rng(6).standard_normal((rows, 192)),
+                     dtype=torch.float32, device=cuda_device)
+    S = tops._storage(S, precision)
+    D = npy(tgram.tc_mma_probe(S))
+    Sr = S.float() if precision == "bf16" else tref.round_tf32(S)
+    Sn = npy(Sr).astype(np.float64)
+    want = np.triu(Sn.T @ Sn)
+    want[96:] = 0.0
+    np.testing.assert_allclose(D, want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+
+#: the tf32 and bf16 bodies' edges: p + 1 across the 8-column groups, the
+#: 48-column warp tiles and the 96-column tiles (p <= 95: one tile, rows
+#: staged flat; p = 96, 97, 191, 500: per-row words, odd p for bf16's
+#: 2-byte alignment); n below one stage, odd, and 1000
+TC_P = [1, 7, 8, 9, 15, 16, 17, 33, 57, 90, 95, 96, 97, 191, 500]
+TC_N = [13, 1003, 1000]
+
+
+def _gram_operands(dev, n, p, precision, offset=0):
+    """X and y in the precision's storage on `dev`; with `offset`, each is a
+    contiguous view `offset` elements into a larger buffer."""
+    X, y, *_ = _inputs(n, p)
+    Xs, ys = (tops._storage(a.to(dev), precision) for a in _f32(X, y))
+    if offset:
+        bx = torch.zeros(n * p + offset, dtype=Xs.dtype, device=dev)
+        by = torch.zeros(n + offset, dtype=ys.dtype, device=dev)
+        bx[offset:] = Xs.reshape(-1)
+        by[offset:] = ys
+        Xs, ys = bx[offset:].view(n, p), by[offset:]
+        assert Xs.is_contiguous() and Xs.storage_offset() == offset
+    return Xs, ys
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", TC_P)
+@pytest.mark.parametrize("n", TC_N)
+@pytest.mark.parametrize("precision", ["tf32", "bf16"])
+def test_cuda_gram_tc_edges(cuda_device, precision, n, p):
+    """The tf32 and bf16 Gram within their bounds of the plain version at
+    the tensor-core body's edges, at t = 0.9 and at t = 1e6 (where K = +-X^T
+    X, held at its own scale), in both layouts (the block one equal to the
+    flat one)."""
+    Xs, ys = _gram_operands(cuda_device, n, p, precision)
+    for t in (0.9, 1e6):
+        K = tgram.shifted_gram_cuda(Xs, ys, t, precision=precision)
+        Kb = tgram.shifted_gram_cuda(Xs, ys, t, precision=precision, flatten=False)
+        torch.cuda.synchronize()
+        assert K.dtype == torch.float32 and K.shape == (2 * p, 2 * p)
+        Kr = tref.flatten_gram(tref.gram_blocks_ref(Xs, ys, t, precision))
+        _assert_scaled(K, Kr, GRAM_TOL[precision])
+        np.testing.assert_array_equal(npy(tref.flatten_gram(Kb)), npy(K))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,p,offset", [(200_000, 90, 0), (200_000, 95, 3),
+                                        (200_000, 97, 1)])
+@pytest.mark.parametrize("precision", ["tf32", "bf16"])
+def test_cuda_gram_tc_pipeline(cuda_device, precision, n, p, offset):
+    """Many stages per split: at n = 200,000 each of the 132 splits of the
+    one tile (p = 90, 95: rows staged flat by the bulk copy) holds 12 bf16 or
+    24 tf32 stages, and each of the 44 splits of p = 97's three tile pairs
+    (per-row words) 36 or 72, so every stage buffer is reused several
+    times. K within the bound of the plain version at t = 0.9 and 1e6, the
+    same K for the same values at offset 0, and three more launches give
+    bitwise-equal K."""
+    Xs, ys = _gram_operands(cuda_device, n, p, precision, offset=offset)
+    for t in (0.9, 1e6):
+        K = tgram.shifted_gram_cuda(Xs, ys, t, precision=precision)
+        Kr = tref.flatten_gram(tref.gram_blocks_ref(Xs, ys, t, precision))
+        _assert_scaled(K, Kr, GRAM_TOL[precision])
+    if offset:
+        want = tgram.shifted_gram_cuda(*_gram_operands(cuda_device, n, p, precision), t,
+                                       precision=precision)
+        assert torch.equal(K, want)
+    for _ in range(3):
+        assert torch.equal(tgram.shifted_gram_cuda(Xs, ys, t, precision=precision), K)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,p", [(1003, 90), (1000, 95), (1003, 97), (130, 191)])
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("precision", ["tf32", "bf16"])
+def test_cuda_gram_tc_storage_offset(cuda_device, precision, offset, n, p):
+    """A contiguous X and y that start 1 or 3 elements into their storage
+    (not 16-byte aligned; 2 bytes off a 4-byte word in bf16) give the same
+    K as the same values at offset 0."""
+    want = tgram.shifted_gram_cuda(*_gram_operands(cuda_device, n, p, precision), 0.9,
+                                   precision=precision)
+    Xs, ys = _gram_operands(cuda_device, n, p, precision, offset=offset)
+    assert torch.equal(tgram.shifted_gram_cuda(Xs, ys, 0.9, precision=precision), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,p", [(1000, 90), (1003, 191), (13, 500)])
+@pytest.mark.parametrize("precision", ["tf32", "bf16"])
+def test_cuda_gram_tc_repeats_exactly(cuda_device, precision, n, p):
+    """Three more launches give bitwise-equal K: every entry is summed in a
+    fixed order, with no float atomics."""
+    Xs, ys = _gram_operands(cuda_device, n, p, precision)
+    K = tgram.shifted_gram_cuda(Xs, ys, 0.9, precision=precision)
+    for _ in range(3):
+        assert torch.equal(tgram.shifted_gram_cuda(Xs, ys, 0.9, precision=precision), K)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,p", [(1003, 90), (13, 97)])
+@pytest.mark.parametrize("precision", ["tf32", "bf16"])
+def test_cuda_gram_tc_op_equals_wrapper(cuda_device, precision, n, p):
+    """`ops.shifted_gram` on float32 CUDA operands at "tf32" or "bf16" runs
+    the tensor-core body: one launch, K equal to the wrapper's on the
+    operands in the precision's storage."""
+    X, y, *_ = _inputs(n, p)
+    Xf, yf = (a.to(cuda_device) for a in _f32(X, y))
+    want = tgram.shifted_gram_cuda(tops._storage(Xf, precision), tops._storage(yf, precision),
+                                   0.9, precision=precision)
+    before = tgram.shifted_gram_cuda.launches
+    got = tops.shifted_gram(Xf, yf, 0.9, precision=precision)
+    assert tgram.shifted_gram_cuda.launches == before + 1
+    assert got.dtype == torch.float32
     assert torch.equal(got, want)
 
 
