@@ -12,8 +12,8 @@ port's main path through the entry points a user calls:
      ragged small shape, with its time, the plain version's time and the
      least time the card could take (its bound); the Gram in f32, tf32,
      bf16 and float64, each beside cuBLAS's A^T A of A = [X, y] in the
-     same type, its two launches apart in float64, bf16 and tf32 (device
-     times from torch.profiler, in a child process: `--gram-split`); both
+     same type, its two launches apart in every mode (device times from
+     torch.profiler, in a child process: `--gram-split`); both
      hinge passes in f32, bf16 and float64 (what a float64 problem runs at
      the default precision), beside the cuBLAS GEMVs X^T v and X d;
   3. the dual solve at the shape of UCI YearPredictionMSD (n = 463,715,
@@ -34,16 +34,20 @@ port's main path through the entry points a user calls:
      YMSD shape (dual: one Gram launch per Illinois evaluation) and
      `ElasticNet(...).fit` with standardization and intercept at the
      GLA-BRA-180 shape (primal: one launch of each hinge pass per CG step),
-     each against the same call on the plain float64 backend.
+     each against the same call on the plain float64 backend;
+  8. a float32 problem at the default precision: the dual solve and a
+     10-point `enet_path` at the YMSD shape, whose Grams run the kernel's
+     float32 body, against the same calls on the port's plain float32
+     backend ("torch") on the same tensors.
 
 The data are synthetic (`repro_torch.data.make_regression`, fixed seeds).
 Each path runs with every launch counter set to 0 just before it and read
 just after it; a kernel of the path that was never launched fails the run.
 The last two lines are a JSON object with every kernel's numbers (the
 Gram's row counts its float64 body's launches and gives each body's under
-`launches_by_mode`) and `{"ok": true, "device": {...}}`. Any failed check exits non-zero without
-that last line. Exits non-zero at once without a CUDA device, or without
-the rest of the repository beside this file.
+`launches_by_mode`) and `{"ok": true, "device": {...}}`. Any failed check
+exits non-zero without that last line. Exits non-zero at once without a
+CUDA device, or without the rest of the repository beside this file.
 
     python3 chip_smoke.py --gram-split [f64|f32|tf32|bf16 ...]
 
@@ -52,6 +56,13 @@ none is: together, its launches apart, cuBLAS's A^T A in the same type)
 and prints no result line. It needs nothing of the checkout but
 `shifted_gram_cuda`, so a copy of this file placed in a checkout of
 another commit times that commit's Gram.
+
+    python3 chip_smoke.py --gram-bitwise OTHER/gram.cu [f64|f32|tf32|bf16 ...]
+
+builds another commit's `gram.cu` beside this checkout's and counts the
+cases (five shapes, three radii, both layouts, in the modes named; f64,
+tf32 and bf16 when none is) whose K the two give bitwise equal; exits 1 if
+any differs.
 """
 from __future__ import annotations
 
@@ -163,7 +174,7 @@ def cublas_gram_ms(torch, Xs, ys, prec: str) -> float:
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
-GRAM_SPLIT_MODES = ("f64", "bf16", "tf32")
+GRAM_SPLIT_MODES = ("f64", "f32", "bf16", "tf32")
 
 
 def gram_split_child(smoke) -> None:
@@ -319,9 +330,11 @@ def phase_kernels(torch, smoke, dev, gen):
                     "xd": (lambda: hinge.hinge_xd_cuda(Xs, ys, d, e_part, vs, t, C),
                            lambda: ref.hinge_xd_ref(Xs, ys, dr, er, vs, t, C)),
                 }
-                if prec != "bf16":   # one cuBLAS call on the same operands each
-                    calls["GEMV X^T v"] = (lambda: torch.mv(Xs.T, vs), None)
-                    calls["GEMV X d"] = (lambda: torch.mv(Xs, d), None)
+                # one cuBLAS call on X as stored each (bf16: the vector in
+                # bfloat16 too, float32 accumulation)
+                vg, dg = vs.to(Xs.dtype), d.to(Xs.dtype)
+                calls["GEMV X^T v"] = (lambda: torch.mv(Xs.T, vg), None)
+                calls["GEMV X d"] = (lambda: torch.mv(Xs, dg), None)
                 # cold: L2 flushed before each launch, so the HBM bound holds;
                 # warm: X left in L2 between launches, as in the CG loop (in
                 # f64, X is larger than the L2)
@@ -415,10 +428,10 @@ def phase_hinge_stats(torch, smoke, kernels, svm_state, dev, cases):
                 cuda_ms_each(torch, lambda: ref.hinge_stats_ref(Xs, y32, t, w32, C), dev, True))
         warm = (cuda_ms_each(torch, lambda: ths.hinge_stats_cuda(Xs, y32, t, w32, C), dev, False),
                 cuda_ms_each(torch, lambda: ref.hinge_stats_ref(Xs, y32, t, w32, C), dev, False))
-        gemv = ""
-        if prec == "f32":   # a = X^T w alone, one cuBLAS call on the same operands
-            gemv = (f", GEMV X^T w cold {cuda_ms_each(torch, lambda: torch.mv(Xs.T, w32), dev, True):.4f}"
-                    f" warm {cuda_ms_each(torch, lambda: torch.mv(Xs.T, w32), dev, False):.4f}")
+        # a = X^T w alone, one cuBLAS call on X as stored (bf16: w in bfloat16)
+        wg = w32.to(Xs.dtype)
+        gemv = (f", GEMV X^T w cold {cuda_ms_each(torch, lambda: torch.mv(Xs.T, wg), dev, True):.4f}"
+                f" warm {cuda_ms_each(torch, lambda: torch.mv(Xs.T, wg), dev, False):.4f}")
         rows_, nchunk = ths.split_rows(n, p, torch.cuda.get_device_properties(dev)
                                        .multi_processor_count, 32)
         # X read once, w and y read, the four p-vectors written
@@ -525,6 +538,138 @@ def phase_front_end(torch, smoke, kernels, svm_state, count, ymsd, glabra):
                 f"1e-8 * max|coef| = {1e-8 * scale:.3e}")
 
 
+#: max|beta - beta_plain| / max|beta| allowed for a float32 problem's default
+#: solves (the Gram's float32 body) against its plain float32 solves, set
+#: from the deviations of the previous float32 body (PR 11's) on the same
+#: cells (PERF.md, PR 21): dual 4.3e-7, the float32 Gram's own 1e-5 bound;
+#: enet_path 1.5e-4, whose solves nearly all stop at float32's floor short of
+#: tol 1e-10, so its root-find runs on rounding noise
+F32_BETA_REL = {"dual": 1e-5, "enet_path": 1e-2}
+#: |evaluations - plain's| / plain's allowed for that enet_path: 5.7 % with
+#: the previous body (130 against 123; per point up to 15 apart)
+F32_PATH_EVALS_REL = 0.25
+
+
+def phase_float32(torch, smoke, kernels, svm_state, dev) -> int:
+    """A float32 problem at the default precision "f32": the dual solve and a
+    10-point `enet_path` at the YMSD shape, whose Grams run the kernel's
+    float32 body, each against the same call on the port's plain float32
+    backend ("torch") on the same tensors: the dual's Newton count, the
+    path's evaluations within F32_PATH_EVALS_REL, beta within F32_BETA_REL.
+    Returns the Gram's launches."""
+    from repro_torch.core.api import PathConfig, enet_path
+    from repro_torch.core.sven import SvenConfig, sven
+    from repro_torch.data.synthetic import make_regression
+
+    n, p = YMSD
+    X, y, beta_true = make_regression(n, p, seed=1, dtype=torch.float32, device=dev)
+    t = 0.5 * beta_true.abs().sum().item()
+    tol = SvenConfig().tol
+    print(f"[8a] dual solve, float32 data, n = {n}, p = {p}, tol {tol:g}", flush=True)
+    ref, ref_s, _, ref_syncs = run_path(
+        torch, kernels, svm_state,
+        lambda: sven(X, y, t, LAMBDA2, SvenConfig(backend="torch")))
+    sol, secs, launched, syncs = run_path(torch, kernels, svm_state,
+                                          lambda: sven(X, y, t, LAMBDA2))
+    gram = launched.pop("shifted_gram_cuda")
+
+    def stop(s):
+        res = s.opt_residual.item()
+        return (f"residual {res:.3e}" + ("" if res <= tol else
+                                         f" > tol {tol:g}: stopped short"))
+
+    scale = ref.beta.abs().max().item()
+    dev_b = max_dev(torch, sol.beta, ref.beta)
+    print(f"    default (float32 Gram): {sol.iters} Newton / {sol.cg_iters} CG, "
+          f"{stop(sol)}, {secs:.3f} s, {syncs} host syncs, Gram launches {gram}, "
+          f"others {launched}; torch f32: {ref.iters} Newton / {ref.cg_iters} CG, "
+          f"{stop(ref)}, {ref_s:.3f} s, {ref_syncs} syncs; max|beta - beta_torch| = "
+          f"{dev_b:.3e} ({dev_b / scale:.2e} of max|beta|)", flush=True)
+    smoke.check(sol.mode == "dual" and gram == 1, "float32 dual: one Gram launch")
+    smoke.check(sol.beta.dtype == torch.float32 and sol.beta.shape == (p,)
+                and bool(torch.isfinite(sol.beta).all()), "float32 beta finite, shape (p,)")
+    smoke.check(sol.iters == ref.iters, f"float32 dual: Newton steps {sol.iters} = "
+                f"plain float32's {ref.iters}")
+    bound = F32_BETA_REL["dual"]
+    smoke.check(dev_b <= bound * scale, f"float32 dual: max|beta - beta_torch| = "
+                f"{dev_b:.3e} <= {bound:g} * max|beta| = {bound * scale:.3e}")
+
+    plain = PathConfig(solver=SvenConfig(backend="torch", tol=PathConfig().solver.tol))
+    print(f"[8b] enet_path, float32 data, 10 lambdas, tol {plain.solver.tol:g}", flush=True)
+    path, secs, launched, syncs = run_path(
+        torch, kernels, svm_state, lambda: enet_path(X, y, n_lambdas=10, lambda2=LAMBDA2))
+    path_gram = launched.pop("shifted_gram_cuda")
+    ref, ref_s, _, ref_syncs = run_path(
+        torch, kernels, svm_state,
+        lambda: enet_path(X, y, n_lambdas=10, lambda2=LAMBDA2, config=plain))
+    scale = ref.betas.abs().max().item()
+    dev_b = max_dev(torch, path.betas, ref.betas)
+
+    def counts(r):
+        return (f"evals {list(r.evals)} ({sum(r.evals)}), Newton {list(r.sven_iters)} "
+                f"({sum(r.sven_iters) / max(1, sum(r.evals)):.1f} a solve), CG "
+                f"{sum(r.cg_iters)}, max KKT after the first point "
+                f"{r.kkts[1:].max().item():.3e}")
+
+    print(f"    kernels: {secs:.3f} s, {syncs} host syncs, Gram launches {path_gram}, "
+          f"others {launched}, {counts(path)}", flush=True)
+    print(f"    torch f32: {ref_s:.3f} s, {ref_syncs} host syncs, {counts(ref)}; "
+          f"max|beta - beta_torch| = {dev_b:.3e} ({dev_b / scale:.2e} of max|beta|)",
+          flush=True)
+    smoke.check(path.betas.shape == (10, p) and bool(torch.isfinite(path.betas).all()),
+                "float32 path betas finite, shape (10, p)")
+    smoke.check(path_gram == sum(path.evals) > 0,
+                f"float32 path: one Gram launch per Illinois evaluation ({sum(path.evals)})")
+    ev, ev_ref = sum(path.evals), sum(ref.evals)
+    smoke.check(abs(ev - ev_ref) <= F32_PATH_EVALS_REL * ev_ref,
+                f"float32 path: evaluations {ev} within {F32_PATH_EVALS_REL:.0%} of the "
+                f"plain float32 path's {ev_ref}")
+    bound = F32_BETA_REL["enet_path"]
+    smoke.check(dev_b <= bound * scale, f"float32 path: max|beta - beta_torch| = "
+                f"{dev_b:.3e} <= {bound:g} * max|beta| = {bound * scale:.3e}")
+    return gram + path_gram
+
+
+def gram_bitwise_only(torch, other: Path, modes) -> int:
+    """`--gram-bitwise`: this checkout's Gram against a build of another
+    `gram.cu` (`other`), in each of `modes` (f64: float64 operands at
+    "f32"), at the YMSD shape and four ragged ones (one to six 96-column
+    tiles), three radii and both layouts: how many K are bitwise equal.
+    Returns 1 if any differs."""
+    import ctypes
+
+    from repro_torch.data.synthetic import make_regression
+    from repro_torch.kernels import _build, gram
+    from repro_torch.kernels.ops import _storage
+
+    lib = _build.BUILD_DIR / f"other-{_build._target(other).name}"
+    if not lib.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(other)],
+                       check=True, capture_output=True)
+    lib = gram._typed(ctypes.CDLL(str(lib)))
+    print(f"card: {nvidia_smi()}", flush=True)
+    dev = torch.device("cuda", 0)
+    cases = differ = 0
+    for n, p in (YMSD, RAGGED, (1003, 97), (1000, 191), (13, 500)):
+        X, y, _ = make_regression(n, p, seed=0, dtype=torch.float32, device=dev)
+        for prec in modes:
+            mode = "f32" if prec == "f64" else prec
+            Xs, ys = ((X.double(), y.double()) if prec == "f64"
+                      else (_storage(X, prec), _storage(y, prec)))
+            for t in (0.9, 37.0, 1e6):
+                for flatten in (True, False):
+                    same = torch.equal(gram._launch(Xs, ys, t, mode, flatten),
+                                       gram._launch(Xs, ys, t, mode, flatten, lib=lib))
+                    cases, differ = cases + 1, differ + (not same)
+                    if not same:
+                        print(f"  differs: {prec} {n}x{p} t = {t:g} flatten = {flatten}",
+                              flush=True)
+    print(f"  gram bitwise: {cases - differ} of {cases} K ({', '.join(modes)}) equal to "
+          f"the build of {other}", flush=True)
+    return 1 if differ else 0
+
+
 def gram_split_only(torch, modes) -> int:
     """`--gram-split`: the Gram at the YMSD shape in each of `modes` (f64:
     float64 operands at "f32"), on phase 2's data: its time (back-to-back
@@ -548,8 +693,12 @@ def gram_split_only(torch, modes) -> int:
                 gram.shifted_gram_cuda(Xs, ys, t, precision=mode))
         lines.append((prec, call, cuda_ms(torch, call), cublas_gram_ms(torch, Xs, ys, prec)))
     for prec, call, ms, library in lines:
-        apart = kernel_ms(torch, call)
-        names = {k: re.search(r"::(\w+(?:<[^>]*>)?)\(", k) for k in apart}
+        apart = {}
+        for _ in range(3):   # a profiler session now and then records no kernel
+            apart = apart or kernel_ms(torch, call)
+        # the kernel's name and template arguments (one level of nesting)
+        names = {k: re.search(r"(?:::|\s)(\w+(?:<(?:[^<>]|<[^<>]*>)*>)?)\(",
+                              k.replace("(anonymous namespace)::", "")) for k in apart}
         print(f"  gram {prec} at {YMSD[0]}x{YMSD[1]}: kernel {ms:.4f} ms together; apart "
               "(profiler) " + ", ".join(f"{names[k].group(1) if names[k] else k[:40]} "
                                         f"{v:.4f} ms" for k, v in apart.items())
@@ -591,6 +740,12 @@ def main() -> int:
             print(f"chip_smoke: unknown Gram modes {modes}", file=sys.stderr)
             return 2
         return gram_split_only(torch, modes)
+    if sys.argv[1:2] == ["--gram-bitwise"] and len(sys.argv) > 2:
+        modes = sys.argv[3:] or ["f64", "tf32", "bf16"]
+        if not set(modes) <= {"f64", "f32", "tf32", "bf16"}:
+            print(f"chip_smoke: unknown Gram modes {modes}", file=sys.stderr)
+            return 2
+        return gram_bitwise_only(torch, Path(sys.argv[2]).resolve(), modes)
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -769,6 +924,11 @@ def main() -> int:
     # -- 7. the penalized front end --------------------------------------------
     phase_front_end(torch, smoke, kernels, svm_state, count, ymsd_case[1:3],
                     glabra_case[1:3])
+    del ymsd_case, glabra_case
+    torch.cuda.empty_cache()
+
+    # -- 8. a float32 problem --------------------------------------------------
+    gram_modes["f32"] = phase_float32(torch, smoke, kernels, svm_state, dev)
 
     # -- summary ---------------------------------------------------------------
     for name, n_launch in path_launches.items():

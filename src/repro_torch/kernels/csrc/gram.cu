@@ -20,19 +20,46 @@
 //      entries it reads (P_ij, u_i, u_j, s) over k in a fixed order
 //      (deterministic: no float atomics), then writes the four quadrants.
 // Ragged edges are masked, never padded in memory. Each mode has its own
-// partial kernel and shares the epilogue (float sums in modes 0-2, double in
-// mode 3). At the YMSD shape (n = 463,715, p = 90) on an H100:
+// partial kernel (modes 0-2 one template on their product step) and shares
+// the epilogue (float sums in modes 0-2, double in mode 3). At the YMSD
+// shape (n = 463,715, p = 90) on an H100:
 //
-//   mode  X, y      products            partial kernel         bound
-//   0 f32  float    fp32 FMA (no TF32)  gram_partial           3.9 GFLOP / 67 TFLOP/s = 0.058 ms
-//   1 tf32 float    TF32 tensor cores   tc::gram_partial       168.8 MB / 3.35 TB/s = 0.050 ms
-//   2 bf16 bfloat16 BF16 tensor cores   tc::gram_partial       84.5 MB / 3.35 TB/s = 0.025 ms
-//   3 f64  double   FP64 tensor cores   f64::gram_partial_f64  337.6 MB / 3.35 TB/s = 0.101 ms
+//   mode  X, y      products            partial kernel                 bound
+//   0 f32  float    fp32 FMA (no TF32)  tc::gram_partial<Fma>          3.9 GFLOP / 67 TFLOP/s = 0.058 ms
+//   1 tf32 float    TF32 tensor cores   tc::gram_partial<Tc<float>>    168.8 MB / 3.35 TB/s = 0.050 ms
+//   2 bf16 bfloat16 BF16 tensor cores   tc::gram_partial<Tc<bf16>>     84.5 MB / 3.35 TB/s = 0.025 ms
+//   3 f64  double   FP64 tensor cores   f64::gram_partial_f64          337.6 MB / 3.35 TB/s = 0.101 ms
 //
-// Mode 0 sums 64 x 64 tiles of A^T A in registers, 4 x 4 per thread, operands
-// staged through shared memory, about four blocks per SM; only tiles with
-// tj >= ti run. It is what a float32 problem runs at precision "f32".
-//
+// Mode 0 (float32: what a float32 problem runs at precision "f32", exact
+// float32 FMAs as the plain version and JAX's Precision.HIGHEST compute) is
+// bound by its operations: its FMAs, not its reads (168.8 MB, 0.050 ms), set
+// the pace, and the FP32 pipe takes one warp instruction per clock per
+// scheduler, so every other instruction costs an FMA slot. It shares modes
+// 1-2's staging and plan (tc::gram_partial; below) and differs in its step,
+// tc::Fma:
+//   - 16 warps. A lane sums an 8 x 8 register tile of the pair's A^T A (64
+//     float32 accumulators) over every nph-th row; only tiles on or above
+//     the diagonal run: 78 on a diagonal pair (4,992 FMAs a row for its
+//     4,656 upper entries; 4,186 are needed at q = 91), 6 row phases, 468 of
+//     the 512 lanes busy. An off-diagonal pair has 144 tiles, 3 phases.
+//   - Shared memory feeds 32 four-byte words per SM per clock against 128
+//     FMAs, so a lane takes its 16 operands of a row by four 16-byte loads
+//     (16 FMAs a load). A flat row of 90 floats is not 16-byte aligned, so
+//     each stage is repacked first, while the one before is summed (one
+//     barrier a stage): 384 threads copy one column each into rows of 96
+//     (192 for an off-diagonal pair) columns at a pitch of 4 (mod 32) floats,
+//     y into column p and zeros past it, which also drops the y swap and the
+//     edge masks from the inner loop. Rows past the chunk are not summed.
+//     Flat stages hold 96 rows (219 KB of shared memory at p = 90), wide
+//     ones 48.
+//   - The lanes of a tile are added in phase order at the end, through
+//     shared memory: no float atomics, K bitwise repeatable.
+//   - At YMSD it runs ahead of cuBLAS's A^T A but far from its bound
+//     (PERF.md): scratch variants without the FMAs, without the shared
+//     loads or without the repack were each only a little faster, twice the
+//     warps or more stage buffers barely mattered, and halving the barriers
+//     (96-row stages) helped most, with the SM clock at its maximum.
+
 // Mode 3 (float64: X, y, partials, epilogue and K all double) is what a
 // float64 problem runs at precision "f32". Its operations, n q (q+1) = 3.88
 // GFLOP / 67 TFLOP/s (FP64 tensor peak) = 0.058 ms, are under its bytes.
@@ -67,7 +94,8 @@
 //
 // Modes 1 and 2 (tf32, bf16: float32 sums of products taken on the tensor
 // cores, what the TPU kernel's Precision.DEFAULT does on its matrix unit)
-// share one partial kernel, tc::gram_partial, on the float64 body's plan:
+// share one partial kernel, tc::gram_partial with the step tc::Tc, on the
+// float64 body's plan:
 //   - mma.sync m16n8k8 tf32 (operands rounded to nearest by cvt.rna.tf32.f32,
 //     as the plain version rounds them; products of TF32 values are exact in
 //     float32) and m16n8k16 bf16, float32 accumulators. Rows are the k
@@ -123,87 +151,10 @@
 
 namespace {
 
-constexpr int kTile = 64;     // output tile edge
-constexpr int kRows = 16;     // rows staged per shared-memory step
-constexpr int kMicro = 4;     // per-thread micro tile edge
-constexpr int kThreads = 256; // (kTile / kMicro)^2
-
 __device__ __forceinline__ float to_tf32(float x) {
   uint32_t u;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(u) : "f"(x));
   return __uint_as_float(u & 0xFFFFE000u);
-}
-
-// Entry (r, c) of A = [X, y]; 0 past the last column.
-__device__ __forceinline__ float aug(const float* X, const float* y, int64_t r, int c,
-                                     int p) {
-  float v = 0;
-  if (c < p) v = X[r * p + c];
-  else if (c == p) v = y[r];
-  return v;
-}
-
-// Four neighbouring shared-memory entries: one float4.
-__device__ __forceinline__ void ld4(const float* s, float (&a)[kMicro]) {
-  const float4 v = *reinterpret_cast<const float4*>(s);
-  a[0] = v.x; a[1] = v.y; a[2] = v.z; a[3] = v.w;
-}
-
-// ---- mode 0: the float32 partial kernel (fp32 FMA) --------------------------
-
-__global__ void __launch_bounds__(kThreads)
-gram_partial(const float* __restrict__ X, const float* __restrict__ y,
-             float* __restrict__ part, int n, int p, int rows_per_split) {
-  const int ti = blockIdx.x, tj = blockIdx.y, ks = blockIdx.z;
-  if (tj < ti) return;  // symmetric: the lower tiles are never read
-  const int q = p + 1;
-  const int r0 = ks * rows_per_split;
-  const int r1 = min(n, r0 + rows_per_split);
-  const int tx = threadIdx.x % (kTile / kMicro);
-  const int ty = threadIdx.x / (kTile / kMicro);
-
-  __shared__ __align__(16) float As[kRows][kTile];
-  __shared__ __align__(16) float Bs[kRows][kTile];
-  float acc[kMicro][kMicro];
-#pragma unroll
-  for (int a = 0; a < kMicro; ++a)
-#pragma unroll
-    for (int b = 0; b < kMicro; ++b) acc[a][b] = 0;
-
-  for (int rb = r0; rb < r1; rb += kRows) {
-    // neighbouring threads load neighbouring columns of one row: coalesced
-    for (int e = threadIdx.x; e < kRows * kTile; e += kThreads) {
-      const int rr = e / kTile, cc = e % kTile;
-      const int64_t r = rb + rr;
-      const bool in = r < r1;
-      As[rr][cc] = in ? aug(X, y, r, ti * kTile + cc, p) : 0.0f;
-      Bs[rr][cc] = in ? aug(X, y, r, tj * kTile + cc, p) : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kRows; ++kk) {
-      float a[kMicro], b[kMicro];
-      ld4(&As[kk][ty * kMicro], a);
-      ld4(&Bs[kk][tx * kMicro], b);
-#pragma unroll
-      for (int i = 0; i < kMicro; ++i)
-#pragma unroll
-        for (int j = 0; j < kMicro; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* out = part + (int64_t)ks * q * q;
-#pragma unroll
-  for (int i = 0; i < kMicro; ++i) {
-    const int gi = ti * kTile + ty * kMicro + i;
-    if (gi >= q) continue;
-#pragma unroll
-    for (int j = 0; j < kMicro; ++j) {
-      const int gj = tj * kTile + tx * kMicro + j;
-      if (gj < q) out[(int64_t)gi * q + gj] = acc[i][j];
-    }
-  }
 }
 
 // ---- mode 3: the float64 partial kernel on the FP64 tensor cores -----------
@@ -448,15 +399,15 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes)
                : "memory");
 }
 
-// The `count` elements at src, copied from the 16-byte line that holds src:
-// the first lands at dst + (src mod 16) / sizeof(T).
-template <typename T>
+// The `count` elements at src, copied from the 16-byte line that holds src
+// by a block of kN threads: the first lands at dst + (src mod 16) / sizeof(T).
+template <int kN, typename T>
 __device__ __forceinline__ void copy_flat(T* dst, const T* src, int count) {
   const uintptr_t a0 = reinterpret_cast<uintptr_t>(src);
   const uintptr_t a1 = a0 + (uintptr_t)count * sizeof(T);
   const uintptr_t line = a0 & ~(uintptr_t)15;
   const int chunks = (int)((a1 - line + 15) >> 4);
-  for (int c = threadIdx.x; c < chunks; c += kThreads) {
+  for (int c = threadIdx.x; c < chunks; c += kN) {
     const uintptr_t s = line + 16 * (uintptr_t)c;
     cp_async16(reinterpret_cast<char*>(dst) + 16 * c, reinterpret_cast<const void*>(s),
                (int)(a1 - s < 16 ? a1 - s : 16));
@@ -636,18 +587,234 @@ __device__ __forceinline__ void store_quad(const Acc& acc, float* out, int q, in
       for (int e = 0; e < 4; ++e) put(acc[6 * h + j][e], out, q, gi + 2 * h, gj + j, e);
 }
 
-// Block (x, k): tile pair x of the nt (nt + 1) / 2 upper pairs (row-major),
-// rows [k R, min(n, (k+1) R)) with R = rows_per_split. kFlat (nt = 1): rows
-// staged flat, xstage elements a buffer; else each row's tile columns.
-__host__ __device__ constexpr int buffers(bool flat) { return flat ? 4 : 3; }
+// Where stage st lies in shared memory s: rows = its rows, X row r's staged
+// columns from x(r) (the pair's tile I; tile J's from x(r) + kSegOff on the
+// wide route), y from ys, zbase the zeroed strip.
 template <typename T, bool kFlat>
-__global__ void __launch_bounds__(kThreads, 1)
-gram_partial(const T* __restrict__ X, const T* __restrict__ y, float* __restrict__ part,
-             int n, int p, int rows_per_split, int nt, int xstage) {
+struct Staged {
+  const T* s;
+  const T* X;
+  int64_t rs;   // the stage's first row of X
+  int rows, p, rowp, xs, ys, zbase;
+  __device__ int x(int r) const {
+    return kFlat ? xs + r * p : xs + r * rowp + shift_of(X + (rs + r) * p, 4);
+  }
+};
+
+// Modes 1 and 2's product step (tensor cores) on a landed stage.
+template <typename T>
+struct Tc {
+  using Elem = T;
   using M = Mma<T>;
+  static constexpr int kThreads = tc::kThreads;
+  __host__ __device__ static constexpr int stage(bool) { return M::kStage; }   // rows
+  static constexpr int kLag = 0;   // a stage is summed in the step it lands
+  // shared memory past the stages (elements), and the end's sum (bytes)
+  static constexpr int extra(bool) { return 0; }
+  static constexpr int red_bytes() { return kRedBytes; }
+
+  // This warp's part (role) and steps. Diagonal pair: bands 0-1 (w even) or
+  // 2-5 (w odd), every fourth step from w / 2. Off-diagonal pair: quadrant
+  // (qa, qb) = ((w % 4) / 2, w % 2), every other step from w / 4.
+  int I, J, warp, lane, nrole, role, ph, nph, qa, qb, t, ka, kb, pa, pb;
+  bool diag;
+  Acc acc;
+
+  __device__ Tc(int I_, int J_, bool diag_, int p, T*, int) : I(I_), J(J_), diag(diag_) {
+    warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    nrole = diag ? 2 : 4, role = warp % nrole;
+    ph = warp / nrole, nph = kWarps / nrole;
+    qa = role >> 1, qb = role & 1;
+    t = lane & 3;
+    ka = 48 * qa, kb = kSegOff + 48 * qb;
+    pa = p - (I * kEdge + (diag ? 0 : 48 * qa)), pb = p - (J * kEdge + 48 * qb);
+#pragma unroll
+    for (int m = 0; m < kMmas; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][e] = 0.0f;
+  }
+
+  template <bool kFlat>
+  __device__ void take(const Staged<T, kFlat>& g, int) {
+    for (int k = ph; k * M::kStep < g.rows; k += nph) {
+      int xo[M::kLaneRows], yo[M::kLaneRows];
+#pragma unroll
+      for (int i = 0; i < M::kLaneRows; ++i) {
+        const int r = k * M::kStep + M::row(i, t);
+        xo[i] = (r < g.rows ? g.x(r) : g.zbase) + (lane >> 2);
+        yo[i] = r < g.rows ? g.ys + r : g.zbase;
+      }
+      uint32_t fy[2];
+      M::frag(g.s, yo, 0, fy);
+      if (!diag) step_quad(g.s, xo, fy, ka, pa, kb, pb, acc);
+      else if (role == 0) step_bands<0, 2>(g.s, xo, fy, pa, acc);
+      else step_bands<2, 6>(g.s, xo, fy, pa, acc);
+    }
+  }
+  __device__ void sum(int, int) {}
+
+  // The warps of a role add their sums to its first warp's in phase order,
+  // through shared memory (lane-major: no bank conflicts); that warp stores.
+  __device__ void finish(unsigned char* smem, float* out, int q) {
+    float* const red = reinterpret_cast<float*>(smem) + lane;
+    if (ph > 0) {
+#pragma unroll
+      for (int m = 0; m < kMmas; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) red[((warp * kMmas + m) * 4 + e) * 32] = acc[m][e];
+    }
+    __syncthreads();
+    if (ph > 0) return;
+    for (int f = 1; f < nph; ++f) {
+      const float* other = red + (f * nrole + role) * kMmas * 4 * 32;
+#pragma unroll
+      for (int m = 0; m < kMmas; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][e] += other[(m * 4 + e) * 32];
+    }
+    if (!diag) store_quad(acc, out, q, I * kGroups + 6 * qa, J * kGroups + 6 * qb);
+    else if (role == 0) store_bands<0, 2>(acc, out, q, I * kGroups);
+    else store_bands<2, 6>(acc, out, q, I * kGroups);
+  }
+};
+
+// Mode 0's product step: float32 FMAs on the FP32 pipes (no tensor cores),
+// 16 warps. A lane sums an 8 x 8 tile of the pair's A^T A (columns a of tile
+// I against columns b of tile J, 8 each) in 64 registers, over every nph-th
+// row of each stage. A diagonal pair has 78 tiles on or above the diagonal
+// (b >= a), 6 row phases, 468 busy lanes; an off-diagonal pair 144 tiles, 3
+// phases, 432 lanes. Each lane takes its 16 operands of a row by four
+// 16-byte shared loads, 16 FMAs a load: flat rows of 90 floats are not
+// 16-byte aligned, so a stage is first repacked (kLag: while the one before
+// is summed) into rows of 96 or 192 columns at a pitch of 4 (mod 32)
+// floats, y in column p and zeros past it.
+struct Fma {
+  using Elem = float;
+  static constexpr int kThreads = 512;
+  // rows of one stage: the flat route's 96 halve the barriers; the wide
+  // route's 200-float staged rows fit only 48 beside the repacked stages
+  __host__ __device__ static constexpr int stage(bool flat) { return flat ? 96 : 48; }
+  static constexpr int kLag = 1;        // stage st is repacked while st - 1 is summed
+  static constexpr int kRepack = 384;   // threads that repack: one column each
+  __host__ __device__ static constexpr int pitch(bool diag) { return diag ? 100 : 196; }
+  __host__ __device__ static constexpr int tiles(bool diag) { return diag ? 78 : 144; }
+  __host__ __device__ static constexpr int phases(bool diag) { return diag ? 6 : 3; }
+  // two repacked stages past the staged ones, at the widest pitch in the grid
+  static constexpr int extra(bool one) { return 2 * stage(one) * pitch(one); }
+  // the end's sum: every phase but the first, 64 sums a lane
+  static constexpr int red_bytes() { return (phases(true) - 1) * tiles(true) * 64 * 4; }
+
+  float acc[8][8];
+  float* R;   // the two repacked stages
+  int I, J, p, P, span, nph, ph, ao, bo, gi0, gj0;   // span: floats of a repacked stage
+  bool diag, active;
+
+  __device__ Fma(int I_, int J_, bool diag_, int p_, float* rbuf, int rows)
+      : R(rbuf), I(I_), J(J_), p(p_), diag(diag_) {
+    const int nt = tiles(diag), tile = threadIdx.x % nt;
+    P = pitch(diag), span = rows * P, nph = phases(diag);
+    ph = threadIdx.x / nt, active = ph < nph;
+    int a = 0, b;
+    if (diag) {   // the tiles row by row: band a has 12 - a
+      int rem = tile;
+      while (rem >= 12 - a) rem -= 12 - a, ++a;
+      b = a + rem;
+    } else {
+      a = tile / 12, b = tile % 12;
+    }
+    ao = 8 * a, bo = (diag ? 0 : kEdge) + 8 * b;
+    gi0 = I * kEdge + 8 * a, gj0 = J * kEdge + 8 * b;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  }
+
+  // Stage st into repacked buffer st & 1: a thread copies one column (of 96
+  // or 192), every (kRepack / width)-th row; its source is a column of X
+  // (float rows land unshifted on the wide route), y, or the zeroed strip.
+  template <bool kFlat>
+  __device__ void take(const Staged<float, kFlat>& g, int st) {
+    if (threadIdx.x >= kRepack) return;
+    const int width = diag ? kEdge : 2 * kEdge;
+    const int c = threadIdx.x % width, seg = c >= kEdge, cc = c - seg * kEdge;
+    const int gc = (seg ? J : I) * kEdge + cc;
+    int src = g.zbase, stride = 0;
+    if (gc < p) {
+      src = kFlat ? g.xs + gc : g.xs + seg * kSegOff + cc;
+      stride = g.rowp;
+    } else if (gc == p) {
+      src = g.ys;
+      stride = 1;
+    }
+    float* dst = R + (st & 1) * span + c;
+#pragma unroll 4
+    for (int r = threadIdx.x / width; r < g.rows; r += kRepack / width)
+      dst[r * P] = g.s[src + r * stride];
+  }
+
+  // The rows of repacked stage st: row r's FMAs into the lane's tile.
+  __device__ void sum(int st, int rows) {
+    if (!active) return;
+    const float* row = R + (st & 1) * span + ph * P;
+#pragma unroll 2
+    for (int r = ph; r < rows; r += nph, row += nph * P) {
+      float a[8], b[8];
+      const float4* va = reinterpret_cast<const float4*>(row + ao);
+      const float4* vb = reinterpret_cast<const float4*>(row + bo);
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const float4 u = va[k], v = vb[k];
+        a[4 * k] = u.x, a[4 * k + 1] = u.y, a[4 * k + 2] = u.z, a[4 * k + 3] = u.w;
+        b[4 * k] = v.x, b[4 * k + 1] = v.y, b[4 * k + 2] = v.z, b[4 * k + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+
+  // The lanes of a tile add their sums to its first phase's in phase order,
+  // through shared memory (tile-major: no bank conflicts); that lane stores
+  // the entries i <= j < q.
+  __device__ void finish(unsigned char* smem, float* out, int q) {
+    float* const red = reinterpret_cast<float*>(smem);
+    const int nt = tiles(diag), tile = threadIdx.x % nt;
+    if (active && ph > 0) {
+#pragma unroll
+      for (int k = 0; k < 64; ++k) red[((ph - 1) * 64 + k) * nt + tile] = acc[k / 8][k % 8];
+    }
+    __syncthreads();
+    if (!active || ph > 0) return;
+    for (int f = 1; f < nph; ++f) {
+#pragma unroll
+      for (int k = 0; k < 64; ++k) acc[k / 8][k % 8] += red[((f - 1) * 64 + k) * nt + tile];
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int gi = gi0 + i, gj = gj0 + j;
+        if (gi <= gj && gj < q) out[(int64_t)gi * q + gj] = acc[i][j];
+      }
+  }
+};
+
+// Block (x, k): tile pair x of the nt (nt + 1) / 2 upper pairs (row-major),
+// rows [k R, min(n, (k+1) R)) with R = rows_per_split; the step S (Tc<T> or
+// Fma) sums each stage. kFlat (nt = 1): rows staged flat, xstage elements a
+// buffer; else each row's tile columns.
+__host__ __device__ constexpr int buffers(bool flat) { return flat ? 4 : 3; }
+template <typename S, bool kFlat>
+__global__ void __launch_bounds__(S::kThreads, 1)
+gram_partial(const typename S::Elem* __restrict__ X, const typename S::Elem* __restrict__ y,
+             float* __restrict__ part, int n, int p, int rows_per_split, int nt, int xstage) {
+  using T = typename S::Elem;
   constexpr int kBuf = buffers(kFlat);
+  constexpr int kStage = S::stage(kFlat);     // rows of one stage
   constexpr int kVec = 16 / (int)sizeof(T);   // elements of a 16-byte copy
-  constexpr int kYStage = M::kStage + kVec;
+  constexpr int kYStage = kStage + kVec;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ uint64_t bars[kBuf];             // flat X stages' copy barriers
   T* const s = reinterpret_cast<T*>(smem);    // offsets below are into s
@@ -656,18 +823,18 @@ gram_partial(const T* __restrict__ X, const T* __restrict__ y, float* __restrict
   int I = 0, rem = blockIdx.x;
   while (rem >= nt - I) rem -= nt - I++;
   const int J = I + rem;
-  const bool diag = I == J;
+  const bool diag = kFlat || I == J;
   const int q = p + 1;
   const int64_t r0 = (int64_t)blockIdx.y * rows_per_split;
   const int64_t r1 = r0 + rows_per_split < n ? r0 + rows_per_split : (int64_t)n;
-  const int nstage = (int)((r1 - r0 + M::kStage - 1) / M::kStage);
+  const int nstage = (int)((r1 - r0 + kStage - 1) / kStage);
   const int rowp = kFlat ? p : pitch(diag);
   auto rows_of = [&](int st) {
-    const int64_t left = r1 - r0 - (int64_t)st * M::kStage;
-    return (int)(left < M::kStage ? left : M::kStage);
+    const int64_t left = r1 - r0 - (int64_t)st * kStage;
+    return (int)(left < kStage ? left : kStage);
   };
 
-  for (int e = threadIdx.x; e < kZero * (int)sizeof(T) / 4; e += kThreads)
+  for (int e = threadIdx.x; e < kZero * (int)sizeof(T) / 4; e += S::kThreads)
     reinterpret_cast<uint32_t*>(s + zbase)[e] = 0u;
   if (kFlat && threadIdx.x == 0) {
     for (int b = 0; b < kBuf; ++b) bar_init(&bars[b]);
@@ -676,10 +843,10 @@ gram_partial(const T* __restrict__ X, const T* __restrict__ y, float* __restrict
   __syncthreads();
 
   auto load = [&](int st) {
-    const int64_t rs = r0 + (int64_t)st * M::kStage;
+    const int64_t rs = r0 + (int64_t)st * kStage;
     const int rows = rows_of(st);
     T* dx = s + (st % kBuf) * xstage;
-    copy_flat(s + ybase + (st % kBuf) * kYStage, y + rs, rows);
+    copy_flat<S::kThreads>(s + ybase + (st % kBuf) * kYStage, y + rs, rows);
     if constexpr (kFlat) {
       // the whole 16-byte lines by one bulk copy, the last part line apart
       const uintptr_t a0 = reinterpret_cast<uintptr_t>(X + rs * p);
@@ -696,7 +863,7 @@ gram_partial(const T* __restrict__ X, const T* __restrict__ y, float* __restrict
       // first: kWords covers 96 columns and a shift of one bf16 element
       constexpr int kWords = kEdge * (int)sizeof(T) / 4 + (sizeof(T) < 4 ? 1 : 0);
       const int nseg = diag ? 1 : 2;
-      for (int e = threadIdx.x; e < rows * nseg * kWords; e += kThreads) {
+      for (int e = threadIdx.x; e < rows * nseg * kWords; e += S::kThreads) {
         const int w = e % kWords, rs2 = e / kWords;
         const int seg = diag ? 0 : rs2 & 1, r = diag ? rs2 : rs2 >> 1;
         const int c0 = (seg ? J : I) * kEdge;
@@ -711,73 +878,29 @@ gram_partial(const T* __restrict__ X, const T* __restrict__ y, float* __restrict
     }
   };
 
-  // This warp's part (role) and steps. Diagonal pair: bands 0-1 (w even) or
-  // 2-5 (w odd), every fourth step from w / 2. Off-diagonal pair: quadrant
-  // (qa, qb) = ((w % 4) / 2, w % 2), every other step from w / 4.
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nrole = diag ? 2 : 4, role = warp % nrole;
-  const int ph = warp / nrole, nph = kWarps / nrole;
-  const int qa = role >> 1, qb = role & 1;
-  const int t = lane & 3;
-  const int ka = 48 * qa, kb = kSegOff + 48 * qb;
-  const int pa = p - (I * kEdge + (diag ? 0 : 48 * qa)), pb = p - (J * kEdge + 48 * qb);
-  Acc acc = {};
-
+  S step(I, J, diag, p, s + zbase + kZero, kStage);
   for (int st = 0; st < kBuf - 1; ++st) {
     if (st < nstage) load(st);
     cp_async_commit();
   }
-  for (int st = 0; st < nstage; ++st) {
+  for (int st = 0; st < nstage + S::kLag; ++st) {
     cp_async_wait<kBuf - 2>();  // stage st has landed (this thread's copies)
-    if (kFlat) bar_wait(&bars[st % kBuf], (st / kBuf) & 1);
+    if (kFlat && st < nstage) bar_wait(&bars[st % kBuf], (st / kBuf) & 1);
     __syncthreads();            // ... everyone's; and stage st - 1 is consumed
     if (st + kBuf - 1 < nstage) load(st + kBuf - 1);
     cp_async_commit();
-    const int64_t rs = r0 + (int64_t)st * M::kStage;
-    const int rows = rows_of(st);
-    const int xs = (st % kBuf) * xstage + (kFlat ? shift_of(X + rs * p, 16) : 0);
-    const int ys = ybase + (st % kBuf) * kYStage + shift_of(y + rs, 16);
-    for (int k = ph; k * M::kStep < rows; k += nph) {
-      int xo[M::kLaneRows], yo[M::kLaneRows];
-#pragma unroll
-      for (int i = 0; i < M::kLaneRows; ++i) {
-        const int r = k * M::kStep + M::row(i, t);
-        const int x = kFlat ? xs + r * p : xs + r * rowp + shift_of(X + (rs + r) * p, 4);
-        xo[i] = (r < rows ? x : zbase) + (lane >> 2);
-        yo[i] = r < rows ? ys + r : zbase;
-      }
-      uint32_t fy[2];
-      M::frag(s, yo, 0, fy);
-      if (!diag) step_quad(s, xo, fy, ka, pa, kb, pb, acc);
-      else if (role == 0) step_bands<0, 2>(s, xo, fy, pa, acc);
-      else step_bands<2, 6>(s, xo, fy, pa, acc);
+    if (st < nstage) {
+      const int64_t rs = r0 + (int64_t)st * kStage;
+      const Staged<T, kFlat> g{s, X, rs, rows_of(st), p, rowp,
+                               (st % kBuf) * xstage + (kFlat ? shift_of(X + rs * p, 16) : 0),
+                               ybase + (st % kBuf) * kYStage + shift_of(y + rs, 16), zbase};
+      step.take(g, st);
     }
+    if (S::kLag && st > 0) step.sum(st - 1, rows_of(st - 1));
   }
   cp_async_wait<0>();
   __syncthreads();
-
-  // The warps of a role add their sums to its first warp's in phase order,
-  // through shared memory (lane-major: no bank conflicts).
-  float* const red = reinterpret_cast<float*>(smem) + lane;
-  if (ph > 0) {
-#pragma unroll
-    for (int m = 0; m < kMmas; ++m)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) red[((warp * kMmas + m) * 4 + e) * 32] = acc[m][e];
-  }
-  __syncthreads();
-  if (ph > 0) return;
-  for (int f = 1; f < nph; ++f) {
-    const float* other = red + (f * nrole + role) * kMmas * 4 * 32;
-#pragma unroll
-    for (int m = 0; m < kMmas; ++m)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][e] += other[(m * 4 + e) * 32];
-  }
-  float* out = part + (int64_t)blockIdx.y * q * q;
-  if (!diag) store_quad(acc, out, q, I * kGroups + 6 * qa, J * kGroups + 6 * qb);
-  else if (role == 0) store_bands<0, 2>(acc, out, q, I * kGroups);
-  else store_bands<2, 6>(acc, out, q, I * kGroups);
+  step.finish(smem, part + (int64_t)blockIdx.y * q * q, q);
 }
 
 // One warp: S (kStep x 192, row-major) staged as the wide route stages an
@@ -867,43 +990,29 @@ __global__ void gram_epilogue(const A* __restrict__ part, A* __restrict__ K, int
   }
 }
 
-cudaError_t launch_f32(const void* X, const void* y, void* part, void* K, int n, int p,
-                       int rows_per_split, int nsplit, double t, int flat,
-                       cudaStream_t stream) {
-  const int q = p + 1;
-  const int nt = (q + kTile - 1) / kTile;
-  gram_partial<<<dim3(nt, nt, nsplit), kThreads, 0, stream>>>(
-      static_cast<const float*>(X), static_cast<const float*>(y), static_cast<float*>(part),
-      n, p, rows_per_split);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  gram_epilogue<float><<<p, 128, 0, stream>>>(static_cast<const float*>(part),
-                                              static_cast<float*>(K), p, nsplit,
-                                              float(1.0 / t), flat);
-  return cudaGetLastError();
-}
-
-// Modes 1 (T = float, tf32 products) and 2 (T = bfloat16).
-template <typename T>
+// Modes 0 (S = tc::Fma), 1 (tc::Tc<float>, tf32 products) and 2
+// (tc::Tc<bfloat16>).
+template <typename S>
 cudaError_t launch_tc(const void* X, const void* y, void* part, void* K, int n, int p,
                       int rows_per_split, int nsplit, double t, int flat,
                       cudaStream_t stream) {
-  using M = tc::Mma<T>;
+  using T = typename S::Elem;
   constexpr int kVec = 16 / (int)sizeof(T);
   const int nt = (p + 1 + tc::kEdge - 1) / tc::kEdge;
   const bool one = nt == 1;
   // a flat stage: its rows, a shift of up to kVec - 1 and the 96 columns a
   // lane may read past the last row's start; a wide one: rows at the widest pitch
-  const int xstage = one ? (M::kStage * p + kVec + tc::kEdge + kVec - 1) / kVec * kVec
-                         : M::kStage * tc::pitch(false);
-  const int stages = tc::buffers(one) * (xstage + M::kStage + kVec) + tc::kZero;
-  const int smem = stages * (int)sizeof(T) > tc::kRedBytes ? stages * (int)sizeof(T)
-                                                           : tc::kRedBytes;
-  auto kernel = one ? tc::gram_partial<T, true> : tc::gram_partial<T, false>;
+  const int rows = S::stage(one);
+  const int xstage = one ? (rows * p + kVec + tc::kEdge + kVec - 1) / kVec * kVec
+                         : rows * tc::pitch(false);
+  const int stages = tc::buffers(one) * (xstage + rows + kVec) + tc::kZero + S::extra(one);
+  const int smem = stages * (int)sizeof(T) > S::red_bytes() ? stages * (int)sizeof(T)
+                                                             : S::red_bytes();
+  auto kernel = one ? tc::gram_partial<S, true> : tc::gram_partial<S, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(nt * (nt + 1) / 2, nsplit), tc::kThreads, smem, stream>>>(
+  kernel<<<dim3(nt * (nt + 1) / 2, nsplit), S::kThreads, smem, stream>>>(
       static_cast<const T*>(X), static_cast<const T*>(y), static_cast<float*>(part), n, p,
       rows_per_split, nt, xstage);
   err = cudaGetLastError();
@@ -939,12 +1048,13 @@ cudaError_t launch_f64(const void* X, const void* y, void* part, void* K, int n,
 extern "C" {
 
 // Rows of each split and the tile edge the Python wrapper sizes `part` by:
-// mode 0, modes 1-2 (the tensor-core body; rows by mode), and mode 3.
-int sven_gram_tile() { return kTile; }
-int sven_gram_rows_step() { return kRows; }
+// modes 0-2 (one staging; rows by mode) and mode 3.
 int sven_gram_tile_tc() { return tc::kEdge; }
 int sven_gram_rows_step_tc(int mode) {
-  return mode == 2 ? tc::Mma<__nv_bfloat16>::kStage : tc::Mma<float>::kStage;
+  // mode 0: the flat route's stage, a multiple of the wide route's
+  return mode == 0   ? tc::Fma::stage(true)
+         : mode == 2 ? tc::Mma<__nv_bfloat16>::kStage
+                     : tc::Mma<float>::kStage;
 }
 int sven_gram_tile_f64() { return f64::kEdge; }
 int sven_gram_rows_step_f64() { return f64::kStage; }
@@ -959,12 +1069,13 @@ int sven_gram(const void* X, const void* y, void* part, void* K, int n, int p,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case 0:
-      return launch_f32(X, y, part, K, n, p, rows_per_split, nsplit, t, flat, s);
+      return launch_tc<tc::Fma>(X, y, part, K, n, p, rows_per_split, nsplit, t, flat, s);
     case 1:
-      return launch_tc<float>(X, y, part, K, n, p, rows_per_split, nsplit, t, flat, s);
-    case 2:
-      return launch_tc<__nv_bfloat16>(X, y, part, K, n, p, rows_per_split, nsplit, t,
+      return launch_tc<tc::Tc<float>>(X, y, part, K, n, p, rows_per_split, nsplit, t,
                                       flat, s);
+    case 2:
+      return launch_tc<tc::Tc<__nv_bfloat16>>(X, y, part, K, n, p, rows_per_split, nsplit,
+                                              t, flat, s);
     case 3:
       return launch_f64(X, y, part, K, n, p, rows_per_split, nsplit, t, flat, s);
     default:

@@ -12,10 +12,11 @@ partial kernel and one epilogue sums the partials in a fixed order:
 - "tf32" (mode 1) and "bf16" (mode 2) take their products on the TF32 and
   BF16 tensor cores (`mma.sync`) with float32 sums, bound by the bytes of X
   (0.050 and 0.025 ms), from stages of rows copied flat by the copy engine;
-- float32 operands at "f32" (mode 0) sum true float32 FMAs in 64-column
-  tiles, about four blocks per SM, bound by the FP32 rate (0.058 ms).
+- float32 operands at "f32" (mode 0) sum exact float32 FMAs in 8 x 8
+  register tiles on the same staging, each stage repacked for 16-byte
+  shared loads, bound by the FP32 rate (0.058 ms).
 
-Modes 1-3 take 96-column tile pairs, one block per SM in one wave. The
+All four take 96-column tile pairs, one block per SM in one wave. The
 source says how each is laid out. `shifted_gram_cuda.launches` counts the
 launches (a plain integer; callers reset it).
 """
@@ -35,14 +36,13 @@ _DTYPES = {"f32": (torch.float32, torch.float64), "tf32": (torch.float32,),
 _ptr, _int, _double = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 
 
-def _lib():
-    lib = _build.load("gram")
+def _typed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """`lib` (a build of `csrc/gram.cu`) with its functions' C types set."""
     if not getattr(lib, "_typed", False):
         lib.sven_gram.argtypes = [_ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int,
                                   _double, _int, _int, _ptr]
         lib.sven_gram.restype = _int
-        for fn in ("sven_gram_tile", "sven_gram_rows_step", "sven_gram_tile_tc",
-                   "sven_gram_rows_step_tc", "sven_gram_tile_f64",
+        for fn in ("sven_gram_tile_tc", "sven_gram_rows_step_tc", "sven_gram_tile_f64",
                    "sven_gram_rows_step_f64"):
             getattr(lib, fn).restype = _int
         lib.sven_gram_rows_step_tc.argtypes = [_int]
@@ -54,32 +54,24 @@ def _lib():
     return lib
 
 
+def _lib() -> ctypes.CDLL:
+    return _typed(_build.load("gram"))
+
+
 def _pairs(p: int, tile: int) -> int:
     """Tile pairs (ti <= tj) that cover the upper triangle of A^T A."""
     nt = -(-(p + 1) // tile)
     return nt * (nt + 1) // 2
 
 
-def _split(n: int, step: int, want: int):
-    """(rows_per_split, nsplit <= want): whole `step`-row stages each."""
-    want = max(1, min(-(-n // step), want, 65535))
+def split_rows_wave(n: int, p: int, sm_count: int, tile: int, step: int):
+    """(rows_per_split, nsplit) of every body, each of which runs one block
+    per SM: tile pairs x splits fit one wave of `sm_count` blocks (one split
+    when the pairs alone outnumber the SMs), each split a whole number of
+    the body's `step`-row stages."""
+    want = max(1, min(-(-n // step), sm_count // _pairs(p, tile), 65535))
     rows = -(-(-(-n // want)) // step) * step
     return rows, -(-n // rows)
-
-
-def split_rows(n: int, p: int, sm_count: int, tile: int, step: int):
-    """(rows_per_split, nsplit) of the float32 modes: enough (tile, tile,
-    split) blocks for about four per SM, each split a whole number of
-    `step`-row stages."""
-    return _split(n, step, -(-4 * sm_count // _pairs(p, tile)))
-
-
-def split_rows_wave(n: int, p: int, sm_count: int, tile: int, step: int):
-    """(rows_per_split, nsplit) of the tensor-core bodies (float64, tf32,
-    bf16), which run one block per SM: tile pairs x splits fit one wave of
-    `sm_count` blocks (one split when the pairs alone outnumber the SMs),
-    each split a whole number of the body's `step`-row stages."""
-    return _split(n, step, sm_count // _pairs(p, tile))
 
 
 def shifted_gram_cuda(X: torch.Tensor, y: torch.Tensor, t: float, *,
@@ -92,6 +84,16 @@ def shifted_gram_cuda(X: torch.Tensor, y: torch.Tensor, t: float, *,
     float32 otherwise. Launches on the current stream; raises on a wrong
     operand or a refused launch.
     """
+    K = _launch(X, y, t, precision, flatten)
+    shifted_gram_cuda.launches += 1
+    return K
+
+
+def _launch(X: torch.Tensor, y: torch.Tensor, t: float, precision: str, flatten: bool,
+            lib: ctypes.CDLL = None) -> torch.Tensor:
+    """`shifted_gram_cuda`, not counted, through `lib`: a typed build of
+    `csrc/gram.cu` (another commit's, to compare with), else this
+    package's."""
     if precision not in _MODES:
         raise ValueError(f"shifted_gram_cuda: precision must be one of "
                          f"{tuple(_MODES)}, got {precision!r}")
@@ -99,16 +101,13 @@ def shifted_gram_cuda(X: torch.Tensor, y: torch.Tensor, t: float, *,
     _build.check_operand("shifted_gram_cuda", "y", y, (n,), (X.dtype,), X.device)
     f64 = X.dtype == torch.float64
     acc = torch.float64 if f64 else torch.float32
-    lib = _lib()
+    lib = _lib() if lib is None else lib
     with torch.cuda.device(X.device):
         sms = torch.cuda.get_device_properties(X.device).multi_processor_count
         mode = _F64_MODE if f64 else _MODES[precision]
         if f64:
             rows, nsplit = split_rows_wave(n, p, sms, lib.sven_gram_tile_f64(),
                                            lib.sven_gram_rows_step_f64())
-        elif precision == "f32":
-            rows, nsplit = split_rows(n, p, sms, lib.sven_gram_tile(),
-                                      lib.sven_gram_rows_step())
         else:
             rows, nsplit = split_rows_wave(n, p, sms, lib.sven_gram_tile_tc(),
                                            lib.sven_gram_rows_step_tc(mode))
@@ -121,7 +120,6 @@ def shifted_gram_cuda(X: torch.Tensor, y: torch.Tensor, t: float, *,
                             torch.cuda.current_stream(X.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"shifted_gram_cuda: launch failed with CUDA error {err}")
-    shifted_gram_cuda.launches += 1
     return K
 
 

@@ -253,13 +253,6 @@ def test_plain_ops_launch_no_kernel():
                                   "hinge_xd_cuda": 0, "hinge_stats_cuda": 0}
 
 
-def test_gram_row_split_covers_all_rows():
-    for n, p, sms in ((463715, 90, 132), (33, 57, 132), (10, 4096, 132), (7, 3, 1)):
-        rows, nsplit = tgram.split_rows(n, p, sms, 64, 16)
-        assert rows % 16 == 0 and rows * nsplit >= n and rows * (nsplit - 1) < n
-        assert nsplit <= 65535
-
-
 @pytest.mark.parametrize("n,p,sms", [(463715, 90, 132), (33, 57, 132), (10, 4096, 132),
                                      (7, 3, 1)])
 def test_gram_f64_row_split_covers_all_rows(n, p, sms):
@@ -278,16 +271,18 @@ def test_gram_f64_row_split_covers_all_rows(n, p, sms):
 
 @pytest.mark.parametrize("n,p,sms", [(463715, 90, 132), (33, 57, 132), (10, 4096, 132),
                                      (7, 3, 1)])
-@pytest.mark.parametrize("step", [64, 128])
+@pytest.mark.parametrize("step", [64, 96, 128])
 def test_gram_tc_row_split_covers_all_rows(n, p, sms, step):
-    """The tf32 (64-row stages) and bf16 (128-row stages) bodies' split:
-    96-column tile pairs, one block per SM. Every row in exactly one split,
-    whole stages, one wave (tile pairs x splits <= SMs, or one split when
-    the pairs alone outnumber the SMs)."""
+    """The tf32 (64-row stages), f32 (96-row stages; 48 on the wide route)
+    and bf16 (128-row stages) bodies' split: 96-column tile pairs, one block
+    per SM. Every row in exactly one split, whole stages, one wave (tile
+    pairs x splits <= SMs, or one split when the pairs alone outnumber the
+    SMs)."""
     rows, nsplit = tgram.split_rows_wave(n, p, sms, 96, step)
     pairs = tgram._pairs(p, 96)
     assert rows % step == 0 and rows * nsplit >= n and rows * (nsplit - 1) < n
     assert pairs * nsplit <= sms or nsplit == 1
     assert 1 <= nsplit <= 65535
     if (n, p, sms) == (463715, 90, 132):   # the YMSD shape: one pair
-        assert (pairs, nsplit, rows) == {64: (1, 132, 3520), 128: (1, 130, 3584)}[step]
+        assert (pairs, nsplit, rows) == {64: (1, 132, 3520), 96: (1, 131, 3552),
+                                         128: (1, 130, 3584)}[step]

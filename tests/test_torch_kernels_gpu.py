@@ -205,12 +205,15 @@ def test_cuda_gram_tc_mma_layout(cuda_device, precision):
     np.testing.assert_allclose(D, want, rtol=0, atol=1e-6 * np.abs(want).max())
 
 
-#: the tf32 and bf16 bodies' edges: p + 1 across the 8-column groups, the
-#: 48-column warp tiles and the 96-column tiles (p <= 95: one tile, rows
-#: staged flat; p = 96, 97, 191, 500: per-row words, odd p for bf16's
-#: 2-byte alignment); n below one stage, odd, and 1000
+#: the f32, tf32 and bf16 bodies' edges: p + 1 across the 8-column groups
+#: (f32: the 8 x 8 register tiles), the 48-column warp tiles and the
+#: 96-column tiles (p <= 95: one tile, rows staged flat; p = 96, 97, 191,
+#: 500: per-row words, odd p for bf16's 2-byte alignment); n below one
+#: stage, odd, and 1000
 TC_P = [1, 7, 8, 9, 15, 16, 17, 33, 57, 90, 95, 96, 97, 191, 500]
 TC_N = [13, 1003, 1000]
+#: the float32 modes that share the staging of tc::gram_partial
+TC_MODES = ["f32", "tf32", "bf16"]
 
 
 def _gram_operands(dev, n, p, precision, offset=0):
@@ -231,12 +234,12 @@ def _gram_operands(dev, n, p, precision, offset=0):
 @pytest.mark.gpu
 @pytest.mark.parametrize("p", TC_P)
 @pytest.mark.parametrize("n", TC_N)
-@pytest.mark.parametrize("precision", ["tf32", "bf16"])
+@pytest.mark.parametrize("precision", TC_MODES)
 def test_cuda_gram_tc_edges(cuda_device, precision, n, p):
-    """The tf32 and bf16 Gram within their bounds of the plain version at
-    the tensor-core body's edges, at t = 0.9 and at t = 1e6 (where K = +-X^T
-    X, held at its own scale), in both layouts (the block one equal to the
-    flat one)."""
+    """The f32, tf32 and bf16 Gram within their bounds of the plain version
+    at the body's edges, at t = 0.9 and at t = 1e6 (where K = +-X^T X, held
+    at its own scale), in both layouts (the block one equal to the flat
+    one)."""
     Xs, ys = _gram_operands(cuda_device, n, p, precision)
     for t in (0.9, 1e6):
         K = tgram.shifted_gram_cuda(Xs, ys, t, precision=precision)
@@ -251,15 +254,15 @@ def test_cuda_gram_tc_edges(cuda_device, precision, n, p):
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,p,offset", [(200_000, 90, 0), (200_000, 95, 3),
                                         (200_000, 97, 1)])
-@pytest.mark.parametrize("precision", ["tf32", "bf16"])
+@pytest.mark.parametrize("precision", TC_MODES)
 def test_cuda_gram_tc_pipeline(cuda_device, precision, n, p, offset):
-    """Many stages per split: at n = 200,000 each of the 132 splits of the
-    one tile (p = 90, 95: rows staged flat by the bulk copy) holds 12 bf16 or
-    24 tf32 stages, and each of the 44 splits of p = 97's three tile pairs
-    (per-row words) 36 or 72, so every stage buffer is reused several
-    times. K within the bound of the plain version at t = 0.9 and 1e6, the
-    same K for the same values at offset 0, and three more launches give
-    bitwise-equal K."""
+    """Many stages per split: at n = 200,000 each of the splits of the one
+    tile (p = 90, 95: rows staged flat by the bulk copy) holds 12 bf16, 16
+    f32 or 24 tf32 stages, and each of the 44 splits of p = 97's three tile
+    pairs (per-row words) 36, 72 or 96, so every stage buffer (and f32's two
+    repacked ones) is reused several times. K within the bound of the plain
+    version at t = 0.9 and 1e6, the same K for the same values at offset 0,
+    and three more launches give bitwise-equal K."""
     Xs, ys = _gram_operands(cuda_device, n, p, precision, offset=offset)
     for t in (0.9, 1e6):
         K = tgram.shifted_gram_cuda(Xs, ys, t, precision=precision)
@@ -276,7 +279,7 @@ def test_cuda_gram_tc_pipeline(cuda_device, precision, n, p, offset):
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,p", [(1003, 90), (1000, 95), (1003, 97), (130, 191)])
 @pytest.mark.parametrize("offset", [1, 3])
-@pytest.mark.parametrize("precision", ["tf32", "bf16"])
+@pytest.mark.parametrize("precision", TC_MODES)
 def test_cuda_gram_tc_storage_offset(cuda_device, precision, offset, n, p):
     """A contiguous X and y that start 1 or 3 elements into their storage
     (not 16-byte aligned; 2 bytes off a 4-byte word in bf16) give the same
@@ -289,7 +292,7 @@ def test_cuda_gram_tc_storage_offset(cuda_device, precision, offset, n, p):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,p", [(1000, 90), (1003, 191), (13, 500)])
-@pytest.mark.parametrize("precision", ["tf32", "bf16"])
+@pytest.mark.parametrize("precision", TC_MODES)
 def test_cuda_gram_tc_repeats_exactly(cuda_device, precision, n, p):
     """Three more launches give bitwise-equal K: every entry is summed in a
     fixed order, with no float atomics."""
@@ -301,11 +304,11 @@ def test_cuda_gram_tc_repeats_exactly(cuda_device, precision, n, p):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,p", [(1003, 90), (13, 97)])
-@pytest.mark.parametrize("precision", ["tf32", "bf16"])
+@pytest.mark.parametrize("precision", TC_MODES)
 def test_cuda_gram_tc_op_equals_wrapper(cuda_device, precision, n, p):
-    """`ops.shifted_gram` on float32 CUDA operands at "tf32" or "bf16" runs
-    the tensor-core body: one launch, K equal to the wrapper's on the
-    operands in the precision's storage."""
+    """`ops.shifted_gram` on float32 CUDA operands at "f32", "tf32" or
+    "bf16" runs that mode's body: one launch, K equal to the wrapper's on
+    the operands in the precision's storage."""
     X, y, *_ = _inputs(n, p)
     Xf, yf = (a.to(cuda_device) for a in _f32(X, y))
     want = tgram.shifted_gram_cuda(tops._storage(Xf, precision), tops._storage(yf, precision),
@@ -315,6 +318,36 @@ def test_cuda_gram_tc_op_equals_wrapper(cuda_device, precision, n, p):
     assert tgram.shifted_gram_cuda.launches == before + 1
     assert got.dtype == torch.float32
     assert torch.equal(got, want)
+
+
+#: the widths the dual caches K at (2p <= kernel_cache_max_m = 8192): many
+#: 96-column tiles (11, 22 and 43; up to 946 tile pairs, one split each)
+WIDE_P = [1000, 2049, 4096]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", WIDE_P)
+@pytest.mark.parametrize("precision", TC_MODES + ["f64"])
+def test_cuda_gram_widths(cuda_device, precision, p):
+    """Every body at the widths the dual caches K at, n = 300 (several
+    stages, the last one part full): K within its bound of the plain version
+    (f64: float64 operands at "f32", 1e-10) at t = 0.9 and 1e6, in both
+    layouts."""
+    if precision == "f64":
+        X, y, *_ = _inputs(300, p)
+        Xs, ys = (a.to(cuda_device) for a in cpu(X, y))
+        mode, tol = "f32", 1e-10
+    else:
+        Xs, ys = _gram_operands(cuda_device, 300, p, precision)
+        mode, tol = precision, GRAM_TOL[precision]
+    for t in (0.9, 1e6):
+        K = tgram.shifted_gram_cuda(Xs, ys, t, precision=mode)
+        Kb = tgram.shifted_gram_cuda(Xs, ys, t, precision=mode, flatten=False)
+        torch.cuda.synchronize()
+        assert K.shape == (2 * p, 2 * p)
+        _assert_scaled(K, tref.flatten_gram(tref.gram_blocks_ref(Xs, ys, t, mode)), tol)
+        assert torch.equal(tref.flatten_gram(Kb), K)
+        del K, Kb
 
 
 #: pass 2's layouts: odd p >= 1024 in several 4,096-column chunks (the

@@ -182,6 +182,34 @@ def test_gram_operands_follow_problem_dtype_and_precision(monkeypatch, dtype, pr
     assert seen == [(want, want, precision)]
 
 
+def test_float32_dual_matches_jax_float32():
+    """A float32 problem at the default precision, through the port's plain
+    bodies (its Gram summed in float32, as the CUDA kernel's float32 body
+    sums it), against JAX's float32 solve with its `ref` bodies, on the same
+    numpy inputs cast to float32: the same Newton count, beta within
+    1e-5 * max|beta|.
+
+    tol 1e-6: float32's projected gradient cannot go much below eps times
+    its terms (it stalls at 1.2e-7 - 2.4e-7 here), so at the default 1e-8
+    a float32 solve stops by chance, when a rounding makes it 0, and the two
+    packages' counts then differ even on one shared K (their products round
+    apart). 1e-5: the deviation measured here is 4.3e-7 of max|beta|; the
+    bound leaves room for other summation orders and is 50x under the
+    kernel path's 5e-4 (tests/test_sven_equivalence.py)."""
+    (X, y), _, _, _ = _pair("dual")
+    X32, y32 = X.astype(np.float32), y.astype(np.float32)
+    js = jsven_mod.sven(jnp.asarray(X32), jnp.asarray(y32), 1.8, 0.7,
+                        jsven_mod.SvenConfig(backend="ref", tol=1e-6))
+    ts = tsven_mod.sven(*cpu(X32, y32, dtype=torch.float32), 1.8, 0.7,
+                        SvenConfig(tol=1e-6))
+    assert ts.mode == js.mode == "dual"
+    assert ts.beta.dtype == torch.float32 and js.beta.dtype == jnp.float32
+    assert float(ts.opt_residual) <= 1e-6 and float(js.opt_residual) <= 1e-6
+    assert ts.iters == int(js.iters)
+    scale = float(np.abs(npy(js.beta)).max())
+    np.testing.assert_allclose(npy(ts.beta), npy(js.beta), rtol=0, atol=1e-5 * scale)
+
+
 @pytest.mark.parametrize("n,p,seed", [(120, 16, 0), (200, 24, 7)])
 @pytest.mark.parametrize("precision", ["bf16", "tf32"])
 def test_low_precision_dual_refines_to_the_plain_solve(n, p, seed, precision):
