@@ -29,7 +29,8 @@ port's main path through the entry points a user calls:
   6. the public op `kernels.hinge_stats` (the hinge-stats kernel) at the
      primal solve's w (GLA-BRA-180 shape), the dual solve's w (YMSD shape)
      and a ragged shape, in f32 and bf16, against its plain version, with
-     its times, the plain version's and a GEMV's;
+     its route, its times L2 cold and warm, the plain version's, a GEMV's
+     and its bound (the JSON row's `by_case`);
   7. the penalized front end: `enet_path` over a 10-point lambda grid at the
      YMSD shape (dual: one Gram launch per Illinois evaluation) and
      `ElasticNet(...).fit` with standardization and intercept at the
@@ -63,6 +64,13 @@ builds another commit's `gram.cu` beside this checkout's and counts the
 cases (five shapes, three radii, both layouts, in the modes named; f64,
 tf32 and bf16 when none is) whose K the two give bitwise equal; exits 1 if
 any differs.
+
+    python3 chip_smoke.py --stats-time
+
+times only the hinge-stats kernel at the GLA-BRA-180 and YMSD shapes in
+f32 and bf16 beside the GEMV X^T w, and prints no result line; like
+`--gram-split`, a copy placed in a checkout of another commit times that
+commit's kernel.
 """
 from __future__ import annotations
 
@@ -371,6 +379,57 @@ def phase_kernels(torch, smoke, dev, gen):
     return rows
 
 
+def stats_times(torch, kernel, Xs, y32, t, w32, C, dev) -> dict:
+    """Device ms of one hinge-stats launch at L2 cold and warm, and of the
+    GEMV X^T w alone (one cuBLAS call on X as stored; bf16: w in bfloat16)."""
+    wg = w32.to(Xs.dtype)
+    return dict(cold=cuda_ms_each(torch, lambda: kernel(Xs, y32, t, w32, C), dev, True),
+                warm=cuda_ms_each(torch, lambda: kernel(Xs, y32, t, w32, C), dev, False),
+                gemv_cold=cuda_ms_each(torch, lambda: torch.mv(Xs.T, wg), dev, True),
+                gemv_warm=cuda_ms_each(torch, lambda: torch.mv(Xs.T, wg), dev, False))
+
+
+def stats_bound(n: int, p: int, size: int):
+    """The hinge-stats bound: X read once, w and y read, the four p-vectors
+    written; 2 n p + 2 n + 12 p float32 operations."""
+    return bound(n * p * size + 4 * (2 * n + 4 * p), 2.0 * n * p + 2.0 * n + 12.0 * p, "f32")
+
+
+def stats_route(torch, ths, n: int, p: int, dev) -> str:
+    """The route the wrapper takes at (n, p), with its blocks."""
+    tall = ths.plan(n, p, torch.cuda.get_device_properties(dev).multi_processor_count)
+    if tall is None:
+        return f"wide route, {-(-p // ths.WIDE_COLS)} column blocks"
+    return f"tall route, {tall[0]} blocks of {tall[1]} rows"
+
+
+def stats_time_only(torch) -> int:
+    """`--stats-time`: the hinge-stats kernel at the GLA-BRA-180 and YMSD
+    shapes in f32 and bf16, L2 cold and warm, beside the GEMV X^T w, on
+    synthetic data. It needs nothing of the checkout but `hinge_stats_cuda`
+    and `ops._storage`, so a copy of this file placed in a checkout of
+    another commit times that commit's kernel."""
+    from repro_torch.data.synthetic import make_regression
+    from repro_torch.kernels import ops
+
+    ths = importlib.import_module("repro_torch.kernels.hinge_stats")
+    print(f"card: {nvidia_smi()}", flush=True)
+    dev = torch.device("cuda", 0)
+    for case, (n, p) in (("GLA-BRA", GLA_BRA), ("YMSD", YMSD)):
+        X, y, _ = make_regression(n, p, seed=0, dtype=torch.float32, device=dev)
+        w = torch.randn(n, generator=torch.Generator().manual_seed(1)).to(dev) * 0.01
+        for prec in ("f32", "bf16"):
+            Xs = ops._storage(X, prec)
+            tm = stats_times(torch, ths.hinge_stats_cuda, Xs, y, 0.7, w, 1.0, dev)
+            b_ms, _ = stats_bound(n, p, Xs.element_size())
+            print(f"  stats {case} {prec} at {n}x{p}: cold {tm['cold']:.4f} ms, warm "
+                  f"{tm['warm']:.4f}; GEMV cold {tm['gemv_cold']:.4f}, warm "
+                  f"{tm['gemv_warm']:.4f}; bound {b_ms:.4f}", flush=True)
+        del X, y, w
+        torch.cuda.empty_cache()
+    return 0
+
+
 def phase_hinge_stats(torch, smoke, kernels, svm_state, dev, cases):
     """The hinge-stats op against its plain version. `cases` is a list of
     (label, X, y, t, w, C) with float64 X, y, w on the card. Returns
@@ -395,7 +454,7 @@ def phase_hinge_stats(torch, smoke, kernels, svm_state, dev, cases):
     smoke.check(launched["hinge_stats_cuda"] == len(calls),
                 "one hinge_stats_cuda launch per op call")
 
-    row = None
+    row, by_case = None, {}
     for (label, prec, Xs, y32, w32, X, y, t, w, C), (margin, act, loss, galpha) in zip(
             calls, outs):
         n, p = Xs.shape
@@ -423,27 +482,23 @@ def phase_hinge_stats(torch, smoke, kernels, svm_state, dev, cases):
                         f"{obj:.9e}: rel {o_rel:.2e} <= 1e-5")
         if label == "ragged":
             continue
-        size = Xs.element_size()
-        cold = (cuda_ms_each(torch, lambda: ths.hinge_stats_cuda(Xs, y32, t, w32, C), dev, True),
-                cuda_ms_each(torch, lambda: ref.hinge_stats_ref(Xs, y32, t, w32, C), dev, True))
-        warm = (cuda_ms_each(torch, lambda: ths.hinge_stats_cuda(Xs, y32, t, w32, C), dev, False),
-                cuda_ms_each(torch, lambda: ref.hinge_stats_ref(Xs, y32, t, w32, C), dev, False))
-        # a = X^T w alone, one cuBLAS call on X as stored (bf16: w in bfloat16)
-        wg = w32.to(Xs.dtype)
-        gemv = (f", GEMV X^T w cold {cuda_ms_each(torch, lambda: torch.mv(Xs.T, wg), dev, True):.4f}"
-                f" warm {cuda_ms_each(torch, lambda: torch.mv(Xs.T, wg), dev, False):.4f}")
-        rows_, nchunk = ths.split_rows(n, p, torch.cuda.get_device_properties(dev)
-                                       .multi_processor_count, 32)
-        # X read once, w and y read, the four p-vectors written
-        b_ms, b_by = bound(n * p * size + 4 * (2 * n + 4 * p), 2.0 * n * p + 2.0 * n
-                           + 12.0 * p, "f32")
-        print(f"  hinge_stats {prec} at {n}x{p} ({nchunk} row chunk(s) of {rows_}): "
-              f"L2 cold {cold[0]:.4f} ms (plain {cold[1]:.4f}, HBM bound {b_ms:.4f} "
-              f"{b_by}); L2 warm {warm[0]:.4f} ms (plain {warm[1]:.4f}){gemv}; "
-              f"X = {n * p * size / 1e6:.1f} MB", flush=True)
+        case = "GLA-BRA" if label == "primal w" else "YMSD"
+        tm = stats_times(torch, ths.hinge_stats_cuda, Xs, y32, t, w32, C, dev)
+        plain = tuple(cuda_ms_each(torch, lambda: ref.hinge_stats_ref(Xs, y32, t, w32, C),
+                                   dev, cold) for cold in (True, False))
+        b_ms, b_by = stats_bound(n, p, Xs.element_size())
+        route = stats_route(torch, ths, n, p, dev)
+        print(f"  hinge_stats {case} {prec} at {n}x{p}, {route}: "
+              f"cold {tm['cold']:.4f} ms, warm {tm['warm']:.4f}; plain cold {plain[0]:.4f}, "
+              f"warm {plain[1]:.4f}; GEMV X^T w cold {tm['gemv_cold']:.4f}, warm "
+              f"{tm['gemv_warm']:.4f}; bound {b_ms:.4f} ({b_by}); X = "
+              f"{n * p * Xs.element_size() / 1e6:.1f} MB", flush=True)
+        by_case[f"{case} {prec}"] = dict(ms=tm["cold"], bound_ms=b_ms,
+                                         gemv_ms=tm["gemv_cold"])
         if label == "primal w" and prec == "f32":
-            row = dict(max_abs_err=max(m_err, g_err), ms=cold[0], plain_ms=cold[1],
+            row = dict(max_abs_err=max(m_err, g_err), ms=tm["cold"], plain_ms=plain[0],
                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    row["by_case"] = by_case
     return row, launched
 
 
@@ -746,6 +801,8 @@ def main() -> int:
             print(f"chip_smoke: unknown Gram modes {modes}", file=sys.stderr)
             return 2
         return gram_bitwise_only(torch, Path(sys.argv[2]).resolve(), modes)
+    if sys.argv[1:] == ["--stats-time"]:
+        return stats_time_only(torch)
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2

@@ -183,17 +183,25 @@ def test_hinge_stats_op_returns_w_dtype_and_the_primal_objective():
                                atol=1e-5 * max(1.0, float(margin.abs().max())))
 
 
-def test_hinge_stats_row_split():
-    """One chunk when the column blocks fill the card; else chunks of at
-    least MIN_ROWS rows, a multiple of 32, that cover every row, about four
-    blocks per SM (so at most 4 * 132 row chunks: gridDim.y is safe)."""
-    assert ths.split_rows(180, 49_151, 132, 32) == (180, 1)
-    assert ths.split_rows(33, 57, 132, 32) == (33, 1)
-    for n, p in ((463_715, 90), (100_000, 1000), (5000, 7)):
-        rows, nchunk = ths.split_rows(n, p, 132, 32)
-        assert nchunk > 1 and rows % 32 == 0 and rows >= ths.MIN_ROWS
-        assert rows * nchunk >= n > rows * (nchunk - 1)
-        assert nchunk * -(-p // 32) <= 4 * 132 + -(-p // 32)
+@pytest.mark.parametrize("n,p,tall", [
+    (463_715, 90, True), (180, 49_151, False), (180, 2000, False), (33, 57, False),
+    (5000, 90, True), (20_000, 33, True), (200_000, 1, True), (100_000, 1000, True),
+    (200_000, 2048, True), (200_000, 2049, False), (300, 7, True), (256, 7, False)])
+def test_hinge_stats_row_split(n, p, tall):
+    """The route: tall when p <= TALL_MAX_P and its row ranges give more
+    blocks than the wide route's 32-column blocks. The tall route's row
+    ranges cover n, every block has a row, and they are one wave: at most
+    one block per SM, none under MIN_ROWS rows unless n forces it."""
+    sms = 132
+    got = ths.plan(n, p, sms)
+    assert (got is not None) == tall
+    if got is None:
+        return
+    blocks, rows = got
+    assert 1 < blocks <= sms and blocks > -(-p // ths.WIDE_COLS)
+    assert blocks * rows >= n > (blocks - 1) * rows
+    assert blocks <= -(-n // ths.MIN_ROWS)
+    assert ths.plan(n, p, 1) is None     # one SM: the wide route's blocks are as many
 
 
 def test_tf32_rounding_is_round_to_nearest_away():

@@ -485,26 +485,26 @@ def test_cuda_hinge_matches_plain(cuda_device, n, p, precision, tol):
     _assert_scaled(hv1, tref.hinge_xd_ref(Xs, y, dr, er, v, 1.1, 2.5), tol, floor=1.0)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("n,p", SHAPES + [(180, 2000), (5000, 90), (20_000, 33)])
-@pytest.mark.parametrize("precision", ["f32", "bf16"])
-def test_cuda_hinge_stats_matches_plain(cuda_device, n, p, precision):
-    """Both forms of the kernel against the plain version: one launch (the
-    SHAPES and 180 x 2000) and row chunks plus a fixed-order finish launch
-    (5000 x 90 and 20,000 x 33: ragged last chunk and column block). Bounds:
-    margin and galpha 1e-5 * S with S = max_j sum_i |X_ij w_i| (f32 rounding
-    in any summation order), act equal outside that band around 1, loss to
-    rtol 1e-5."""
+def _stats_operands(dev, n, p, precision, offset=0):
+    """(X, y, w) on `dev`: float32 y, w and X in the precision's storage,
+    whose data start `offset` elements past the start of their buffer."""
     X, y, *_ = _inputs(n, p)
     w = np.random.default_rng(3).standard_normal(n) * 0.1
-    Xf, yf, wf = (a.to(cuda_device) for a in _f32(X, y, w))
+    Xf, yf, wf = (a.to(dev) for a in _f32(X, y, w))
     Xs = tops._storage(Xf, precision)
-    before = ths.hinge_stats_cuda.launches
-    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    assert (ths.split_rows(n, p, sms, 32)[1] > 1) == (n >= 5000)
-    mt, mb, gt, gb, lp = ths.hinge_stats_cuda(Xs, yf, 1.3, wf, 2.0)
-    torch.cuda.synchronize()
-    assert ths.hinge_stats_cuda.launches == before + 1
+    if offset:
+        buf = torch.empty(n * p + offset, dtype=Xs.dtype, device=dev)
+        buf[offset:] = Xs.reshape(-1)
+        Xs = buf[offset:].view(n, p)
+        assert Xs.is_contiguous() and Xs.data_ptr() % 16 == offset * Xs.element_size()
+    return Xs, yf, wf
+
+
+def _assert_stats_match_plain(Xs, yf, wf, got):
+    """Bounds: margin and galpha 1e-5 * S with S = max_j sum_i |X_ij w_i|
+    (f32 rounding in any summation order), act equal outside that band
+    around 1, loss to rtol 1e-5."""
+    mt, mb, gt, gb, lp = got
     margin, act, loss, galpha = tref.hinge_stats_ref(Xs, yf, 1.3, wf, 2.0)
     S = float((Xs.float().abs().T @ wf.abs()).max())
     np.testing.assert_allclose(npy(torch.cat([mt, mb])), npy(margin), rtol=0,
@@ -514,10 +514,58 @@ def test_cuda_hinge_stats_matches_plain(cuda_device, n, p, precision):
     clear = (margin - 1.0).abs() > 1e-5 * S
     assert torch.equal((torch.cat([mt, mb]) < 1.0)[clear], (act > 0)[clear])
     np.testing.assert_allclose(float(0.5 * (wf @ wf) + lp.sum()), float(loss), rtol=1e-5)
+    return loss
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,p", SHAPES + [(180, 2000), (5000, 90), (20_000, 33)])
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_cuda_hinge_stats_matches_plain(cuda_device, n, p, precision):
+    """Both routes of the kernel against the plain version: the wide route
+    (the SHAPES and 180 x 2000) and the tall route (5000 x 90 and 20,000 x
+    33: ragged last block and stage)."""
+    Xs, yf, wf = _stats_operands(cuda_device, n, p, precision)
+    before = ths.hinge_stats_cuda.launches
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert (ths.plan(n, p, sms) is not None) == (n >= 5000)
+    got = ths.hinge_stats_cuda(Xs, yf, 1.3, wf, 2.0)
+    torch.cuda.synchronize()
+    assert ths.hinge_stats_cuda.launches == before + 1
+    loss = _assert_stats_match_plain(Xs, yf, wf, got)
     # the public op on CUDA tensors runs the kernel
-    got = tops.hinge_stats(Xf, yf, 1.3, wf, 2.0, precision=precision)
+    Xf = Xs.float() if precision == "bf16" else Xs
+    op = tops.hinge_stats(Xf, yf, 1.3, wf, 2.0, precision=precision)
     assert ths.hinge_stats_cuda.launches == before + 2
-    np.testing.assert_allclose(float(got[2]), float(loss), rtol=1e-5)
+    np.testing.assert_allclose(float(op[2]), float(loss), rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,p,offset,route", [
+    (200_000, 90, 0, "tall"), (200_000, 95, 0, "tall"),  # many stages, ragged last
+    (200_000, 90, 1, "tall"), (200_000, 95, 3, "tall"),  # X 1 and 3 elements past a line
+    (20_000, 512, 0, "tall"), (20_000, 513, 1, "tall"),  # one column a thread, then slots
+    (20_000, 2048, 3, "tall"), (20_000, 2049, 0, "wide"),  # the tall route's widest p
+    (200_000, 1, 1, "tall"), (200_000, 7, 3, "tall"),
+    (180, 49_151, 1, "wide"), (180, 2000, 3, "wide"), (33, 57, 1, "wide")])
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_cuda_hinge_stats_tall_route(cuda_device, n, p, offset, route, precision):
+    """The tall route, and the wide route past its widest p or at small n,
+    against the plain version at the bounds above, X at a storage offset
+    too; three launches bitwise equal, which also shows that each leaves the
+    tall route's ticket at zero for the next."""
+    Xs, yf, wf = _stats_operands(cuda_device, n, p, precision, offset)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    tall = ths.plan(n, p, sms)
+    assert (tall is not None) == (route == "tall")
+    if tall is not None:
+        assert tall[0] <= sms and tall[0] * tall[1] >= n
+    runs = [ths.hinge_stats_cuda(Xs, yf, 1.3, wf, 2.0) for _ in range(3)]
+    torch.cuda.synchronize()
+    if tall is not None:
+        assert int(ths._ticket(Xs.device)[0]) == 0
+    _assert_stats_match_plain(Xs, yf, wf, runs[0])
+    for other in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
 
 
 @pytest.mark.gpu
