@@ -39,7 +39,14 @@ port's main path through the entry points a user calls:
   8. a float32 problem at the default precision: the dual solve and a
      10-point `enet_path` at the YMSD shape, whose Grams run the kernel's
      float32 body, against the same calls on the port's plain float32
-     backend ("torch") on the same tensors.
+     backend ("torch") on the same tensors;
+  9. `sven_batch` (float64, default config), each lane against the port's
+     sequential `sven` on it: (9a) a 3 x 3 `en_grid` of (t, lambda2) on a
+     shared GLA-BRA-180-shaped X (9 primal lanes), (9b) `cv_folds(X, y, 5)`
+     of it (stacked X), (9c) `cv_folds` at the YMSD shape (5 dual lanes);
+     the lane-batched hinge passes first at 9a's and 9b's operands, against
+     their plain version and single launches, timed beside B single
+     launches, the bound and one `torch.mm` / `torch.bmm`.
 
 The data are synthetic (`repro_torch.data.make_regression`, fixed seeds).
 Each path runs with every launch counter set to 0 just before it and read
@@ -685,6 +692,198 @@ def phase_float32(torch, smoke, kernels, svm_state, dev) -> int:
     return gram + path_gram
 
 
+def lane_kernel_rows(torch, smoke, dev, gen, cases) -> dict:
+    """The lane-batched hinge passes (float64, what a batched primal runs on
+    float64 data) at each case's operands: against the plain lane op, each
+    lane bitwise against a single launch, and timed L2 cold beside B single
+    launches, the plain op, the bound and one PyTorch call (shared X:
+    `torch.mm` on the lanes as columns; stacked X: `torch.bmm`). `cases` is
+    a list of (label, X, y, t (B,), C (B,)). Returns the JSON rows of
+    `hinge_xtv_lanes_cuda` and `hinge_xd_lanes_cuda` (the first case's
+    numbers, the others under `by_case`)."""
+    from repro_torch.kernels import hinge, ref
+
+    rows = {}
+    for label, X, y, t, C in cases:
+        B = t.shape[0]
+        n, p = X.shape[-2:]
+        shared = X.dim() == 2
+        v = torch.randn(B, n, generator=gen, dtype=torch.float64).to(dev)
+        at = (torch.rand(B, p, generator=gen, dtype=torch.float64) > 0.4).to(dev,
+                                                                             torch.float64)
+        ab = (torch.rand(B, p, generator=gen, dtype=torch.float64) > 0.6).to(dev,
+                                                                             torch.float64)
+        ts, Cs = t.tolist(), C.tolist()
+        lane = [(X if shared else X[i], y if y.dim() == 1 else y[i]) for i in range(B)]
+        d, e_part = hinge.hinge_xtv_lanes_cuda(X, y, v, t, at, ab)
+        dr, er = ref.hinge_xtv_lanes_ref(X, y, v, t, at, ab)
+        hv = hinge.hinge_xd_lanes_cuda(X, y, dr, er[:, None].contiguous(), v, t, C)
+        hr = ref.hinge_xd_lanes_ref(X, y, dr, er, v, t, C)
+        hv2 = hinge.hinge_xd_lanes_cuda(X, y, d, e_part, v, t, C)
+        d_err = (d - dr).abs().max().item()
+        xd_err = (hv - hr).abs().max().item()
+        hv_err = (hv2 - hr).abs().max().item()
+        d_scale, h_scale = max(1.0, dr.abs().max().item()), max(1.0, hr.abs().max().item())
+        what = f"hinge lanes {label} ({B} lanes, X {'shared' if shared else 'stacked'})"
+        # float64 sums in another order: far under 1e-10 at these n, p
+        smoke.check(d_err <= 1e-10 * d_scale and xd_err <= 1e-10 * h_scale
+                    and hv_err <= 1e-10 * h_scale,
+                    f"{what}: max|d - plain| = {d_err:.3e}, max|Hv - plain| = {xd_err:.3e} "
+                    f"(pass 2 alone), {hv_err:.3e} (both) <= 1e-10 * scale")
+        same = 0
+        for i in range(B):
+            di, ei = hinge.hinge_xtv_cuda(*lane[i], v[i], ts[i], at[i], ab[i])
+            hvi = hinge.hinge_xd_cuda(*lane[i], di, ei, v[i], ts[i], Cs[i])
+            same += (torch.equal(d[i], di) and torch.equal(e_part[i], ei)
+                     and torch.equal(hv2[i], hvi))
+        smoke.check(same == B, f"{what}: {same} of {B} lanes bitwise a single launch")
+        V, D = v.T.contiguous(), d.T.contiguous()
+        calls = {
+            "xtv": (lambda: hinge.hinge_xtv_lanes_cuda(X, y, v, t, at, ab),
+                    lambda: [hinge.hinge_xtv_cuda(*lane[i], v[i], ts[i], at[i], ab[i])
+                             for i in range(B)],
+                    lambda: ref.hinge_xtv_lanes_ref(X, y, v, t, at, ab),
+                    (lambda: torch.mm(X.T, V)) if shared
+                    else (lambda: torch.bmm(v.unsqueeze(1), X))),
+            "xd": (lambda: hinge.hinge_xd_lanes_cuda(X, y, d, e_part, v, t, C),
+                   lambda: [hinge.hinge_xd_cuda(*lane[i], d[i], e_part[i], v[i], ts[i], Cs[i])
+                            for i in range(B)],
+                   lambda: ref.hinge_xd_lanes_ref(X, y, dr, er, v, t, C),
+                   (lambda: torch.mm(X, D)) if shared
+                   else (lambda: torch.bmm(X, d.unsqueeze(2)))),
+        }
+        # X read once when the lanes share it, B times when they stack it;
+        # y once or B times; each lane's vectors once
+        x_bytes = (1 if shared else B) * n * p * 8
+        y_bytes = (1 if y.dim() == 1 else B) * n * 8
+        k = e_part.shape[1]
+        bounds = {"xtv": bound(x_bytes + y_bytes + 8 * B * (n + 3 * p + k + 1),
+                               B * (2.0 * n * p + 2.0 * n + 6.0 * p), "f64"),
+                  "xd": bound(x_bytes + y_bytes + 8 * B * (p + k + 2 * n + 2),
+                              B * (2.0 * n * p + 5.0 * n), "f64")}
+        for name, (lanes_fn, singles_fn, plain_fn, lib_fn) in calls.items():
+            ms, singles, plain, lib = (cuda_ms_each(torch, f, dev, True, reps=20)
+                                       for f in (lanes_fn, singles_fn, plain_fn, lib_fn))
+            b_ms, b_by = bounds[name]
+            print(f"  hinge {name} lanes f64 {label}, {B} x {n}x{p}, X "
+                  f"{'shared' if shared else 'stacked'}: L2 cold {ms:.4f} ms, {B} single "
+                  f"launches {singles:.4f}, plain {plain:.4f}, library {lib:.4f}, bound "
+                  f"{b_ms:.4f} ({b_by}; {ms / b_ms:.1f}x)", flush=True)
+            row = dict(ms=ms, singles_ms=singles, plain_ms=plain, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=lib)
+            key = f"hinge_{name}_lanes_cuda"
+            if key not in rows:
+                rows[key] = dict(max_abs_err=d_err if name == "xtv" else max(xd_err, hv_err),
+                                 **row, by_case={})
+            rows[key]["by_case"][label] = row
+        del v, at, ab, d, e_part, dr, er, hv, hr, hv2, V, D
+    return rows
+
+
+def phase_batch(torch, smoke, kernels, svm_state, count, dev, gen) -> dict:
+    """Phase 9: `sven_batch` at full width on float64 data, default config,
+    each lane held to the port's sequential `sven` on that lane on the card:
+    9a a (t, lambda2) grid of 9 lanes on a shared GLA-BRA-180-shaped X
+    (primal), 9b `cv_folds(X, y, 5)` of it (stacked X, primal), 9c
+    `cv_folds` of a YMSD-shaped problem (stacked X, dual). Checks each
+    lane's Newton count (equal), CG count (within 1 %) and beta (primal
+    1e-8, dual 1e-10 x max|beta|), and the launches: one of each lane-batched
+    hinge pass per batched CG step, one Gram per lane. Returns the lane
+    kernels' JSON rows."""
+    from repro_torch.core.batch import cv_folds, en_grid, sven_batch
+    from repro_torch.core.sven import sven
+    from repro_torch.core.svm.state import cg_lanes
+    from repro_torch.data.synthetic import make_regression
+
+    f64 = dict(dtype=torch.float64, device=dev)
+
+    def run_case(label, X, y, t, lambda2):
+        cg_lanes.steps = 0
+        sol, secs, launched, syncs = run_path(torch, kernels, svm_state,
+                                              lambda: sven_batch(X, y, t, lambda2))
+        steps = cg_lanes.steps
+        B = sol.beta.shape[0]
+        count(launched)
+
+        def lane(i):
+            return (X if X.dim() == 2 else X[i], y if y.dim() == 1 else y[i],
+                    float(t if t.dim() == 0 else t[i]),
+                    float(lambda2 if lambda2.dim() == 0 else lambda2[i]))
+
+        args = [lane(i) for i in range(B)]
+        seq, seq_s, seq_launched, seq_syncs = run_path(
+            torch, kernels, svm_state, lambda: [sven(*a) for a in args])
+        dual = sol.mode == "dual"
+        cg_b, cg_s = sol.cg_iters.tolist(), [s_.cg_iters for s_ in seq]
+        it_b, it_s = sol.iters.tolist(), [s_.iters for s_ in seq]
+        devs = [max_dev(torch, sol.beta[i], s_.beta) / s_.beta.abs().max().item()
+                for i, s_ in enumerate(seq)]
+        bitwise = sum(torch.equal(sol.beta[i], s_.beta) for i, s_ in enumerate(seq))
+        print(f"    batched: {secs:.3f} s, {syncs} host syncs, launches {launched}, "
+              f"{steps} batched CG steps; Newton {it_b}, CG {cg_b}", flush=True)
+        print(f"    sequential ({B} sven calls): {seq_s:.3f} s, {seq_syncs} host syncs, "
+              f"launches {seq_launched}; Newton {it_s}, CG {cg_s} ({sum(cg_s)}); max "
+              f"|beta - beta_seq| / max|beta_seq| {max(devs):.3e}, {bitwise} of {B} lanes "
+              f"bitwise", flush=True)
+        smoke.check(sol.mode == ("dual" if label == "9c" else "primal"),
+                    f"{label}: mode {sol.mode}")
+        smoke.check(sol.beta.shape == (B, X.shape[-1]) and bool(torch.isfinite(sol.beta).all()),
+                    f"{label}: beta finite, shape ({B}, p)")
+        smoke.check(it_b == it_s, f"{label}: each lane's Newton steps equal its sequential "
+                    "solve's")
+        cg_rel = max(abs(a - b) / max(1, b) for a, b in zip(cg_b, cg_s))
+        smoke.check(cg_rel <= 0.01, f"{label}: each lane's CG steps within 1 % of its "
+                    f"sequential solve's (worst {100 * cg_rel:.2f} %)")
+        bnd = 1e-10 if dual else 1e-8
+        smoke.check(max(devs) <= bnd, f"{label}: max|beta - beta_seq| <= {bnd:g} * "
+                    f"max|beta_seq| on every lane ({max(devs):.3e})")
+        if dual:
+            smoke.check(launched["shifted_gram_cuda"] == B and launched["hinge_xtv_lanes_cuda"]
+                        == launched["hinge_xd_lanes_cuda"] == 0,
+                        f"{label}: one Gram launch per lane ({B}), no hinge launch")
+        else:
+            smoke.check(launched["hinge_xtv_lanes_cuda"] == launched["hinge_xd_lanes_cuda"]
+                        == steps > 0 and max(cg_b) <= steps <= sum(cg_b),
+                        f"{label}: one launch of each lane-batched hinge pass per batched "
+                        f"CG step ({steps}; longest lane {max(cg_b)}, all lanes {sum(cg_b)})")
+            smoke.check(launched["hinge_xtv_cuda"] == launched["hinge_xd_cuda"]
+                        == launched["shifted_gram_cuda"] == 0,
+                        f"{label}: no single hinge launch and no Gram launch")
+        return secs
+
+    t_phase = time.perf_counter()
+    X, y, beta_true = make_regression(*GLA_BRA, seed=2, device=dev)
+    t = 0.5 * beta_true.abs().sum().item()
+    ts, l2s = en_grid(torch.tensor([0.5, 0.75, 1.0], **f64) * t,
+                      torch.tensor([0.5, 1.0, 4.0], **f64))
+    Xtr, ytr, _, _ = cv_folds(X, y, 5)
+    C = 1.0 / (2.0 * l2s)
+    t5 = torch.full((5,), t, **f64)
+    rows = lane_kernel_rows(torch, smoke, dev, gen, [
+        ("9a", X, y, ts, C), ("9b", Xtr, ytr, t5, torch.full((5,), 0.5 / LAMBDA2, **f64))])
+    n, p = GLA_BRA
+    print(f"[9a] sven_batch on en_grid(t x {{0.5, 0.75, 1}}, {{0.5, 1, 4}}): 9 lanes on "
+          f"a shared X, n = {n}, p = {p}", flush=True)
+    run_case("9a", X, y, ts, l2s)
+    print(f"[9b] sven_batch on cv_folds(X, y, 5): X {tuple(Xtr.shape)} "
+          f"({Xtr.numel() * 8 / 1e6:.0f} MB), t, lambda2 = {LAMBDA2}", flush=True)
+    run_case("9b", Xtr, ytr, torch.tensor(t, **f64), torch.tensor(LAMBDA2, **f64))
+    del X, y, Xtr, ytr
+    torch.cuda.empty_cache()
+    X, y, beta_true = make_regression(*YMSD, seed=1, device=dev)
+    t = 0.5 * beta_true.abs().sum().item()
+    Xtr, ytr, _, _ = cv_folds(X, y, 5)
+    del X, y
+    print(f"[9c] sven_batch on cv_folds(X, y, 5) at the YMSD shape: X "
+          f"{tuple(Xtr.shape)} ({Xtr.numel() * 8 / 1e9:.2f} GB), lambda2 = {LAMBDA2}",
+          flush=True)
+    run_case("9c", Xtr, ytr, torch.tensor(t, **f64), torch.tensor(LAMBDA2, **f64))
+    del Xtr, ytr
+    torch.cuda.empty_cache()
+    print(f"    phase 9: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
+
+
 def gram_bitwise_only(torch, other: Path, modes) -> int:
     """`--gram-bitwise`: this checkout's Gram against a build of another
     `gram.cu` (`other`), in each of `modes` (f64: float64 operands at
@@ -986,6 +1185,11 @@ def main() -> int:
 
     # -- 8. a float32 problem --------------------------------------------------
     gram_modes["f32"] = phase_float32(torch, smoke, kernels, svm_state, dev)
+    torch.cuda.empty_cache()
+
+    # -- 9. batched solves -----------------------------------------------------
+    print("[9] sven_batch: lane-batched solves vs sequential sven", flush=True)
+    rows.update(phase_batch(torch, smoke, kernels, svm_state, count, dev, gen))
 
     # -- summary ---------------------------------------------------------------
     for name, n_launch in path_launches.items():
@@ -1004,6 +1208,11 @@ def main() -> int:
                           "src/repro/kernels/hinge.py:91"),
         "hinge_stats_cuda": ("src/repro_torch/kernels/csrc/hinge_stats.cu",
                              "src/repro/kernels/hinge_stats.py:22"),
+        # the same TPU kernels under vmap (sven_batch): a leading grid axis
+        "hinge_xtv_lanes_cuda": ("src/repro_torch/kernels/csrc/hinge.cu",
+                                 "src/repro/kernels/hinge.py:25"),
+        "hinge_xd_lanes_cuda": ("src/repro_torch/kernels/csrc/hinge.cu",
+                                "src/repro/kernels/hinge.py:91"),
     }
     line = {"kernels": [dict(name=name, route="cuda", source=meta[name][0],
                              replaces=meta[name][1], launches=path_launches[name],

@@ -1,5 +1,6 @@
-"""The paper's reduction, the constrained SVEN engine, gap-safe screening
-and the glmnet-parity penalized front end, in PyTorch."""
+"""The paper's reduction, the constrained SVEN engine and its batched
+solves, gap-safe screening and the glmnet-parity penalized front end, in
+PyTorch."""
 from repro_torch.core import elastic_net
 from repro_torch.core.reduction import (
     LAMBDA2_FLOOR,
@@ -11,6 +12,7 @@ from repro_torch.core.reduction import (
     svm_C,
 )
 from repro_torch.core.sven import (
+    SvenBatchSolution,
     SvenConfig,
     SvenSolution,
     sven,
@@ -18,6 +20,7 @@ from repro_torch.core.sven import (
     sven_path_reference,
     sven_path_solutions,
 )
+from repro_torch.core.batch import cv_folds, en_grid, sven_batch
 from repro_torch.core.screening import ScreenResult, gap_safe_screen, sven_with_screening
 from repro_torch.core.api import (
     ElasticNet,
@@ -54,6 +57,11 @@ __all__ = [
     "sven_path_reference",
     "sven_path_solutions",
     "svm_C",
+    # batched solves (core/batch.py)
+    "SvenBatchSolution",
+    "cv_folds",
+    "en_grid",
+    "sven_batch",
     # screening (core/screening.py)
     "ScreenResult",
     "gap_safe_screen",

@@ -14,7 +14,9 @@ If alpha* solves the SVM dual (3), the Elastic Net solution is
 
 Both an explicit construction (the paper-faithful baseline) and matrix-free
 operators that never materialize the (2p, n) matrix. PyTorch counterpart of
-`repro/core/reduction.py`; `t` is a Python float here.
+`repro/core/reduction.py`; `t` is a Python float here. `SvenLaneOperator`
+holds the operators of B problems at once (the lane-batched solve of
+`core/batch.py`).
 """
 from __future__ import annotations
 
@@ -128,6 +130,34 @@ class SvenOperator:
         p = self.p
         o = self.xhat_matvec(w)
         return torch.cat([o[:p], -o[p:]])
+
+
+class SvenLaneOperator:
+    """`SvenOperator` for B problems at once: X (n, p) shared by the lanes or
+    (B, n, p), y (n,) or (B, n), t a list of B floats. Every product takes
+    and returns a leading lane axis and is each lane's `SvenOperator`
+    product, with its bits (see `core/svm/state.py::lanes`)."""
+
+    def __init__(self, X: torch.Tensor, y: torch.Tensor, t):
+        self.ops = [SvenOperator(X=X if X.dim() == 2 else X[i],
+                                 y=y if y.dim() == 1 else y[i], t=ti)
+                    for i, ti in enumerate(t)]
+
+    def _each(self, name: str, v: torch.Tensor) -> torch.Tensor:
+        return torch.stack([getattr(op, name)(v[i]) for i, op in enumerate(self.ops)])
+
+    def xhat_matvec(self, w: torch.Tensor) -> torch.Tensor:
+        return self._each("xhat_matvec", w)
+
+    def xhat_rmatvec(self, v: torch.Tensor) -> torch.Tensor:
+        return self._each("xhat_rmatvec", v)
+
+    def zhat_matvec(self, v: torch.Tensor) -> torch.Tensor:
+        return self._each("zhat_matvec", v)
+
+    def kernel_matvec(self, v: torch.Tensor) -> torch.Tensor:
+        """K v of each lane, in O(np) a lane."""
+        return self._each("kernel_matvec", v)
 
 
 def gram_from_stats(G: torch.Tensor, u: torch.Tensor, s) -> torch.Tensor:

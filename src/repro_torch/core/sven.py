@@ -21,6 +21,11 @@ per shape under `jit`; here it runs eagerly, with host loops (one host sync
 per loop test, see `core/svm/state.py`). `t` and `lambda2` are host floats.
 `sven_path` is a Python loop over the t-grid that carries the warm dual
 alpha AND primal w from zeros, as the JAX scan does.
+
+`_sven_core_lanes` is `_sven_core` for a stack of B problems (the
+counterpart of `vmap(_sven_core)` in `repro/core/batch.py`): the lane-batched
+solver machines, one launch of each hinge pass per CG step for all lanes,
+and one Gram launch per lane. `core/batch.py` is its entry point.
 """
 from __future__ import annotations
 
@@ -31,8 +36,9 @@ import torch
 
 from repro_torch.core import elastic_net as en
 from repro_torch.core import reduction as red
-from repro_torch.core.svm import (solve_dual_fista, solve_dual_newton,
-                                  solve_primal_newton)
+from repro_torch.core.svm import (host_list, lanes, solve_dual_fista, solve_dual_fista_lanes,
+                                  solve_dual_newton, solve_dual_newton_lanes,
+                                  solve_primal_newton, solve_primal_newton_lanes)
 from repro_torch.device import resolve_device
 
 
@@ -45,6 +51,21 @@ class SvenSolution(NamedTuple):
     kkt: torch.Tensor            # Elastic Net KKT violation at beta
     w: torch.Tensor              # primal SVM iterate — warm-start carrier
     cg_iters: int                # inner CG iterations (primal: H v products)
+
+
+class SvenBatchSolution(NamedTuple):
+    """Stacked per-problem solutions; every tensor has a leading (B,) axis.
+    The port of `repro.core.batch.SvenBatchSolution`, with each lane's CG
+    count as `SvenSolution` has it, and the mode all lanes share."""
+
+    beta: torch.Tensor           # (B, p)
+    alpha: torch.Tensor          # (B, 2p)
+    w: torch.Tensor              # (B, n)
+    iters: torch.Tensor          # (B,) outer (Newton) iterations
+    opt_residual: torch.Tensor   # (B,)
+    kkt: torch.Tensor            # (B,)
+    cg_iters: torch.Tensor       # (B,) inner CG iterations
+    mode: str                    # "primal" | "dual", shared by the lanes
 
 
 #: every accepted SvenConfig.backend: "torch" = plain PyTorch products and
@@ -240,6 +261,121 @@ def _sven_core(X, y, t: float, lambda2: float, warm_alpha, warm_w,
                         iters=res.iters, opt_residual=res.pg_norm,
                         kkt=en.kkt_violation(X_full, y, beta, lambda2),
                         cg_iters=cg)
+
+
+def _lane(x: torch.Tensor, i: int, shared_dim: int) -> torch.Tensor:
+    """Lane i of x, or x itself when it has `shared_dim` dims (shared)."""
+    return x if x.dim() == shared_dim else x[i]
+
+
+def _sven_core_lanes(X, y, t: torch.Tensor, lambda2: torch.Tensor, warm_alpha, warm_w,
+                     config: SvenConfig, keep=None) -> SvenBatchSolution:
+    """`_sven_core` for B problems at once, on resolved operands.
+
+    X (n, p) shared by the lanes or (B, n, p); y (n,) or (B, n); t and
+    lambda2 (B,) of X's dtype; warm_alpha (B, 2p) and warm_w (B, n) or None
+    (zero rows are a cold start); keep None, (p,) or (B, p). The mode is
+    picked once for all lanes. The primal's CG mat-vec is one launch of
+    each hinge pass for all lanes on the kernel path (X read at its stride:
+    0 when shared); the dual caches each lane's K from one launch of the
+    Gram per lane, stacked to (B, 2p, 2p). Each lane's arithmetic is that
+    of `_sven_core` on its operands, to the bit: products and reductions
+    run per lane (`core/svm/state.py::lanes`), and each lane of the hinge
+    passes is bitwise a single launch's. t is read to the host once.
+    """
+    n, p = X.shape[-2:]
+    B = t.shape[0]
+    dtype = X.dtype
+    X_full = X
+    keepf = None
+    if keep is not None:
+        keepf = keep.to(dtype)
+        X = X * keepf.unsqueeze(-2)     # a (B, p) mask stacks a shared X
+        if warm_alpha is not None:
+            warm_alpha = warm_alpha * torch.cat([keepf, keepf], dim=-1)
+    # svm_C of each lane, in float64 as on the host
+    C = (1.0 / (2.0 * torch.clamp(lambda2.to(torch.float64),
+                                  min=config.lambda2_floor))).to(dtype)
+    mode = _pick_mode(n, p, config)
+    ts = host_list(t)
+    op = red.SvenLaneOperator(X=X, y=y, t=ts)
+    kernels = config.backend != "torch"
+
+    if mode == "primal":
+        if config.matrix_free:
+            matvec, rmatvec = op.xhat_matvec, op.xhat_rmatvec
+        else:
+            Xhat = torch.stack([red.build_svm_dataset(_lane(X, i, 2), _lane(y, i, 1),
+                                                      ts[i])[0] for i in range(B)])
+            matvec = lambda w: lanes(torch.matmul, Xhat, w)                    # noqa: E731
+            rmatvec = lambda v: lanes(lambda A, u: A.T @ u, Xhat, v)          # noqa: E731
+        yhat = torch.cat([X.new_ones(p), -X.new_ones(p)])
+        hess_matvec = None
+        if kernels:
+            from repro_torch.kernels.ops import _storage, hinge_hessian_matvec_lanes
+            # made once per solve; a shared X stays one (n, p) operand that
+            # every lane reads (stride 0)
+            kdtype = _kernel_dtype(dtype, config.precision)
+            Xk = _storage(X.to(kdtype).contiguous(), config.precision)
+            yk = y.to(kdtype).contiguous()
+
+            def hess_matvec(v, act, C_):  # one launch of each pass for all lanes
+                hv = hinge_hessian_matvec_lanes(
+                    Xk, yk, t, C_, act[:, :p].to(kdtype).contiguous(),
+                    act[:, p:].to(kdtype).contiguous(), v.to(kdtype).contiguous(),
+                    backend=config.backend, precision=config.precision)
+                return hv.to(dtype)
+
+        res = solve_primal_newton_lanes(
+            matvec, rmatvec, yhat, C, n, B,
+            tol=config.tol, max_newton=config.max_newton, cg_iters=config.cg_iters,
+            w0=warm_w, hess_matvec=hess_matvec)
+        alpha = C[:, None] * torch.clamp(1.0 - yhat * matvec(res.w), min=0.0)
+        w, iters, residual, cg = res.w, res.iters, res.grad_norm, res.cg_iters
+    else:
+        m = 2 * p
+        cache = config.cache_kernel
+        if cache == "auto":
+            cache = "blocks" if m <= config.kernel_cache_max_m else "never"
+        refine = False
+        if cache == "blocks":
+            if kernels:
+                from repro_torch.kernels.ops import shifted_gram
+                kdtype = _kernel_dtype(dtype, config.precision)
+                Xk, yk = X.to(kdtype).contiguous(), y.to(kdtype).contiguous()
+                K = torch.stack([shifted_gram(_lane(Xk, i, 2), _lane(yk, i, 1), ts[i],
+                                              backend=config.backend,
+                                              precision=config.precision)
+                                 for i in range(B)]).to(dtype)
+                refine = config.precision != "f32"
+            else:
+                gram = red.gram_blocks if config.matrix_free else red.gram_reference
+                K = torch.stack([gram(_lane(X, i, 2), _lane(y, i, 1), ts[i])
+                                 for i in range(B)])
+            kernel_matvec = lambda v: lanes(torch.matmul, K, v)   # noqa: E731
+        else:
+            kernel_matvec = op.kernel_matvec
+
+        solver = (solve_dual_newton_lanes if config.solver == "newton"
+                  else solve_dual_fista_lanes)
+        res = solver(kernel_matvec, m, C, B, dtype=dtype, device=X.device,
+                     tol=config.tol, alpha0=warm_alpha)
+        cg = res.cg_iters
+        if refine:
+            # each lane's matrix-free full-precision re-solve, as in _sven_core
+            res = solver(op.kernel_matvec, m, C, B, dtype=dtype, device=X.device,
+                         tol=config.tol, alpha0=res.alpha)
+            cg = cg + res.cg_iters
+        alpha = res.alpha
+        w, iters, residual = op.zhat_matvec(alpha), res.iters, res.pg_norm
+
+    beta = torch.stack([red.recover_beta(alpha[i], ts[i]) for i in range(B)])
+    if keepf is not None:
+        beta = beta * keepf
+    kkt = torch.stack([en.kkt_violation(_lane(X_full, i, 2), _lane(y, i, 1), beta[i],
+                                        lambda2[i]) for i in range(B)])
+    return SvenBatchSolution(beta=beta, alpha=alpha, w=w, iters=iters,
+                             opt_residual=residual, kkt=kkt, cg_iters=cg, mode=mode)
 
 
 def sven(

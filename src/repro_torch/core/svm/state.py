@@ -13,10 +13,25 @@ reads one device boolean (`host_bool`), which is one host sync. The iterates
 and the iteration counts are those of the JAX machines. The hyperparameters
 (`Hyper.C`, `Hyper.tol`) are Python floats, so no other value crosses to
 the host inside a solve.
+
+The lane-batched machines (`core/batch.py`) solve B problems at once: the
+counterpart of JAX's vmap over a machine. Their state carries a leading
+lane axis: x (B, .), and per-lane iters, aux (the CG count), residual and
+converged, all (B,) tensors; their hyperparameters are a `LaneHyper` of
+(B,) tensors. `run_lane_machine` is vmap's form of the while_loop: every
+step runs on all lanes, and a lane whose test is false keeps its state
+(`lane_where`). Each loop test reads one host boolean for all lanes,
+`active.any()`, counted in `host_bool.syncs`. Elementwise work runs on the
+stacked tensors; every product and reduction runs per lane (`lanes`), as
+the single solve's own op on that lane, because a batched product or sum
+rounds in another order (on the CPU, `bmm` and `sum(-1)` lie 3e-15 from
+`mv` and `@` on the same lanes) and CG, which runs for hundreds of steps,
+turns such differences into other step counts. So each lane takes exactly
+the steps of its single solve, with its bits.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -31,6 +46,13 @@ def host_bool(x: torch.Tensor) -> bool:
 
 
 host_bool.syncs = 0
+
+
+def host_list(x: torch.Tensor) -> list:
+    """A 1-d tensor read on the host as a list of floats: one host sync,
+    counted in `host_bool.syncs` beside the loop tests."""
+    host_bool.syncs += 1
+    return [float(v) for v in x.tolist()]
 
 
 def host_float(x: torch.Tensor) -> float:
@@ -86,3 +108,100 @@ def run_machine(step: Callable[[SolverState, Hyper], SolverState],
     while state.iters < max_iters and host_bool(~state.converged):
         state = step(state, hyper)
     return state
+
+
+# ------------------------------------------------------------------ lanes ---
+
+class LaneHyper(NamedTuple):
+    """Per-lane solver hyperparameters, (B,) tensors of the problem dtype."""
+
+    C: torch.Tensor
+    tol: torch.Tensor
+
+
+def make_lane_hyper(C, tol, B: int, dtype: torch.dtype,
+                    device: Optional[torch.device]) -> LaneHyper:
+    """(B,) tensors of `dtype` from per-lane tensors or scalars."""
+    def lanes(x):
+        return torch.as_tensor(x, device=device).to(dtype).expand(B).contiguous()
+
+    return LaneHyper(C=lanes(C), tol=lanes(tol))
+
+
+def initial_lane_state(x0: torch.Tensor, aux: Any = None) -> SolverState:
+    """The starting carry of B lanes from x0 (B, .): aux defaults to a
+    per-lane count (int64 zeros)."""
+    B, dev = x0.shape[0], x0.device
+    return SolverState(
+        x=x0,
+        aux=torch.zeros(B, dtype=torch.int64, device=dev) if aux is None else aux,
+        iters=torch.zeros(B, dtype=torch.int64, device=dev),
+        residual=torch.full((B,), float("inf"), dtype=x0.dtype, device=dev),
+        converged=torch.zeros(B, dtype=torch.bool, device=dev),
+    )
+
+
+def lane_where(mask: torch.Tensor, new, old):
+    """`new` on the lanes where mask (B,) holds, else `old`: tensors with a
+    leading lane axis, or tuples of them."""
+    if isinstance(new, tuple):
+        return tuple(lane_where(mask, a, b) for a, b in zip(new, old))
+    return torch.where(mask.view(-1, *([1] * (new.dim() - 1))), new, old)
+
+
+def lanes(fn: Callable, *xs: torch.Tensor) -> torch.Tensor:
+    """fn on each lane, stacked: fn(x1[i], x2[i], ...) for i < B. The single
+    solve's op on each lane, so each lane's bits are the single solve's."""
+    return torch.stack([fn(*(x[i] for x in xs)) for i in range(xs[0].shape[0])])
+
+
+def lane_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Each lane's a . b, (B,), for a and b (B, d)."""
+    return lanes(torch.matmul, a, b)
+
+
+def run_lane_machine(step: Callable, state: SolverState, hyper: LaneHyper,
+                     max_iters: int) -> SolverState:
+    """Drive a lane-batched `step(state, hyper, active)` until no lane is
+    active (~converged & iters < max_iters): JAX's vmapped while_loop. Each
+    lane stops where its own loop would; one host read per test."""
+    while True:
+        active = ~state.converged & (state.iters < max_iters)
+        if not host_bool(active.any()):
+            return state
+        state = SolverState(*lane_where(active, tuple(step(state, hyper, active)),
+                                        tuple(state)))
+
+
+def cg_lanes(matvec: Callable, b: torch.Tensor, active: torch.Tensor, maxiter: int,
+             tol: torch.Tensor):
+    """Plain CG on each lane of b (B, d) at once, with each lane's own early
+    exit (rs <= tol^2, tol (B,)): the vmapped form of the solvers' CG. Lanes
+    not `active` take no step. Returns (x (B, d), iterations (B,) int64).
+    `cg_lanes.steps` counts the batched steps, each one `matvec` for all
+    lanes (a plain integer; callers reset it)."""
+    x, r, pvec, rs = torch.zeros_like(b), b, b, lane_dot(b, b)
+    one = torch.ones_like(rs)
+    thr = tol * tol
+    its = torch.zeros(b.shape[0], dtype=torch.int64, device=b.device)
+    it = 0
+    while it < maxiter:
+        run = active & (rs > thr)
+        if not host_bool(run.any()):
+            break
+        Ap = matvec(pvec)
+        denom = lane_dot(pvec, Ap)
+        alpha = (rs / torch.where(denom > 0, denom, one))[:, None]
+        x_new = x + alpha * pvec
+        r_new = r - alpha * Ap
+        rs_new = lane_dot(r_new, r_new)
+        beta = (rs_new / torch.where(rs > 0, rs, one))[:, None]
+        x, r, pvec, rs = lane_where(run, (x_new, r_new, r_new + beta * pvec, rs_new),
+                                    (x, r, pvec, rs))
+        its += run
+        it += 1
+        cg_lanes.steps += 1
+    return x, its
+
+
+cg_lanes.steps = 0

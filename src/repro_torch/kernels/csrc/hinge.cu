@@ -50,6 +50,20 @@
 // passes are templates on the storage type and share one layout across the
 // modes; at the GLA-BRA-180 shape X is 70.8 MB in float64, larger than the
 // L2, so each pass then reads HBM: 21.1 us each at 3.35 TB/s.
+//
+// Lanes: both passes also launch once for a stack of B problems (the
+// lane-batched solve of core/batch.py), the port of the leading grid axis
+// that JAX's vmap gives the Pallas kernels. The lane is blockIdx.z; each
+// block offsets its pointers by its lane (X by 0 when the lanes share it,
+// else by n p; y by 0 or n) and reads its lane's 1/t and 2C from device
+// arrays. Inside a lane the blocks, the layout and the order of every sum
+// are the single launch's, so a lane's results are bitwise those of a
+// single launch on that lane's operands (at the same addresses: pass 2
+// splits a row at its own 16-byte boundary). The lane forms are separate
+// instantiations (kLanes), so the single launch's code is unchanged. Bound
+// of a lane-batched pass: B reads of X when the lanes stack X, but one
+// read when they share it, which this simple form does not reach: each
+// lane's blocks read the shared X again (from the L2 where it fits).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -96,6 +110,17 @@ template <typename A> __device__ __forceinline__ A block_sum(A v, A* red, int ti
   return s;
 }
 
+// The lane operands of a lane-batched launch (kLanes): the elements
+// between two lanes' X (0: shared, or n p) and y (0 or n), and each lane's
+// 1/t and 2C (B,) in the summing type. Every other operand is stacked
+// densely by lane.
+template <typename A> struct Lanes {
+  int64_t x_stride;
+  int64_t y_stride;
+  const A* invt;
+  const A* twoC;
+};
+
 // ---------------------------------------------------------------- pass 1 ---
 // Loads of X each thread keeps in flight in one step of its row loop: 64
 // bytes of f32 or f64, 32 of bf16.
@@ -110,18 +135,28 @@ constexpr int kCols = 32 * CPT;     // columns per block of pass 1
 // A step of its row loop issues U x CPT loads (U rows), each a warp-wide
 // 128-byte (f32) or 256-byte (f64) read of one row, before its first FMA.
 // Every column is summed over its rows in row order within a warp and over
-// the warps in warp order.
-template <typename T, typename A = acc_t<T>>
+// the warps in warp order. With kLanes, blockIdx.z is the lane.
+template <typename T, bool kLanes, typename A = acc_t<T>>
 __global__ void __launch_bounds__(kThreads, 4)
 hinge_xtv(const T* __restrict__ X, const A* __restrict__ v,
           const A* __restrict__ y, const A* __restrict__ at,
           const A* __restrict__ ab, A* __restrict__ d,
-          A* __restrict__ e_part, int n, int p, A invt) {
+          A* __restrict__ e_part, int n, int p, A invt, Lanes<A> ls) {
   constexpr int U = InFlight<A>::loads / CPT;
   __shared__ A colsum[kWarps][kCols];
   __shared__ A red[kWarps];
   __shared__ A esum[CPT];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  if constexpr (kLanes) {
+    const int64_t l = blockIdx.z;
+    X += l * ls.x_stride;
+    y += l * ls.y_stride;
+    v += l * n;
+    at += l * p;
+    ab += l * p;
+    d += l * p;
+    e_part += l * gridDim.x;
+  }
   const int j0 = blockIdx.x * kCols + lane;
 
   A acc[CPT];
@@ -155,6 +190,7 @@ hinge_xtv(const T* __restrict__ X, const A* __restrict__ v,
   A byv = 0;
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) byv += red[w];
+  if constexpr (kLanes) invt = ls.invt[blockIdx.z];
   byv *= invt;
   if (threadIdx.x < kCols) {   // whole warps: kCols is a multiple of 32
     A c = 0;
@@ -240,13 +276,14 @@ __device__ __forceinline__ double vdot(const double2& x, const double* ds, int i
 // grid (ceil(n / R), chunks); R rows of one chunk per block, 256 / R threads
 // per row. With more than one chunk, part (n, chunks) holds the partials and
 // ticket (ceil(n / R),) counts the finished chunks of each row group; it is
-// 0 before the launch and 0 again after it.
-template <typename T, int R, typename A = acc_t<T>>
+// 0 before the launch and 0 again after it. With kLanes, blockIdx.z is the
+// lane, and part and ticket hold B such blocks, one after another.
+template <typename T, int R, bool kLanes, typename A = acc_t<T>>
 __global__ void __launch_bounds__(kThreads)
 hinge_xd(const T* __restrict__ X, const A* __restrict__ d,
          const A* __restrict__ e_part, int n_epart, const A* __restrict__ y,
          const A* __restrict__ v, A* __restrict__ hv, A* __restrict__ part,
-         int* __restrict__ ticket, int n, int p, A invt, A twoC) {
+         int* __restrict__ ticket, int n, int p, A invt, A twoC, Lanes<A> ls) {
   constexpr int TPR = kThreads / R;   // threads per row
   constexpr int WPR = TPR / 32;       // warps per row
   constexpr int VEC = Vec<T>::n;
@@ -258,6 +295,21 @@ hinge_xd(const T* __restrict__ X, const A* __restrict__ d,
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int nchunk = gridDim.y;
+  if constexpr (kLanes) {
+    const int64_t l = blockIdx.z;
+    X += l * ls.x_stride;
+    y += l * ls.y_stride;
+    d += l * p;
+    e_part += l * n_epart;
+    v += l * n;
+    hv += l * n;
+    if (nchunk > 1) {
+      part += l * n * nchunk;
+      ticket += l * gridDim.x;
+    }
+    invt = ls.invt[l];
+    twoC = ls.twoC[l];
+  }
   const int j0 = blockIdx.y * kChunk;
   const int len = min(kChunk, p - j0);
   for (int i = tid; i < len; i += kThreads) ds[slot<A>(i)] = d[j0 + i];
@@ -329,38 +381,61 @@ __host__ __device__ inline int xd_chunks(int p) {
 }
 
 // The scalars come in as double and are rounded to the summing type here:
-// the f32 and bf16 modes multiply by the same float 1/t and 2C as ever.
-template <typename T>
+// the f32 and bf16 modes multiply by the same float 1/t and 2C as ever. A
+// lane-batched launch (kLanes) takes `lanes_n` lanes on grid z and reads
+// each lane's scalars from ls.invt / ls.twoC instead.
+template <typename T, bool kLanes>
 cudaError_t launch_xtv(const void* X, const void* v, const void* y, const void* at,
                        const void* ab, void* d, void* e_part, int n, int p, double invt,
-                       cudaStream_t s) {
+                       Lanes<acc_t<T>> ls, int lanes_n, cudaStream_t s) {
   using A = acc_t<T>;
-  hinge_xtv<T><<<(p + kCols - 1) / kCols, kThreads, 0, s>>>(
+  const dim3 grid((p + kCols - 1) / kCols, 1, lanes_n);
+  hinge_xtv<T, kLanes><<<grid, kThreads, 0, s>>>(
       static_cast<const T*>(X), static_cast<const A*>(v), static_cast<const A*>(y),
       static_cast<const A*>(at), static_cast<const A*>(ab), static_cast<A*>(d),
-      static_cast<A*>(e_part), n, p, A(invt));
+      static_cast<A*>(e_part), n, p, A(invt), ls);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kLanes>
 cudaError_t launch_xd(const void* X, const void* d, const void* e_part, int n_epart,
                       const void* y, const void* v, void* hv, void* part, int* ticket,
-                      int n, int p, double invt, double twoC, cudaStream_t s) {
+                      int n, int p, double invt, double twoC, Lanes<acc_t<T>> ls,
+                      int lanes_n, cudaStream_t s) {
   using A = acc_t<T>;
   const T* Xt = static_cast<const T*>(X);
   const A *dA = static_cast<const A*>(d), *eA = static_cast<const A*>(e_part),
           *yA = static_cast<const A*>(y), *vA = static_cast<const A*>(v);
   A *hA = static_cast<A*>(hv), *pA = static_cast<A*>(part);
   const int R = xd_rows(p);
-  const dim3 grid((n + R - 1) / R, xd_chunks(p));
+  const dim3 grid((n + R - 1) / R, xd_chunks(p), lanes_n);
   if (R == 4) {
-    hinge_xd<T, 4><<<grid, kThreads, 0, s>>>(Xt, dA, eA, n_epart, yA, vA, hA, pA, ticket,
-                                             n, p, A(invt), A(twoC));
+    hinge_xd<T, 4, kLanes><<<grid, kThreads, 0, s>>>(Xt, dA, eA, n_epart, yA, vA, hA, pA,
+                                                     ticket, n, p, A(invt), A(twoC), ls);
   } else {
-    hinge_xd<T, 8><<<grid, kThreads, 0, s>>>(Xt, dA, eA, n_epart, yA, vA, hA, pA, ticket,
-                                             n, p, A(invt), A(twoC));
+    hinge_xd<T, 8, kLanes><<<grid, kThreads, 0, s>>>(Xt, dA, eA, n_epart, yA, vA, hA, pA,
+                                                     ticket, n, p, A(invt), A(twoC), ls);
   }
   return cudaGetLastError();
+}
+
+template <typename T>
+Lanes<acc_t<T>> lanes_of(long long x_stride, long long y_stride, const void* invt,
+                         const void* twoC) {
+  using A = acc_t<T>;
+  return Lanes<A>{x_stride, y_stride, static_cast<const A*>(invt),
+                  static_cast<const A*>(twoC)};
+}
+
+// f(T{}) for the storage type T of `mode`: float32 (0), bfloat16 (1),
+// float64 (2); an unknown mode is cudaErrorInvalidValue.
+template <typename F> int by_mode(int mode, F&& f) {
+  switch (mode) {
+    case 0: return (int)f(float{});
+    case 1: return (int)f(__nv_bfloat16{});
+    case 2: return (int)f(double{});
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -379,12 +454,28 @@ int sven_hinge_xtv(const void* X, int mode, const void* v, const void* y, const 
                    const void* ab, void* d, void* e_part, int n, int p, double invt,
                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case 0: return launch_xtv<float>(X, v, y, at, ab, d, e_part, n, p, invt, s);
-    case 1: return launch_xtv<__nv_bfloat16>(X, v, y, at, ab, d, e_part, n, p, invt, s);
-    case 2: return launch_xtv<double>(X, v, y, at, ab, d, e_part, n, p, invt, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return by_mode(mode, [&](auto tag) {
+    using T = decltype(tag);
+    return launch_xtv<T, false>(X, v, y, at, ab, d, e_part, n, p, invt, Lanes<acc_t<T>>{},
+                                1, s);
+  });
+}
+
+// Pass 1 for `lanes` problems in one launch. X is (n, p) shared by every
+// lane (x_stride 0) or (lanes, n, p) (x_stride n p); y (n,) shared (y_stride
+// 0) or (lanes, n) (y_stride n); v (lanes, n), at, ab, d (lanes, p), e_part
+// (lanes, sven_hinge_xtv_blocks(p)) and invt (lanes,): each lane's 1/t in
+// the summing type. Types as for sven_hinge_xtv.
+int sven_hinge_xtv_lanes(const void* X, int mode, long long x_stride, const void* v,
+                         const void* y, long long y_stride, const void* at, const void* ab,
+                         void* d, void* e_part, int n, int p, int lanes, const void* invt,
+                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return by_mode(mode, [&](auto tag) {
+    using T = decltype(tag);
+    return launch_xtv<T, true>(X, v, y, at, ab, d, e_part, n, p, 0.0,
+                               lanes_of<T>(x_stride, y_stride, invt, nullptr), lanes, s);
+  });
 }
 
 // Rows per row group and column chunks of pass 2 (the wrapper sizes part as
@@ -401,18 +492,28 @@ int sven_hinge_xd(const void* X, int mode, const void* d, const void* e_part, in
                   const void* y, const void* v, void* hv, void* part, int* ticket, int n,
                   int p, double invt, double twoC, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case 0:
-      return launch_xd<float>(X, d, e_part, n_epart, y, v, hv, part, ticket, n, p, invt,
-                              twoC, s);
-    case 1:
-      return launch_xd<__nv_bfloat16>(X, d, e_part, n_epart, y, v, hv, part, ticket, n,
-                                      p, invt, twoC, s);
-    case 2:
-      return launch_xd<double>(X, d, e_part, n_epart, y, v, hv, part, ticket, n, p,
-                               invt, twoC, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return by_mode(mode, [&](auto tag) {
+    using T = decltype(tag);
+    return launch_xd<T, false>(X, d, e_part, n_epart, y, v, hv, part, ticket, n, p, invt,
+                               twoC, Lanes<acc_t<T>>{}, 1, s);
+  });
+}
+
+// Pass 2 for `lanes` problems in one launch. X, x_stride, y and y_stride as
+// for sven_hinge_xtv_lanes; d (lanes, p), e_part (lanes, n_epart), v and hv
+// (lanes, n), invt and twoC (lanes,) in the summing type. With more than one
+// chunk: part (lanes, n, chunks) and ticket (lanes, ceil(n / rows)), the
+// ticket all 0 on entry and left 0.
+int sven_hinge_xd_lanes(const void* X, int mode, long long x_stride, const void* d,
+                        const void* e_part, int n_epart, const void* y, long long y_stride,
+                        const void* v, void* hv, void* part, int* ticket, int n, int p,
+                        int lanes, const void* invt, const void* twoC, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return by_mode(mode, [&](auto tag) {
+    using T = decltype(tag);
+    return launch_xd<T, true>(X, d, e_part, n_epart, y, v, hv, part, ticket, n, p, 0.0,
+                              0.0, lanes_of<T>(x_stride, y_stride, invt, twoC), lanes, s);
+  });
 }
 
 }  // extern "C"

@@ -17,6 +17,13 @@ out. Pass 2 cuts wide rows into column chunks: its wrapper allocates the
 per-chunk partials for each call, and keeps one zeroed int32 ticket buffer
 per device and size, which every launch leaves at zero again. Launches that
 share a buffer must therefore be ordered on one stream, as the solver's are.
+
+`hinge_xtv_lanes_cuda` and `hinge_xd_lanes_cuda` launch each pass once for
+a stack of B problems (the lane-batched solve of `core/batch.py`; the port
+of the leading grid axis JAX's vmap gives the Pallas kernels): X and y
+shared by every lane or stacked, every other operand stacked, and 1/t and
+2C per lane. Each lane's results are bitwise those of a single launch on
+that lane's operands. One lane-batched launch counts as one launch.
 """
 from __future__ import annotations
 
@@ -26,7 +33,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-_ptr, _int, _double = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_ptr, _int, _long, _double = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                              ctypes.c_double)
 #: X's dtype -> the kernels' mode
 _MODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 _X_DTYPES = tuple(_MODES)
@@ -47,6 +55,14 @@ def _lib():
         lib.sven_hinge_xd.argtypes = [_ptr, _int, _ptr, _ptr, _int, _ptr, _ptr, _ptr,
                                       _ptr, _ptr, _int, _int, _double, _double, _ptr]
         lib.sven_hinge_xd.restype = _int
+        lib.sven_hinge_xtv_lanes.argtypes = [_ptr, _int, _long, _ptr, _ptr, _long, _ptr,
+                                             _ptr, _ptr, _ptr, _int, _int, _int, _ptr,
+                                             _ptr]
+        lib.sven_hinge_xtv_lanes.restype = _int
+        lib.sven_hinge_xd_lanes.argtypes = [_ptr, _int, _long, _ptr, _ptr, _int, _ptr,
+                                            _long, _ptr, _ptr, _ptr, _ptr, _int, _int,
+                                            _int, _ptr, _ptr, _ptr]
+        lib.sven_hinge_xd_lanes.restype = _int
         for fn in (lib.sven_hinge_xtv_blocks, lib.sven_hinge_xd_rows,
                    lib.sven_hinge_xd_chunks):
             fn.argtypes = [_int]
@@ -137,5 +153,111 @@ def hinge_xd_cuda(X: torch.Tensor, y: torch.Tensor, d: torch.Tensor,
     return hv
 
 
+def _check_lanes(fn: str, X, y, v):
+    """Raise unless X is (n, p) or (B, n, p), y (n,) or (B, n) and v (B, n),
+    contiguous on X's CUDA device in the dtypes of a single launch; return
+    (B, n, p, x_stride, y_stride): the elements between two lanes' X and y
+    (0 where the lanes share them)."""
+    if not (isinstance(X, torch.Tensor) and X.is_cuda):
+        raise ValueError(f"{fn}: X must be a CUDA tensor")
+    if X.dim() not in (2, 3):
+        raise ValueError(f"{fn}: X must be (n, p) or (B, n, p), got {tuple(X.shape)}")
+    _build.check_operand(fn, "X", X, tuple(X.shape), _X_DTYPES, X.device)
+    n, p = X.shape[-2:]
+    if not (isinstance(v, torch.Tensor) and v.dim() == 2 and v.shape[0] > 0):
+        raise ValueError(f"{fn}: v must be (B, n) with B >= 1")
+    B = v.shape[0]
+    if X.dim() == 3 and X.shape[0] != B:
+        raise ValueError(f"{fn}: X stacks {X.shape[0]} lanes, v {B}")
+    acc = _operand_dtype(X)
+    y_shape = (n,) if isinstance(y, torch.Tensor) and y.dim() == 1 else (B, n)
+    for name, x, shape in (("y", y, y_shape), ("v", v, (B, n))):
+        _build.check_operand(fn, name, x, shape, (acc,), X.device)
+    return B, n, p, (n * p if X.dim() == 3 else 0), (n if y.dim() == 2 else 0)
+
+
+def _lane_f64(fn: str, name: str, x, B: int, X: torch.Tensor) -> torch.Tensor:
+    """The (B,) per-lane scalars x in float64 on X's device: the wrappers
+    take 1/t and 2C from them in float64 and round once to the summing
+    dtype, as a single launch rounds the host's double."""
+    if not (isinstance(x, torch.Tensor) and x.shape == (B,) and x.is_floating_point()):
+        raise ValueError(f"{fn}: {name} must be a floating (B,) = ({B},) tensor")
+    if x.device != X.device:
+        raise ValueError(f"{fn}: {name} is on {x.device}, X on {X.device}")
+    return x.to(torch.float64)
+
+
+def hinge_xtv_lanes_cuda(X: torch.Tensor, y: torch.Tensor, v: torch.Tensor,
+                         t: torch.Tensor, act_top: torch.Tensor, act_bot: torch.Tensor):
+    """Pass 1 for B problems in one launch: returns (d (B, p), e_part (B, k))
+    with each lane's e = e_part[lane].sum().
+
+    X (n, p) shared by every lane or (B, n, p); y (n,) or (B, n); v (B, n),
+    act_top, act_bot (B, p); t (B,) of any float dtype. Dtypes and devices
+    as for `hinge_xtv_cuda`.
+    """
+    fn = "hinge_xtv_lanes_cuda"
+    B, n, p, xs, ys = _check_lanes(fn, X, y, v)
+    acc = _operand_dtype(X)
+    for name, x in (("act_top", act_top), ("act_bot", act_bot)):
+        _build.check_operand(fn, name, x, (B, p), (acc,), X.device)
+    invt = (1.0 / _lane_f64(fn, "t", t, B, X)).to(acc)
+    lib = _lib()
+    d = torch.empty((B, p), dtype=acc, device=X.device)
+    e_part = torch.empty((B, lib.sven_hinge_xtv_blocks(p)), dtype=acc, device=X.device)
+    with torch.cuda.device(X.device):
+        err = lib.sven_hinge_xtv_lanes(X.data_ptr(), _MODES[X.dtype], xs, v.data_ptr(),
+                                       y.data_ptr(), ys, act_top.data_ptr(),
+                                       act_bot.data_ptr(), d.data_ptr(), e_part.data_ptr(),
+                                       n, p, B, invt.data_ptr(),
+                                       torch.cuda.current_stream(X.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
+    hinge_xtv_lanes_cuda.launches += 1
+    return d, e_part
+
+
+def hinge_xd_lanes_cuda(X: torch.Tensor, y: torch.Tensor, d: torch.Tensor,
+                        e_part: torch.Tensor, v: torch.Tensor, t: torch.Tensor,
+                        C: torch.Tensor) -> torch.Tensor:
+    """Pass 2 for B problems in one launch: H v (B, n), each lane's
+    v + 2C (X d + (y/t) e) with e = e_part[lane].sum().
+
+    X, y, v and t as for `hinge_xtv_lanes_cuda`; d (B, p), e_part (B, k)
+    with k >= 1; C (B,) of any float dtype.
+    """
+    fn = "hinge_xd_lanes_cuda"
+    B, n, p, xs, ys = _check_lanes(fn, X, y, v)
+    if not (isinstance(e_part, torch.Tensor) and e_part.dim() == 2
+            and e_part.shape[0] == B and e_part.shape[1] > 0):
+        raise ValueError(f"{fn}: e_part must be (B, k) = ({B}, k) with k >= 1")
+    acc = _operand_dtype(X)
+    for name, x, shape in (("d", d, (B, p)), ("e_part", e_part, tuple(e_part.shape))):
+        _build.check_operand(fn, name, x, shape, (acc,), X.device)
+    invt = (1.0 / _lane_f64(fn, "t", t, B, X)).to(acc)
+    twoC = (2.0 * _lane_f64(fn, "C", C, B, X)).to(acc)
+    lib = _lib()
+    hv = torch.empty((B, n), dtype=acc, device=X.device)
+    chunks = lib.sven_hinge_xd_chunks(p)
+    part = ticket = None
+    if chunks > 1:
+        part = torch.empty((B, n, chunks), dtype=acc, device=X.device)
+        ticket = _tickets(X.device, B * -(-n // lib.sven_hinge_xd_rows(p)))
+    with torch.cuda.device(X.device):
+        err = lib.sven_hinge_xd_lanes(X.data_ptr(), _MODES[X.dtype], xs, d.data_ptr(),
+                                      e_part.data_ptr(), e_part.shape[1], y.data_ptr(), ys,
+                                      v.data_ptr(), hv.data_ptr(),
+                                      None if part is None else part.data_ptr(),
+                                      None if ticket is None else ticket.data_ptr(),
+                                      n, p, B, invt.data_ptr(), twoC.data_ptr(),
+                                      torch.cuda.current_stream(X.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
+    hinge_xd_lanes_cuda.launches += 1
+    return hv
+
+
 hinge_xtv_cuda.launches = 0
 hinge_xd_cuda.launches = 0
+hinge_xtv_lanes_cuda.launches = 0
+hinge_xd_lanes_cuda.launches = 0

@@ -13,7 +13,9 @@ versions in the operands' dtype), so a float64 problem gets its own float64
 K and H v. `hinge_stats` takes float32 (or bfloat16) X in every mode.
 PyTorch counterpart of `repro/kernels/ops.py` (`shifted_gram`,
 `hinge_hessian_matvec`, `hinge_stats`); the Pallas tile arguments have no
-counterpart.
+counterpart. `hinge_hessian_matvec_lanes` is the counterpart of
+`hinge_hessian_matvec` under JAX's vmap: one launch of each pass for a
+stack of problems.
 """
 from __future__ import annotations
 
@@ -41,6 +43,10 @@ registry.register("hinge_xtv", "cuda")(_hinge.hinge_xtv_cuda)
 registry.register("hinge_xtv", "ref")(_ref.hinge_xtv_ref)
 registry.register("hinge_xd", "cuda")(_hinge.hinge_xd_cuda)
 registry.register("hinge_xd", "ref")(_ref.hinge_xd_ref)
+registry.register("hinge_xtv_lanes", "cuda")(_hinge.hinge_xtv_lanes_cuda)
+registry.register("hinge_xtv_lanes", "ref")(_ref.hinge_xtv_lanes_ref)
+registry.register("hinge_xd_lanes", "cuda")(_hinge.hinge_xd_lanes_cuda)
+registry.register("hinge_xd_lanes", "ref")(_ref.hinge_xd_lanes_ref)
 registry.register("hinge_stats", "cuda")(_hinge_stats.hinge_stats_cuda)
 registry.register("hinge_stats", "ref")(_ref.hinge_stats_ref)
 
@@ -97,6 +103,33 @@ def hinge_hessian_matvec(
     Xs = _storage(X, precision)
     d, e = registry.lookup("hinge_xtv", body)(Xs, y, v, t, act_top, act_bot)
     return registry.lookup("hinge_xd", body)(Xs, y, d, e, v, t, C)
+
+
+def hinge_hessian_matvec_lanes(
+    X: torch.Tensor,
+    y: torch.Tensor,
+    t: torch.Tensor,
+    C: torch.Tensor,
+    act_top: torch.Tensor,
+    act_bot: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    backend: Optional[str] = None,
+    precision: str = "f32",
+) -> torch.Tensor:
+    """`hinge_hessian_matvec` for B problems at once, (B, n): one launch of
+    each pass for all lanes on the "cuda" body.
+
+    X (n, p) shared by every lane or (B, n, p) stacked; y (n,) or (B, n);
+    t and C (B,); act_top, act_bot (B, p); v (B, n). Dtypes as for
+    `hinge_hessian_matvec`; each lane computes what that op computes on
+    the lane's operands.
+    """
+    _check_precision(precision)
+    body = registry.resolve_kernel_backend(backend, X, v)
+    Xs = _storage(X, precision)
+    d, e = registry.lookup("hinge_xtv_lanes", body)(Xs, y, v, t, act_top, act_bot)
+    return registry.lookup("hinge_xd_lanes", body)(Xs, y, d, e, v, t, C)
 
 
 def hinge_stats(

@@ -90,6 +90,34 @@ def hessian_matvec_ref(X, y, t, C, act_top, act_bot, v):
     return hinge_xd_ref(X, y, d, e, v, t, C)
 
 
+def _lane(x: torch.Tensor, i: int, shared_dim: int) -> torch.Tensor:
+    """Lane i of x, or x itself when it has `shared_dim` dims (shared)."""
+    return x if x.dim() == shared_dim else x[i]
+
+
+def hinge_xtv_lanes_ref(X: torch.Tensor, y: torch.Tensor, v: torch.Tensor,
+                        t: torch.Tensor, act_top: torch.Tensor, act_bot: torch.Tensor):
+    """Plain hinge pass 1 for B problems: `hinge_xtv_ref` on each lane.
+
+    X (n, p) shared or (B, n, p); y (n,) or (B, n); v (B, n); t (B,);
+    act_top, act_bot (B, p). Returns d (B, p) and e (B,).
+    """
+    t = t.to(v.dtype)
+    d, e = zip(*(hinge_xtv_ref(_lane(X, i, 2), _lane(y, i, 1), v[i], t[i], act_top[i],
+                               act_bot[i]) for i in range(v.shape[0])))
+    return torch.stack(d), torch.stack(e)
+
+
+def hinge_xd_lanes_ref(X: torch.Tensor, y: torch.Tensor, d: torch.Tensor,
+                       e: torch.Tensor, v: torch.Tensor, t: torch.Tensor,
+                       C: torch.Tensor) -> torch.Tensor:
+    """Plain hinge pass 2 for B problems: `hinge_xd_ref` on each lane, (B, n).
+    d (B, p), e (B,), C (B,); the rest as for `hinge_xtv_lanes_ref`."""
+    t, C = t.to(v.dtype), C.to(v.dtype)
+    return torch.stack([hinge_xd_ref(_lane(X, i, 2), _lane(y, i, 1), d[i], e[i], v[i],
+                                     t[i], C[i]) for i in range(v.shape[0])])
+
+
 def hinge_stats_from_moments(a: torch.Tensor, byw, ww, C):
     """The margin/act/loss/galpha tail of the hinge-stats fusion, from the
     sufficient moments a = X^T w (p,), byw = (y . w) / t and ww = w . w."""

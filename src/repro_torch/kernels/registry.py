@@ -1,7 +1,7 @@
 """Per-backend kernel registry: which body computes a logical op.
 
-Every logical op (`shifted_gram`, `hinge_xtv`, `hinge_xd`, `hinge_stats`)
-has two BODIES:
+Every logical op (`shifted_gram`, `hinge_xtv`, `hinge_xd`, their lane-batched
+forms `hinge_xtv_lanes` and `hinge_xd_lanes`, `hinge_stats`) has two BODIES:
 
     "cuda"  the hand-written CUDA kernel (kernels/gram.py, hinge.py,
             hinge_stats.py)

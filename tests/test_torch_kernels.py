@@ -257,8 +257,12 @@ def test_plain_ops_launch_no_kernel():
     tops.shifted_gram(X, y, 0.9)
     tops.hinge_hessian_matvec(X, y, 1.1, 2.5, at, ab, v)
     tops.hinge_stats(X, y, 1.1, v, 2.5)
+    lanes = torch.tensor([1.1, 1.3])
+    tops.hinge_hessian_matvec_lanes(X, y, lanes, 2 * lanes, torch.stack([at, at]),
+                                    torch.stack([ab, ab]), torch.stack([v, -v]))
     assert kernels.launches() == {"shifted_gram_cuda": 0, "hinge_xtv_cuda": 0,
-                                  "hinge_xd_cuda": 0, "hinge_stats_cuda": 0}
+                                  "hinge_xd_cuda": 0, "hinge_stats_cuda": 0,
+                                  "hinge_xtv_lanes_cuda": 0, "hinge_xd_lanes_cuda": 0}
 
 
 @pytest.mark.parametrize("n,p,sms", [(463715, 90, 132), (33, 57, 132), (10, 4096, 132),

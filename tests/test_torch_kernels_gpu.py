@@ -352,8 +352,10 @@ def test_cuda_gram_widths(cuda_device, precision, p):
 
 #: pass 2's layouts: odd p >= 1024 in several 4,096-column chunks (the
 #: GLA-BRA-180 shape among them), p >= 1024 in one chunk, and p < 1024 (one
-#: warp per row); n not a multiple of the row group (4, or 8 below 1024)
-XD_SHAPES = [(37, 4099), (180, 49_151), (37, 1500), (33, 57), (57, 33), (7, 513)]
+#: warp per row); n not a multiple of the row group (4, or 8 below 1024);
+#: and the primal's depth (2p > n) at n = 1,000 and 4,097, in each layout
+XD_SHAPES = [(37, 4099), (180, 49_151), (37, 1500), (33, 57), (57, 33), (7, 513),
+             (1000, 4099), (4097, 2049), (1000, 513)]
 #: and a single row, and fewer columns than a warp
 HINGE_SHAPES = XD_SHAPES + [(1, 4099), (1, 20), (9, 31)]
 
@@ -483,6 +485,118 @@ def test_cuda_hinge_matches_plain(cuda_device, n, p, precision, tol):
     # pass 2 alone, from the plain (d, e)
     hv1 = thinge.hinge_xd_cuda(Xs, y, dr, er.reshape(1), v, 1.1, 2.5)
     _assert_scaled(hv1, tref.hinge_xd_ref(Xs, y, dr, er, v, 1.1, 2.5), tol, floor=1.0)
+
+
+def _lane_operands(dev, B, n, p, precision, shared, offset):
+    """(X, y, v, act_top, act_bot, t, C) of B lanes on `dev`, as the batched
+    primal hands them to the lane-batched passes: X (n, p) and y (n,) when
+    `shared`, else (B, n, p) and (B, n), X's data `offset` elements into its
+    buffer; v (B, n), act (B, p); t and C (B,) float64. Float64 for "f64",
+    else float32 with X in the precision's storage."""
+    rng = np.random.default_rng(B * 1000 + n)
+    dtype = torch.float64 if precision == "f64" else torch.float32
+    lead = () if shared else (B,)
+    Xd = rng.standard_normal(lead + (n, p)) / np.sqrt(n)
+    buf = torch.empty(offset + Xd.size, device=dev,
+                      dtype=torch.bfloat16 if precision == "bf16" else dtype)
+    X = buf[offset:].view(Xd.shape)
+    X.copy_(torch.tensor(Xd, dtype=dtype))
+
+    def tensor(a):
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    return (X, tensor(rng.standard_normal(lead + (n,))), tensor(rng.standard_normal((B, n))),
+            tensor(rng.random((B, p)) > 0.4), tensor(rng.random((B, p)) > 0.6),
+            torch.tensor(rng.uniform(0.5, 3.0, B), dtype=torch.float64, device=dev),
+            torch.tensor(rng.uniform(0.1, 10.0, B), dtype=torch.float64, device=dev))
+
+
+def _lane(x, i, shared):
+    return x if shared else x[i]
+
+
+#: (n, p) of the lane tests: every shape of the single passes' tests
+LANE_SHAPES = HINGE_SHAPES
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,p", LANE_SHAPES)
+@pytest.mark.parametrize("B", [1, 2, 9])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("precision", ["f32", "bf16", "f64"])
+def test_cuda_hinge_lanes_bitwise_single_launches(cuda_device, precision, shared, B, n, p):
+    """Each lane of the lane-batched passes is bitwise a single launch on
+    that lane's operands (the same addresses: the stacks' rows), with X and
+    y shared or stacked and X at a storage offset; one lane-batched launch
+    counts one launch."""
+    X, y, v, at, ab, t, C = _lane_operands(cuda_device, B, n, p, precision, shared,
+                                           offset=3)
+    before = (thinge.hinge_xtv_lanes_cuda.launches, thinge.hinge_xd_lanes_cuda.launches)
+    d, e_part = thinge.hinge_xtv_lanes_cuda(X, y, v, t, at, ab)
+    hv = thinge.hinge_xd_lanes_cuda(X, y, d, e_part, v, t, C)
+    torch.cuda.synchronize()
+    assert (thinge.hinge_xtv_lanes_cuda.launches,
+            thinge.hinge_xd_lanes_cuda.launches) == (before[0] + 1, before[1] + 1)
+    assert d.shape == (B, p) and hv.shape == (B, n) and e_part.shape[0] == B
+    for i in range(B):
+        Xi, yi = _lane(X, i, shared), _lane(y, i, shared)
+        di, ei = thinge.hinge_xtv_cuda(Xi, yi, v[i], float(t[i]), at[i], ab[i])
+        assert torch.equal(d[i], di) and torch.equal(e_part[i], ei)
+        assert torch.equal(hv[i], thinge.hinge_xd_cuda(Xi, yi, di, ei, v[i], float(t[i]),
+                                                       float(C[i])))
+    # and the plain lane-batched op, at the single passes' bounds
+    tol = {"f32": 1e-5, "bf16": 2e-2, "f64": 1e-10}[precision]
+    want = tref.hinge_xd_lanes_ref(X, y, *tref.hinge_xtv_lanes_ref(X, y, v, t, at, ab),
+                                   v, t, C)
+    _assert_scaled(hv, want, tol, floor=1.0)
+    # three more launches of each give the same bits
+    for _ in range(3):
+        d2, e2 = thinge.hinge_xtv_lanes_cuda(X, y, v, t, at, ab)
+        assert torch.equal(d2, d) and torch.equal(e2, e_part)
+        assert torch.equal(thinge.hinge_xd_lanes_cuda(X, y, d2, e2, v, t, C), hv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared", [True, False])
+def test_cuda_hinge_lanes_op_equals_wrapper(cuda_device, shared):
+    """`ops.hinge_hessian_matvec_lanes` on CUDA tensors is the two lane
+    launches; its "ref" body on the same tensors lies within 1e-10."""
+    X, y, v, at, ab, t, C = _lane_operands(cuda_device, 4, 180, 4099, "f64", shared, 0)
+    hv = tops.hinge_hessian_matvec_lanes(X, y, t, C, at, ab, v)
+    d, e_part = thinge.hinge_xtv_lanes_cuda(X, y, v, t, at, ab)
+    assert torch.equal(hv, thinge.hinge_xd_lanes_cuda(X, y, d, e_part, v, t, C))
+    _assert_scaled(hv, tops.hinge_hessian_matvec_lanes(X, y, t, C, at, ab, v,
+                                                       backend="ref"), 1e-10, floor=1.0)
+
+
+@pytest.mark.gpu
+def test_cuda_hinge_lanes_reject_bad_operands(cuda_device):
+    """Float64 X takes float64 lane operands only (nothing is cast), every
+    operand lies on X's device, and the stacks agree on B."""
+    X, y, v, at, ab, t, C = _lane_operands(cuda_device, 3, 33, 57, "f64", False, 0)
+    d, e_part = thinge.hinge_xtv_lanes_cuda(X, y, v, t, at, ab)
+    for i in range(5):   # each float64 operand of pass 1 in float32
+        args = [X, y, v, at, ab]
+        args[i] = args[i].float()
+        with pytest.raises(TypeError):
+            thinge.hinge_xtv_lanes_cuda(*args[:3], t, *args[3:])
+    for i in range(5):   # each operand of pass 2
+        args = [X, y, d, e_part, v]
+        args[i] = args[i].float()
+        with pytest.raises(TypeError):
+            thinge.hinge_xd_lanes_cuda(*args, t, C)
+    with pytest.raises(ValueError, match="is on cpu"):
+        thinge.hinge_xtv_lanes_cuda(X, y.cpu(), v, t, at, ab)
+    with pytest.raises(ValueError, match="is on cpu"):
+        thinge.hinge_xd_lanes_cuda(X, y, d, e_part, v, t.cpu(), C)
+    with pytest.raises(ValueError, match="lanes"):
+        thinge.hinge_xtv_lanes_cuda(X[:2], y, v, t, at, ab)
+    with pytest.raises(ValueError, match="shape"):
+        thinge.hinge_xtv_lanes_cuda(X, y, v, t, at[:2], ab)
+    with pytest.raises(ValueError, match=r"\(B,\)"):
+        thinge.hinge_xd_lanes_cuda(X, y, d, e_part, v, t[:2], C)
+    with pytest.raises(ValueError, match="CUDA"):
+        thinge.hinge_xtv_lanes_cuda(X.cpu(), y, v, t, at, ab)
 
 
 def _stats_operands(dev, n, p, precision, offset=0):
