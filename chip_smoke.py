@@ -44,9 +44,12 @@ port's main path through the entry points a user calls:
      sequential `sven` on it: (9a) a 3 x 3 `en_grid` of (t, lambda2) on a
      shared GLA-BRA-180-shaped X (9 primal lanes), (9b) `cv_folds(X, y, 5)`
      of it (stacked X), (9c) `cv_folds` at the YMSD shape (5 dual lanes);
-     the lane-batched hinge passes first at 9a's and 9b's operands, against
-     their plain version and single launches, timed beside B single
-     launches, the bound and one `torch.mm` / `torch.bmm`.
+     the lane-batched hinge passes first at 9a's and 9b's operands (9a's
+     also with X in float32 and bfloat16), each with its route (a shared X
+     takes the shared-X route), against their plain version and single
+     launches, timed beside B single launches, the bound and one `torch.mm`
+     / `torch.bmm`; each lane's Newton and CG lists of 9a and 9b against the
+     ones PERF.md records.
 
 The data are synthetic (`repro_torch.data.make_regression`, fixed seeds).
 Each path runs with every launch counter set to 0 just before it and read
@@ -78,6 +81,13 @@ times only the hinge-stats kernel at the GLA-BRA-180 and YMSD shapes in
 f32 and bf16 beside the GEMV X^T w, and prints no result line; like
 `--gram-split`, a copy placed in a checkout of another commit times that
 commit's kernel.
+
+    python3 chip_smoke.py --batch-time
+
+times only phase 9's 9a and 9b (float64): the lane-batched hinge passes at
+9a beside `torch.mm`, and `sven_batch` on each three times, with host syncs
+and batched CG steps; it prints no result line, and a copy placed in a
+checkout of another commit times that commit.
 """
 from __future__ import annotations
 
@@ -437,6 +447,59 @@ def stats_time_only(torch) -> int:
     return 0
 
 
+def batch_time_only(torch) -> int:
+    """`--batch-time`: phase 9's 9a and 9b on their data (float64, default
+    config): at 9a the two lane-batched passes L2 cold beside `torch.mm`,
+    then `sven_batch` on 9a and on 9b three times each, with seconds, host
+    syncs, batched CG steps and whether each lane's Newton and CG counts
+    equal the ones PERF.md records. It needs nothing of the checkout but
+    `sven_batch`, `en_grid`, `cv_folds` and the lane wrappers, so a copy of
+    this file placed in a checkout of another commit times that commit."""
+    from repro_torch import kernels
+    from repro_torch.core.batch import cv_folds, en_grid, sven_batch
+    from repro_torch.core.svm import state as svm_state
+    from repro_torch.core.svm.state import cg_lanes
+    from repro_torch.data.synthetic import make_regression
+    from repro_torch.kernels import hinge
+
+    print(f"card: {nvidia_smi()}", flush=True)
+    dev = torch.device("cuda", 0)
+    f64 = dict(dtype=torch.float64, device=dev)
+    X, y, beta_true = make_regression(*GLA_BRA, seed=2, device=dev)
+    t = 0.5 * beta_true.abs().sum().item()
+    ts, l2s = en_grid(torch.tensor([0.5, 0.75, 1.0], **f64) * t,
+                      torch.tensor([0.5, 1.0, 4.0], **f64))
+    C = 1.0 / (2.0 * l2s)
+    gen = torch.Generator().manual_seed(0)
+    B, (n, p) = ts.shape[0], GLA_BRA
+    v = torch.randn(B, n, generator=gen, dtype=torch.float64).to(dev)
+    at = (torch.rand(B, p, generator=gen) > 0.4).to(dev, torch.float64)
+    ab = (torch.rand(B, p, generator=gen) > 0.6).to(dev, torch.float64)
+    d, e_part = hinge.hinge_xtv_lanes_cuda(X, y, v, ts, at, ab)
+    V, D = v.T.contiguous(), d.T.contiguous()
+    for name, lanes_fn, lib_fn in (
+            ("xtv", lambda: hinge.hinge_xtv_lanes_cuda(X, y, v, ts, at, ab),
+             lambda: torch.mm(X.T, V)),
+            ("xd", lambda: hinge.hinge_xd_lanes_cuda(X, y, d, e_part, v, ts, C),
+             lambda: torch.mm(X, D))):
+        ms, lib = (cuda_ms_each(torch, f, dev, True, reps=20) for f in (lanes_fn, lib_fn))
+        print(f"  hinge {name} lanes float64 9a, {B} x {n}x{p}, X shared: L2 cold {ms:.4f} "
+              f"ms, torch.mm {lib:.4f}", flush=True)
+    Xtr, ytr, _, _ = cv_folds(X, y, 5)
+    for label, args in (("9a", (X, y, ts, l2s)),
+                        ("9b", (Xtr, ytr, torch.tensor(t, **f64),
+                                torch.tensor(LAMBDA2, **f64)))):
+        for rep in range(3):
+            cg_lanes.steps = 0
+            sol, secs, _, syncs = run_path(torch, kernels, svm_state,
+                                           lambda: sven_batch(*args))
+            counts = (sol.iters.tolist(), sol.cg_iters.tolist(), cg_lanes.steps)
+            print(f"  sven_batch {label} run {rep + 1}: {secs:.3f} s, {syncs} host syncs, "
+                  f"{cg_lanes.steps} batched CG steps; counts equal the ones PERF.md "
+                  f"records: {counts == RECORDED_COUNTS[label]}", flush=True)
+    return 0
+
+
 def phase_hinge_stats(torch, smoke, kernels, svm_state, dev, cases):
     """The hinge-stats op against its plain version. `cases` is a list of
     (label, X, y, t, w, C) with float64 X, y, w on the card. Returns
@@ -692,15 +755,23 @@ def phase_float32(torch, smoke, kernels, svm_state, dev) -> int:
     return gram + path_gram
 
 
+#: bounds of the lane-batched passes against their plain version, by X's
+#: dtype: float64 sums in another order (far under 1e-10 at these n, p); the
+#: float32 and bfloat16 modes at the single passes' bounds (phase 2)
+LANE_TOL = {"float64": 1e-10, "float32": 1e-5, "bfloat16": 2e-2}
+
+
 def lane_kernel_rows(torch, smoke, dev, gen, cases) -> dict:
-    """The lane-batched hinge passes (float64, what a batched primal runs on
-    float64 data) at each case's operands: against the plain lane op, each
-    lane bitwise against a single launch, and timed L2 cold beside B single
-    launches, the plain op, the bound and one PyTorch call (shared X:
-    `torch.mm` on the lanes as columns; stacked X: `torch.bmm`). `cases` is
-    a list of (label, X, y, t (B,), C (B,)). Returns the JSON rows of
+    """The lane-batched hinge passes at each case's operands: against the
+    plain lane op, each lane bitwise against a single launch, and timed L2
+    cold beside B single launches, the plain op, the bound and one PyTorch
+    call (shared X: `torch.mm` on the lanes as columns, bf16 on bfloat16
+    lanes; stacked X: `torch.bmm`). Prints each case's route (`hinge.plan`).
+    `cases` is a list of (label, X, y, t (B,), C (B,)); X float64 (what a
+    batched primal runs on float64 data), float32 or bfloat16, with the
+    other operands float64 or float32. Returns the JSON rows of
     `hinge_xtv_lanes_cuda` and `hinge_xd_lanes_cuda` (the first case's
-    numbers, the others under `by_case`)."""
+    numbers, every case's under `by_case`)."""
     from repro_torch.kernels import hinge, ref
 
     rows = {}
@@ -708,13 +779,21 @@ def lane_kernel_rows(torch, smoke, dev, gen, cases) -> dict:
         B = t.shape[0]
         n, p = X.shape[-2:]
         shared = X.dim() == 2
-        v = torch.randn(B, n, generator=gen, dtype=torch.float64).to(dev)
-        at = (torch.rand(B, p, generator=gen, dtype=torch.float64) > 0.4).to(dev,
-                                                                             torch.float64)
-        ab = (torch.rand(B, p, generator=gen, dtype=torch.float64) > 0.6).to(dev,
-                                                                             torch.float64)
+        acc = y.dtype
+        kind = str(X.dtype).removeprefix("torch.")
+        v = torch.randn(B, n, generator=gen, dtype=torch.float64).to(dev, acc)
+        at = (torch.rand(B, p, generator=gen, dtype=torch.float64) > 0.4).to(dev, acc)
+        ab = (torch.rand(B, p, generator=gen, dtype=torch.float64) > 0.6).to(dev, acc)
         ts, Cs = t.tolist(), C.tolist()
         lane = [(X if shared else X[i], y if y.dim() == 1 else y[i]) for i in range(B)]
+        pl = hinge.plan(B, n, p, X.dtype, shared,
+                        torch.cuda.get_device_properties(dev).multi_processor_count)
+        what = f"hinge lanes {label} ({B} lanes, X {'shared' if shared else 'stacked'} {kind})"
+        print(f"  {what}: route {pl.route}" + (
+            f", pass 1 in {len(hinge.lane_groups(B, pl.xtv_group))} lane group(s) of G <= "
+            f"{pl.xtv_group}, pass 2 in {len(hinge.lane_groups(B, pl.xd_group))} of G <= "
+            f"{pl.xd_group}, {pl.xd_rows} rows a block" if pl.route == "shared" else
+            ", a block per lane"), flush=True)
         d, e_part = hinge.hinge_xtv_lanes_cuda(X, y, v, t, at, ab)
         dr, er = ref.hinge_xtv_lanes_ref(X, y, v, t, at, ab)
         hv = hinge.hinge_xd_lanes_cuda(X, y, dr, er[:, None].contiguous(), v, t, C)
@@ -724,12 +803,11 @@ def lane_kernel_rows(torch, smoke, dev, gen, cases) -> dict:
         xd_err = (hv - hr).abs().max().item()
         hv_err = (hv2 - hr).abs().max().item()
         d_scale, h_scale = max(1.0, dr.abs().max().item()), max(1.0, hr.abs().max().item())
-        what = f"hinge lanes {label} ({B} lanes, X {'shared' if shared else 'stacked'})"
-        # float64 sums in another order: far under 1e-10 at these n, p
-        smoke.check(d_err <= 1e-10 * d_scale and xd_err <= 1e-10 * h_scale
-                    and hv_err <= 1e-10 * h_scale,
+        tol = LANE_TOL[kind]
+        smoke.check(d_err <= tol * d_scale and xd_err <= tol * h_scale
+                    and hv_err <= tol * h_scale,
                     f"{what}: max|d - plain| = {d_err:.3e}, max|Hv - plain| = {xd_err:.3e} "
-                    f"(pass 2 alone), {hv_err:.3e} (both) <= 1e-10 * scale")
+                    f"(pass 2 alone), {hv_err:.3e} (both) <= {tol:g} * scale")
         same = 0
         for i in range(B):
             di, ei = hinge.hinge_xtv_cuda(*lane[i], v[i], ts[i], at[i], ab[i])
@@ -737,7 +815,8 @@ def lane_kernel_rows(torch, smoke, dev, gen, cases) -> dict:
             same += (torch.equal(d[i], di) and torch.equal(e_part[i], ei)
                      and torch.equal(hv2[i], hvi))
         smoke.check(same == B, f"{what}: {same} of {B} lanes bitwise a single launch")
-        V, D = v.T.contiguous(), d.T.contiguous()
+        # the yardstick's lanes in X's type where that is bfloat16, as phase 2's GEMVs
+        V, D = v.T.contiguous().to(X.dtype), d.T.contiguous().to(X.dtype)
         calls = {
             "xtv": (lambda: hinge.hinge_xtv_lanes_cuda(X, y, v, t, at, ab),
                     lambda: [hinge.hinge_xtv_cuda(*lane[i], v[i], ts[i], at[i], ab[i])
@@ -754,23 +833,26 @@ def lane_kernel_rows(torch, smoke, dev, gen, cases) -> dict:
         }
         # X read once when the lanes share it, B times when they stack it;
         # y once or B times; each lane's vectors once
-        x_bytes = (1 if shared else B) * n * p * 8
-        y_bytes = (1 if y.dim() == 1 else B) * n * 8
+        xs, ws = X.element_size(), y.element_size()
+        x_bytes = (1 if shared else B) * n * p * xs
+        y_bytes = (1 if y.dim() == 1 else B) * n * ws
         k = e_part.shape[1]
-        bounds = {"xtv": bound(x_bytes + y_bytes + 8 * B * (n + 3 * p + k + 1),
-                               B * (2.0 * n * p + 2.0 * n + 6.0 * p), "f64"),
-                  "xd": bound(x_bytes + y_bytes + 8 * B * (p + k + 2 * n + 2),
-                              B * (2.0 * n * p + 5.0 * n), "f64")}
+        peak = "f64" if kind == "float64" else "f32"
+        bounds = {"xtv": bound(x_bytes + y_bytes + ws * B * (n + 3 * p + k + 1),
+                               B * (2.0 * n * p + 2.0 * n + 6.0 * p), peak),
+                  "xd": bound(x_bytes + y_bytes + ws * B * (p + k + 2 * n + 2),
+                              B * (2.0 * n * p + 5.0 * n), peak)}
         for name, (lanes_fn, singles_fn, plain_fn, lib_fn) in calls.items():
             ms, singles, plain, lib = (cuda_ms_each(torch, f, dev, True, reps=20)
                                        for f in (lanes_fn, singles_fn, plain_fn, lib_fn))
             b_ms, b_by = bounds[name]
-            print(f"  hinge {name} lanes f64 {label}, {B} x {n}x{p}, X "
-                  f"{'shared' if shared else 'stacked'}: L2 cold {ms:.4f} ms, {B} single "
-                  f"launches {singles:.4f}, plain {plain:.4f}, library {lib:.4f}, bound "
-                  f"{b_ms:.4f} ({b_by}; {ms / b_ms:.1f}x)", flush=True)
+            print(f"  hinge {name} lanes {kind} {label}, {B} x {n}x{p}, X "
+                  f"{'shared' if shared else 'stacked'}, route {pl.route}: L2 cold {ms:.4f} "
+                  f"ms, {B} single launches {singles:.4f}, plain {plain:.4f}, library "
+                  f"{lib:.4f} ({'beaten' if ms < lib else 'not beaten'}), bound {b_ms:.4f} "
+                  f"({b_by}; {ms / b_ms:.1f}x, {100 * b_ms / ms:.0f} % of it)", flush=True)
             row = dict(ms=ms, singles_ms=singles, plain_ms=plain, bound_ms=b_ms,
-                       bound_by=b_by, library_ms=lib)
+                       bound_by=b_by, library_ms=lib, lane_route=pl.route)
             key = f"hinge_{name}_lanes_cuda"
             if key not in rows:
                 rows[key] = dict(max_abs_err=d_err if name == "xtv" else max(xd_err, hv_err),
@@ -778,6 +860,16 @@ def lane_kernel_rows(torch, smoke, dev, gen, cases) -> dict:
             rows[key]["by_case"][label] = row
         del v, at, ab, d, e_part, dr, er, hv, hr, hv2, V, D
     return rows
+
+
+#: each lane's Newton and CG counts and the batched CG steps of 9a and 9b as
+#: PERF.md records them (§2 and §6): a tree whose lanes stay bitwise single
+#: launches gives these iterates again on that card and software
+RECORDED_COUNTS = {
+    "9a": ([27, 21, 17, 28, 20, 18, 28, 26, 18],
+           [2334, 1597, 729, 2081, 1346, 821, 2273, 2366, 763], 2996),
+    "9b": ([25, 22, 22, 25, 19], [1630, 1424, 1450, 1353, 805], 1887),
+}
 
 
 def phase_batch(torch, smoke, kernels, svm_state, count, dev, gen) -> dict:
@@ -821,6 +913,10 @@ def phase_batch(torch, smoke, kernels, svm_state, count, dev, gen) -> dict:
         bitwise = sum(torch.equal(sol.beta[i], s_.beta) for i, s_ in enumerate(seq))
         print(f"    batched: {secs:.3f} s, {syncs} host syncs, launches {launched}, "
               f"{steps} batched CG steps; Newton {it_b}, CG {cg_b}", flush=True)
+        if label in RECORDED_COUNTS:
+            print(f"    per-lane Newton and CG lists and batched CG steps equal the ones "
+                  f"PERF.md records: {(it_b, cg_b, steps) == RECORDED_COUNTS[label]}",
+                  flush=True)
         print(f"    sequential ({B} sven calls): {seq_s:.3f} s, {seq_syncs} host syncs, "
               f"launches {seq_launched}; Newton {it_s}, CG {cg_s} ({sum(cg_s)}); max "
               f"|beta - beta_seq| / max|beta_seq| {max(devs):.3e}, {bitwise} of {B} lanes "
@@ -860,7 +956,8 @@ def phase_batch(torch, smoke, kernels, svm_state, count, dev, gen) -> dict:
     C = 1.0 / (2.0 * l2s)
     t5 = torch.full((5,), t, **f64)
     rows = lane_kernel_rows(torch, smoke, dev, gen, [
-        ("9a", X, y, ts, C), ("9b", Xtr, ytr, t5, torch.full((5,), 0.5 / LAMBDA2, **f64))])
+        ("9a", X, y, ts, C), ("9b", Xtr, ytr, t5, torch.full((5,), 0.5 / LAMBDA2, **f64)),
+        ("9a f32", X.float(), y.float(), ts, C), ("9a bf16", X.bfloat16(), y.float(), ts, C)])
     n, p = GLA_BRA
     print(f"[9a] sven_batch on en_grid(t x {{0.5, 0.75, 1}}, {{0.5, 1, 4}}): 9 lanes on "
           f"a shared X, n = {n}, p = {p}", flush=True)
@@ -1002,6 +1099,8 @@ def main() -> int:
         return gram_bitwise_only(torch, Path(sys.argv[2]).resolve(), modes)
     if sys.argv[1:] == ["--stats-time"]:
         return stats_time_only(torch)
+    if sys.argv[1:] == ["--batch-time"]:
+        return batch_time_only(torch)
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2

@@ -53,20 +53,33 @@
 //
 // Lanes: both passes also launch once for a stack of B problems (the
 // lane-batched solve of core/batch.py), the port of the leading grid axis
-// that JAX's vmap gives the Pallas kernels. The lane is blockIdx.z; each
-// block offsets its pointers by its lane (X by 0 when the lanes share it,
+// that JAX's vmap gives the Pallas kernels. On the per-lane route the lane
+// is blockIdx.z; each block offsets its pointers by its lane (X by 0 when the lanes share it,
 // else by n p; y by 0 or n) and reads its lane's 1/t and 2C from device
 // arrays. Inside a lane the blocks, the layout and the order of every sum
 // are the single launch's, so a lane's results are bitwise those of a
 // single launch on that lane's operands (at the same addresses: pass 2
 // splits a row at its own 16-byte boundary). The lane forms are separate
 // instantiations (kLanes), so the single launch's code is unchanged. Bound
-// of a lane-batched pass: B reads of X when the lanes stack X, but one
-// read when they share it, which this simple form does not reach: each
-// lane's blocks read the shared X again (from the L2 where it fits).
+// of a lane-batched pass: B reads of X when the lanes stack X, one read when
+// they share it. The per-lane form reads a shared X once per lane (lane 0's
+// blocks all run before lane 1's, and 70.8 MB of float64 X does not stay in
+// the L2), so a shared X with two or more lanes takes the shared-X route
+// (hinge_xtv_shared, hinge_xd_shared): a block takes its strip or tile for a
+// group of up to G lanes, each element of X it loads feeds every lane of the
+// group, and the groups that read one strip or tile are neighbours in the
+// grid, so all but the first find it in the L2. Each lane's sums keep the
+// single launch's order there too (see each kernel), so every lane of either
+// route is bitwise a single launch. kernels/hinge.py::plan picks the route,
+// G and pass 2's rows per block. What bounds the shared route (PERF.md §6):
+// in pass 1, the loads of X an SM keeps in flight while G lanes'
+// accumulators hold its registers; in pass 2, its reads of d from shared
+// memory, one per element of X and lane, which its paired rows halve.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -213,6 +226,192 @@ hinge_xtv(const T* __restrict__ X, const A* __restrict__ v,
 #pragma unroll
     for (int w = 0; w < CPT; ++w) e += esum[w];
     e_part[blockIdx.x] = e;
+  }
+}
+
+// Lane groups of the shared-X route: `lanes` lanes cut into
+// lane_groups(lanes, G) groups of at most G whose sizes differ by at most
+// one; group i holds lanes [group_first(i), group_first(i + 1)).
+// kernels/hinge.py::lane_groups computes the same cut.
+__host__ __device__ inline int lane_groups(int lanes, int G) { return (lanes + G - 1) / G; }
+__device__ __forceinline__ int group_first(int i, int lanes, int ng) {
+  return (int)((int64_t)i * lanes / ng);
+}
+
+// One element from global to shared memory by cp.async (no registers;
+// cp_async_wait_all waits for every copy the thread issued).
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async(double* dst, const double* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// A block of the shared-X route has 512 threads (16 warps). Pass 1 keeps
+// two an SM, so a thread has 64 registers, of which its G x kShCPT
+// accumulators may take 24 words; pass 2 keeps one (its staged chunks of d
+// take most of the shared memory).
+constexpr int kShThreads = 512;
+constexpr int kShWarps = kShThreads / 32;
+constexpr int kShCPT = 2;          // columns per thread of the shared pass 1
+constexpr int kVRows = 128;        // rows of v the shared pass 1 stages at a time
+
+// Rows of X a thread of the shared pass 1 loads per step: 64 bytes of loads
+// (kShCPT columns a row), or half that where its accumulators take more
+// than 16 words.
+__host__ __device__ constexpr int xtv_rows(int words, int loads) {
+  return words > 16 ? loads / kShCPT / 2 : loads / kShCPT;
+}
+
+// Pass 1 on a shared X for groups of up to G lanes: a block takes its
+// kCols-column strip for every lane of its group, so each element of X it
+// loads feeds the group's G FMAs. Grid: ceil(p / kCols) strips x
+// lane_groups(lanes, G) groups, the group the fastest index, so the groups
+// that read one strip run side by side and all but the first find it in
+// the L2. Warp w takes row class w % 8 (rows w % 8, w % 8 + 8, ...) and
+// column half w / 8 of the strip, kShCPT columns 32 apart a thread. The
+// group's v is staged in shared memory as [row][lane], kVRows rows at a
+// time, and read as a broadcast; its act_top, act_bot of the strip and 1/t
+// are copied to shared memory (cp.async) while X streams, so the epilogue
+// waits on no load from memory. Every lane's sums are the single launch's,
+// in its order: byv by the first 256 threads as its block sums it (first,
+// before the accumulators take their registers); column j of lane g over
+// its row class in row order (a padding row would add +0 to an accumulator
+// that cannot be -0, so it is skipped), then the 8 classes in class order;
+// d and the e partial as its epilogue, lane by lane through one colsum
+// buffer. So each lane is bitwise a single launch.
+template <typename T, int G, typename A = acc_t<T>>
+__global__ void __launch_bounds__(kShThreads, 2)
+hinge_xtv_shared(const T* __restrict__ X, const A* __restrict__ v,
+                 const A* __restrict__ y, const A* __restrict__ at,
+                 const A* __restrict__ ab, A* __restrict__ d,
+                 A* __restrict__ e_part, int n, int p, int lanes, Lanes<A> ls) {
+  constexpr int CP = kShCPT;
+  constexpr int words = G * CP * sizeof(A) / 4;
+  static_assert(words <= 24, "two blocks an SM leave 24 registers to the accumulators");
+  constexpr int U = xtv_rows(words, InFlight<A>::loads);
+  __shared__ A colsum[kWarps][kCols];
+  __shared__ A vs[kVRows][G];
+  __shared__ A ats[G][kCols], abs_[G][kCols], invts[G];
+  __shared__ A red[G][kWarps];
+  __shared__ A esum[CPT];
+  const int tid = threadIdx.x, lane = tid % 32, wid = tid / 32;
+  const int cls = wid % kWarps, half = wid / kWarps;
+  const int ng = lane_groups(lanes, G);
+  const int grp = blockIdx.x % ng, strip = blockIdx.x / ng;
+  const int nstrip = gridDim.x / ng;
+  const int l0 = group_first(grp, lanes, ng);
+  const int gl = group_first(grp + 1, lanes, ng) - l0;
+  const A* vg = v + (int64_t)l0 * n;
+  const int j0 = strip * kCols + half * 32 * CP + lane;
+  for (int i = tid; i < gl * kCols; i += kShThreads) {
+    const int g = i / kCols, c = i - g * kCols, j = strip * kCols + c;
+    if (j < p) {
+      cp_async(&ats[g][c], at + (int64_t)(l0 + g) * p + j);
+      cp_async(&abs_[g][c], ab + (int64_t)(l0 + g) * p + j);
+    }
+  }
+  if (tid < gl) cp_async(&invts[tid], ls.invt + l0 + tid);
+
+  // byv of each lane, summed by the first 256 threads as a single launch's
+  // block sums it, before the accumulators of X^T v take their registers
+  if (tid < kThreads) {
+    A s[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) s[g] = 0;
+    for (int r = tid; r < n; r += kThreads) {
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        if (g < gl)
+          s[g] = mad(y[(int64_t)(l0 + g) * ls.y_stride + r], vg[(int64_t)g * n + r], s[g]);
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const A sw = warp_sum(s[g]);
+      if (lane == 0) red[g][wid] = sw;
+    }
+  }
+
+  A acc[G][CP];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int k = 0; k < CP; ++k) acc[g][k] = 0;
+  for (int c0 = 0; c0 < n; c0 += kVRows) {
+    const int c1 = min(n, c0 + kVRows);
+    __syncthreads();                   // the previous rows of v are read
+    for (int i = tid; i < (c1 - c0) * gl; i += kShThreads) {
+      const int g = i / (c1 - c0), r = i - g * (c1 - c0);
+      vs[r][g] = vg[(int64_t)g * n + c0 + r];
+    }
+    __syncthreads();
+    for (int r = c0 + cls; r < c1; r += U * kWarps) {
+      A x[U][CP];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int rr = r + u * kWarps;
+#pragma unroll
+        for (int k = 0; k < CP; ++k)
+          x[u][k] = rr < c1 && j0 + 32 * k < p ? ld<T>(X, (int64_t)rr * p + j0 + 32 * k)
+                                                : A(0);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int rr = r + u * kWarps;
+        if (rr < c1) {                   // warp-uniform
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            if (g < gl) {
+              const A vv = vs[rr - c0][g];
+#pragma unroll
+              for (int k = 0; k < CP; ++k) acc[g][k] = mad(x[u][k], vv, acc[g][k]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  cp_async_wait_all();               // ats, abs_, invts: visible after the next barrier
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    if (g >= gl) break;                 // block-uniform
+    const int64_t l = l0 + g;
+#pragma unroll
+    for (int k = 0; k < CP; ++k) colsum[cls][half * 32 * CP + lane + 32 * k] = acc[g][k];
+    __syncthreads();
+    if (tid < kCols) {   // whole warps: kCols is a multiple of 32
+      A byv = 0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) byv += red[g][w];
+      const A invt = invts[g];
+      byv *= invt;
+      A c = 0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) c += colsum[w][tid];
+      const int j = strip * kCols + tid;
+      A contrib = 0;
+      if (j < p) {
+        const A ut = ats[g][tid] * (c - byv);
+        const A ub = abs_[g][tid] * (c + byv);
+        d[l * p + j] = ut + ub;
+        contrib = ub - ut;
+      }
+      contrib = warp_sum(contrib);
+      if (lane == 0) esum[wid] = contrib;
+    }
+    __syncthreads();   // colsum and esum are read before the next lane writes them
+    if (tid == 0) {
+      A e = 0;
+#pragma unroll
+      for (int w = 0; w < CPT; ++w) e += esum[w];
+      e_part[l * nstrip + strip] = e;
+    }
   }
 }
 
@@ -374,6 +573,263 @@ hinge_xd(const T* __restrict__ X, const A* __restrict__ d,
   if (owner) hv[mine_row] = v[mine_row] + twoC * (dot + y[mine_row] * invt * e);
 }
 
+// The padded chunk of d a block of pass 2 stages for one lane.
+template <typename A> __host__ __device__ constexpr int chunk_slots() {
+  return kChunk + (kChunk >> Pad<A>::shift);
+}
+
+// The elements of a 16-byte vector of X in the summing type, in memory
+// order.
+__device__ __forceinline__ void unpack(const float4& x, float (&f)[4]) {
+  f[0] = x.x, f[1] = x.y, f[2] = x.z, f[3] = x.w;
+}
+__device__ __forceinline__ void unpack(const uint4& x, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 t = __bfloat1622float2(h[k]);
+    f[2 * k] = t.x, f[2 * k + 1] = t.y;
+  }
+}
+__device__ __forceinline__ void unpack(const double2& x, double (&f)[2]) {
+  f[0] = x.x, f[1] = x.y;
+}
+
+// es[g] = e of lane l0 + g (g < gl), summed from its n_epart partials by
+// the first 256 threads as a single launch's block sums e, for every lane
+// at once (red2 holds G x kWarps values); every thread of the block calls
+// it, and es is visible after the next barrier.
+template <int G, typename A>
+__device__ __forceinline__ void lanes_e(const A* __restrict__ e_part, int n_epart, int l0,
+                                        int gl, A (*red2)[kWarps], A* es, int tid) {
+  const int lane = tid % 32, wid = tid / 32;
+  A s[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) s[g] = 0;
+  if (tid < kThreads) {
+    for (int i = tid; i < n_epart; i += kThreads) {
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        if (g < gl) s[g] += e_part[(int64_t)(l0 + g) * n_epart + i];
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const A sw = warp_sum(s[g]);
+      if (lane == 0) red2[g][wid] = sw;
+    }
+  }
+  __syncthreads();
+  if (tid < gl) {
+    A e = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) e += red2[tid][w];
+    es[tid] = e;
+  }
+}
+
+// a[g] and b[g] = vdot(xa / xb, lane g's staged chunk, i, ...) for the gl
+// live lanes of a group: the FMAs of `vdot` in its order for each of two
+// rows that read the same columns, each element of d loaded once for both.
+template <typename T, int G, typename A>
+__device__ __forceinline__ void vdot_pair(const typename Vec<T>::type& xa,
+                                          const typename Vec<T>::type& xb, const A* ds,
+                                          int i, int gl, A (&a)[G], A (&b)[G]) {
+  constexpr int VEC = Vec<T>::n;
+  A fa[VEC], fb[VEC];
+  unpack(xa, fa);
+  unpack(xb, fb);
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    if (g < gl) {
+      const A* dg = ds + g * chunk_slots<A>();
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) {
+        const A dv = dg[slot<A>(i + q)];
+        a[g] = mad(fa[q], dv, a[g]);
+        b[g] = mad(fb[q], dv, b[g]);
+      }
+    }
+  }
+}
+
+// Pass 2 on a shared X for groups of up to G lanes. A block stages its
+// chunk of d for each lane of its group (dynamic shared memory, gl x the
+// padded chunk, by cp.async), then takes `rows` rows (a multiple of 4 R) in
+// passes of 4 R rows. As in the single launch TPR = 256 / R threads take a
+// row, but each such thread group takes two rows D = 16 / sizeof(T) apart:
+// their starts lie at the same offset from a 16-byte boundary, so both
+// split at the same columns, and each element of d read from shared memory
+// feeds both rows (the reads of d bound this pass). Each 16-byte vector of X
+// is loaded once and feeds the group's vdots. Grid: (lane_groups(lanes, G)
+// x ceil(n / rows), chunks), the group the fastest index. Each (lane, row)
+// is summed as the single launch sums it: the same threads per row, the
+// same head and tail from the row's own address (one address for every
+// lane), the same vector-to-accumulator map (a0..a3 in the unrolled loop,
+// a0 for the rest and the head, a1 for the tail), warp_sum, the row's warps
+// in order, the partials in chunk order, e as its block sums it. With more
+// than one chunk, ticket (one per group x row block) finds the last block,
+// which finishes the rows of its group and row block and sets the ticket
+// back to 0. So each lane is bitwise a single launch.
+template <typename T, int R, int G, typename A = acc_t<T>>
+__global__ void __launch_bounds__(kShThreads, 1)
+hinge_xd_shared(const T* __restrict__ X, const A* __restrict__ d,
+                const A* __restrict__ e_part, int n_epart, const A* __restrict__ y,
+                const A* __restrict__ v, A* __restrict__ hv, A* __restrict__ part,
+                int* __restrict__ ticket, int n, int p, int lanes, int rows, Lanes<A> ls) {
+  constexpr int TPR = kThreads / R;     // threads per row, as in the single launch
+  constexpr int WPR = TPR / 32;         // warps per row
+  constexpr int NG = kShThreads / TPR;  // thread groups: 2 R
+  constexpr int D = 16 / sizeof(T);     // rows between the two rows of a group
+  constexpr int PR = 2 * NG;            // rows of a pass
+  constexpr int VEC = Vec<T>::n;
+  constexpr int SL = chunk_slots<A>();
+  static_assert(NG % D == 0, "a pass must pair every row");
+  using VT = typename Vec<T>::type;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  A* ds = reinterpret_cast<A*>(dyn);
+  __shared__ A red2[G][kWarps];
+  __shared__ A wsum[2][G][kShWarps];
+  __shared__ A es[G];
+  __shared__ int last;
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int nchunk = gridDim.y, chunk = blockIdx.y;
+  const int ng = lane_groups(lanes, G);
+  const int grp = blockIdx.x % ng, rblk = blockIdx.x / ng;
+  const int l0 = group_first(grp, lanes, ng);
+  const int gl = group_first(grp + 1, lanes, ng) - l0;
+  const int j0 = chunk * kChunk;
+  const int len = min(kChunk, p - j0);
+  for (int g = 0; g < gl; ++g)
+    for (int i = tid; i < len; i += kShThreads)
+      cp_async(ds + g * SL + slot<A>(i), d + (int64_t)(l0 + g) * p + j0 + i);
+  // each lane's e: every block needs it with one chunk, only the last with
+  // more
+  if (nchunk == 1) lanes_e<G>(e_part, n_epart, l0, gl, red2, es, tid);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // thread group tg takes rows ra and ra + D of each pass
+  const int lt = tid % TPR, tg = tid / TPR;
+  const int ra_off = (tg / D) * 2 * D + tg % D;
+  const int row0 = rblk * rows, row_end = min(n, row0 + rows);
+  for (int r0 = row0; r0 < row_end; r0 += PR) {   // block-uniform
+    const int ra = r0 + ra_off, rb = ra + D;
+    A a0[G], a1[G], a2[G], a3[G], b0[G], b1[G], b2[G], b3[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      a0[g] = a1[g] = a2[g] = a3[g] = 0;
+      b0[g] = b1[g] = b2[g] = b3[g] = 0;
+    }
+    if (ra < n) {
+      const bool live_b = rb < n;
+      const T* xa = X + (int64_t)ra * p + j0;
+      const T* xb = X + (int64_t)(live_b ? rb : ra) * p + j0;   // a copy of row a if b is past n
+      const int mis = (int)(reinterpret_cast<uintptr_t>(xa) & 15u);
+      const int head = min(len, ((16 - mis) & 15) / (int)sizeof(T));
+      if (lt < head) {
+        const A ha = ld<T>(xa, lt), hb = ld<T>(xb, lt);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (g < gl) {
+            const A dv = ds[g * SL + slot<A>(lt)];
+            a0[g] = ha * dv;
+            b0[g] = hb * dv;
+          }
+        }
+      }
+      const int nv = (len - head) / VEC;
+      const VT* va = reinterpret_cast<const VT*>(xa + head);
+      const VT* vb = reinterpret_cast<const VT*>(xb + head);
+      int k = lt;
+      for (; k + 3 * TPR < nv; k += 4 * TPR) {
+        VT xa4[4], xb4[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) xa4[m] = __ldg(va + k + m * TPR);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) xb4[m] = __ldg(vb + k + m * TPR);
+        vdot_pair<T, G>(xa4[0], xb4[0], ds, head + k * VEC, gl, a0, b0);
+        vdot_pair<T, G>(xa4[1], xb4[1], ds, head + (k + TPR) * VEC, gl, a1, b1);
+        vdot_pair<T, G>(xa4[2], xb4[2], ds, head + (k + 2 * TPR) * VEC, gl, a2, b2);
+        vdot_pair<T, G>(xa4[3], xb4[3], ds, head + (k + 3 * TPR) * VEC, gl, a3, b3);
+      }
+      for (; k < nv; k += TPR)
+        vdot_pair<T, G>(__ldg(va + k), __ldg(vb + k), ds, head + k * VEC, gl, a0, b0);
+      const int tail = head + nv * VEC + lt;              // fewer than VEC left
+      if (tail < len) {
+        const A ta = ld<T>(xa, tail), tb = ld<T>(xb, tail);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (g < gl) {
+            const A dv = ds[g * SL + slot<A>(tail)];
+            a1[g] = mad(ta, dv, a1[g]);
+            b1[g] = mad(tb, dv, b1[g]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const A sa = warp_sum((a0[g] + a1[g]) + (a2[g] + a3[g]));
+      const A sb = warp_sum((b0[g] + b1[g]) + (b2[g] + b3[g]));
+      if (lane == 0) wsum[0][g][warp] = sa, wsum[1][g][warp] = sb;
+    }
+    __syncthreads();
+    // thread g PR + r owns row r0 + r of this pass for lane g
+    if (tid < PR * G) {
+      const int g = tid / PR, r = tid % PR, mine_row = r0 + r;
+      const int w = r % (2 * D), second = w >= D;          // row b of its group?
+      const int owner_tg = (r / (2 * D)) * D + w - (second ? D : 0);
+      if (g < gl && mine_row < n) {
+        A dot = 0;
+#pragma unroll
+        for (int q = 0; q < WPR; ++q) dot += wsum[second][g][owner_tg * WPR + q];
+        const int64_t l = l0 + g;
+        if (nchunk > 1) {
+          part[(l * n + mine_row) * nchunk + chunk] = dot;
+        } else {
+          const A invt = ls.invt[l], twoC = ls.twoC[l], e = es[g];
+          const A* yl = y + l * ls.y_stride;
+          hv[l * n + mine_row] = v[l * n + mine_row] + twoC * (dot + yl[mine_row] * invt * e);
+        }
+      }
+    }
+    __syncthreads();   // wsum is read before the next pass writes it
+  }
+  if (nchunk == 1) return;
+
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(&ticket[blockIdx.x], 1) == nchunk - 1;
+  __syncthreads();
+  if (!last) return;                 // block-uniform
+  __threadfence();
+  lanes_e<G>(e_part, n_epart, l0, gl, red2, es, tid);
+  __syncthreads();
+  const int nrows = row_end - row0;
+  for (int q = tid; q < gl * nrows; q += kShThreads) {
+    const int g = q / nrows, mine_row = row0 + q % nrows;
+    const int64_t l = l0 + g;
+    // the partials in chunk order, loaded four at a time
+    const A* pr = part + (l * n + mine_row) * nchunk;
+    A dot = 0;
+    int c = 0;
+    for (; c + 4 <= nchunk; c += 4) {
+      const A q0 = __ldcg(pr + c), q1 = __ldcg(pr + c + 1);
+      const A q2 = __ldcg(pr + c + 2), q3 = __ldcg(pr + c + 3);
+      dot += q0;
+      dot += q1;
+      dot += q2;
+      dot += q3;
+    }
+    for (; c < nchunk; ++c) dot += __ldcg(pr + c);
+    const A invt = ls.invt[l], twoC = ls.twoC[l], e = es[g];
+    const A* yl = y + l * ls.y_stride;
+    hv[l * n + mine_row] = v[l * n + mine_row] + twoC * (dot + yl[mine_row] * invt * e);
+  }
+  if (tid == 0) ticket[blockIdx.x] = 0;   // every block of the group has counted
+}
+
 // Rows per block and column chunks of pass 2 for a row length p.
 __host__ __device__ inline int xd_rows(int p) { return p >= kWideP ? 4 : 8; }
 __host__ __device__ inline int xd_chunks(int p) {
@@ -427,6 +883,83 @@ Lanes<acc_t<T>> lanes_of(long long x_stride, long long y_stride, const void* inv
                   static_cast<const A*>(twoC)};
 }
 
+// The lane-group sizes G of the shared-X route built into this library, per
+// summing type and pass (kernels/hinge.py::_SHARED_G names the same), the
+// largest that compile without spills on an H100: pass 1 keeps G x 2
+// accumulators a thread (at most 24 words, two blocks an SM); pass 2 G x 8
+// (two rows) within 128 registers, and stages G chunks of d (34.8 KB a lane
+// in float64, 16.9 KB in float32) in the 227 KB of shared memory a block
+// may have.
+template <typename A> struct SharedG {
+  static constexpr int xtv[2] = {8, 12}, xd[2] = {3, 6};
+};
+template <> struct SharedG<double> {
+  static constexpr int xtv[2] = {4, 6}, xd[2] = {2, 3};
+};
+template <int G> using IntC = std::integral_constant<int, G>;
+
+// f(IntC<G>{}) for a G of pass 1 (xtv_group) or pass 2 (xd_group) built
+// for storage type T; any other G is cudaErrorInvalidValue.
+template <typename T, typename F> cudaError_t xtv_group(int G, F&& f) {
+  using S = SharedG<acc_t<T>>;
+  if (G == S::xtv[0]) return f(IntC<S::xtv[0]>{});
+  if (G == S::xtv[1]) return f(IntC<S::xtv[1]>{});
+  return cudaErrorInvalidValue;
+}
+template <typename T, typename F> cudaError_t xd_group(int G, F&& f) {
+  using S = SharedG<acc_t<T>>;
+  if (G == S::xd[0]) return f(IntC<S::xd[0]>{});
+  if (G == S::xd[1]) return f(IntC<S::xd[1]>{});
+  return cudaErrorInvalidValue;
+}
+
+// Pass 1 on a shared X, `lanes` >= 2 lanes in groups of up to G.
+template <typename T>
+cudaError_t launch_xtv_shared(const void* X, const void* v, const void* y, const void* at,
+                              const void* ab, void* d, void* e_part, int n, int p,
+                              Lanes<acc_t<T>> ls, int lanes, int G, cudaStream_t s) {
+  using A = acc_t<T>;
+  return xtv_group<T>(G, [&](auto g) {
+    constexpr int kG = decltype(g)::value;
+    const dim3 grid((unsigned)((p + kCols - 1) / kCols) * lane_groups(lanes, kG));
+    hinge_xtv_shared<T, kG><<<grid, kShThreads, 0, s>>>(
+        static_cast<const T*>(X), static_cast<const A*>(v), static_cast<const A*>(y),
+        static_cast<const A*>(at), static_cast<const A*>(ab), static_cast<A*>(d),
+        static_cast<A*>(e_part), n, p, lanes, ls);
+    return cudaGetLastError();
+  });
+}
+
+// Pass 2 on a shared X, `lanes` >= 2 lanes in groups of up to G, `rows`
+// rows (a multiple of 4 xd_rows(p)) a block. Dynamic shared memory: the
+// largest group's chunks of d.
+template <typename T>
+cudaError_t launch_xd_shared(const void* X, const void* d, const void* e_part, int n_epart,
+                             const void* y, const void* v, void* hv, void* part, int* ticket,
+                             int n, int p, Lanes<acc_t<T>> ls, int lanes, int G, int rows,
+                             cudaStream_t s) {
+  using A = acc_t<T>;
+  const int R = xd_rows(p);
+  if (rows <= 0 || rows % (4 * R) != 0) return cudaErrorInvalidValue;
+  return xd_group<T>(G, [&](auto g) {
+    constexpr int kG = decltype(g)::value;
+    const int ng = lane_groups(lanes, kG);
+    const size_t smem = (size_t)((lanes + ng - 1) / ng) * chunk_slots<A>() * sizeof(A);
+    const dim3 grid((unsigned)(ng * ((n + rows - 1) / rows)), xd_chunks(p));
+    auto run = [&](auto kernel) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+      kernel<<<grid, kShThreads, smem, s>>>(
+          static_cast<const T*>(X), static_cast<const A*>(d), static_cast<const A*>(e_part),
+          n_epart, static_cast<const A*>(y), static_cast<const A*>(v), static_cast<A*>(hv),
+          static_cast<A*>(part), ticket, n, p, lanes, rows, ls);
+      return cudaGetLastError();
+    };
+    return R == 4 ? run(hinge_xd_shared<T, 4, kG>) : run(hinge_xd_shared<T, 8, kG>);
+  });
+}
+
 // f(T{}) for the storage type T of `mode`: float32 (0), bfloat16 (1),
 // float64 (2); an unknown mode is cudaErrorInvalidValue.
 template <typename F> int by_mode(int mode, F&& f) {
@@ -465,17 +998,34 @@ int sven_hinge_xtv(const void* X, int mode, const void* v, const void* y, const 
 // lane (x_stride 0) or (lanes, n, p) (x_stride n p); y (n,) shared (y_stride
 // 0) or (lanes, n) (y_stride n); v (lanes, n), at, ab, d (lanes, p), e_part
 // (lanes, sven_hinge_xtv_blocks(p)) and invt (lanes,): each lane's 1/t in
-// the summing type. Types as for sven_hinge_xtv.
+// the summing type. Types as for sven_hinge_xtv. `group` 0 takes the
+// per-lane route (a lane per grid z); group G > 0 the shared-X route, in
+// lane groups of up to G: X shared, at least 2 lanes, and G one of
+// sven_hinge_shared_group(0, mode, i), else cudaErrorInvalidValue.
 int sven_hinge_xtv_lanes(const void* X, int mode, long long x_stride, const void* v,
                          const void* y, long long y_stride, const void* at, const void* ab,
                          void* d, void* e_part, int n, int p, int lanes, const void* invt,
-                         void* stream) {
+                         int group, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (group != 0 && (x_stride != 0 || lanes < 2)) return (int)cudaErrorInvalidValue;
   return by_mode(mode, [&](auto tag) {
     using T = decltype(tag);
-    return launch_xtv<T, true>(X, v, y, at, ab, d, e_part, n, p, 0.0,
-                               lanes_of<T>(x_stride, y_stride, invt, nullptr), lanes, s);
+    const Lanes<acc_t<T>> ls = lanes_of<T>(x_stride, y_stride, invt, nullptr);
+    if (group != 0)
+      return launch_xtv_shared<T>(X, v, y, at, ab, d, e_part, n, p, ls, lanes, group, s);
+    return launch_xtv<T, true>(X, v, y, at, ab, d, e_part, n, p, 0.0, ls, lanes, s);
   });
+}
+
+// The i-th lane-group size (i = 0, 1) of the shared-X route of pass 1
+// (pass 0) or pass 2 (pass 1) in `mode`; 0 for any other argument.
+int sven_hinge_shared_group(int pass, int mode, int i) {
+  if (pass < 0 || pass > 1 || i < 0 || i > 1) return 0;
+  switch (mode) {
+    case 0: case 1: return pass == 0 ? SharedG<float>::xtv[i] : SharedG<float>::xd[i];
+    case 2: return pass == 0 ? SharedG<double>::xtv[i] : SharedG<double>::xd[i];
+    default: return 0;
+  }
 }
 
 // Rows per row group and column chunks of pass 2 (the wrapper sizes part as
@@ -501,18 +1051,29 @@ int sven_hinge_xd(const void* X, int mode, const void* d, const void* e_part, in
 
 // Pass 2 for `lanes` problems in one launch. X, x_stride, y and y_stride as
 // for sven_hinge_xtv_lanes; d (lanes, p), e_part (lanes, n_epart), v and hv
-// (lanes, n), invt and twoC (lanes,) in the summing type. With more than one
-// chunk: part (lanes, n, chunks) and ticket (lanes, ceil(n / rows)), the
-// ticket all 0 on entry and left 0.
+// (lanes, n), invt and twoC (lanes,) in the summing type. `group` 0 takes
+// the per-lane route: with more than one chunk, part (lanes, n, chunks) and
+// ticket (lanes, ceil(n / sven_hinge_xd_rows(p))). group G > 0 takes the
+// shared-X route in lane groups of up to G (conditions as for
+// sven_hinge_xtv_lanes, G one of sven_hinge_shared_group(1, mode, i)) with
+// `rows` rows a block (a multiple of 4 sven_hinge_xd_rows(p)): with more than
+// one chunk, part (lanes, n, chunks) and ticket (ceil(lanes / G) x
+// ceil(n / rows),). The ticket is all 0 on entry and left 0.
 int sven_hinge_xd_lanes(const void* X, int mode, long long x_stride, const void* d,
                         const void* e_part, int n_epart, const void* y, long long y_stride,
                         const void* v, void* hv, void* part, int* ticket, int n, int p,
-                        int lanes, const void* invt, const void* twoC, void* stream) {
+                        int lanes, const void* invt, const void* twoC, int group, int rows,
+                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (group != 0 && (x_stride != 0 || lanes < 2)) return (int)cudaErrorInvalidValue;
   return by_mode(mode, [&](auto tag) {
     using T = decltype(tag);
+    const Lanes<acc_t<T>> ls = lanes_of<T>(x_stride, y_stride, invt, twoC);
+    if (group != 0)
+      return launch_xd_shared<T>(X, d, e_part, n_epart, y, v, hv, part, ticket, n, p, ls,
+                                 lanes, group, rows, s);
     return launch_xd<T, true>(X, d, e_part, n_epart, y, v, hv, part, ticket, n, p, 0.0,
-                              0.0, lanes_of<T>(x_stride, y_stride, invt, twoC), lanes, s);
+                              0.0, ls, lanes, s);
   });
 }
 

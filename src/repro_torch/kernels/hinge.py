@@ -22,12 +22,17 @@ share a buffer must therefore be ordered on one stream, as the solver's are.
 a stack of B problems (the lane-batched solve of `core/batch.py`; the port
 of the leading grid axis JAX's vmap gives the Pallas kernels): X and y
 shared by every lane or stacked, every other operand stacked, and 1/t and
-2C per lane. Each lane's results are bitwise those of a single launch on
-that lane's operands. One lane-batched launch counts as one launch.
+2C per lane. `plan` picks the route: a stacked X (or one lane) takes the
+per-lane route, a block per lane; a shared X with two or more lanes the
+shared-X route, on which a block takes its columns or rows for a group of
+up to G lanes and reads X once for the group. Either way each lane's
+results are bitwise those of a single launch on that lane's operands. One
+lane-batched launch counts as one launch.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -38,6 +43,89 @@ _ptr, _int, _long, _double = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 #: X's dtype -> the kernels' mode
 _MODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 _X_DTYPES = tuple(_MODES)
+#: the lane-group sizes G of the shared-X route that `csrc/hinge.cu` builds
+#: (`SharedG`), per pass and mode; the library refuses any other G. Pass 1
+#: holds G x 2 accumulators a thread; pass 2 G x 8 (two rows), and stages G
+#: chunks of d in shared memory (34.8 KB a lane in float64, 16.9 KB in
+#: float32).
+_SHARED_G = {"xtv": {0: (8, 12), 1: (8, 12), 2: (4, 6)},
+             "xd": {0: (3, 6), 1: (3, 6), 2: (2, 3)}}
+#: `csrc/hinge.cu`'s kWideP and kChunk: from this row length pass 2 takes
+#: R = 4 rows a row group and cuts rows into column chunks, below it R = 8
+_WIDE_P, _CHUNK = 1024, 4096
+#: the SMs of an NVIDIA H100 SXM, for a plan made without a device
+H100_SMS = 132
+
+
+@dataclass(frozen=True)
+class LanePlan:
+    """How a lane-batched launch runs. route "shared": lane groups of up to
+    `xtv_group` (pass 1) and `xd_group` (pass 2) lanes, pass 2 taking
+    `xd_rows` rows a block; route "lanes": a block per lane (groups 0)."""
+    route: str
+    xtv_group: int
+    xd_group: int
+    xd_rows: int
+
+
+def lane_groups(B: int, G: int) -> list:
+    """The lanes of each group the shared-X route cuts B lanes into for a
+    group size G: ceil(B / G) ranges whose sizes differ by at most one, as
+    `csrc/hinge.cu::group_first` cuts them."""
+    ng = -(-B // G)
+    return [range(i * B // ng, (i + 1) * B // ng) for i in range(ng)]
+
+
+def _group_size(B: int, sizes) -> int:
+    """The smallest built G that cuts B lanes into as few groups as the
+    largest does (fewer accumulators, less shared memory)."""
+    per = -(-B // -(-B // max(sizes)))
+    return min(g for g in sizes if g >= per)
+
+
+def _xd_rows(n: int, p: int, groups: int, sms: int) -> int:
+    """Rows a block of pass 2's shared route takes: whole passes of 4 R rows
+    (a 512-thread block, two rows a group of the single launch's threads
+    per row), so that the grid's waves of blocks (one an SM) are as full as
+    any choice makes them, with as few blocks as that allows: its staged
+    chunks of d serve all its rows."""
+    step = 4 * (4 if p >= _WIDE_P else 8)
+    chunks = -(-p // _CHUNK) if p >= _WIDE_P else 1
+    best = None
+    for k in range(1, -(-n // step) + 1):
+        blocks = groups * chunks * -(-n // (k * step))
+        full = round(blocks / (-(-blocks // sms) * sms), 6)
+        if best is None or (full, -blocks) > best[:2]:
+            best = (full, -blocks, k * step)
+    return best[2]
+
+
+def plan(B: int, n: int, p: int, dtype: torch.dtype, shared: bool,
+         sms: int = H100_SMS) -> LanePlan:
+    """The route of a lane-batched launch of B lanes on X (n, p) of `dtype`,
+    shared by every lane or stacked, on a card of `sms` SMs: the shared-X
+    route when X is shared and B >= 2, else the per-lane route. Raises on an
+    X dtype the kernels do not take."""
+    if dtype not in _MODES:
+        raise TypeError(f"hinge lanes: X dtype {dtype} not in {_X_DTYPES}")
+    if not shared or B < 2:
+        return LanePlan("lanes", 0, 0, 0)
+    mode = _MODES[dtype]
+    xd_group = _group_size(B, _SHARED_G["xd"][mode])
+    return LanePlan("shared", _group_size(B, _SHARED_G["xtv"][mode]), xd_group,
+                    _xd_rows(n, p, len(lane_groups(B, xd_group)), sms))
+
+
+#: device -> its SM count
+_SMS = {}
+
+
+def _plan_on(X: torch.Tensor, B: int, n: int, p: int, shared: bool) -> LanePlan:
+    """`plan` for a launch on X's device."""
+    sms = _SMS.get(X.device)
+    if sms is None:
+        sms = _SMS[X.device] = torch.cuda.get_device_properties(X.device).multi_processor_count
+    return plan(B, n, p, X.dtype, shared, sms)
 
 
 def _operand_dtype(X: torch.Tensor) -> torch.dtype:
@@ -57,12 +145,14 @@ def _lib():
         lib.sven_hinge_xd.restype = _int
         lib.sven_hinge_xtv_lanes.argtypes = [_ptr, _int, _long, _ptr, _ptr, _long, _ptr,
                                              _ptr, _ptr, _ptr, _int, _int, _int, _ptr,
-                                             _ptr]
+                                             _int, _ptr]
         lib.sven_hinge_xtv_lanes.restype = _int
         lib.sven_hinge_xd_lanes.argtypes = [_ptr, _int, _long, _ptr, _ptr, _int, _ptr,
                                             _long, _ptr, _ptr, _ptr, _ptr, _int, _int,
-                                            _int, _ptr, _ptr, _ptr]
+                                            _int, _ptr, _ptr, _int, _int, _ptr]
         lib.sven_hinge_xd_lanes.restype = _int
+        lib.sven_hinge_shared_group.argtypes = [_int, _int, _int]
+        lib.sven_hinge_shared_group.restype = _int
         for fn in (lib.sven_hinge_xtv_blocks, lib.sven_hinge_xd_rows,
                    lib.sven_hinge_xd_chunks):
             fn.argtypes = [_int]
@@ -205,11 +295,12 @@ def hinge_xtv_lanes_cuda(X: torch.Tensor, y: torch.Tensor, v: torch.Tensor,
     lib = _lib()
     d = torch.empty((B, p), dtype=acc, device=X.device)
     e_part = torch.empty((B, lib.sven_hinge_xtv_blocks(p)), dtype=acc, device=X.device)
+    group = _plan_on(X, B, n, p, xs == 0).xtv_group
     with torch.cuda.device(X.device):
         err = lib.sven_hinge_xtv_lanes(X.data_ptr(), _MODES[X.dtype], xs, v.data_ptr(),
                                        y.data_ptr(), ys, act_top.data_ptr(),
                                        act_bot.data_ptr(), d.data_ptr(), e_part.data_ptr(),
-                                       n, p, B, invt.data_ptr(),
+                                       n, p, B, invt.data_ptr(), group,
                                        torch.cuda.current_stream(X.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
@@ -239,10 +330,14 @@ def hinge_xd_lanes_cuda(X: torch.Tensor, y: torch.Tensor, d: torch.Tensor,
     lib = _lib()
     hv = torch.empty((B, n), dtype=acc, device=X.device)
     chunks = lib.sven_hinge_xd_chunks(p)
+    pl = _plan_on(X, B, n, p, xs == 0)
     part = ticket = None
     if chunks > 1:
         part = torch.empty((B, n, chunks), dtype=acc, device=X.device)
-        ticket = _tickets(X.device, B * -(-n // lib.sven_hinge_xd_rows(p)))
+        # one ticket per (lane, row group), or per (lane group, row block)
+        ticket = _tickets(X.device, B * -(-n // lib.sven_hinge_xd_rows(p))
+                          if pl.route == "lanes" else
+                          len(lane_groups(B, pl.xd_group)) * -(-n // pl.xd_rows))
     with torch.cuda.device(X.device):
         err = lib.sven_hinge_xd_lanes(X.data_ptr(), _MODES[X.dtype], xs, d.data_ptr(),
                                       e_part.data_ptr(), e_part.shape[1], y.data_ptr(), ys,
@@ -250,6 +345,7 @@ def hinge_xd_lanes_cuda(X: torch.Tensor, y: torch.Tensor, d: torch.Tensor,
                                       None if part is None else part.data_ptr(),
                                       None if ticket is None else ticket.data_ptr(),
                                       n, p, B, invt.data_ptr(), twoC.data_ptr(),
+                                      pl.xd_group, pl.xd_rows,
                                       torch.cuda.current_stream(X.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")

@@ -323,3 +323,38 @@ def test_lane_machines_init_step_run(mode):
     final = machine.run(hyper)
     assert bool(final.converged.all()) and float(final.residual.max()) <= 1e-8
     assert len(set(final.iters.tolist())) > 1 or len(set(final.aux.tolist())) > 1
+
+
+@pytest.mark.parametrize("n,p", [(33, 57), (96, 130)])
+@pytest.mark.parametrize("precision,tol", [("f32", 1e-5), ("bf16", 2e-2)])
+def test_lane_hinge_op_shared_x_matches_jax_interpret(n, p, precision, tol):
+    """The plain lane op on a shared X at B = 17 lanes (more than one lane
+    group of the shared-X route in every mode) against JAX's Pallas kernel
+    in interpret mode under `jax.vmap` over the lanes, as
+    `repro/core/batch.py` batches the solve: each lane within the bounds
+    of `tests/test_torch_kernels.py::test_hinge_hessian_matvec_matches_jax_interpret`
+    (tol x max(1, max|H v|) of that lane)."""
+    import jax
+    from repro.kernels import ops as jops
+
+    B = 17
+    X, y = problem(n, p, seed=3)
+    rng = np.random.default_rng(17)
+    v = rng.standard_normal((B, n))
+    at = (rng.random((B, p)) > 0.4).astype(np.float64)
+    ab = (rng.random((B, p)) > 0.6).astype(np.float64)
+    t, C = rng.uniform(0.5, 3.0, B), rng.uniform(0.1, 10.0, B)
+    f32 = functools.partial(cpu, dtype=torch.float32)
+    hv = tops.hinge_hessian_matvec_lanes(*f32(X, y), torch.tensor(t), torch.tensor(C),
+                                         *f32(at, ab, v), precision=precision)
+    assert hv.shape == (B, n) and hv.dtype == torch.float32
+    Xj, yj = (jnp.asarray(a, jnp.float32) for a in (X, y))
+
+    def one(t_, C_, at_, ab_, v_):
+        return jops.hinge_hessian_matvec(Xj, yj, t_, C_, at_, ab_, v_, bp=32, bn=32, bk=32,
+                                         backend="tpu_interpret", precision=precision)
+
+    hvj = np.asarray(jax.vmap(one)(*(jnp.asarray(a, jnp.float32) for a in (t, C, at, ab, v))))
+    for i in range(B):
+        scale = max(1.0, float(np.abs(hvj[i]).max()))
+        np.testing.assert_allclose(npy(hv[i]), hvj[i], rtol=0, atol=tol * scale)

@@ -298,3 +298,64 @@ def test_gram_tc_row_split_covers_all_rows(n, p, sms, step):
     if (n, p, sms) == (463715, 90, 132):   # the YMSD shape: one pair
         assert (pairs, nsplit, rows) == {64: (1, 132, 3520), 96: (1, 131, 3552),
                                          128: (1, 130, 3584)}[step]
+
+
+#: the lane counts the shared-X route's plan is held at, in each mode and
+#: pass: G is the largest lane group the library builds for it
+LANE_EDGES = ["1", "2", "G-1", "G", "G+1", "17", "33"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("pass_", ["xtv", "xd"])
+@pytest.mark.parametrize("edge", LANE_EDGES)
+def test_lane_plan_covers_every_lane_once(dtype, pass_, edge):
+    """`hinge.plan` for a shared X: one lane takes the per-lane route; from
+    two lanes on, the shared-X route cuts the lanes into as few groups as
+    the largest built G allows, each lane in exactly one group, each group
+    of at most the chosen G (a built size) and sizes that differ by at most
+    one. A stacked X always takes the per-lane route. Pass 2's rows per
+    block are whole passes of 4 R rows (R = 4 rows from p = 1,024, 8
+    below)."""
+    sizes = thinge._SHARED_G[pass_][thinge._MODES[dtype]]
+    G = max(sizes)
+    B = {"G-1": G - 1, "G": G, "G+1": G + 1}.get(edge) or int(edge)
+    for n, p in [(180, 49_151), (33, 57), (1000, 4099), (7, 513)]:
+        stacked = thinge.plan(B, n, p, dtype, shared=False)
+        assert stacked == thinge.LanePlan("lanes", 0, 0, 0)
+        pl = thinge.plan(B, n, p, dtype, shared=True)
+        if B == 1:
+            assert pl == stacked
+            continue
+        assert pl.route == "shared"
+        g = pl.xtv_group if pass_ == "xtv" else pl.xd_group
+        assert g in sizes
+        groups = thinge.lane_groups(B, g)
+        assert [i for r in groups for i in r] == list(range(B))
+        assert len(groups) == -(-B // G)
+        lens = [len(r) for r in groups]
+        assert max(lens) <= g and max(lens) - min(lens) <= 1 and min(lens) >= 1
+        R = 4 if p >= 1024 else 8
+        assert pl.xd_rows > 0 and pl.xd_rows % (4 * R) == 0
+    with pytest.raises(TypeError, match="dtype"):
+        thinge.plan(B, 33, 57, torch.float16, shared=True)
+
+
+@pytest.mark.parametrize("n,p,B,dtype,sms", [
+    (180, 49_151, 9, torch.float64, 132), (180, 49_151, 16, torch.float64, 132),
+    (144, 49_151, 5, torch.float32, 132), (1000, 4099, 33, torch.bfloat16, 132),
+    (37, 513, 3, torch.float64, 114), (4097, 2049, 17, torch.float32, 78)])
+def test_lane_plan_rows_fill_the_waves(n, p, B, dtype, sms):
+    """Pass 2's rows per block on the shared route: whole passes of 4 R
+    rows, and no other choice fills the grid's waves of blocks (one an SM)
+    better, or as well with fewer blocks."""
+    pl = thinge.plan(B, n, p, dtype, shared=True, sms=sms)
+    step = 4 * (4 if p >= 1024 else 8)
+    chunks = -(-p // 4096) if p >= 1024 else 1
+    groups = len(thinge.lane_groups(B, pl.xd_group))
+
+    def score(rows):
+        blocks = groups * chunks * -(-n // rows)
+        return round(blocks / (-(-blocks // sms) * sms), 6), -blocks
+
+    assert pl.xd_rows % step == 0 and step <= pl.xd_rows <= -(-n // step) * step
+    assert all(score(pl.xd_rows) >= score(k * step) for k in range(1, -(-n // step) + 1))

@@ -517,18 +517,31 @@ def _lane(x, i, shared):
 
 #: (n, p) of the lane tests: every shape of the single passes' tests
 LANE_SHAPES = HINGE_SHAPES
+#: lane counts of the lane tests: G1 and G2 are the largest lane groups of
+#: the shared-X route's pass 1 and pass 2 in the test's mode
+LANE_COUNTS = ["1", "2", "9", "G1", "G1+1", "G2", "G2+1", "17", "33"]
+_PREC_DTYPE = {"f32": torch.float32, "bf16": torch.bfloat16, "f64": torch.float64}
+
+
+def _lane_count(label, precision):
+    """The B of a LANE_COUNTS label in `precision`'s mode."""
+    mode = thinge._MODES[_PREC_DTYPE[precision]]
+    g1, g2 = (max(thinge._SHARED_G[k][mode]) for k in ("xtv", "xd"))
+    return {"G1": g1, "G1+1": g1 + 1, "G2": g2, "G2+1": g2 + 1}.get(label) or int(label)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,p", LANE_SHAPES)
-@pytest.mark.parametrize("B", [1, 2, 9])
+@pytest.mark.parametrize("B", LANE_COUNTS)
 @pytest.mark.parametrize("shared", [True, False])
 @pytest.mark.parametrize("precision", ["f32", "bf16", "f64"])
 def test_cuda_hinge_lanes_bitwise_single_launches(cuda_device, precision, shared, B, n, p):
     """Each lane of the lane-batched passes is bitwise a single launch on
     that lane's operands (the same addresses: the stacks' rows), with X and
-    y shared or stacked and X at a storage offset; one lane-batched launch
+    y shared (the shared-X route from two lanes on, in one or more lane
+    groups) or stacked and X at a storage offset; one lane-batched launch
     counts one launch."""
+    B = _lane_count(B, precision)
     X, y, v, at, ab, t, C = _lane_operands(cuda_device, B, n, p, precision, shared,
                                            offset=3)
     before = (thinge.hinge_xtv_lanes_cuda.launches, thinge.hinge_xd_lanes_cuda.launches)
@@ -554,6 +567,61 @@ def test_cuda_hinge_lanes_bitwise_single_launches(cuda_device, precision, shared
         d2, e2 = thinge.hinge_xtv_lanes_cuda(X, y, v, t, at, ab)
         assert torch.equal(d2, d) and torch.equal(e2, e_part)
         assert torch.equal(thinge.hinge_xd_lanes_cuda(X, y, d2, e2, v, t, C), hv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [9, 16])
+@pytest.mark.parametrize("precision", ["f32", "bf16", "f64"])
+def test_cuda_hinge_shared_route_repeats_at_glabra(cuda_device, precision, B):
+    """The shared-X route at the GLA-BRA-180 shape (180 x 49,151, the
+    batched primal's): three launches of each pass give the same bits, each
+    lane is bitwise a single launch, and every ticket is 0 afterwards."""
+    X, y, v, at, ab, t, C = _lane_operands(cuda_device, B, 180, 49_151, precision, True,
+                                           offset=0)
+    assert thinge.plan(B, 180, 49_151, X.dtype, True).route == "shared"
+    d, e_part = thinge.hinge_xtv_lanes_cuda(X, y, v, t, at, ab)
+    hv = thinge.hinge_xd_lanes_cuda(X, y, d, e_part, v, t, C)
+    for _ in range(3):
+        d2, e2 = thinge.hinge_xtv_lanes_cuda(X, y, v, t, at, ab)
+        assert torch.equal(d2, d) and torch.equal(e2, e_part)
+        assert torch.equal(thinge.hinge_xd_lanes_cuda(X, y, d2, e2, v, t, C), hv)
+    torch.cuda.synchronize()
+    assert all(int(b.abs().sum()) == 0 for b in thinge._TICKETS.values())
+    for i in (0, B - 1):
+        di, ei = thinge.hinge_xtv_cuda(X, y, v[i], float(t[i]), at[i], ab[i])
+        assert torch.equal(d[i], di) and torch.equal(e_part[i], ei)
+        assert torch.equal(hv[i], thinge.hinge_xd_cuda(X, y, di, ei, v[i], float(t[i]),
+                                                       float(C[i])))
+
+
+@pytest.mark.gpu
+def test_cuda_hinge_shared_groups_match_library(cuda_device):
+    """The lane-group sizes the plan picks from are the ones the library
+    builds, and the library refuses any other G, a stacked X and one lane
+    on the shared-X route."""
+    lib = thinge._lib()
+    for k, pass_ in (("xtv", 0), ("xd", 1)):
+        for mode in (0, 1, 2):
+            built = tuple(lib.sven_hinge_shared_group(pass_, mode, i) for i in (0, 1))
+            assert built == thinge._SHARED_G[k][mode]
+    X, y, v, at, ab, t, _ = _lane_operands(cuda_device, 3, 33, 57, "f64", True, 0)
+    d = torch.empty_like(at)
+    e_part = torch.empty((3, lib.sven_hinge_xtv_blocks(57)), dtype=torch.float64,
+                         device=cuda_device)
+    invt = 1.0 / t
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+
+    def launch(x_stride, lanes, group):
+        return lib.sven_hinge_xtv_lanes(X.data_ptr(), 2, x_stride, v.data_ptr(),
+                                        y.data_ptr(), 0, at.data_ptr(), ab.data_ptr(),
+                                        d.data_ptr(), e_part.data_ptr(), 33, 57, lanes,
+                                        invt.data_ptr(), group, stream)
+
+    G = thinge._SHARED_G["xtv"][2][0]
+    assert launch(0, 3, G) == 0
+    for x_stride, lanes, group in ((0, 3, G + 1), (0, 3, 64), (33 * 57, 3, G), (0, 1, G)):
+        assert launch(x_stride, lanes, group) != 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
