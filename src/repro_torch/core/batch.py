@@ -31,7 +31,7 @@ import torch
 
 from repro_torch.core.sven import (SvenBatchSolution, SvenConfig, _sven_core,
                                    _sven_core_lanes, resolve_backend)
-from repro_torch.core.svm import host_float
+from repro_torch.core.svm import host_float, pitched
 from repro_torch.device import resolve_device
 
 #: the layouts `route` names in JAX (`batch_mesh`); none has an effect here
@@ -147,7 +147,9 @@ def cv_folds(X, y, k: int):
     Uses the first k*(n//k) rows so every fold, and therefore every stacked
     training problem, has the same shape. Returns (X_train (k, n-f, p),
     y_train (k, n-f), X_val (k, f, p), y_val (k, f)), f = n // k, as
-    new tensors where X lies (array-likes go to the CUDA device).
+    new tensors where X lies (array-likes go to the CUDA device); each fold
+    of X_train is laid out as a fresh tensor (`pitched`), as `sven_batch`
+    solves its lanes, so it solves them without a copy.
     """
     dev = resolve_device(None, X, y)
     X = torch.as_tensor(X, device=dev)
@@ -162,4 +164,4 @@ def cv_folds(X, y, k: int):
     val_idx = idx.reshape(k, fold)
     train_idx = torch.stack([torch.cat([idx[: i * fold], idx[(i + 1) * fold:]])
                              for i in range(k)])
-    return X[train_idx], y[train_idx], X[val_idx], y[val_idx]
+    return pitched(X[train_idx]), y[train_idx], X[val_idx], y[val_idx]

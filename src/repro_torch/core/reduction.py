@@ -25,6 +25,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.core.svm.state import pitched
+
 
 # --------------------------------------------------------------------------
 # Explicit construction (paper-faithful)
@@ -136,7 +138,8 @@ class SvenLaneOperator:
     """`SvenOperator` for B problems at once: X (n, p) shared by the lanes or
     (B, n, p), y (n,) or (B, n), t a list of B floats. Every product takes
     and returns a leading lane axis and is each lane's `SvenOperator`
-    product, with its bits (see `core/svm/state.py::lanes`)."""
+    product, with its bits: each lane's operand is handed over laid out as
+    a fresh tensor (see `core/svm/state.py::lanes`)."""
 
     def __init__(self, X: torch.Tensor, y: torch.Tensor, t):
         self.ops = [SvenOperator(X=X if X.dim() == 2 else X[i],
@@ -144,6 +147,7 @@ class SvenLaneOperator:
                     for i, ti in enumerate(t)]
 
     def _each(self, name: str, v: torch.Tensor) -> torch.Tensor:
+        v = pitched(v)
         return torch.stack([getattr(op, name)(v[i]) for i, op in enumerate(self.ops)])
 
     def xhat_matvec(self, w: torch.Tensor) -> torch.Tensor:

@@ -36,9 +36,10 @@ import torch
 
 from repro_torch.core import elastic_net as en
 from repro_torch.core import reduction as red
-from repro_torch.core.svm import (host_list, lanes, solve_dual_fista, solve_dual_fista_lanes,
-                                  solve_dual_newton, solve_dual_newton_lanes,
-                                  solve_primal_newton, solve_primal_newton_lanes)
+from repro_torch.core.svm import (host_list, lanes, pitched, solve_dual_fista,
+                                  solve_dual_fista_lanes, solve_dual_newton,
+                                  solve_dual_newton_lanes, solve_primal_newton,
+                                  solve_primal_newton_lanes)
 from repro_torch.device import resolve_device
 
 
@@ -293,6 +294,11 @@ def _sven_core_lanes(X, y, t: torch.Tensor, lambda2: torch.Tensor, warm_alpha, w
         X = X * keepf.unsqueeze(-2)     # a (B, p) mask stacks a shared X
         if warm_alpha is not None:
             warm_alpha = warm_alpha * torch.cat([keepf, keepf], dim=-1)
+    # each lane of a stacked X laid out as a fresh tensor, as the single
+    # solve's X is (a copy only where the stack is not): pass 2 of the hinge
+    # kernels splits each row at its own 16-byte boundary
+    if X.dim() == 3:
+        X = pitched(X)
     # svm_C of each lane, in float64 as on the host
     C = (1.0 / (2.0 * torch.clamp(lambda2.to(torch.float64),
                                   min=config.lambda2_floor))).to(dtype)
@@ -305,8 +311,8 @@ def _sven_core_lanes(X, y, t: torch.Tensor, lambda2: torch.Tensor, warm_alpha, w
         if config.matrix_free:
             matvec, rmatvec = op.xhat_matvec, op.xhat_rmatvec
         else:
-            Xhat = torch.stack([red.build_svm_dataset(_lane(X, i, 2), _lane(y, i, 1),
-                                                      ts[i])[0] for i in range(B)])
+            Xhat = pitched(torch.stack([red.build_svm_dataset(
+                _lane(X, i, 2), _lane(y, i, 1), ts[i])[0] for i in range(B)]))
             matvec = lambda w: lanes(torch.matmul, Xhat, w)                    # noqa: E731
             rmatvec = lambda v: lanes(lambda A, u: A.T @ u, Xhat, v)          # noqa: E731
         yhat = torch.cat([X.new_ones(p), -X.new_ones(p)])
@@ -314,9 +320,11 @@ def _sven_core_lanes(X, y, t: torch.Tensor, lambda2: torch.Tensor, warm_alpha, w
         if kernels:
             from repro_torch.kernels.ops import _storage, hinge_hessian_matvec_lanes
             # made once per solve; a shared X stays one (n, p) operand that
-            # every lane reads (stride 0)
+            # every lane reads (stride 0), a stacked one keeps its lanes'
+            # layout (`pitched`)
             kdtype = _kernel_dtype(dtype, config.precision)
-            Xk = _storage(X.to(kdtype).contiguous(), config.precision)
+            Xk = _storage(X.to(kdtype), config.precision)
+            Xk = pitched(Xk) if Xk.dim() == 3 else Xk.contiguous()
             yk = y.to(kdtype).contiguous()
 
             def hess_matvec(v, act, C_):  # one launch of each pass for all lanes
@@ -342,16 +350,20 @@ def _sven_core_lanes(X, y, t: torch.Tensor, lambda2: torch.Tensor, warm_alpha, w
             if kernels:
                 from repro_torch.kernels.ops import shifted_gram
                 kdtype = _kernel_dtype(dtype, config.precision)
-                Xk, yk = X.to(kdtype).contiguous(), y.to(kdtype).contiguous()
-                K = torch.stack([shifted_gram(_lane(Xk, i, 2), _lane(yk, i, 1), ts[i],
+                Xk, yk = X.to(kdtype), y.to(kdtype)
+                if Xk.dim() == 3:
+                    Xk = pitched(Xk)
+                K = torch.stack([shifted_gram(_lane(Xk, i, 2).contiguous(),
+                                              _lane(yk, i, 1).contiguous(), ts[i],
                                               backend=config.backend,
                                               precision=config.precision)
                                  for i in range(B)]).to(dtype)
+                K = pitched(K)
                 refine = config.precision != "f32"
             else:
                 gram = red.gram_blocks if config.matrix_free else red.gram_reference
-                K = torch.stack([gram(_lane(X, i, 2), _lane(y, i, 1), ts[i])
-                                 for i in range(B)])
+                K = pitched(torch.stack([gram(_lane(X, i, 2), _lane(y, i, 1), ts[i])
+                                         for i in range(B)]))
             kernel_matvec = lambda v: lanes(torch.matmul, K, v)   # noqa: E731
         else:
             kernel_matvec = op.kernel_matvec
@@ -369,10 +381,12 @@ def _sven_core_lanes(X, y, t: torch.Tensor, lambda2: torch.Tensor, warm_alpha, w
         alpha = res.alpha
         w, iters, residual = op.zhat_matvec(alpha), res.iters, res.pg_norm
 
-    beta = torch.stack([red.recover_beta(alpha[i], ts[i]) for i in range(B)])
+    alpha_l = pitched(alpha)
+    beta = torch.stack([red.recover_beta(alpha_l[i], ts[i]) for i in range(B)])
     if keepf is not None:
         beta = beta * keepf
-    kkt = torch.stack([en.kkt_violation(_lane(X_full, i, 2), _lane(y, i, 1), beta[i],
+    beta_l = pitched(beta)
+    kkt = torch.stack([en.kkt_violation(_lane(X_full, i, 2), _lane(y, i, 1), beta_l[i],
                                         lambda2[i]) for i in range(B)])
     return SvenBatchSolution(beta=beta, alpha=alpha, w=w, iters=iters,
                              opt_residual=residual, kkt=kkt, cg_iters=cg, mode=mode)

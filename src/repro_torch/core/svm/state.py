@@ -26,8 +26,11 @@ stacked tensors; every product and reduction runs per lane (`lanes`), as
 the single solve's own op on that lane, because a batched product or sum
 rounds in another order (on the CPU, `bmm` and `sum(-1)` lie 3e-15 from
 `mv` and `@` on the same lanes) and CG, which runs for hundreds of steps,
-turns such differences into other step counts. So each lane takes exactly
-the steps of its single solve, with its bits.
+turns such differences into other step counts. The op gets its lane laid
+out as a fresh tensor (`pitched`), because some ops order their sums by
+their operand's address (on CUDA, `torch.sum` and `torch.linalg.norm`
+take a head of elements up to a 32-byte boundary). So each lane takes
+exactly the steps of its single solve, with its bits.
 """
 from __future__ import annotations
 
@@ -149,9 +152,50 @@ def lane_where(mask: torch.Tensor, new, old):
     return torch.where(mask.view(-1, *([1] * (new.dim() - 1))), new, old)
 
 
+#: the bytes between two lanes' slices in a `pitched` stack: the alignment of
+#: a fresh tensor from PyTorch's CUDA caching allocator
+LANE_PITCH = 512
+
+
+def _fresh_align(x: torch.Tensor) -> int:
+    """The alignment in bytes of a fresh tensor on x's device: 512 from the
+    CUDA caching allocator, 64 from the CPU allocator."""
+    return LANE_PITCH if x.is_cuda else 64
+
+
+def pitched(x: torch.Tensor) -> torch.Tensor:
+    """x (B, ...) with each lane's slice x[i] contiguous and starting a
+    multiple of LANE_PITCH bytes past the stack's base, which is aligned as
+    a fresh tensor: so an op that chooses its order of sums by its
+    operand's address (PyTorch's vectorised reductions take a head of
+    elements up to the operand's vector alignment) sums lane i in the order
+    of the single solve, whose operands are fresh tensors. x itself when it
+    is so laid out already, else a copy: one launch. `pitched.copies`
+    counts the copies (a plain integer; callers reset it)."""
+    size, row = x.element_size(), x[0].numel()
+    if ((x.shape[0] == 1 or x.stride(0) * size % LANE_PITCH == 0)
+            and x.data_ptr() % _fresh_align(x) == 0 and x[0].is_contiguous()):
+        return x
+    pitch = -(-row * size // LANE_PITCH) * LANE_PITCH // size
+    buf = x.new_empty((x.shape[0], pitch))[:, :row]
+    buf.copy_(x.reshape(x.shape[0], row))
+    pitched.copies += 1
+    return buf.view(x.shape)
+
+
+pitched.copies = 0
+
+
 def lanes(fn: Callable, *xs: torch.Tensor) -> torch.Tensor:
     """fn on each lane, stacked: fn(x1[i], x2[i], ...) for i < B. The single
-    solve's op on each lane, so each lane's bits are the single solve's."""
+    solve's op on each lane, on lanes laid out as fresh tensors (`pitched`;
+    an operand passed twice is laid out once), so each lane's bits are the
+    single solve's."""
+    laid = {}
+    for x in xs:
+        if x.dim() > 1 and id(x) not in laid:
+            laid[id(x)] = pitched(x)
+    xs = [laid.get(id(x), x) for x in xs]
     return torch.stack([fn(*(x[i] for x in xs)) for i in range(xs[0].shape[0])])
 
 
@@ -179,8 +223,10 @@ def cg_lanes(matvec: Callable, b: torch.Tensor, active: torch.Tensor, maxiter: i
     exit (rs <= tol^2, tol (B,)): the vmapped form of the solvers' CG. Lanes
     not `active` take no step. Returns (x (B, d), iterations (B,) int64).
     `cg_lanes.steps` counts the batched steps, each one `matvec` for all
-    lanes (a plain integer; callers reset it)."""
+    lanes, and `cg_lanes.copies` the `pitched` copies its steps make (plain
+    integers; callers reset them)."""
     x, r, pvec, rs = torch.zeros_like(b), b, b, lane_dot(b, b)
+    copies = pitched.copies
     one = torch.ones_like(rs)
     thr = tol * tol
     its = torch.zeros(b.shape[0], dtype=torch.int64, device=b.device)
@@ -201,7 +247,8 @@ def cg_lanes(matvec: Callable, b: torch.Tensor, active: torch.Tensor, maxiter: i
         its += run
         it += 1
         cg_lanes.steps += 1
+    cg_lanes.copies += pitched.copies - copies
     return x, its
 
 
-cg_lanes.steps = 0
+cg_lanes.steps = cg_lanes.copies = 0

@@ -53,28 +53,29 @@
 //
 // Lanes: both passes also launch once for a stack of B problems (the
 // lane-batched solve of core/batch.py), the port of the leading grid axis
-// that JAX's vmap gives the Pallas kernels. On the per-lane route the lane
-// is blockIdx.z; each block offsets its pointers by its lane (X by 0 when the lanes share it,
-// else by n p; y by 0 or n) and reads its lane's 1/t and 2C from device
-// arrays. Inside a lane the blocks, the layout and the order of every sum
-// are the single launch's, so a lane's results are bitwise those of a
-// single launch on that lane's operands (at the same addresses: pass 2
-// splits a row at its own 16-byte boundary). The lane forms are separate
-// instantiations (kLanes), so the single launch's code is unchanged. Bound
-// of a lane-batched pass: B reads of X when the lanes stack X, one read when
-// they share it. The per-lane form reads a shared X once per lane (lane 0's
-// blocks all run before lane 1's, and 70.8 MB of float64 X does not stay in
-// the L2), so a shared X with two or more lanes takes the shared-X route
-// (hinge_xtv_shared, hinge_xd_shared): a block takes its strip or tile for a
-// group of up to G lanes, each element of X it loads feeds every lane of the
-// group, and the groups that read one strip or tile are neighbours in the
-// grid, so all but the first find it in the L2. Each lane's sums keep the
-// single launch's order there too (see each kernel), so every lane of either
-// route is bitwise a single launch. kernels/hinge.py::plan picks the route,
-// G and pass 2's rows per block. What bounds the shared route (PERF.md §6):
-// in pass 1, the loads of X an SM keeps in flight while G lanes'
-// accumulators hold its registers; in pass 2, its reads of d from shared
-// memory, one per element of X and lane, which its paired rows halve.
+// that JAX's vmap gives the Pallas kernels, on one of two routes. Bound of a
+// lane-batched pass: B reads of X when the lanes stack X, one read when
+// they share it. A stacked X (or one lane) takes the stacked route: pass 1
+// is the single launch's kernel with the lane on grid z (an instantiation
+// of its own, kLanes, so the single launch's code is unchanged); pass 2 is
+// hinge_xd_stacked, a block per (lane, chunk) and many rows. A shared X with
+// two or more lanes takes the shared-X route (hinge_xtv_shared,
+// hinge_xd_shared): a block takes its strip or tile for a group of up to G
+// lanes, each element of X it loads feeds every lane of the group, and the
+// groups that read one strip or tile are neighbours in the grid, so all but
+// the first find it in the L2. Each lane's sums keep the single launch's
+// order on either route (see each kernel), and pass 2 splits each row at
+// its own 16-byte boundary as the single launch does, so every lane is
+// bitwise a single launch on that lane's operands at the same addresses (a
+// stacked X whose lanes lie a multiple of 16 bytes apart, as
+// core/svm/state.py::pitched lays them out, gives each lane the single
+// launch's bits on a fresh copy too). Each lane's 1/t and 2C are taken from
+// its float64 t and C in the kernel, as the host takes them for a single
+// launch. kernels/hinge.py::plan picks the route, the lane groups and pass
+// 2's rows per block. What bounds the shared route (PERF.md §6): in pass 1,
+// the loads of X an SM keeps in flight while G lanes' accumulators hold its
+// registers; in pass 2, its reads of d from shared memory, one per element
+// of X and lane, which its paired rows halve.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -123,16 +124,26 @@ template <typename A> __device__ __forceinline__ A block_sum(A v, A* red, int ti
   return s;
 }
 
-// The lane operands of a lane-batched launch (kLanes): the elements
-// between two lanes' X (0: shared, or n p) and y (0 or n), and each lane's
-// 1/t and 2C (B,) in the summing type. Every other operand is stacked
-// densely by lane.
+// The lane operands of a lane-batched launch: the elements between two
+// lanes' X (0: shared, or at least n p) and y (0, or at least n), and each
+// lane's t and C (B,) in float64. Every other operand is stacked densely by
+// lane.
 template <typename A> struct Lanes {
   int64_t x_stride;
   int64_t y_stride;
-  const A* invt;
-  const A* twoC;
+  const double* t;
+  const double* C;
 };
+
+// Lane l's 1/t and 2C in the summing type: taken in double and rounded once,
+// as the host computes them for a single launch (IEEE division is correctly
+// rounded on both).
+template <typename A> __device__ __forceinline__ A lane_invt(const Lanes<A>& ls, int64_t l) {
+  return A(1.0 / ls.t[l]);
+}
+template <typename A> __device__ __forceinline__ A lane_twoC(const Lanes<A>& ls, int64_t l) {
+  return A(2.0 * ls.C[l]);
+}
 
 // ---------------------------------------------------------------- pass 1 ---
 // Loads of X each thread keeps in flight in one step of its row loop: 64
@@ -148,7 +159,8 @@ constexpr int kCols = 32 * CPT;     // columns per block of pass 1
 // A step of its row loop issues U x CPT loads (U rows), each a warp-wide
 // 128-byte (f32) or 256-byte (f64) read of one row, before its first FMA.
 // Every column is summed over its rows in row order within a warp and over
-// the warps in warp order. With kLanes, blockIdx.z is the lane.
+// the warps in warp order. With kLanes (pass 1 of the stacked route),
+// blockIdx.z is the lane.
 template <typename T, bool kLanes, typename A = acc_t<T>>
 __global__ void __launch_bounds__(kThreads, 4)
 hinge_xtv(const T* __restrict__ X, const A* __restrict__ v,
@@ -203,7 +215,7 @@ hinge_xtv(const T* __restrict__ X, const A* __restrict__ v,
   A byv = 0;
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) byv += red[w];
-  if constexpr (kLanes) invt = ls.invt[blockIdx.z];
+  if constexpr (kLanes) invt = lane_invt(ls, blockIdx.z);
   byv *= invt;
   if (threadIdx.x < kCols) {   // whole warps: kCols is a multiple of 32
     A c = 0;
@@ -276,10 +288,10 @@ __host__ __device__ constexpr int xtv_rows(int words, int loads) {
 // the L2. Warp w takes row class w % 8 (rows w % 8, w % 8 + 8, ...) and
 // column half w / 8 of the strip, kShCPT columns 32 apart a thread. The
 // group's v is staged in shared memory as [row][lane], kVRows rows at a
-// time, and read as a broadcast; its act_top, act_bot of the strip and 1/t
-// are copied to shared memory (cp.async) while X streams, so the epilogue
-// waits on no load from memory. Every lane's sums are the single launch's,
-// in its order: byv by the first 256 threads as its block sums it (first,
+// time, and read as a broadcast; its act_top, act_bot of the strip are
+// copied to shared memory (cp.async) while X streams, and its 1/t written
+// there, so the epilogue waits on no load from memory. Every lane's sums
+// are the single launch's, in its order: byv by the first 256 threads as its block sums it (first,
 // before the accumulators take their registers); column j of lane g over
 // its row class in row order (a padding row would add +0 to an accumulator
 // that cannot be -0, so it is skipped), then the 8 classes in class order;
@@ -316,7 +328,7 @@ hinge_xtv_shared(const T* __restrict__ X, const A* __restrict__ v,
       cp_async(&abs_[g][c], ab + (int64_t)(l0 + g) * p + j);
     }
   }
-  if (tid < gl) cp_async(&invts[tid], ls.invt + l0 + tid);
+  if (tid < gl) invts[tid] = lane_invt(ls, l0 + tid);
 
   // byv of each lane, summed by the first 256 threads as a single launch's
   // block sums it, before the accumulators of X^T v take their registers
@@ -377,7 +389,7 @@ hinge_xtv_shared(const T* __restrict__ X, const A* __restrict__ v,
     }
   }
 
-  cp_async_wait_all();               // ats, abs_, invts: visible after the next barrier
+  cp_async_wait_all();               // ats, abs_ (and invts): visible after the next barrier
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     if (g >= gl) break;                 // block-uniform
@@ -475,14 +487,13 @@ __device__ __forceinline__ double vdot(const double2& x, const double* ds, int i
 // grid (ceil(n / R), chunks); R rows of one chunk per block, 256 / R threads
 // per row. With more than one chunk, part (n, chunks) holds the partials and
 // ticket (ceil(n / R),) counts the finished chunks of each row group; it is
-// 0 before the launch and 0 again after it. With kLanes, blockIdx.z is the
-// lane, and part and ticket hold B such blocks, one after another.
-template <typename T, int R, bool kLanes, typename A = acc_t<T>>
+// 0 before the launch and 0 again after it.
+template <typename T, int R, typename A = acc_t<T>>
 __global__ void __launch_bounds__(kThreads)
 hinge_xd(const T* __restrict__ X, const A* __restrict__ d,
          const A* __restrict__ e_part, int n_epart, const A* __restrict__ y,
          const A* __restrict__ v, A* __restrict__ hv, A* __restrict__ part,
-         int* __restrict__ ticket, int n, int p, A invt, A twoC, Lanes<A> ls) {
+         int* __restrict__ ticket, int n, int p, A invt, A twoC) {
   constexpr int TPR = kThreads / R;   // threads per row
   constexpr int WPR = TPR / 32;       // warps per row
   constexpr int VEC = Vec<T>::n;
@@ -494,21 +505,6 @@ hinge_xd(const T* __restrict__ X, const A* __restrict__ d,
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int nchunk = gridDim.y;
-  if constexpr (kLanes) {
-    const int64_t l = blockIdx.z;
-    X += l * ls.x_stride;
-    y += l * ls.y_stride;
-    d += l * p;
-    e_part += l * n_epart;
-    v += l * n;
-    hv += l * n;
-    if (nchunk > 1) {
-      part += l * n * nchunk;
-      ticket += l * gridDim.x;
-    }
-    invt = ls.invt[l];
-    twoC = ls.twoC[l];
-  }
   const int j0 = blockIdx.y * kChunk;
   const int len = min(kChunk, p - j0);
   for (int i = tid; i < len; i += kThreads) ds[slot<A>(i)] = d[j0 + i];
@@ -571,6 +567,137 @@ hinge_xd(const T* __restrict__ X, const A* __restrict__ d,
   for (int i = tid; i < n_epart; i += kThreads) es += e_part[i];
   const A e = block_sum(es, red, tid);
   if (owner) hv[mine_row] = v[mine_row] + twoC * (dot + y[mine_row] * invt * e);
+}
+
+// Pass 2 on a stacked X (or one lane), replacing the per-lane form that ran
+// the kernel above with the lane on grid z. Bound: B reads of X. The
+// per-lane form's blocks took R rows of one chunk (2,160 blocks at 9b), each
+// staging a 32 KB chunk of d from the L2 for 128 KB of X: a quarter more
+// traffic, and one L2 round trip before its first load of X. Here a block
+// takes one (lane, chunk) and `rows` rows (a multiple of R; kernels/
+// hinge.py::plan sizes them): it stages the chunk once and walks its rows R
+// at a time (in float64 with 8 vectors of X in flight a thread, not 4),
+// each row summed by the single launch's threads in its order (the same
+// code as above: head and tail from the row's own address, the
+// vector-to-accumulator map, warp_sum, the row's warps in order); with more
+// than one chunk the last block of a (lane, row block), found by its
+// ticket, sums each row's partials in chunk order and e as a single
+// launch's block sums it, and sets the ticket back to 0. So each lane is
+// bitwise a single launch.
+template <typename T, int R, typename A = acc_t<T>>
+__global__ void __launch_bounds__(kThreads)
+hinge_xd_stacked(const T* __restrict__ X, const A* __restrict__ d,
+                 const A* __restrict__ e_part, int n_epart, const A* __restrict__ y,
+                 const A* __restrict__ v, A* __restrict__ hv, A* __restrict__ part,
+                 int* __restrict__ ticket, int n, int p, int lanes, int rows, Lanes<A> ls) {
+  constexpr int TPR = kThreads / R;   // threads per row
+  constexpr int WPR = TPR / 32;       // warps per row
+  constexpr int VEC = Vec<T>::n;
+  // 16-byte vectors of X a thread keeps in flight: 8 in float64, whose rows
+  // are twice as long in bytes, else the single launch's 4
+  constexpr int kDeep = sizeof(T) == 8 ? 8 : 4;
+  using VT = typename Vec<T>::type;
+  __shared__ A ds[kChunk + (kChunk >> Pad<A>::shift)];
+  __shared__ A red[kWarps];
+  __shared__ A wsum[kWarps];
+  __shared__ int last;
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int nchunk = gridDim.y, chunk = blockIdx.y;
+  const int64_t l = blockIdx.x % lanes;
+  const int rblk = blockIdx.x / lanes;
+  X += l * ls.x_stride;
+  y += l * ls.y_stride;
+  d += l * p;
+  e_part += l * n_epart;
+  v += l * n;
+  hv += l * n;
+  part += l * n * nchunk;
+  const A invt = lane_invt(ls, l), twoC = lane_twoC(ls, l);
+  const int j0 = chunk * kChunk;
+  const int len = min(kChunk, p - j0);
+  for (int i = tid; i < len; i += kThreads) ds[slot<A>(i)] = d[j0 + i];
+  A e = 0;
+  if (nchunk == 1) {   // every block needs e with one chunk, only the last with more
+    A es = 0;
+    for (int i = tid; i < n_epart; i += kThreads) es += e_part[i];
+    e = block_sum(es, red, tid);   // its barriers also publish ds
+  }
+  __syncthreads();
+
+  const int lt = tid % TPR;
+  const int row0 = rblk * rows, row_end = min(n, row0 + rows);
+  for (int r0 = row0; r0 < row_end; r0 += R) {   // block-uniform
+    const int row = r0 + tid / TPR;
+    A a0 = 0, a1 = 0, a2 = 0, a3 = 0;
+    if (row < row_end) {
+      const T* xr = X + (int64_t)row * p + j0;
+      const int mis = (int)(reinterpret_cast<uintptr_t>(xr) & 15u);
+      const int head = min(len, ((16 - mis) & 15) / (int)sizeof(T));
+      if (lt < head) a0 = ld<T>(xr, lt) * ds[slot<A>(lt)];
+      const int nv = (len - head) / VEC;
+      const VT* xv = reinterpret_cast<const VT*>(xr + head);
+      int k = lt;
+      if constexpr (kDeep > 4) {
+        // kDeep vectors in flight, summed four at a time into a0..a3: the
+        // FMAs of the single launch's unrolled loop, in its order
+        for (; k + (kDeep - 1) * TPR < nv; k += kDeep * TPR) {
+          VT x[kDeep];
+#pragma unroll
+          for (int m = 0; m < kDeep; ++m) x[m] = __ldg(xv + k + m * TPR);
+#pragma unroll
+          for (int m = 0; m < kDeep; m += 4) {
+            a0 = vdot(x[m], ds, head + (k + m * TPR) * VEC, a0);
+            a1 = vdot(x[m + 1], ds, head + (k + (m + 1) * TPR) * VEC, a1);
+            a2 = vdot(x[m + 2], ds, head + (k + (m + 2) * TPR) * VEC, a2);
+            a3 = vdot(x[m + 3], ds, head + (k + (m + 3) * TPR) * VEC, a3);
+          }
+        }
+      }
+      for (; k + 3 * TPR < nv; k += 4 * TPR) {
+        const VT x0 = __ldg(xv + k), x1 = __ldg(xv + k + TPR);
+        const VT x2 = __ldg(xv + k + 2 * TPR), x3 = __ldg(xv + k + 3 * TPR);
+        a0 = vdot(x0, ds, head + k * VEC, a0);
+        a1 = vdot(x1, ds, head + (k + TPR) * VEC, a1);
+        a2 = vdot(x2, ds, head + (k + 2 * TPR) * VEC, a2);
+        a3 = vdot(x3, ds, head + (k + 3 * TPR) * VEC, a3);
+      }
+      for (; k < nv; k += TPR) a0 = vdot(__ldg(xv + k), ds, head + k * VEC, a0);
+      const int tail = head + nv * VEC + lt;
+      if (tail < len) a1 = mad(ld<T>(xr, tail), ds[slot<A>(tail)], a1);
+    }
+    const A acc = warp_sum((a0 + a1) + (a2 + a3));
+    if (lane == 0) wsum[warp] = acc;
+    __syncthreads();
+    if (tid < R && r0 + tid < row_end) {   // thread r owns row r0 + r
+      const int mine_row = r0 + tid;
+      A dot = 0;
+#pragma unroll
+      for (int w = 0; w < WPR; ++w) dot += wsum[tid * WPR + w];
+      if (nchunk > 1)
+        part[(int64_t)mine_row * nchunk + chunk] = dot;
+      else
+        hv[mine_row] = v[mine_row] + twoC * (dot + y[mine_row] * invt * e);
+    }
+    __syncthreads();   // wsum is read before the next rows write it
+  }
+  if (nchunk == 1) return;
+
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(&ticket[blockIdx.x], 1) == nchunk - 1;
+  __syncthreads();
+  if (!last) return;                 // block-uniform
+  __threadfence();
+  A es = 0;
+  for (int i = tid; i < n_epart; i += kThreads) es += e_part[i];
+  e = block_sum(es, red, tid);
+  for (int mine_row = row0 + tid; mine_row < row_end; mine_row += kThreads) {
+    A dot = 0;
+    for (int c = 0; c < nchunk; ++c) dot += __ldcg(&part[(int64_t)mine_row * nchunk + c]);
+    hv[mine_row] = v[mine_row] + twoC * (dot + y[mine_row] * invt * e);
+  }
+  if (tid == 0) ticket[blockIdx.x] = 0;   // every block of the row block has counted
 }
 
 // The padded chunk of d a block of pass 2 stages for one lane.
@@ -788,7 +915,7 @@ hinge_xd_shared(const T* __restrict__ X, const A* __restrict__ d,
         if (nchunk > 1) {
           part[(l * n + mine_row) * nchunk + chunk] = dot;
         } else {
-          const A invt = ls.invt[l], twoC = ls.twoC[l], e = es[g];
+          const A invt = lane_invt(ls, l), twoC = lane_twoC(ls, l), e = es[g];
           const A* yl = y + l * ls.y_stride;
           hv[l * n + mine_row] = v[l * n + mine_row] + twoC * (dot + yl[mine_row] * invt * e);
         }
@@ -823,7 +950,7 @@ hinge_xd_shared(const T* __restrict__ X, const A* __restrict__ d,
       dot += q3;
     }
     for (; c < nchunk; ++c) dot += __ldcg(pr + c);
-    const A invt = ls.invt[l], twoC = ls.twoC[l], e = es[g];
+    const A invt = lane_invt(ls, l), twoC = lane_twoC(ls, l), e = es[g];
     const A* yl = y + l * ls.y_stride;
     hv[l * n + mine_row] = v[l * n + mine_row] + twoC * (dot + yl[mine_row] * invt * e);
   }
@@ -837,9 +964,9 @@ __host__ __device__ inline int xd_chunks(int p) {
 }
 
 // The scalars come in as double and are rounded to the summing type here:
-// the f32 and bf16 modes multiply by the same float 1/t and 2C as ever. A
-// lane-batched launch (kLanes) takes `lanes_n` lanes on grid z and reads
-// each lane's scalars from ls.invt / ls.twoC instead.
+// the f32 and bf16 modes multiply by the same float 1/t and 2C as ever.
+// A lane-batched launch (kLanes) takes `lanes_n` lanes on grid z and reads
+// each lane's 1/t from ls instead.
 template <typename T, bool kLanes>
 cudaError_t launch_xtv(const void* X, const void* v, const void* y, const void* at,
                        const void* ab, void* d, void* e_part, int n, int p, double invt,
@@ -853,34 +980,32 @@ cudaError_t launch_xtv(const void* X, const void* v, const void* y, const void* 
   return cudaGetLastError();
 }
 
-template <typename T, bool kLanes>
+template <typename T>
 cudaError_t launch_xd(const void* X, const void* d, const void* e_part, int n_epart,
                       const void* y, const void* v, void* hv, void* part, int* ticket,
-                      int n, int p, double invt, double twoC, Lanes<acc_t<T>> ls,
-                      int lanes_n, cudaStream_t s) {
+                      int n, int p, double invt, double twoC, cudaStream_t s) {
   using A = acc_t<T>;
   const T* Xt = static_cast<const T*>(X);
   const A *dA = static_cast<const A*>(d), *eA = static_cast<const A*>(e_part),
           *yA = static_cast<const A*>(y), *vA = static_cast<const A*>(v);
   A *hA = static_cast<A*>(hv), *pA = static_cast<A*>(part);
   const int R = xd_rows(p);
-  const dim3 grid((n + R - 1) / R, xd_chunks(p), lanes_n);
+  const dim3 grid((n + R - 1) / R, xd_chunks(p));
   if (R == 4) {
-    hinge_xd<T, 4, kLanes><<<grid, kThreads, 0, s>>>(Xt, dA, eA, n_epart, yA, vA, hA, pA,
-                                                     ticket, n, p, A(invt), A(twoC), ls);
+    hinge_xd<T, 4><<<grid, kThreads, 0, s>>>(Xt, dA, eA, n_epart, yA, vA, hA, pA, ticket, n,
+                                             p, A(invt), A(twoC));
   } else {
-    hinge_xd<T, 8, kLanes><<<grid, kThreads, 0, s>>>(Xt, dA, eA, n_epart, yA, vA, hA, pA,
-                                                     ticket, n, p, A(invt), A(twoC), ls);
+    hinge_xd<T, 8><<<grid, kThreads, 0, s>>>(Xt, dA, eA, n_epart, yA, vA, hA, pA, ticket, n,
+                                             p, A(invt), A(twoC));
   }
   return cudaGetLastError();
 }
 
 template <typename T>
-Lanes<acc_t<T>> lanes_of(long long x_stride, long long y_stride, const void* invt,
-                         const void* twoC) {
-  using A = acc_t<T>;
-  return Lanes<A>{x_stride, y_stride, static_cast<const A*>(invt),
-                  static_cast<const A*>(twoC)};
+Lanes<acc_t<T>> lanes_of(long long x_stride, long long y_stride, const void* t,
+                         const void* C) {
+  return Lanes<acc_t<T>>{x_stride, y_stride, static_cast<const double*>(t),
+                         static_cast<const double*>(C)};
 }
 
 // The lane-group sizes G of the shared-X route built into this library, per
@@ -960,6 +1085,31 @@ cudaError_t launch_xd_shared(const void* X, const void* d, const void* e_part, i
   });
 }
 
+// Pass 2 on a stacked X (or one lane): a block per (lane, `rows` rows)
+// and chunk, `rows` a positive multiple of xd_rows(p).
+template <typename T>
+cudaError_t launch_xd_stacked(const void* X, const void* d, const void* e_part, int n_epart,
+                              const void* y, const void* v, void* hv, void* part, int* ticket,
+                              int n, int p, Lanes<acc_t<T>> ls, int lanes, int rows,
+                              cudaStream_t s) {
+  using A = acc_t<T>;
+  const int R = xd_rows(p);
+  if (rows <= 0 || rows % R != 0) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(lanes * ((n + rows - 1) / rows)), xd_chunks(p));
+  const T* Xt = static_cast<const T*>(X);
+  const A *dA = static_cast<const A*>(d), *eA = static_cast<const A*>(e_part),
+          *yA = static_cast<const A*>(y), *vA = static_cast<const A*>(v);
+  A *hA = static_cast<A*>(hv), *pA = static_cast<A*>(part);
+  if (R == 4) {
+    hinge_xd_stacked<T, 4><<<grid, kThreads, 0, s>>>(Xt, dA, eA, n_epart, yA, vA, hA, pA,
+                                                     ticket, n, p, lanes, rows, ls);
+  } else {
+    hinge_xd_stacked<T, 8><<<grid, kThreads, 0, s>>>(Xt, dA, eA, n_epart, yA, vA, hA, pA,
+                                                     ticket, n, p, lanes, rows, ls);
+  }
+  return cudaGetLastError();
+}
+
 // f(T{}) for the storage type T of `mode`: float32 (0), bfloat16 (1),
 // float64 (2); an unknown mode is cudaErrorInvalidValue.
 template <typename F> int by_mode(int mode, F&& f) {
@@ -995,22 +1145,23 @@ int sven_hinge_xtv(const void* X, int mode, const void* v, const void* y, const 
 }
 
 // Pass 1 for `lanes` problems in one launch. X is (n, p) shared by every
-// lane (x_stride 0) or (lanes, n, p) (x_stride n p); y (n,) shared (y_stride
-// 0) or (lanes, n) (y_stride n); v (lanes, n), at, ab, d (lanes, p), e_part
-// (lanes, sven_hinge_xtv_blocks(p)) and invt (lanes,): each lane's 1/t in
-// the summing type. Types as for sven_hinge_xtv. `group` 0 takes the
-// per-lane route (a lane per grid z); group G > 0 the shared-X route, in
-// lane groups of up to G: X shared, at least 2 lanes, and G one of
-// sven_hinge_shared_group(0, mode, i), else cudaErrorInvalidValue.
+// lane (x_stride 0) or stacked, lane l's X at X + l x_stride (x_stride >=
+// n p); y (n,) shared (y_stride 0) or (lanes, n) (y_stride n); v (lanes,
+// n), at, ab, d (lanes, p), e_part (lanes, sven_hinge_xtv_blocks(p)), and
+// t (lanes,): each lane's t in float64. Types as for sven_hinge_xtv.
+// `group` 0 takes the stacked route (a lane per grid z); group G > 0 the
+// shared-X route, in lane groups of up to G: X shared, at least 2 lanes,
+// and G one of sven_hinge_shared_group(0, mode, i), else
+// cudaErrorInvalidValue.
 int sven_hinge_xtv_lanes(const void* X, int mode, long long x_stride, const void* v,
                          const void* y, long long y_stride, const void* at, const void* ab,
-                         void* d, void* e_part, int n, int p, int lanes, const void* invt,
+                         void* d, void* e_part, int n, int p, int lanes, const void* t,
                          int group, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (group != 0 && (x_stride != 0 || lanes < 2)) return (int)cudaErrorInvalidValue;
   return by_mode(mode, [&](auto tag) {
     using T = decltype(tag);
-    const Lanes<acc_t<T>> ls = lanes_of<T>(x_stride, y_stride, invt, nullptr);
+    const Lanes<acc_t<T>> ls = lanes_of<T>(x_stride, y_stride, t, nullptr);
     if (group != 0)
       return launch_xtv_shared<T>(X, v, y, at, ab, d, e_part, n, p, ls, lanes, group, s);
     return launch_xtv<T, true>(X, v, y, at, ab, d, e_part, n, p, 0.0, ls, lanes, s);
@@ -1044,36 +1195,36 @@ int sven_hinge_xd(const void* X, int mode, const void* d, const void* e_part, in
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return by_mode(mode, [&](auto tag) {
     using T = decltype(tag);
-    return launch_xd<T, false>(X, d, e_part, n_epart, y, v, hv, part, ticket, n, p, invt,
-                               twoC, Lanes<acc_t<T>>{}, 1, s);
+    return launch_xd<T>(X, d, e_part, n_epart, y, v, hv, part, ticket, n, p, invt, twoC,
+                        s);
   });
 }
 
 // Pass 2 for `lanes` problems in one launch. X, x_stride, y and y_stride as
 // for sven_hinge_xtv_lanes; d (lanes, p), e_part (lanes, n_epart), v and hv
-// (lanes, n), invt and twoC (lanes,) in the summing type. `group` 0 takes
-// the per-lane route: with more than one chunk, part (lanes, n, chunks) and
-// ticket (lanes, ceil(n / sven_hinge_xd_rows(p))). group G > 0 takes the
-// shared-X route in lane groups of up to G (conditions as for
-// sven_hinge_xtv_lanes, G one of sven_hinge_shared_group(1, mode, i)) with
-// `rows` rows a block (a multiple of 4 sven_hinge_xd_rows(p)): with more than
-// one chunk, part (lanes, n, chunks) and ticket (ceil(lanes / G) x
-// ceil(n / rows),). The ticket is all 0 on entry and left 0.
+// (lanes, n), and t and C (lanes,) in float64. `group` 0 takes
+// the stacked route, a block per lane and `rows` rows (a multiple of
+// sven_hinge_xd_rows(p)); group G > 0 the shared-X route in lane groups of
+// up to G (conditions as for sven_hinge_xtv_lanes, G one of
+// sven_hinge_shared_group(1, mode, i)), `rows` rows a block (a multiple of
+// 4 sven_hinge_xd_rows(p)). With more than one chunk, part (lanes, n,
+// chunks) and ticket (ceil(lanes / max(G, 1)) x ceil(n / rows),), all 0 on
+// entry and left 0.
 int sven_hinge_xd_lanes(const void* X, int mode, long long x_stride, const void* d,
                         const void* e_part, int n_epart, const void* y, long long y_stride,
                         const void* v, void* hv, void* part, int* ticket, int n, int p,
-                        int lanes, const void* invt, const void* twoC, int group, int rows,
+                        int lanes, const void* t, const void* C, int group, int rows,
                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (group != 0 && (x_stride != 0 || lanes < 2)) return (int)cudaErrorInvalidValue;
   return by_mode(mode, [&](auto tag) {
     using T = decltype(tag);
-    const Lanes<acc_t<T>> ls = lanes_of<T>(x_stride, y_stride, invt, twoC);
-    if (group != 0)
-      return launch_xd_shared<T>(X, d, e_part, n_epart, y, v, hv, part, ticket, n, p, ls,
-                                 lanes, group, rows, s);
-    return launch_xd<T, true>(X, d, e_part, n_epart, y, v, hv, part, ticket, n, p, 0.0,
-                              0.0, ls, lanes, s);
+    const Lanes<acc_t<T>> ls = lanes_of<T>(x_stride, y_stride, t, C);
+    if (group == 0)
+      return launch_xd_stacked<T>(X, d, e_part, n_epart, y, v, hv, part, ticket, n, p, ls,
+                                  lanes, rows, s);
+    return launch_xd_shared<T>(X, d, e_part, n_epart, y, v, hv, part, ticket, n, p, ls,
+                               lanes, group, rows, s);
   });
 }
 

@@ -21,12 +21,15 @@ share a buffer must therefore be ordered on one stream, as the solver's are.
 `hinge_xtv_lanes_cuda` and `hinge_xd_lanes_cuda` launch each pass once for
 a stack of B problems (the lane-batched solve of `core/batch.py`; the port
 of the leading grid axis JAX's vmap gives the Pallas kernels): X and y
-shared by every lane or stacked, every other operand stacked, and 1/t and
-2C per lane. `plan` picks the route: a stacked X (or one lane) takes the
-per-lane route, a block per lane; a shared X with two or more lanes the
-shared-X route, on which a block takes its columns or rows for a group of
-up to G lanes and reads X once for the group. Either way each lane's
-results are bitwise those of a single launch on that lane's operands. One
+shared by every lane or stacked (lanes contiguous, possibly a gap apart,
+as `core/svm/state.py::pitched` lays them out), every other operand
+stacked, and 1/t and 2C per lane. `plan` picks the route: a stacked X (or
+one lane) takes the stacked route, on which pass 1 is the single launch's
+kernel with the lane on grid z and a block of pass 2 takes one lane's
+chunk of d for many rows; a shared X with two or more lanes the shared-X
+route, on which a block takes its columns or rows for a group of up to G
+lanes and reads X once for the group. Either way each lane's results are
+bitwise those of a single launch on that lane's operands. One
 lane-batched launch counts as one launch.
 """
 from __future__ import annotations
@@ -53,15 +56,22 @@ _SHARED_G = {"xtv": {0: (8, 12), 1: (8, 12), 2: (4, 6)},
 #: `csrc/hinge.cu`'s kWideP and kChunk: from this row length pass 2 takes
 #: R = 4 rows a row group and cuts rows into column chunks, below it R = 8
 _WIDE_P, _CHUNK = 1024, 4096
+#: blocks an SM of an H100 runs at once of `hinge_xd_stacked` (pass 2 of the
+#: stacked route), per mode, in the plan's model of its waves: float32 and
+#: bf16 six (its registers allow six); float64 three, although four fit,
+#: because at the 9b shape the grid that fills three an SM ran fastest
+#: (PERF.md §6, PR 26: fewer blocks stage fewer chunks of d)
+_XD_STACKED_PER_SM = {0: 6, 1: 6, 2: 3}
 #: the SMs of an NVIDIA H100 SXM, for a plan made without a device
 H100_SMS = 132
 
 
 @dataclass(frozen=True)
 class LanePlan:
-    """How a lane-batched launch runs. route "shared": lane groups of up to
-    `xtv_group` (pass 1) and `xd_group` (pass 2) lanes, pass 2 taking
-    `xd_rows` rows a block; route "lanes": a block per lane (groups 0)."""
+    """How a lane-batched launch runs, pass 2 taking `xd_rows` rows a block.
+    Route "shared": lane groups of up to `xtv_group` (pass 1) and `xd_group`
+    (pass 2) lanes. Route "stacked": a block of pass 1 per lane and strip
+    (`xtv_group` 0), a block of pass 2 per lane (`xd_group` 1)."""
     route: str
     xtv_group: int
     xd_group: int
@@ -83,18 +93,16 @@ def _group_size(B: int, sizes) -> int:
     return min(g for g in sizes if g >= per)
 
 
-def _xd_rows(n: int, p: int, groups: int, sms: int) -> int:
-    """Rows a block of pass 2's shared route takes: whole passes of 4 R rows
-    (a 512-thread block, two rows a group of the single launch's threads
-    per row), so that the grid's waves of blocks (one an SM) are as full as
-    any choice makes them, with as few blocks as that allows: its staged
-    chunks of d serve all its rows."""
-    step = 4 * (4 if p >= _WIDE_P else 8)
+def _xd_rows(n: int, p: int, groups: int, slots: int, step: int) -> int:
+    """Rows a block of pass 2 takes: whole steps of `step` rows, so that the
+    grid's waves (`slots` resident blocks each) are as full as any choice
+    makes them, with as few blocks as that allows: a block's staged chunks
+    of d serve all its rows."""
     chunks = -(-p // _CHUNK) if p >= _WIDE_P else 1
     best = None
     for k in range(1, -(-n // step) + 1):
         blocks = groups * chunks * -(-n // (k * step))
-        full = round(blocks / (-(-blocks // sms) * sms), 6)
+        full = round(blocks / (-(-blocks // slots) * slots), 6)
         if best is None or (full, -blocks) > best[:2]:
             best = (full, -blocks, k * step)
     return best[2]
@@ -104,16 +112,20 @@ def plan(B: int, n: int, p: int, dtype: torch.dtype, shared: bool,
          sms: int = H100_SMS) -> LanePlan:
     """The route of a lane-batched launch of B lanes on X (n, p) of `dtype`,
     shared by every lane or stacked, on a card of `sms` SMs: the shared-X
-    route when X is shared and B >= 2, else the per-lane route. Raises on an
+    route when X is shared and B >= 2, else the stacked route. Raises on an
     X dtype the kernels do not take."""
     if dtype not in _MODES:
         raise TypeError(f"hinge lanes: X dtype {dtype} not in {_X_DTYPES}")
+    mode, R = _MODES[dtype], 4 if p >= _WIDE_P else 8
     if not shared or B < 2:
-        return LanePlan("lanes", 0, 0, 0)
-    mode = _MODES[dtype]
+        # pass 2: R rows at a time, a block per lane
+        return LanePlan("stacked", 0, 1,
+                        _xd_rows(n, p, B, _XD_STACKED_PER_SM[mode] * sms, R))
     xd_group = _group_size(B, _SHARED_G["xd"][mode])
+    # pass 2: passes of 4 R rows (a 512-thread block, two rows a group of the
+    # single launch's threads per row), one block an SM
     return LanePlan("shared", _group_size(B, _SHARED_G["xtv"][mode]), xd_group,
-                    _xd_rows(n, p, len(lane_groups(B, xd_group)), sms))
+                    _xd_rows(n, p, len(lane_groups(B, xd_group)), sms, 4 * R))
 
 
 #: device -> its SM count
@@ -245,15 +257,19 @@ def hinge_xd_cuda(X: torch.Tensor, y: torch.Tensor, d: torch.Tensor,
 
 def _check_lanes(fn: str, X, y, v):
     """Raise unless X is (n, p) or (B, n, p), y (n,) or (B, n) and v (B, n),
-    contiguous on X's CUDA device in the dtypes of a single launch; return
-    (B, n, p, x_stride, y_stride): the elements between two lanes' X and y
-    (0 where the lanes share them)."""
+    contiguous on X's CUDA device in the dtypes of a single launch (a
+    stacked X may leave a gap between its contiguous lanes, as `pitched`
+    does); return (B, n, p, x_stride, y_stride): the elements between two
+    lanes' X and y (0 where the lanes share them)."""
     if not (isinstance(X, torch.Tensor) and X.is_cuda):
         raise ValueError(f"{fn}: X must be a CUDA tensor")
     if X.dim() not in (2, 3):
         raise ValueError(f"{fn}: X must be (n, p) or (B, n, p), got {tuple(X.shape)}")
-    _build.check_operand(fn, "X", X, tuple(X.shape), _X_DTYPES, X.device)
     n, p = X.shape[-2:]
+    _build.check_operand(fn, "X", X if X.dim() == 2 else X[0], (n, p), _X_DTYPES,
+                         X.device)
+    if X.dim() == 3 and X.shape[0] > 1 and X.stride(0) < n * p:
+        raise ValueError(f"{fn}: X's lanes overlap (stride {X.stride(0)} < n p)")
     if not (isinstance(v, torch.Tensor) and v.dim() == 2 and v.shape[0] > 0):
         raise ValueError(f"{fn}: v must be (B, n) with B >= 1")
     B = v.shape[0]
@@ -263,18 +279,18 @@ def _check_lanes(fn: str, X, y, v):
     y_shape = (n,) if isinstance(y, torch.Tensor) and y.dim() == 1 else (B, n)
     for name, x, shape in (("y", y, y_shape), ("v", v, (B, n))):
         _build.check_operand(fn, name, x, shape, (acc,), X.device)
-    return B, n, p, (n * p if X.dim() == 3 else 0), (n if y.dim() == 2 else 0)
+    return B, n, p, (X.stride(0) if X.dim() == 3 else 0), (n if y.dim() == 2 else 0)
 
 
 def _lane_f64(fn: str, name: str, x, B: int, X: torch.Tensor) -> torch.Tensor:
-    """The (B,) per-lane scalars x in float64 on X's device: the wrappers
-    take 1/t and 2C from them in float64 and round once to the summing
-    dtype, as a single launch rounds the host's double."""
+    """The (B,) per-lane scalars x in float64 on X's device, contiguous: the
+    kernels take 1/t and 2C from them in float64 and round once to the
+    summing dtype, as a single launch rounds the host's double."""
     if not (isinstance(x, torch.Tensor) and x.shape == (B,) and x.is_floating_point()):
         raise ValueError(f"{fn}: {name} must be a floating (B,) = ({B},) tensor")
     if x.device != X.device:
         raise ValueError(f"{fn}: {name} is on {x.device}, X on {X.device}")
-    return x.to(torch.float64)
+    return x.to(torch.float64).contiguous()
 
 
 def hinge_xtv_lanes_cuda(X: torch.Tensor, y: torch.Tensor, v: torch.Tensor,
@@ -291,16 +307,16 @@ def hinge_xtv_lanes_cuda(X: torch.Tensor, y: torch.Tensor, v: torch.Tensor,
     acc = _operand_dtype(X)
     for name, x in (("act_top", act_top), ("act_bot", act_bot)):
         _build.check_operand(fn, name, x, (B, p), (acc,), X.device)
-    invt = (1.0 / _lane_f64(fn, "t", t, B, X)).to(acc)
+    t = _lane_f64(fn, "t", t, B, X)
     lib = _lib()
     d = torch.empty((B, p), dtype=acc, device=X.device)
     e_part = torch.empty((B, lib.sven_hinge_xtv_blocks(p)), dtype=acc, device=X.device)
-    group = _plan_on(X, B, n, p, xs == 0).xtv_group
+    pl = _plan_on(X, B, n, p, xs == 0)
     with torch.cuda.device(X.device):
         err = lib.sven_hinge_xtv_lanes(X.data_ptr(), _MODES[X.dtype], xs, v.data_ptr(),
                                        y.data_ptr(), ys, act_top.data_ptr(),
                                        act_bot.data_ptr(), d.data_ptr(), e_part.data_ptr(),
-                                       n, p, B, invt.data_ptr(), group,
+                                       n, p, B, t.data_ptr(), pl.xtv_group,
                                        torch.cuda.current_stream(X.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")
@@ -325,8 +341,7 @@ def hinge_xd_lanes_cuda(X: torch.Tensor, y: torch.Tensor, d: torch.Tensor,
     acc = _operand_dtype(X)
     for name, x, shape in (("d", d, (B, p)), ("e_part", e_part, tuple(e_part.shape))):
         _build.check_operand(fn, name, x, shape, (acc,), X.device)
-    invt = (1.0 / _lane_f64(fn, "t", t, B, X)).to(acc)
-    twoC = (2.0 * _lane_f64(fn, "C", C, B, X)).to(acc)
+    t, C = _lane_f64(fn, "t", t, B, X), _lane_f64(fn, "C", C, B, X)
     lib = _lib()
     hv = torch.empty((B, n), dtype=acc, device=X.device)
     chunks = lib.sven_hinge_xd_chunks(p)
@@ -334,18 +349,16 @@ def hinge_xd_lanes_cuda(X: torch.Tensor, y: torch.Tensor, d: torch.Tensor,
     part = ticket = None
     if chunks > 1:
         part = torch.empty((B, n, chunks), dtype=acc, device=X.device)
-        # one ticket per (lane, row group), or per (lane group, row block)
-        ticket = _tickets(X.device, B * -(-n // lib.sven_hinge_xd_rows(p))
-                          if pl.route == "lanes" else
-                          len(lane_groups(B, pl.xd_group)) * -(-n // pl.xd_rows))
+        # one ticket per (lane group, row block); a lane on the stacked route
+        ticket = _tickets(X.device, len(lane_groups(B, pl.xd_group)) * -(-n // pl.xd_rows))
     with torch.cuda.device(X.device):
         err = lib.sven_hinge_xd_lanes(X.data_ptr(), _MODES[X.dtype], xs, d.data_ptr(),
                                       e_part.data_ptr(), e_part.shape[1], y.data_ptr(), ys,
                                       v.data_ptr(), hv.data_ptr(),
                                       None if part is None else part.data_ptr(),
                                       None if ticket is None else ticket.data_ptr(),
-                                      n, p, B, invt.data_ptr(), twoC.data_ptr(),
-                                      pl.xd_group, pl.xd_rows,
+                                      n, p, B, t.data_ptr(), C.data_ptr(),
+                                      pl.xd_group if pl.route == "shared" else 0, pl.xd_rows,
                                       torch.cuda.current_stream(X.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn}: launch failed with CUDA error {err}")

@@ -358,3 +358,48 @@ def test_lane_hinge_op_shared_x_matches_jax_interpret(n, p, precision, tol):
     for i in range(B):
         scale = max(1.0, float(np.abs(hvj[i]).max()))
         np.testing.assert_allclose(npy(hv[i]), hvj[i], rtol=0, atol=tol * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(5, 49), (5, 64), (3, 7, 9), (1, 33), (4, 128)])
+def test_lanes_hand_each_lane_laid_out_as_a_fresh_tensor(shape, dtype):
+    """`lanes` and `SvenLaneOperator` hand `fn` each lane of a stack at the
+    buffer's base plus a multiple of 512 bytes (`pitched`), equal to the
+    lane, so an op that sums in an order set by its operand's address sums
+    every lane as on a fresh tensor; an operand passed twice is laid out
+    once, a stack so laid out already is not copied, and every lane's
+    result is the op's on that lane."""
+    from repro_torch.core.svm import state
+
+    x = torch.arange(float(np.prod(shape)), dtype=dtype).reshape(shape) * 0.37
+    seen = []
+
+    def fn(a, b):
+        seen.append((a.data_ptr(), b.data_ptr()))
+        assert a.is_contiguous() and torch.equal(a, b)
+        return torch.sum(a * b)
+
+    state.pitched.copies = 0
+    out = state.lanes(fn, x, x)
+    base = seen[0][0]
+    assert all(a == b and (a - base) % state.LANE_PITCH == 0 for a, b in seen)
+    assert torch.equal(out, torch.stack([torch.sum(x[i] * x[i]) for i in range(shape[0])]))
+    row = x[0].numel() * x.element_size()
+    assert state.pitched.copies == (0 if shape[0] == 1 or row % state.LANE_PITCH == 0 else 1)
+    laid = state.pitched(x)
+    assert state.pitched(laid) is laid and torch.equal(laid, x)
+    assert all((laid[i].data_ptr() - laid.data_ptr()) % state.LANE_PITCH == 0
+               for i in range(shape[0]))
+    if len(shape) == 2:
+        X, y = problem(6, shape[1] // 2 or 1, seed=1)
+        op = tred.SvenLaneOperator(*cpu(X, y), [1.5] * shape[0])
+        w = torch.randn(shape[0], 6, dtype=torch.float64)
+        ptrs = []
+        for one in op.ops:
+            one_fn = one.xhat_matvec
+            object.__setattr__(one, "xhat_matvec",
+                               lambda v, f=one_fn: ptrs.append(v.data_ptr()) or f(v))
+        got = op.xhat_matvec(w)
+        assert all((q - ptrs[0]) % state.LANE_PITCH == 0 for q in ptrs)
+        assert torch.equal(got, torch.stack([tred.SvenOperator(*cpu(X, y), 1.5).xhat_matvec(
+            w[i]) for i in range(shape[0])]))

@@ -305,23 +305,49 @@ def test_gram_tc_row_split_covers_all_rows(n, p, sms, step):
 LANE_EDGES = ["1", "2", "G-1", "G", "G+1", "17", "33"]
 
 
+def _stacked_cover(pl, B, n, p):
+    """The (lane, strip) items of pass 1's blocks and the (lane, chunk, row)
+    items of pass 2's on the stacked route, as `csrc/hinge.cu` cuts its
+    grids: pass 1 a block per strip and lane (grid z); pass 2 a block per
+    (lane, row block) and chunk, the lane the fastest index."""
+    nstrip = -(-p // 128)
+    xtv = [(lane, j) for lane in range(B) for j in range(nstrip)]
+    chunks = -(-p // 4096) if p >= 1024 else 1
+    lanes = thinge.lane_groups(B, pl.xd_group)
+    xd = [(lane, c, r) for x in range(len(lanes) * -(-n // pl.xd_rows))
+          for c in range(chunks) for lane in lanes[x % len(lanes)]
+          for r in range((x // len(lanes)) * pl.xd_rows,
+                         min(n, (x // len(lanes) + 1) * pl.xd_rows))]
+    return xtv, nstrip, xd, chunks
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
 @pytest.mark.parametrize("pass_", ["xtv", "xd"])
 @pytest.mark.parametrize("edge", LANE_EDGES)
 def test_lane_plan_covers_every_lane_once(dtype, pass_, edge):
-    """`hinge.plan` for a shared X: one lane takes the per-lane route; from
-    two lanes on, the shared-X route cuts the lanes into as few groups as
-    the largest built G allows, each lane in exactly one group, each group
-    of at most the chosen G (a built size) and sizes that differ by at most
-    one. A stacked X always takes the per-lane route. Pass 2's rows per
-    block are whole passes of 4 R rows (R = 4 rows from p = 1,024, 8
-    below)."""
+    """`hinge.plan`: a stacked X, or one lane, takes the stacked route, whose
+    grids take every (lane, strip of 128 columns) of pass 1 and every (lane,
+    chunk, row) of pass 2 exactly once, a block of pass 2 on one lane and
+    whole steps of R rows (R = 4 rows from p = 1,024, 8 below). A shared X
+    with two or more lanes takes the shared-X route, which cuts the lanes
+    into as few groups as the largest built G allows, each lane in exactly
+    one group, each group of at most the chosen G (a built size) and sizes
+    that differ by at most one, pass 2 taking whole passes of 4 R rows."""
     sizes = thinge._SHARED_G[pass_][thinge._MODES[dtype]]
     G = max(sizes)
     B = {"G-1": G - 1, "G": G, "G+1": G + 1}.get(edge) or int(edge)
+    R_of = {True: 4, False: 8}
     for n, p in [(180, 49_151), (33, 57), (1000, 4099), (7, 513)]:
+        R = R_of[p >= 1024]
         stacked = thinge.plan(B, n, p, dtype, shared=False)
-        assert stacked == thinge.LanePlan("lanes", 0, 0, 0)
+        assert (stacked.route, stacked.xtv_group, stacked.xd_group) == ("stacked", 0, 1)
+        assert stacked.xd_rows > 0 and stacked.xd_rows % R == 0
+        xtv, nstrip, xd, chunks = _stacked_cover(stacked, B, n, p)
+        if pass_ == "xtv":
+            assert sorted(xtv) == [(i, j) for i in range(B) for j in range(nstrip)]
+        else:
+            assert sorted(xd) == [(i, c, r) for i in range(B) for c in range(chunks)
+                                  for r in range(n)]
         pl = thinge.plan(B, n, p, dtype, shared=True)
         if B == 1:
             assert pl == stacked
@@ -334,28 +360,34 @@ def test_lane_plan_covers_every_lane_once(dtype, pass_, edge):
         assert len(groups) == -(-B // G)
         lens = [len(r) for r in groups]
         assert max(lens) <= g and max(lens) - min(lens) <= 1 and min(lens) >= 1
-        R = 4 if p >= 1024 else 8
         assert pl.xd_rows > 0 and pl.xd_rows % (4 * R) == 0
     with pytest.raises(TypeError, match="dtype"):
         thinge.plan(B, 33, 57, torch.float16, shared=True)
 
 
+@pytest.mark.parametrize("shared", [True, False])
 @pytest.mark.parametrize("n,p,B,dtype,sms", [
     (180, 49_151, 9, torch.float64, 132), (180, 49_151, 16, torch.float64, 132),
     (144, 49_151, 5, torch.float32, 132), (1000, 4099, 33, torch.bfloat16, 132),
-    (37, 513, 3, torch.float64, 114), (4097, 2049, 17, torch.float32, 78)])
-def test_lane_plan_rows_fill_the_waves(n, p, B, dtype, sms):
-    """Pass 2's rows per block on the shared route: whole passes of 4 R
-    rows, and no other choice fills the grid's waves of blocks (one an SM)
-    better, or as well with fewer blocks."""
-    pl = thinge.plan(B, n, p, dtype, shared=True, sms=sms)
-    step = 4 * (4 if p >= 1024 else 8)
+    (37, 513, 3, torch.float64, 114), (4097, 2049, 17, torch.float32, 78),
+    (144, 49_151, 5, torch.float64, 132), (33, 57, 9, torch.float32, 132)])
+def test_lane_plan_rows_fill_the_waves(n, p, B, dtype, sms, shared):
+    """Pass 2's rows per block on either route: whole steps (4 R rows on
+    the shared route, R on the stacked one), and no other choice fills the
+    grid's waves of blocks (one an SM on the shared route; on the stacked
+    one three in float64, six in float32 and bf16) better, or as well with
+    fewer blocks."""
+    pl = thinge.plan(B, n, p, dtype, shared=shared, sms=sms)
+    R = 4 if p >= 1024 else 8
+    step = 4 * R if shared else R
+    per_sm = 1 if shared else (3 if dtype == torch.float64 else 6)
     chunks = -(-p // 4096) if p >= 1024 else 1
     groups = len(thinge.lane_groups(B, pl.xd_group))
 
     def score(rows):
         blocks = groups * chunks * -(-n // rows)
-        return round(blocks / (-(-blocks // sms) * sms), 6), -blocks
+        slots = per_sm * sms
+        return round(blocks / (-(-blocks // slots) * slots), 6), -blocks
 
     assert pl.xd_rows % step == 0 and step <= pl.xd_rows <= -(-n // step) * step
     assert all(score(pl.xd_rows) >= score(k * step) for k in range(1, -(-n // step) + 1))

@@ -519,7 +519,7 @@ def _lane(x, i, shared):
 LANE_SHAPES = HINGE_SHAPES
 #: lane counts of the lane tests: G1 and G2 are the largest lane groups of
 #: the shared-X route's pass 1 and pass 2 in the test's mode
-LANE_COUNTS = ["1", "2", "9", "G1", "G1+1", "G2", "G2+1", "17", "33"]
+LANE_COUNTS = ["1", "2", "5", "9", "G1", "G1+1", "G2", "G2+1", "17", "33"]
 _PREC_DTYPE = {"f32": torch.float32, "bf16": torch.bfloat16, "f64": torch.float64}
 
 
@@ -539,8 +539,8 @@ def test_cuda_hinge_lanes_bitwise_single_launches(cuda_device, precision, shared
     """Each lane of the lane-batched passes is bitwise a single launch on
     that lane's operands (the same addresses: the stacks' rows), with X and
     y shared (the shared-X route from two lanes on, in one or more lane
-    groups) or stacked and X at a storage offset; one lane-batched launch
-    counts one launch."""
+    groups) or stacked (the stacked route) and X at a storage offset; one
+    lane-batched launch counts one launch."""
     B = _lane_count(B, precision)
     X, y, v, at, ab, t, C = _lane_operands(cuda_device, B, n, p, precision, shared,
                                            offset=3)
@@ -608,14 +608,13 @@ def test_cuda_hinge_shared_groups_match_library(cuda_device):
     d = torch.empty_like(at)
     e_part = torch.empty((3, lib.sven_hinge_xtv_blocks(57)), dtype=torch.float64,
                          device=cuda_device)
-    invt = 1.0 / t
     stream = torch.cuda.current_stream(cuda_device).cuda_stream
 
     def launch(x_stride, lanes, group):
         return lib.sven_hinge_xtv_lanes(X.data_ptr(), 2, x_stride, v.data_ptr(),
                                         y.data_ptr(), 0, at.data_ptr(), ab.data_ptr(),
                                         d.data_ptr(), e_part.data_ptr(), 33, 57, lanes,
-                                        invt.data_ptr(), group, stream)
+                                        t.data_ptr(), group, stream)
 
     G = thinge._SHARED_G["xtv"][2][0]
     assert launch(0, 3, G) == 0
