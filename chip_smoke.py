@@ -19,10 +19,12 @@ port's main path through the entry points a user calls:
   3. the dual solve at the shape of UCI YearPredictionMSD (n = 463,715,
      p = 90), default config (float64 Gram), bf16 + refinement and tf32 +
      refinement, against the plain float64 solve ("torch" backend) on the
-     card;
+     card; the default solve again with the CG loop reading its test
+     before every step (k = 1), bitwise the same;
   4. the primal solve at the shape of GLA-BRA-180 (n = 180, p = 49,151),
      default config (float64 hinge passes), against the plain float64
-     solve: its answer, Newton steps and CG steps; then (4b) the same
+     solve: its answer, Newton steps and CG steps, and again at k = 1,
+     bitwise the same; then (4b) the same
      problem on float32 data (the passes' float32 bodies) and at precision
      "bf16" (X stored in bfloat16), each against the plain run in its
      precision and against the float64 solve;
@@ -52,7 +54,14 @@ port's main path through the entry points a user calls:
      takes the shared-X route, a stacked one the stacked route), against
      their plain version and single launches, timed beside B single
      launches, the bound and one `torch.mm` / `torch.bmm`; each lane's
-     Newton and CG lists of 9a and 9b against the ones PERF.md records.
+     Newton and CG lists of 9a and 9b against the ones PERF.md records;
+     each case again at k = 1, bitwise the same.
+
+The CG loop (`repro_torch.core.svm.state.cg_lanes`) reads its test once
+per block of k = `CG_READ_EVERY` steps and launches up to k - 1 dead steps
+past a CG solve's end: each hinge launch check counts the CG steps plus
+the dead steps (`cg_lanes.dead`), and each solve prints both beside its
+host syncs.
 
 The data are synthetic (`repro_torch.data.make_regression`, fixed seeds).
 Each path runs with every launch counter set to 0 just before it and read
@@ -91,6 +100,16 @@ times only phase 9's 9a and 9b (float64): the lane-batched hinge passes at
 9a beside `torch.mm`, and `sven_batch` on each three times, with host syncs
 and batched CG steps; it prints no result line, and a copy placed in a
 checkout of another commit times that commit.
+
+    python3 chip_smoke.py --loop-trace
+
+shows where a CG step's time goes: the default float64 dual (YMSD shape),
+primal (GLA-BRA-180 shape) and 9a, untraced at each k of READ_EVERY_SWEEP
+(each k in turn, with seconds, host syncs and dead steps), then the primal
+and 9a under torch.profiler: per CG step launched, the host's time in
+reads, in launch calls and elsewhere, the device's busy time (hinge passes
+and the rest), its idle share, and the launches by op. It prints no result
+line; a copy placed in a checkout of another commit traces that commit.
 
     python3 chip_smoke.py --lane-time
 
@@ -502,14 +521,179 @@ def batch_time_only(torch) -> int:
                         ("9b", (Xtr, ytr, torch.tensor(t, **f64),
                                 torch.tensor(LAMBDA2, **f64)))):
         for rep in range(3):
-            cg_lanes.steps = 0
             sol, secs, _, syncs = run_path(torch, kernels, svm_state,
                                            lambda: sven_batch(*args))
-            counts = (sol.iters.tolist(), sol.cg_iters.tolist(), cg_lanes.steps)
+            live = cg_lanes.steps - cg_lanes.dead
+            counts = (sol.iters.tolist(), sol.cg_iters.tolist(), live)
             print(f"  sven_batch {label} run {rep + 1}: {secs:.3f} s, {syncs} host syncs, "
-                  f"{cg_lanes.steps} batched CG steps; counts equal the ones PERF.md "
-                  f"records: {counts == RECORDED_COUNTS[label]}", flush=True)
+                  f"{cg_lanes.steps} batched CG steps ({cg_lanes.dead} dead); counts equal "
+                  f"the ones PERF.md records: {counts == RECORDED_COUNTS[label]}", flush=True)
     return 0
+
+
+#: CUDA runtime calls in which the host waits for the device: a read of a
+#: device value (the copy to the host, then the stream's synchronisation)
+READ_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMemcpyAsync", "cudaMemcpy")
+#: CUDA runtime and driver calls that queue work on the device
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaMemsetAsync")
+
+
+def _union_us(spans) -> float:
+    """The length of the union of (start, end) spans."""
+    total, end = 0.0, None
+    for s, e in sorted(spans):
+        if end is None or s > end:
+            total, end = total + e - s, e
+        elif e > end:
+            total, end = total + e - end, e
+    return total
+
+
+def _kernel_short(name: str) -> str:
+    """A kernel's function name without its namespaces, template arguments
+    and parameters."""
+    head = re.sub(r"<.*", "", name.replace("void ", "", 1)).split("(")[0]
+    return head.rsplit("::", 1)[-1].strip() or name[:40]
+
+
+def trace_split(path: Path, wall_s: float, steps: int) -> dict:
+    """Where the time of a run traced by torch.profiler went, per CG step:
+    `path` is its Chrome trace, `wall_s` the run's host seconds (ending in a
+    synchronisation), `steps` the CG steps it launched. Host time is split
+    into the waits of reads (READ_CALLS), the launch calls (LAUNCH_CALLS)
+    and the rest (Python and PyTorch's dispatch); device time into the
+    hinge passes and everything else (the union of kernel, copy and memset
+    spans); the idle share is the part of the run's wall time in which the
+    device ran nothing. Each device launch is named by the outermost
+    PyTorch op that issued it, or by its kernel where no op did (the
+    hand-written kernels, launched through ctypes)."""
+    import bisect
+    from collections import Counter, defaultdict
+
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    by_cat = defaultdict(list)
+    for e in events:
+        by_cat[e.get("cat")].append(e)
+    device = by_cat["kernel"] + by_cat["gpu_memcpy"] + by_cat["gpu_memset"]
+    runtime = by_cat["cuda_runtime"] + by_cat["cuda_driver"]
+    reads = [e for e in runtime if e["name"] in READ_CALLS]
+    launch_calls = [e for e in runtime if e["name"] in LAUNCH_CALLS]
+    tops = defaultdict(list)   # each host thread's outermost ops, in time order
+    for e in sorted(by_cat["cpu_op"], key=lambda e: (str(e["tid"]), e["ts"], -e["dur"])):
+        ops = tops[str(e["tid"])]
+        if not ops or e["ts"] >= ops[-1][1]:
+            ops.append((e["ts"], e["ts"] + e["dur"], e["name"]))
+    starts = {tid: [o[0] for o in ops] for tid, ops in tops.items()}
+    issuer = {}
+    for r in runtime:
+        ops = tops.get(str(r["tid"]), [])
+        i = bisect.bisect_right(starts.get(str(r["tid"]), []), r["ts"]) - 1
+        issuer[r.get("args", {}).get("correlation")] = (
+            ops[i][2] if i >= 0 and r["ts"] <= ops[i][1] else None)
+    by_op = Counter(issuer.get(k.get("args", {}).get("correlation")) or _kernel_short(k["name"])
+                    for k in device)
+    wall = wall_s * 1e6
+    busy = _union_us([(k["ts"], k["ts"] + k["dur"]) for k in device])
+    hinge = _union_us([(k["ts"], k["ts"] + k["dur"]) for k in by_cat["kernel"]
+                       if "hinge" in k["name"]])
+    read_us = sum(e["dur"] for e in reads)
+    launch_us = sum(e["dur"] for e in launch_calls)
+    return dict(steps=steps, wall_us=wall / steps, read_us=read_us / steps,
+                reads=sum(e["name"] == "cudaStreamSynchronize" for e in reads),
+                launch_us=launch_us / steps, launch_calls=len(launch_calls) / steps,
+                other_host_us=(wall - read_us - launch_us) / steps,
+                busy_us=busy / steps, hinge_us=hinge / steps, other_dev_us=(busy - hinge) / steps,
+                idle=1.0 - busy / wall, launches=len(device) / steps,
+                by_op={k: v / steps for k, v in by_op.most_common()})
+
+
+#: the blocks of CG steps between two reads that `--loop-trace` times
+READ_EVERY_SWEEP = (1, 2, 4, 8, 16)
+
+
+def loop_trace_only(torch) -> int:
+    """`--loop-trace`: where a CG step's time goes. First, untraced, the
+    default float64 dual `sven` at the YMSD shape (phase 3's problem), the
+    primal at the GLA-BRA-180 shape (phase 4's) and 9a (phase 9's 3 x 3
+    grid on the same X), with seconds, host syncs and CG steps (live and
+    dead), at each k of READ_EVERY_SWEEP where the loop has a k (a loop
+    that reads its test every step has none). Then the primal and 9a once
+    more under torch.profiler (CPU and CUDA activities) at the module's k,
+    each after an untraced run, and `trace_split`'s split per CG step
+    launched. Traced numbers compare only with traced numbers. It needs
+    nothing of the checkout but `sven`, `sven_batch`, `en_grid` and the
+    counters, so a copy of this file placed in a checkout of another commit
+    traces that commit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.core.batch import en_grid, sven_batch
+    from repro_torch.core.sven import sven
+    from repro_torch.core.svm import state as svm_state
+    from repro_torch.data.synthetic import make_regression
+
+    print(f"card: {nvidia_smi()}", flush=True)
+    dev = torch.device("cuda", 0)
+    f64 = dict(dtype=torch.float64, device=dev)
+    Xd, yd, beta_d = make_regression(*YMSD, seed=1, device=dev)
+    td = 0.5 * beta_d.abs().sum().item()
+    X, y, beta_true = make_regression(*GLA_BRA, seed=2, device=dev)
+    t = 0.5 * beta_true.abs().sum().item()
+    ts, l2s = en_grid(torch.tensor([0.5, 0.75, 1.0], **f64) * t,
+                      torch.tensor([0.5, 1.0, 4.0], **f64))
+    k = getattr(svm_state, "CG_READ_EVERY", None)
+    cg = svm_state.cg_lanes
+    cg.dead = 0   # a loop that reads its test every step counts no dead steps
+    paths = (("dual", lambda: sven(Xd, yd, td, LAMBDA2), None, 3),
+             ("primal", lambda: sven(X, y, t, LAMBDA2), "hinge_xtv_cuda", 2),
+             ("9a", lambda: sven_batch(X, y, ts, l2s), "hinge_xtv_lanes_cuda", 1))
+    sweep = READ_EVERY_SWEEP if k else (None,)
+    for label, fn, _, reps in paths:
+        run_path(torch, kernels, svm_state, fn)   # first calls paid
+        runs = {kk: [] for kk in sweep}
+        for _ in range(reps):   # each k in turn, so that a drift of the host spreads over all
+            for kk in sweep:
+                if kk:
+                    svm_state.CG_READ_EVERY = kk
+                out = run_path(torch, kernels, svm_state, fn)
+                runs[kk].append((*out[1:], cg.dead, out[0]))
+        if k:
+            svm_state.CG_READ_EVERY = k
+        for kk, rs_ in runs.items():
+            _, _, syncs, dead, sol = rs_[-1]
+            print(f"  loop {label} untraced, reads every {kk or 1} CG steps"
+                  f"{'' if kk else ' (no constant)'}: "
+                  f"{', '.join(f'{r[0]:.4f}' for r in rs_)} s, {syncs} host syncs, "
+                  f"{int(torch.as_tensor(sol.iters).sum())} Newton / "
+                  f"{int(torch.as_tensor(sol.cg_iters).sum())} CG, dead CG steps {dead}",
+                  flush=True)
+        del runs
+    out_dir = ROOT / "build" / "loop-trace"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for label, fn, pass1, _ in paths[1:]:
+        run_path(torch, kernels, svm_state, fn)
+        path = out_dir / f"{label}.json"
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, secs, launched, syncs = run_path(torch, kernels, svm_state, fn)
+        prof.export_chrome_trace(str(path))
+        sp = trace_split(path, secs, launched[pass1])
+        path.unlink()
+        ops = ", ".join(f"{name} {n:.2f}" for name, n in list(sp["by_op"].items())[:14])
+        print(f"  loop {label} traced, reads every {k or 1} CG steps: {secs:.3f} s, "
+              f"{syncs} host syncs, {sp['steps']} CG steps launched ({cg.dead} dead); per "
+              f"step: wall {sp['wall_us']:.1f} us = reads {sp['read_us']:.1f} "
+              f"({sp['reads'] / sp['steps']:.3f} syncs) + launch calls "
+              f"{sp['launch_us']:.1f} ({sp['launch_calls']:.2f}) + other host "
+              f"{sp['other_host_us']:.1f}; device busy {sp['busy_us']:.1f} us (hinge "
+              f"{sp['hinge_us']:.1f}, other {sp['other_dev_us']:.1f}), idle share "
+              f"{sp['idle']:.3f}; {sp['launches']:.2f} device launches a step: {ops}",
+              flush=True)
+        del prof
+    return 0
+
 
 
 def phase_hinge_stats(torch, smoke, kernels, svm_state, dev, cases):
@@ -642,6 +826,7 @@ def phase_front_end(torch, smoke, kernels, svm_state, count, ymsd, glabra):
           f".fit, standardize + intercept, n = {n}, p = {p}", flush=True)
     model, secs, launched, syncs = run_path(
         torch, kernels, svm_state, lambda: ElasticNet(lam1, LAMBDA2).fit(X, y))
+    dead = svm_state.cg_lanes.dead
     count(launched)
     ref, ref_s, _, ref_syncs = run_path(
         torch, kernels, svm_state,
@@ -654,7 +839,8 @@ def phase_front_end(torch, smoke, kernels, svm_state, count, ymsd, glabra):
         return en.kkt_violation(Xs, ys, m.coef_ * sc.x_scale, LAMBDA2).item()
 
     print(f"    kernels: {secs:.3f} s, {syncs} host syncs, launches {launched}, "
-          f"{res.evals} evals, {res.sven_iters} Newton / {res.cg_iters} CG, kept "
+          f"{res.evals} evals, {res.sven_iters} Newton / {res.cg_iters} CG + {dead} dead "
+          f"CG steps, kept "
           f"{int(model.n_kept_)}, KKT {kkt(model):.3e}, |nu - lambda1| / lambda1 "
           f"{abs(model.nu_.item() - lam1) / lam1:.3e}, intercept dev "
           f"{abs(model.intercept_.item() - ref.intercept_.item()):.3e}", flush=True)
@@ -663,8 +849,11 @@ def phase_front_end(torch, smoke, kernels, svm_state, count, ymsd, glabra):
           f"{kkt(ref):.3e}", flush=True)
     smoke.check(bool(torch.isfinite(model.coef_).all()) and model.coef_.shape == (p,),
                 "coef_ finite, shape (p,)")
-    smoke.check(launched["hinge_xtv_cuda"] == launched["hinge_xd_cuda"] == res.cg_iters > 0,
-                "exactly one launch of each hinge pass per CG step")
+    smoke.check(launched["hinge_xtv_cuda"] == launched["hinge_xd_cuda"]
+                == res.cg_iters + dead > 0, "exactly one launch of each hinge pass per CG "
+                f"step ({res.cg_iters}) and dead CG step ({dead})")
+    smoke.check(dead <= (svm_state.CG_READ_EVERY - 1) * res.sven_iters,
+                f"dead CG steps {dead} <= k - 1 per CG solve ({res.sven_iters} solves)")
     # the float64 hinge passes give the reference's fit
     smoke.check(res.evals == ref.result_.evals,
                 f"evaluations {res.evals} = float64's {ref.result_.evals}")
@@ -708,6 +897,7 @@ def phase_primal_precisions(torch, smoke, kernels, svm_state, X, y, t, sol64) ->
         print(f"[4b] primal solve, {what}", flush=True)
         sol, secs, launched, syncs = run_path(
             torch, kernels, svm_state, lambda: sven(Xm, ym, t, LAMBDA2, cfg))
+        dead = svm_state.cg_lanes.dead
         ref, ref_s, ref_launched, _ = run_path(
             torch, kernels, svm_state, lambda: sven(Xm, ym, t, LAMBDA2, plain))
 
@@ -720,8 +910,9 @@ def phase_primal_precisions(torch, smoke, kernels, svm_state, X, y, t, sol64) ->
         beta, beta_ref = sol.beta.double(), ref.beta.double()
         scale = beta_ref.abs().max().item()
         dev_p, dev_64 = max_dev(torch, beta, beta_ref), max_dev(torch, beta, sol64.beta)
-        print(f"    kernels: {sol.iters} Newton / {sol.cg_iters} CG, {stop(sol)}, {secs:.3f} "
-              f"s, {syncs} host syncs; plain ({plain.backend}): {ref.iters} Newton / "
+        print(f"    kernels: {sol.iters} Newton / {sol.cg_iters} CG + {dead} dead CG steps, "
+              f"{stop(sol)}, {secs:.3f} s, {syncs} host syncs; plain ({plain.backend}): "
+              f"{ref.iters} Newton / "
               f"{ref.cg_iters} CG, {stop(ref)}, {ref_s:.3f} s; max|beta - beta_plain| = "
               f"{dev_p:.3e} ({dev_p / scale:.2e} of max|beta_plain|), max|beta - "
               f"beta_f64| = {dev_64:.3e} ({dev_64 / scale64:.2e} of max|beta_f64|)",
@@ -730,8 +921,8 @@ def phase_primal_precisions(torch, smoke, kernels, svm_state, X, y, t, sol64) ->
                     and bool(torch.isfinite(sol.beta).all()),
                     f"{mode} primal: beta finite, {Xm.dtype}")
         smoke.check(launched["hinge_xtv_cuda"] == launched["hinge_xd_cuda"]
-                    == sol.cg_iters > 0, f"{mode} primal: one launch of each hinge pass "
-                    f"per CG step ({sol.cg_iters})")
+                    == sol.cg_iters + dead > 0, f"{mode} primal: one launch of each hinge "
+                    f"pass per CG step ({sol.cg_iters}) and dead CG step ({dead})")
         smoke.check(not any(ref_launched.values()), f"{mode} primal: the plain run "
                     "launched no kernel")
         smoke.check(dev_p <= PRIMAL_LOW_REL * scale, f"{mode} primal: max|beta - "
@@ -954,8 +1145,9 @@ def lane_kernel_rows(torch, smoke, dev, gen, cases) -> dict:
     return rows
 
 
-#: each lane's Newton and CG counts and the batched CG steps of 9a and 9b as
-#: PERF.md records them (§2): each lane's counts are its sequential solve's,
+#: each lane's Newton and CG counts and the live batched CG steps (launched
+#: less dead) of 9a and 9b as PERF.md records them (§2): each lane's counts
+#: are its sequential solve's,
 #: and a tree whose lanes stay bitwise single launches gives these iterates
 #: again on that card and software
 RECORDED_COUNTS = {
@@ -1032,8 +1224,11 @@ def phase_batch(torch, smoke, kernels, svm_state, count, dev, gen) -> dict:
         sol, secs, launched, syncs = run_path(torch, kernels, svm_state,
                                               lambda: sven_batch(X, y, t, lambda2))
         steps, copies, cg_copies = cg_lanes.steps, pitched.copies, cg_lanes.copies
+        dead = cg_lanes.dead
         B = sol.beta.shape[0]
         count(launched)
+        check_read_every_1(torch, smoke, kernels, svm_state, label, sol, secs, syncs, dead,
+                           lambda: sven_batch(X, y, t, lambda2))
 
         def lane(i):
             return (X if X.dim() == 2 else X[i], y if y.dim() == 1 else y[i],
@@ -1050,13 +1245,14 @@ def phase_batch(torch, smoke, kernels, svm_state, count, dev, gen) -> dict:
                 for i, s_ in enumerate(seq)]
         bitwise = sum(torch.equal(sol.beta[i], s_.beta) for i, s_ in enumerate(seq))
         print(f"    batched: {secs:.3f} s, {syncs} host syncs, launches {launched}, "
-              f"{steps} batched CG steps; Newton {it_b}, CG {cg_b}; lane layout copies "
-              f"(pitched) {copies} in all, {cg_copies} in CG steps "
-              f"({cg_copies / max(1, steps):.2f} launches a batched CG step)", flush=True)
+              f"{steps} batched CG steps ({steps - dead} live, {dead} dead); Newton {it_b}, "
+              f"CG {cg_b}; lane layout copies (pitched) {copies} in all, {cg_copies} in CG "
+              f"steps ({cg_copies / max(1, steps):.2f} launches a batched CG step)",
+              flush=True)
         if label in RECORDED_COUNTS:
-            print(f"    per-lane Newton and CG lists and batched CG steps equal the ones "
-                  f"PERF.md records: {(it_b, cg_b, steps) == RECORDED_COUNTS[label]}",
-                  flush=True)
+            print(f"    per-lane Newton and CG lists and live batched CG steps equal the "
+                  f"ones PERF.md records: "
+                  f"{(it_b, cg_b, steps - dead) == RECORDED_COUNTS[label]}", flush=True)
         print(f"    sequential ({B} sven calls): {seq_s:.3f} s, {seq_syncs} host syncs, "
               f"launches {seq_launched}; Newton {it_s}, CG {cg_s} ({sum(cg_s)}); max "
               f"|beta - beta_seq| / max|beta_seq| {max(devs):.3e}, {bitwise} of {B} lanes "
@@ -1077,9 +1273,10 @@ def phase_batch(torch, smoke, kernels, svm_state, count, dev, gen) -> dict:
                         f"{label}: one Gram launch per lane ({B}), no hinge launch")
         else:
             smoke.check(launched["hinge_xtv_lanes_cuda"] == launched["hinge_xd_lanes_cuda"]
-                        == steps > 0 and max(cg_b) <= steps <= sum(cg_b),
+                        == steps > 0 and max(cg_b) <= steps - dead <= sum(cg_b),
                         f"{label}: one launch of each lane-batched hinge pass per batched "
-                        f"CG step ({steps}; longest lane {max(cg_b)}, all lanes {sum(cg_b)})")
+                        f"CG step ({steps}: {steps - dead} live, {dead} dead; longest lane "
+                        f"{max(cg_b)}, all lanes {sum(cg_b)})")
             smoke.check(launched["hinge_xtv_cuda"] == launched["hinge_xd_cuda"]
                         == launched["shifted_gram_cuda"] == 0,
                         f"{label}: no single hinge launch and no Gram launch")
@@ -1189,11 +1386,12 @@ def gram_split_only(torch, modes) -> int:
 
 
 def run_path(torch, kernels, svm_state, fn):
-    """Run fn with every launch counter and the sync counter at 0; return
-    (result, seconds, launches, syncs)."""
+    """Run fn with every launch counter, the sync counter and the CG loop's
+    counters (`cg_lanes.steps`, `.dead`) at 0; return (result, seconds,
+    launches, syncs)."""
     torch.cuda.synchronize()
     kernels.reset_launches()
-    svm_state.host_bool.syncs = 0
+    svm_state.host_bool.syncs = svm_state.cg_lanes.steps = svm_state.cg_lanes.dead = 0
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
@@ -1203,6 +1401,45 @@ def run_path(torch, kernels, svm_state, fn):
 
 def max_dev(torch, a, b) -> float:
     return (a - b).abs().max().item()
+
+
+def check_read_every_1(torch, smoke, kernels, svm_state, what, sol, secs, syncs, dead, fn):
+    """Hold `sol`, the run of fn() at the module's k (`secs` seconds,
+    `syncs` host syncs, `dead` dead CG steps), bitwise to fn() run with the
+    CG loop reading its test before every step (k = 1): beta by
+    `torch.equal`, the same Newton and CG counts (per lane for a batch).
+    Prints both runs' seconds, host syncs and dead steps, and checks the
+    dead steps: none at k = 1, at most k - 1 per CG solve (one per Newton
+    step; a batch's count its batched Newton steps)."""
+    k = svm_state.CG_READ_EVERY
+    one, one_s, _, one_syncs = run_path(torch, kernels, svm_state,
+                                        lambda: read_every(svm_state, 1, fn))
+    one_dead = svm_state.cg_lanes.dead
+
+    def counts(s_):
+        return torch.as_tensor(s_.iters).tolist(), torch.as_tensor(s_.cg_iters).tolist()
+
+    solves = max(torch.as_tensor(sol.iters).reshape(-1).tolist())
+    print(f"    CG test read every {k} steps: {secs:.3f} s, {syncs} host syncs, {dead} dead "
+          f"CG steps; read every step: {one_s:.3f} s, {one_syncs} host syncs, {one_dead} "
+          f"dead", flush=True)
+    smoke.check(torch.equal(one.beta, sol.beta) and counts(one) == counts(sol),
+                f"{what}: beta, Newton and CG steps reading the CG test every {k} steps "
+                "bitwise those reading it every step")
+    smoke.check(one_dead == 0 and dead <= (k - 1) * solves,
+                f"{what}: dead CG steps {dead} <= (k - 1) x {solves} CG solves, none ({one_dead}) "
+                "reading every step")
+
+
+def read_every(svm_state, k: int, fn):
+    """fn() with the CG loop reading its test once every k steps (1: before
+    every step), the module's k restored after."""
+    saved = svm_state.CG_READ_EVERY
+    svm_state.CG_READ_EVERY = k
+    try:
+        return fn()
+    finally:
+        svm_state.CG_READ_EVERY = saved
 
 
 def main() -> int:
@@ -1234,6 +1471,8 @@ def main() -> int:
         return batch_time_only(torch)
     if sys.argv[1:] == ["--lane-time"]:
         return lane_time_only(torch)
+    if sys.argv[1:] == ["--loop-trace"]:
+        return loop_trace_only(torch)
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -1289,15 +1528,18 @@ def main() -> int:
         lambda: sven(X, y, t, LAMBDA2, SvenConfig(backend="torch")))
     sol, secs, launched, syncs = run_path(torch, kernels, svm_state,
                                           lambda: sven(X, y, t, LAMBDA2))
+    dead = svm_state.cg_lanes.dead
     count(launched)
     scale = ref_sol.beta.abs().max().item()
     dev_b = max_dev(torch, sol.beta, ref_sol.beta)
     print(f"    default (float64 Gram): mode {sol.mode}, {sol.iters} Newton / "
-          f"{sol.cg_iters} CG iterations, kkt {sol.kkt.item():.3e}, {secs:.3f} s, "
-          f"{syncs} host syncs, launches {launched}; torch f64: {ref_sol.iters} Newton / "
-          f"{ref_sol.cg_iters} CG, kkt {ref_sol.kkt.item():.3e}, {ref_s:.3f} s, "
-          f"{ref_syncs} syncs", flush=True)
+          f"{sol.cg_iters} CG iterations ({dead} dead CG steps), kkt {sol.kkt.item():.3e}, "
+          f"{secs:.3f} s, {syncs} host syncs, launches {launched}; torch f64: "
+          f"{ref_sol.iters} Newton / {ref_sol.cg_iters} CG, kkt {ref_sol.kkt.item():.3e}, "
+          f"{ref_s:.3f} s, {ref_syncs} syncs", flush=True)
     smoke.check(sol.mode == "dual", "YMSD shape takes the dual branch")
+    check_read_every_1(torch, smoke, kernels, svm_state, "dual", sol, secs, syncs, dead,
+                       lambda: sven(X, y, t, LAMBDA2))
     smoke.check(launched["shifted_gram_cuda"] == 1, "one Gram launch per dual solve")
     smoke.check(bool(torch.isfinite(sol.beta).all()) and sol.beta.shape == (p,),
                 "beta finite, shape (p,)")
@@ -1346,17 +1588,21 @@ def main() -> int:
         lambda: sven(X, y, t, LAMBDA2, SvenConfig(backend="torch")))
     sol, secs, launched, syncs = run_path(torch, kernels, svm_state,
                                           lambda: sven(X, y, t, LAMBDA2))
+    dead = svm_state.cg_lanes.dead
     count(launched)
     scale = ref_sol.beta.abs().max().item()
     dev_b = max_dev(torch, sol.beta, ref_sol.beta)
     print(f"    default (float64 hinge passes): mode {sol.mode}, {sol.iters} Newton / "
-          f"{sol.cg_iters} CG iterations (= H v products), kkt {sol.kkt.item():.3e}, "
-          f"{secs:.3f} s, {syncs} host syncs, launches {launched}; torch f64: "
-          f"{ref_sol.iters} Newton / {ref_sol.cg_iters} CG, kkt {ref_sol.kkt.item():.3e}, "
-          f"{ref_s:.3f} s, {ref_syncs} syncs", flush=True)
+          f"{sol.cg_iters} CG iterations + {dead} dead CG steps (= H v products), kkt "
+          f"{sol.kkt.item():.3e}, {secs:.3f} s, {syncs} host syncs, launches {launched}; "
+          f"torch f64: {ref_sol.iters} Newton / {ref_sol.cg_iters} CG, kkt "
+          f"{ref_sol.kkt.item():.3e}, {ref_s:.3f} s, {ref_syncs} syncs", flush=True)
     smoke.check(sol.mode == "primal", "GLA-BRA-180 shape takes the primal branch")
-    smoke.check(launched["hinge_xtv_cuda"] == launched["hinge_xd_cuda"] == sol.cg_iters > 0,
-                "exactly one launch of each hinge pass per H v product")
+    smoke.check(launched["hinge_xtv_cuda"] == launched["hinge_xd_cuda"]
+                == sol.cg_iters + dead > 0, "exactly one launch of each hinge pass per H v "
+                f"product: CG steps {sol.cg_iters} + dead steps {dead}")
+    check_read_every_1(torch, smoke, kernels, svm_state, "primal", sol, secs, syncs, dead,
+                       lambda: sven(X, y, t, LAMBDA2))
     smoke.check(bool(torch.isfinite(sol.beta).all()) and sol.beta.shape == (p,),
                 "beta finite, shape (p,)")
     # the float64 hinge passes give the reference's solve: its Newton steps,
@@ -1379,6 +1625,7 @@ def main() -> int:
     print(f"[5] sven_path, {len(ts)} points, n = {n}, p = {p}", flush=True)
     betas, secs, launched, syncs = run_path(
         torch, kernels, svm_state, lambda: sven_path(X, y, ts, LAMBDA2))
+    dead = svm_state.cg_lanes.dead
     count(launched)
     ref_betas, ref_s, _, _ = run_path(
         torch, kernels, svm_state, lambda: sven_path_reference(X, y, ts, LAMBDA2))
@@ -1391,8 +1638,8 @@ def main() -> int:
     dev_plain = max_dev(torch, betas, plain_betas)
     scale = plain_betas.abs().max().item()
     print(f"    path {secs:.3f} s, {syncs} host syncs, launches {launched}, "
-          f"{launched['hinge_xtv_cuda']} CG; reference {ref_s:.3f} s; torch f64 path "
-          f"{plain_s:.3f} s, {plain_cg} CG", flush=True)
+          f"{launched['hinge_xtv_cuda'] - dead} CG + {dead} dead CG steps; reference "
+          f"{ref_s:.3f} s; torch f64 path {plain_s:.3f} s, {plain_cg} CG", flush=True)
     smoke.check(betas.shape == (len(ts), p) and bool(torch.isfinite(betas).all()),
                 "path betas finite, shape (8, p)")
     smoke.check(launched["hinge_xtv_cuda"] > 0 and launched["hinge_xd_cuda"] > 0,
@@ -1426,6 +1673,7 @@ def main() -> int:
     # -- 9. batched solves -----------------------------------------------------
     print("[9] sven_batch: lane-batched solves vs sequential sven", flush=True)
     rows.update(phase_batch(torch, smoke, kernels, svm_state, count, dev, gen))
+    torch.cuda.empty_cache()
 
     # -- summary ---------------------------------------------------------------
     for name, n_launch in path_launches.items():

@@ -18,7 +18,8 @@ low-precision alpha.
 
 PyTorch counterpart of `repro/core/sven.py`. JAX compiles the solve once
 per shape under `jit`; here it runs eagerly, with host loops (one host sync
-per loop test, see `core/svm/state.py`). `t` and `lambda2` are host floats.
+per Newton or line-search test, and one per block of CG steps, see
+`core/svm/state.py`). `t` and `lambda2` are host floats.
 `sven_path` is a Python loop over the t-grid that carries the warm dual
 alpha AND primal w from zeros, as the JAX scan does.
 
@@ -192,16 +193,20 @@ def _sven_core(X, y, t: float, lambda2: float, warm_alpha, warm_w,
         hess_matvec = None
         if kernels:
             from repro_torch.kernels.ops import _storage, hinge_hessian_matvec
-            # the kernel operands are made once per solve, not per CG step;
-            # float64 ones are the problem's own tensors, cast nowhere
+            # the kernel operands are made once per solve, the act halves
+            # once per Newton step (a new `act`), not per CG step; float64
+            # ones are the problem's own tensors, cast nowhere
             kdtype = _kernel_dtype(dtype, config.precision)
             Xk = _storage(X.to(kdtype).contiguous(), config.precision)
             yk = y.to(kdtype).contiguous()
+            halves = {"act": None}
 
             def hess_matvec(v, act, C_):  # the fused two-pass H v kernel
+                if halves["act"] is not act:
+                    halves.update(act=act, top=act[:p].to(kdtype), bot=act[p:].to(kdtype))
                 hv = hinge_hessian_matvec(
-                    Xk, yk, t, C_, act[:p].to(kdtype), act[p:].to(kdtype),
-                    v.to(kdtype), backend=config.backend, precision=config.precision)
+                    Xk, yk, t, C_, halves["top"], halves["bot"], v.to(kdtype),
+                    backend=config.backend, precision=config.precision)
                 return hv.to(dtype)
 
         res = solve_primal_newton(
@@ -327,10 +332,14 @@ def _sven_core_lanes(X, y, t: torch.Tensor, lambda2: torch.Tensor, warm_alpha, w
             Xk = pitched(Xk) if Xk.dim() == 3 else Xk.contiguous()
             yk = y.to(kdtype).contiguous()
 
+            halves = {"act": None}
+
             def hess_matvec(v, act, C_):  # one launch of each pass for all lanes
+                if halves["act"] is not act:   # the (B, p) halves, once per Newton step
+                    halves.update(act=act, top=act[:, :p].to(kdtype).contiguous(),
+                                  bot=act[:, p:].to(kdtype).contiguous())
                 hv = hinge_hessian_matvec_lanes(
-                    Xk, yk, t, C_, act[:, :p].to(kdtype).contiguous(),
-                    act[:, p:].to(kdtype).contiguous(), v.to(kdtype).contiguous(),
+                    Xk, yk, t, C_, halves["top"], halves["bot"], v.to(kdtype).contiguous(),
                     backend=config.backend, precision=config.precision)
                 return hv.to(dtype)
 

@@ -24,7 +24,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.core.svm.state import (Hyper, LaneHyper, SolverMachine, SolverState,
-                                        cg_lanes, host_bool, initial_lane_state,
+                                        cg_lanes, device_ints, host_bool, initial_lane_state,
                                         initial_state, lane_dot, lanes, make_hyper,
                                         make_lane_hyper, run_lane_machine, run_machine)
 
@@ -39,28 +39,13 @@ class DualResult(NamedTuple):
 
 def _masked_cg(matvec: Callable, b: torch.Tensor, mask: torch.Tensor,
                maxiter: int, tol: float):
-    """CG restricted to coordinates where mask==1 (others pinned to 0).
-
-    Returns (x, iterations)."""
+    """CG restricted to coordinates where mask==1 (others pinned to 0):
+    `cg_lanes` on one lane. Returns (x, iterations)."""
 
     def mv(v):
         return mask * matvec(mask * v)
 
-    b = mask * b
-    x, r, pvec, rs = torch.zeros_like(b), b, b, b @ b
-    one = torch.ones_like(rs)
-    it = 0
-    while it < maxiter and host_bool(rs > tol * tol):
-        Ap = mv(pvec)
-        denom = pvec @ Ap
-        alpha = rs / torch.where(denom > 0, denom, one)
-        x = x + alpha * pvec
-        r = r - alpha * Ap
-        rs_new = r @ r
-        beta = rs_new / torch.where(rs > 0, rs, one)
-        pvec = r + beta * pvec
-        rs = rs_new
-        it += 1
+    x, _, it = cg_lanes(mv, mask * b, None, maxiter, tol)
     return x, it
 
 
@@ -189,7 +174,8 @@ def dual_newton_lanes_machine(
             v = free * v
             return free * (2.0 * kernel_matvec(v) + v / C)
 
-        d, n_cg = cg_lanes(masked_hess_mv, free * g, active, cg_iters, hyper.tol * 1e-2)
+        d, n_cg, _ = cg_lanes(masked_hess_mv, free * g, active, cg_iters, hyper.tol * 1e-2)
+        n_cg = device_ints(n_cg, alpha.device)
 
         f0 = dual_obj_lanes(kernel_matvec, alpha, hyper.C)
         f_floor = f0 - 1e-12 * torch.abs(f0)

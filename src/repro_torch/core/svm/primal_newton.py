@@ -22,9 +22,9 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.core.svm.state import (Hyper, LaneHyper, SolverMachine, SolverState,
-                                        cg_lanes, host_bool, initial_lane_state,
-                                        initial_state, lane_dot, make_hyper, make_lane_hyper, run_lane_machine,
-                                        run_machine)
+                                        cg_lanes, device_ints, host_bool, initial_lane_state,
+                                        initial_state, lane_dot, make_hyper, make_lane_hyper,
+                                        run_lane_machine, run_machine)
 
 
 class PrimalResult(NamedTuple):
@@ -32,25 +32,14 @@ class PrimalResult(NamedTuple):
     iters: int
     grad_norm: torch.Tensor
     objective: torch.Tensor
-    cg_iters: int              # inner CG iterations (= H v products) over the solve
+    cg_iters: int              # inner CG iterations over the solve (the H v products
+                               # less the dead steps, `state.cg_lanes.dead`)
 
 
 def _cg(matvec: Callable, b: torch.Tensor, maxiter: int, tol: float):
-    """Plain CG on SPD `matvec`, early exit on tol. Returns (x, iterations)."""
-    x, r, pvec, rs = torch.zeros_like(b), b, b, b @ b
-    one = torch.ones_like(rs)
-    it = 0
-    while it < maxiter and host_bool(rs > tol * tol):
-        Ap = matvec(pvec)
-        denom = pvec @ Ap
-        alpha = rs / torch.where(denom > 0, denom, one)
-        x = x + alpha * pvec
-        r = r - alpha * Ap
-        rs_new = r @ r
-        beta = rs_new / torch.where(rs > 0, rs, one)
-        pvec = r + beta * pvec
-        rs = rs_new
-        it += 1
+    """Plain CG on SPD `matvec`, early exit on tol: `cg_lanes` on one lane.
+    Returns (x, iterations)."""
+    x, _, it = cg_lanes(matvec, b, None, maxiter, tol)
     return x, it
 
 
@@ -193,7 +182,8 @@ def primal_newton_lanes_machine(
             def hess_mv(v):
                 return hess_matvec(v, act, hyper.C)
 
-        dstep, n_cg = cg_lanes(hess_mv, grad, active, cg_iters, hyper.tol * 1e-2)
+        dstep, n_cg, _ = cg_lanes(hess_mv, grad, active, cg_iters, hyper.tol * 1e-2)
+        n_cg = device_ints(n_cg, w.device)
 
         # the single machine's linearized Armijo search, s (B,) per lane
         od = matvec(dstep)

@@ -8,8 +8,10 @@ three functions as in `repro/core/svm/state.py`:
     run(hyper, x0=None)  -> SolverState     step to convergence
 
 JAX runs `run` as a `lax.while_loop` on the device. Here it is a host loop
-with the same stop rule, `~converged & iters < max_iters`: each loop test
-reads one device boolean (`host_bool`), which is one host sync. The iterates
+with the same stop rule, `~converged & iters < max_iters`: each Newton loop
+test reads one device boolean (`host_bool`), which is one host sync. The CG
+loop (`cg_lanes`, the one CG loop of every machine) keeps its test on the
+device and reads it once per block of CG_READ_EVERY steps. The iterates
 and the iteration counts are those of the JAX machines. The hyperparameters
 (`Hyper.C`, `Hyper.tol`) are Python floats, so no other value crosses to
 the host inside a solve.
@@ -217,38 +219,105 @@ def run_lane_machine(step: Callable, state: SolverState, hyper: LaneHyper,
                                         tuple(state)))
 
 
-def cg_lanes(matvec: Callable, b: torch.Tensor, active: torch.Tensor, maxiter: int,
-             tol: torch.Tensor):
+#: CG steps launched between two reads of the CG loop test (`cg_lanes`); 1
+#: reads it before every step. Chosen from `chip_smoke.py --loop-trace`
+#: (PERF.md §5, PR 27): a read cost the host 15-25 us of waiting a step,
+#: plus its own launches, and a dead step costs a whole step (0.2-0.3 ms
+#: primal, 0.7-0.9 ms at 9a); the untraced runs at k = 1, 2, 4, 8 and 16
+#: could not tell k = 4-16 apart beyond the host's noise, and k = 8 keeps
+#: a solve's reads near a sixth of its CG steps, at 4 % dead steps (the
+#: primal) and 2 % (9a).
+CG_READ_EVERY = 8
+
+
+def host_flags(x: torch.Tensor) -> list:
+    """A 2-d boolean tensor read on the host as lists of rows: one host
+    sync, counted in `host_bool.syncs` beside the loop tests."""
+    host_bool.syncs += 1
+    return x.tolist()
+
+
+def device_ints(values: list, device: torch.device) -> torch.Tensor:
+    """Host integers as an int64 tensor on `device`, copied without waiting
+    for the device's queue (from pinned memory on CUDA)."""
+    t = torch.tensor(values, dtype=torch.int64)
+    return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t.to(device)
+
+
+def cg_lanes(matvec: Callable, b: torch.Tensor, active: Optional[torch.Tensor],
+             maxiter: int, tol):
     """Plain CG on each lane of b (B, d) at once, with each lane's own early
-    exit (rs <= tol^2, tol (B,)): the vmapped form of the solvers' CG. Lanes
-    not `active` take no step. Returns (x (B, d), iterations (B,) int64).
-    `cg_lanes.steps` counts the batched steps, each one `matvec` for all
-    lanes, and `cg_lanes.copies` the `pitched` copies its steps make (plain
-    integers; callers reset them)."""
-    x, r, pvec, rs = torch.zeros_like(b), b, b, lane_dot(b, b)
+    exit (rs <= tol^2; tol a (B,) tensor or a float): the vmapped form of the
+    solvers' CG, and the one CG loop of every machine. Lanes not `active`
+    (B,) take no step; None: all are active. A single solve passes b (d,),
+    one lane without a lane axis, and a `matvec` of (d,): its steps are
+    then the single solve's own ops (`@` and 0-d scalars), with none of
+    the lane axis' views and broadcasts, which a step's host time shows.
+
+    The loop test `active & (rs > tol^2)` is evaluated on the device, once
+    per block of k = CG_READ_EVERY steps for every step of the block, and
+    read by the host once per block: before steps k - 1, 2k - 1, ... (and
+    before the last step allowed). A lane's count is its first step whose
+    test is false (JAX's `lax.while_loop` stops there), and its x that of
+    that step, kept from the block's iterates; the steps it is launched
+    past it run on and are discarded. So a lane's x and count are those of
+    the loop that reads its test before every step, to the bit, and a step
+    adds no launch to freeze a lane. A solve in which some lane ran c steps
+    makes ceil((c + 1) / k) reads and launches up to k - 1 "dead" steps
+    after its end, whose mat-vec runs and is discarded; k = 1 reads before
+    every step and launches none. Returns (x, each lane's count (a host
+    list), the steps in which some lane ran). `cg_lanes.steps` counts the
+    batched steps launched, each one `matvec` for all lanes,
+    `cg_lanes.dead` the dead ones among them, and `cg_lanes.copies` the
+    `pitched` copies its steps make (plain integers; callers reset them)."""
+    k = CG_READ_EVERY
+    lane_axis = b.dim() > 1
+    B = b.shape[0] if lane_axis else 1
+    dot = lane_dot if lane_axis else torch.matmul
+
+    def col(t):   # a per-lane scalar against the lanes' (B, d) vectors
+        return t[:, None] if lane_axis else t
+
+    x, r, pvec, rs = torch.zeros_like(b), b, b, dot(b, b)
     copies = pitched.copies
     one = torch.ones_like(rs)
     thr = tol * tol
-    its = torch.zeros(b.shape[0], dtype=torch.int64, device=b.device)
+    xs, rss, first = [x], [rs], 0    # x and rs after first, first + 1, ... steps
+    counts, ends = [None] * B, [None] * B   # each lane's count and its x
     it = 0
     while it < maxiter:
-        run = active & (rs > thr)
-        if not host_bool(run.any()):
-            break
+        if it % k == k - 1 or it == maxiter - 1:
+            run = (torch.stack(rss) if len(rss) > 1 else rss[0][None]) > thr
+            run = run if active is None else run & active
+            for j, row in enumerate(host_flags(run.reshape(len(rss), B))):
+                for i in range(B):
+                    if counts[i] is None and not row[i]:
+                        counts[i], ends[i] = first + j, xs[j][i] if lane_axis else xs[j]
+            if None not in counts:
+                break
+            xs, rss, first = [], [], it + 1
         Ap = matvec(pvec)
-        denom = lane_dot(pvec, Ap)
-        alpha = (rs / torch.where(denom > 0, denom, one))[:, None]
-        x_new = x + alpha * pvec
-        r_new = r - alpha * Ap
-        rs_new = lane_dot(r_new, r_new)
-        beta = (rs_new / torch.where(rs > 0, rs, one))[:, None]
-        x, r, pvec, rs = lane_where(run, (x_new, r_new, r_new + beta * pvec, rs_new),
-                                    (x, r, pvec, rs))
-        its += run
+        denom = dot(pvec, Ap)
+        alpha = col(rs / torch.where(denom > 0, denom, one))
+        x = x + alpha * pvec
+        r = r - alpha * Ap
+        rs_new = dot(r, r)
+        beta = col(rs_new / torch.where(rs > 0, rs, one))
+        pvec = r + beta * pvec
+        rs = rs_new
         it += 1
-        cg_lanes.steps += 1
+        xs.append(x)
+        rss.append(rs)
+    for i in range(B):   # the step limit: lanes whose test held to its last step
+        if counts[i] is None:
+            counts[i], ends[i] = it, x[i] if lane_axis else x
+    live = max(counts)
+    cg_lanes.steps += it
+    cg_lanes.dead += it - live
     cg_lanes.copies += pitched.copies - copies
-    return x, its
+    if not lane_axis:
+        return ends[0], counts, live
+    return (ends[0][None] if B == 1 else torch.stack(ends)), counts, live
 
 
-cg_lanes.steps = cg_lanes.copies = 0
+cg_lanes.steps = cg_lanes.dead = cg_lanes.copies = 0

@@ -14,7 +14,7 @@ from repro.core.svm import primal_newton as jprimal
 from repro_torch.core import reduction as tred
 from repro_torch.core.svm import dual_fista as tfista
 from repro_torch.core.svm import dual_newton as tdual
-from repro_torch.core.svm import host_bool, make_hyper
+from repro_torch.core.svm import host_bool, make_hyper, state
 from repro_torch.core.svm import primal_newton as tprimal
 
 TOL = 1e-10
@@ -119,13 +119,25 @@ def test_cg_helpers_match_jax():
     np.testing.assert_array_equal(npy(xm)[mask == 0], 0.0)
 
 
-def test_host_loop_counts_its_syncs():
+def test_host_loop_counts_its_syncs(monkeypatch):
     top, _ = _ops(60, 12, 1.5, 0)
-    host_bool.syncs = 0
-    r = tdual.solve_dual_newton(top.kernel_matvec, 24, 0.5, tol=1e-9)
-    # one read per loop test: Newton tests (iters + 1), CG tests (cg + one
-    # per Newton step), and at least one line-search test per Newton step
-    assert host_bool.syncs >= (r.iters + 1) + (r.cg_iters + r.iters) + r.iters
+    k = state.CG_READ_EVERY
+    syncs = {}
+    for every in (1, k):
+        monkeypatch.setattr(state, "CG_READ_EVERY", every)
+        host_bool.syncs = 0
+        r = tdual.solve_dual_newton(top.kernel_matvec, 24, 0.5, tol=1e-9)
+        syncs[every] = host_bool.syncs
+    # CG reading its test before every step (k = 1): one read per loop test:
+    # Newton tests (iters + 1), CG tests (cg + one per Newton step), and at
+    # least one line-search test per Newton step
+    assert syncs[1] >= (r.iters + 1) + (r.cg_iters + r.iters) + r.iters
+    # at the default k the CG test is read once per block of k steps: at
+    # most ceil((c + 1) / k) reads for a CG solve of c steps, so at most
+    # (cg + k iters) / k for the solve's CG; the other reads are unchanged
+    other = syncs[1] - (r.cg_iters + r.iters)
+    assert other + r.iters <= syncs[k] and k * (syncs[k] - other) <= r.cg_iters + k * r.iters
+    assert k == 1 or syncs[k] < syncs[1]
 
 
 @pytest.mark.parametrize("n,p,seed", [(60, 12, 0), (40, 30, 3)])

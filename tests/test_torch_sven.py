@@ -96,7 +96,11 @@ def test_default_primal_matches_jax_default():
 def test_default_primal_path_matches_jax_default(monkeypatch):
     """`sven_path` with both packages' defaults at the primal shape: betas
     within 1e-10 of JAX's, and one call of each hinge pass per CG step of
-    the same path on the plain float64 backend."""
+    the same path on the plain float64 backend, with the CG test read
+    before every step (k = 1). At the default k, one more per dead CG step
+    (a step launched after its loop test turned false, `cg_lanes.dead`),
+    at most k - 1 of them per CG solve."""
+    from repro_torch.core.svm import state
     from repro_torch.kernels import registry
     calls = {"hinge_xtv": 0, "hinge_xd": 0}
     for op in calls:
@@ -113,11 +117,23 @@ def test_default_primal_path_matches_jax_default(monkeypatch):
     jb = jsven_mod.sven_path(jnp.asarray(X), jnp.asarray(y), grid, 0.9,
                              jsven_mod.SvenConfig())
     Xt, yt = problem_from_numpy(X, y, device="cpu")
-    tb = tsven_mod.sven_path(Xt, yt, grid, 0.9)
-    np.testing.assert_allclose(npy(tb), npy(jb), rtol=0, atol=1e-10)
-    plain_cg = sum(sol.cg_iters for sol in tsven_mod.sven_path_solutions(
-        Xt, yt, grid, 0.9, SvenConfig(backend="torch")))
-    assert calls["hinge_xtv"] == calls["hinge_xd"] == plain_cg > 0
+    plain = tsven_mod.sven_path_solutions(Xt, yt, grid, 0.9, SvenConfig(backend="torch"))
+    plain_cg = sum(sol.cg_iters for sol in plain)
+    newton = sum(sol.iters for sol in plain)
+    k = state.CG_READ_EVERY
+    for every in (1, k):
+        monkeypatch.setattr(state, "CG_READ_EVERY", every)
+        calls.update(hinge_xtv=0, hinge_xd=0)
+        state.cg_lanes.dead = 0
+        tb = tsven_mod.sven_path(Xt, yt, grid, 0.9)
+        np.testing.assert_allclose(npy(tb), npy(jb), rtol=0, atol=1e-10)
+        if every == 1:
+            assert state.cg_lanes.dead == 0
+            assert calls["hinge_xtv"] == calls["hinge_xd"] == plain_cg > 0
+        else:
+            dead = state.cg_lanes.dead
+            assert dead <= (k - 1) * newton
+            assert calls["hinge_xtv"] == calls["hinge_xd"] == plain_cg + dead > 0
 
 
 @pytest.mark.parametrize("dtype,precision,want", [
@@ -129,7 +145,10 @@ def test_hinge_operands_follow_problem_dtype_and_precision(monkeypatch, dtype, p
     problem at "f32"; a float32 problem and tf32 get float32, and bf16
     bfloat16 storage of X beside float32 operands, whose passes sum in
     float32. Seen through counting stand-ins for the registry's "ref"
-    bodies; one call of each per CG step."""
+    bodies; one call of each per CG step with the CG test read before
+    every step (k = 1), and at the default k one more per dead step
+    (`cg_lanes.dead`), at most k - 1 of them per CG solve."""
+    from repro_torch.core.svm import state
     from repro_torch.kernels import registry
     xtv, xd = registry.lookup("hinge_xtv", "ref"), registry.lookup("hinge_xd", "ref")
     seen = {"hinge_xtv": [], "hinge_xd": []}
@@ -149,12 +168,24 @@ def test_hinge_operands_follow_problem_dtype_and_precision(monkeypatch, dtype, p
     monkeypatch.setitem(registry._REGISTRY, ("hinge_xd", "ref"), counting_xd)
     n, p = MODES["primal"]
     X, y = cpu(*problem(n, p, seed=11, k_true=6), dtype=dtype)
-    sol = tsven_mod.sven(X, y, 1.8, 0.7, SvenConfig(precision=precision))
-    assert sol.mode == "primal" and sol.beta.dtype == dtype
     acc = torch.float64 if want == torch.float64 else torch.float32
-    assert len(seen["hinge_xtv"]) == len(seen["hinge_xd"]) == sol.cg_iters > 0
-    assert set(seen["hinge_xtv"]) == {(want, acc, acc, acc, acc, acc)}
-    assert set(seen["hinge_xd"]) == {(want, acc, acc, acc, acc)}
+    k = state.CG_READ_EVERY
+    for every in (1, k):
+        monkeypatch.setattr(state, "CG_READ_EVERY", every)
+        seen["hinge_xtv"].clear()
+        seen["hinge_xd"].clear()
+        state.cg_lanes.dead = 0
+        sol = tsven_mod.sven(X, y, 1.8, 0.7, SvenConfig(precision=precision))
+        assert sol.mode == "primal" and sol.beta.dtype == dtype
+        if every == 1:
+            assert state.cg_lanes.dead == 0
+            assert len(seen["hinge_xtv"]) == len(seen["hinge_xd"]) == sol.cg_iters > 0
+        else:
+            dead = state.cg_lanes.dead
+            assert dead <= (k - 1) * sol.iters
+            assert len(seen["hinge_xtv"]) == len(seen["hinge_xd"]) == sol.cg_iters + dead > 0
+        assert set(seen["hinge_xtv"]) == {(want, acc, acc, acc, acc, acc)}
+        assert set(seen["hinge_xd"]) == {(want, acc, acc, acc, acc)}
 
 
 @pytest.mark.parametrize("dtype,precision,want", [
