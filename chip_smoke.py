@@ -41,8 +41,9 @@ port's main path through the entry points a user calls:
      `ElasticNet(...).fit` with standardization and intercept at the
      GLA-BRA-180 shape (primal: one launch of each hinge pass per CG step),
      each against the same call on the plain float64 backend;
-  8. a float32 problem at the default precision: the dual solve and a
-     10-point `enet_path` at the YMSD shape, whose Grams run the kernel's
+  8. a float32 problem at the default precision: the dual solve and
+     `enet_path` over the first 5 points of the 10-point lambda grid at the
+     YMSD shape, whose Grams run the kernel's
      float32 body, against the same calls on the port's plain float32
      backend ("torch") on the same tensors;
   9. `sven_batch` (float64, default config), each lane bitwise the port's
@@ -55,7 +56,20 @@ port's main path through the entry points a user calls:
      their plain version and single launches, timed beside B single
      launches, the bound and one `torch.mm` / `torch.bmm`; each lane's
      Newton and CG lists of 9a and 9b against the ones PERF.md records;
-     each case again at k = 1, bitwise the same.
+     each case again at k = 1, bitwise the same;
+ 11. the lane-batched penalized stack (float64, default config), each
+     fold or lane a lane of one Illinois root-find: (11a)
+     `ElasticNetCV(k=5, n_lambdas=10)` at the GLA-BRA-180 shape (primal
+     folds) and (11b) `cross_validate(k=5, n_lambdas=10)` at the YMSD
+     shape (dual folds), each against the port's sequential
+     `cross_validate_reference` on the same data (mse within 1e-10 x max,
+     the same index_min, equal evaluations and kept columns per (lambda,
+     fold)) and its refit bitwise `enet` at lambda_min; (11c) `enet_batch`
+     on 5 stacked folds of 11a, cold and then warm from the cold carry on
+     lanes 0, 2 and 4, each lane bitwise the sequential `_enet_point` on
+     fresh copies of its operands. The hinge launches, lane-batched plus
+     single (one lane left), equal the batched CG steps; the dual launches
+     one Gram per lane and evaluation.
 
 The CG loop (`repro_torch.core.svm.state.cg_lanes`) reads its test once
 per block of k = `CG_READ_EVERY` steps and launches up to k - 1 dead steps
@@ -943,16 +957,20 @@ F32_BETA_REL = {"dual": 1e-5, "enet_path": 1e-2}
 #: |evaluations - plain's| / plain's allowed for that enet_path: 5.7 % with
 #: the previous body (130 against 123; per point up to 15 apart)
 F32_PATH_EVALS_REL = 0.25
+#: the points of phase 8b's float32 enet_path: the first 5 of the 10-point
+#: grid, which took 318-412 s of the script at full depth (run twice)
+F32_PATH_POINTS = 5
 
 
 def phase_float32(torch, smoke, kernels, svm_state, dev) -> int:
-    """A float32 problem at the default precision "f32": the dual solve and a
-    10-point `enet_path` at the YMSD shape, whose Grams run the kernel's
+    """A float32 problem at the default precision "f32": the dual solve and
+    `enet_path` over the first F32_PATH_POINTS points of the 10-point grid
+    at the YMSD shape, whose Grams run the kernel's
     float32 body, each against the same call on the port's plain float32
     backend ("torch") on the same tensors: the dual's Newton count, the
     path's evaluations within F32_PATH_EVALS_REL, beta within F32_BETA_REL.
     Returns the Gram's launches."""
-    from repro_torch.core.api import PathConfig, enet_path
+    from repro_torch.core.api import PathConfig, enet_path, lambda_grid
     from repro_torch.core.sven import SvenConfig, sven
     from repro_torch.data.synthetic import make_regression
 
@@ -990,13 +1008,17 @@ def phase_float32(torch, smoke, kernels, svm_state, dev) -> int:
                 f"{dev_b:.3e} <= {bound:g} * max|beta| = {bound * scale:.3e}")
 
     plain = PathConfig(solver=SvenConfig(backend="torch", tol=PathConfig().solver.tol))
-    print(f"[8b] enet_path, float32 data, 10 lambdas, tol {plain.solver.tol:g}", flush=True)
+    # the depth is cut to the first F32_PATH_POINTS points of the 10-point
+    # grid (the same points and warm starts), for the script's time
+    grid = lambda_grid(X, y, n_lambdas=10)[:F32_PATH_POINTS]
+    print(f"[8b] enet_path, float32 data, the first {F32_PATH_POINTS} of 10 lambdas, tol "
+          f"{plain.solver.tol:g}", flush=True)
     path, secs, launched, syncs = run_path(
-        torch, kernels, svm_state, lambda: enet_path(X, y, n_lambdas=10, lambda2=LAMBDA2))
+        torch, kernels, svm_state, lambda: enet_path(X, y, lambda1s=grid, lambda2=LAMBDA2))
     path_gram = launched.pop("shifted_gram_cuda")
     ref, ref_s, _, ref_syncs = run_path(
         torch, kernels, svm_state,
-        lambda: enet_path(X, y, n_lambdas=10, lambda2=LAMBDA2, config=plain))
+        lambda: enet_path(X, y, lambda1s=grid, lambda2=LAMBDA2, config=plain))
     scale = ref.betas.abs().max().item()
     dev_b = max_dev(torch, path.betas, ref.betas)
 
@@ -1011,8 +1033,9 @@ def phase_float32(torch, smoke, kernels, svm_state, dev) -> int:
     print(f"    torch f32: {ref_s:.3f} s, {ref_syncs} host syncs, {counts(ref)}; "
           f"max|beta - beta_torch| = {dev_b:.3e} ({dev_b / scale:.2e} of max|beta|)",
           flush=True)
-    smoke.check(path.betas.shape == (10, p) and bool(torch.isfinite(path.betas).all()),
-                "float32 path betas finite, shape (10, p)")
+    smoke.check(path.betas.shape == (F32_PATH_POINTS, p)
+                and bool(torch.isfinite(path.betas).all()),
+                f"float32 path betas finite, shape ({F32_PATH_POINTS}, p)")
     smoke.check(path_gram == sum(path.evals) > 0,
                 f"float32 path: one Gram launch per Illinois evaluation ({sum(path.evals)})")
     ev, ev_ref = sum(path.evals), sum(ref.evals)
@@ -1307,6 +1330,183 @@ def phase_batch(torch, smoke, kernels, svm_state, count, dev, gen) -> dict:
     torch.cuda.empty_cache()
     print(f"    phase 9: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return rows
+
+
+def cv_checks(torch, smoke, label, res, secs, launched, syncs, steps, dead, ref,
+              refit, dual, n_lambdas, k):
+    """Phase 11's checks of one `cross_validate` run (its CVResult `res`,
+    with its seconds, launches, host syncs and batched CG steps launched and
+    dead) against the port's sequential `cross_validate_reference` run
+    `ref` = ((lambda1s, mse, n_kept, evals), seconds, launches, syncs, CG
+    steps) and `enet` at lambda_min (`refit`, the same scaling)."""
+    (_, mse, kept, evals), ref_s, ref_launched, ref_syncs, ref_steps = ref
+    scale = mse.max().item()
+    dev_mse = max_dev(torch, res.mse_path, mse)
+    ref_min = int(torch.argmin(mse.mean(1)))
+    print(f"    batched: {secs:.3f} s, {syncs} host syncs, launches {launched}, {steps} "
+          f"batched CG steps ({steps - dead} live, {dead} dead); evaluations per lambda "
+          f"(sum over folds) {res.evals.sum(1).tolist()}, per fold "
+          f"{res.evals.sum(0).tolist()}; index_min {res.index_min}, lambda_min "
+          f"{res.lambda_min:.6g}", flush=True)
+    print(f"    reference ({k} sequential paths): {ref_s:.3f} s, {ref_syncs} host syncs, "
+          f"launches {ref_launched}, {ref_steps} CG steps; evaluations per lambda "
+          f"{evals.sum(1).tolist()}; index_min {ref_min}; max|mse - mse_ref| {dev_mse:.3e}, "
+          f"max mse {scale:.6g}", flush=True)
+    print(f"    refit (enet at lambda_min): {refit.evals} evals, {refit.sven_iters} Newton / "
+          f"{refit.cg_iters} CG", flush=True)
+    smoke.check(res.mse_path.shape == (n_lambdas, k) and bool(torch.isfinite(res.mse_path).all())
+                and bool(torch.isfinite(res.beta).all()),
+                f"{label}: mse_path finite, shape ({n_lambdas}, {k}); refit beta finite")
+    smoke.check(dev_mse <= 1e-10 * scale, f"{label}: max|mse - mse_ref| = {dev_mse:.3e} <= "
+                f"1e-10 x max mse = {1e-10 * scale:.3e}")
+    smoke.check(res.index_min == ref_min, f"{label}: index_min {res.index_min} = the "
+                f"reference's {ref_min}")
+    smoke.check(torch.equal(res.evals, evals) and torch.equal(res.n_kept, kept),
+                f"{label}: evaluations and kept columns per (lambda, fold) equal the "
+                "reference's")
+    smoke.check(torch.equal(res.beta, refit.beta) and torch.equal(res.intercept, refit.intercept),
+                f"{label}: the refit's beta and intercept bitwise `enet` at lambda_min")
+    if dual:
+        n_gram = int(res.evals.sum()) + refit.evals
+        smoke.check(launched["shifted_gram_cuda"] == n_gram and launched["hinge_xtv_cuda"]
+                    == launched["hinge_xtv_lanes_cuda"] == 0,
+                    f"{label}: one Gram launch per lane and evaluation, the refit's included "
+                    f"({n_gram}), no hinge launch")
+        smoke.check(ref_launched["shifted_gram_cuda"] == int(evals.sum()),
+                    f"{label}: the reference launched one Gram per evaluation")
+        return
+    for p1, p2 in (("hinge_xtv_lanes_cuda", "hinge_xd_lanes_cuda"),
+                   ("hinge_xtv_cuda", "hinge_xd_cuda")):
+        smoke.check(launched[p1] == launched[p2], f"{label}: {p1} = {p2} ({launched[p1]})")
+    both = launched["hinge_xtv_lanes_cuda"] + launched["hinge_xtv_cuda"]
+    smoke.check(launched["hinge_xtv_lanes_cuda"] > 0 and both == steps
+                and launched["shifted_gram_cuda"] == 0,
+                f"{label}: lane-batched hinge launches ({launched['hinge_xtv_lanes_cuda']}) + "
+                f"single launches ({launched['hinge_xtv_cuda']}) = batched CG steps ({steps}: "
+                f"{steps - dead} live, {dead} dead), no Gram launch")
+    smoke.check(ref_launched["hinge_xtv_cuda"] == ref_launched["hinge_xd_cuda"] == ref_steps
+                and ref_launched["hinge_xtv_lanes_cuda"] == 0,
+                f"{label}: the reference launched one single hinge pass of each kind per "
+                f"CG step ({ref_steps})")
+
+
+def phase_cv(torch, smoke, kernels, svm_state, count, dev) -> None:
+    """Phase 11: the penalized stack on float64 data, default config. 11a
+    `ElasticNetCV(k=5, n_lambdas=10)` at the GLA-BRA-180 shape (primal
+    folds), 11b `cross_validate` at the YMSD shape (dual folds), each
+    against the port's sequential `cross_validate_reference` on the card
+    and its refit bitwise `enet`; 11c `enet_batch` on 5 stacked folds, cold
+    and then warm, each lane bitwise the sequential `_enet_point` on fresh
+    copies of its operands and its carry."""
+    from repro_torch.core import api
+    from repro_torch.core.batch import cv_folds
+    from repro_torch.core.cv import ElasticNetCV, cross_validate, cross_validate_reference
+    from repro_torch.core.elastic_net import lambda1_max
+    from repro_torch.core.sven import _pick_mode
+    from repro_torch.core.svm.state import cg_lanes
+    from repro_torch.data.synthetic import make_regression
+
+    k, L = 5, 10
+    t_phase = time.perf_counter()
+
+    def cv_case(label, X, y, fit, dual):
+        n, p = X.shape
+        res, secs, launched, syncs = run_path(torch, kernels, svm_state, fit)
+        steps, dead = cg_lanes.steps, cg_lanes.dead
+        count(launched)
+        ref_out, ref_s, ref_launched, ref_syncs = run_path(
+            torch, kernels, svm_state,
+            lambda: cross_validate_reference(X, y, k=k, n_lambdas=L, lambda2=LAMBDA2,
+                                             with_counts=True))
+        ref = (ref_out, ref_s, ref_launched, ref_syncs, cg_lanes.steps)
+        refit = api.enet(X, y, res.lambda_min, LAMBDA2, standardize=True, fit_intercept=True)
+        mode = _pick_mode((n // k) * (k - 1), p, api.PathConfig().solver)
+        print(f"    every fold in {mode} mode ({(n // k) * (k - 1)} x {p})", flush=True)
+        smoke.check(mode == ("dual" if dual else "primal"), f"{label}: folds in {mode} mode")
+        cv_checks(torch, smoke, label, res, secs, launched, syncs, steps, dead, ref,
+                  refit, dual, L, k)
+
+    X, y, _ = make_regression(*GLA_BRA, seed=2, device=dev)
+    print(f"[11a] ElasticNetCV(k={k}, n_lambdas={L}, lambda2={LAMBDA2}).fit, standardize + "
+          f"intercept, n = {GLA_BRA[0]}, p = {GLA_BRA[1]}", flush=True)
+    cv_case("11a", X, y,
+            lambda: ElasticNetCV(k=k, n_lambdas=L, lambda2=LAMBDA2).fit(X, y).cv_result_,
+            dual=False)
+
+    Xtr, ytr, _, _ = cv_folds(X, y, k)   # for 11c
+    del X, y
+    torch.cuda.empty_cache()
+
+    X, y, _ = make_regression(*YMSD, seed=1, device=dev)
+    print(f"[11b] cross_validate(k={k}, n_lambdas={L}, lambda2={LAMBDA2}), standardize + "
+          f"intercept, n = {YMSD[0]}, p = {YMSD[1]}", flush=True)
+    cv_case("11b", X, y, lambda: cross_validate(X, y, k=k, n_lambdas=L, lambda2=LAMBDA2),
+            dual=True)
+    del X, y
+    torch.cuda.empty_cache()
+
+    # 11c: enet_batch on 11a's folds, cold and then warm from the cold carry
+    config = api.resolve_path_config(api.PathConfig(), Xtr)
+    heads = [lambda1_max(Xtr[i], ytr[i]).item() for i in range(k)]
+    print(f"[11c] enet_batch on cv_folds(X, y, {k}): X {tuple(Xtr.shape)}, lambda1 = "
+          f"{{0.1, ..., 0.5}} x each fold's lambda1_max, lambda2 = {LAMBDA2}; cold, then at "
+          f"0.8 x those lambda1s warm from the cold carry on lanes 0, 2, 4", flush=True)
+    l1 = [0.1 * (i + 1) * heads[i] for i in range(k)]
+    warm_l1 = [0.8 * v for v in l1]
+    has_warm = [True, False, True, False, True]
+    cold_out, secs, launched, syncs = run_path(
+        torch, kernels, svm_state,
+        lambda: api.enet_batch(Xtr, ytr, torch.tensor(l1, dtype=torch.float64, device=dev),
+                               LAMBDA2, return_carry=True))
+    count(launched)
+    runs = [("cold", cold_out, secs, launched, syncs, cg_lanes.steps, cg_lanes.dead, l1,
+             [None] * k)]
+    pts0, carry0 = cold_out
+    warm_out, secs, launched, syncs = run_path(
+        torch, kernels, svm_state,
+        lambda: api.enet_batch(Xtr, ytr, torch.tensor(warm_l1, dtype=torch.float64, device=dev),
+                               LAMBDA2, warm=carry0, has_warm=has_warm, return_carry=True))
+    count(launched)
+    runs.append(("warm", warm_out, secs, launched, syncs, cg_lanes.steps, cg_lanes.dead,
+                 warm_l1, [api.EnetCarry(*(f[i].clone() for f in carry0)) if has_warm[i]
+                           else None for i in range(k)]))
+    for name, (pts, carry), secs, launched, syncs, steps, dead, lam1s, starts in runs:
+        lanes = [(Xtr[i].clone(), ytr[i].clone()) for i in range(k)]
+
+        def sequential():
+            return [api._enet_point(Xi, yi, lam1s[i], LAMBDA2,
+                                    starts[i] if starts[i] is not None
+                                    else api.cold_carry(Xi, yi), config)
+                    for i, (Xi, yi) in enumerate(lanes)]
+
+        seq, seq_s, seq_launched, seq_syncs = run_path(torch, kernels, svm_state, sequential)
+        bitwise = [torch.equal(pts.beta[i], pt.beta) and torch.equal(carry.alpha[i], nc.alpha)
+                   and torch.equal(carry.w[i], nc.w) and pts.t[i].item() == pt.t.item()
+                   and pts.nu[i].item() == pt.nu.item() and torch.equal(pts.keep[i], pt.keep)
+                   for i, (nc, pt) in enumerate(seq)]
+        counts_b = (list(pts.evals), list(pts.sven_iters), list(pts.cg_iters))
+        counts_s = tuple([getattr(pt, f) for _, pt in seq]
+                         for f in ("evals", "sven_iters", "cg_iters"))
+        print(f"    {name}: batched {secs:.3f} s, {syncs} host syncs, launches {launched}, "
+              f"{steps} batched CG steps ({dead} dead); evals {counts_b[0]}, Newton "
+              f"{counts_b[1]}, CG {counts_b[2]}; kept {pts.n_kept.tolist()}", flush=True)
+        print(f"    {name}: sequential ({k} _enet_point calls) {seq_s:.3f} s, {seq_syncs} host "
+              f"syncs, launches {seq_launched}; evals {counts_s[0]}, Newton {counts_s[1]}, CG "
+              f"{counts_s[2]}; {sum(bitwise)} of {k} lanes bitwise", flush=True)
+        smoke.check(all(bitwise), f"11c {name}: {sum(bitwise)} of {k} lanes' beta, alpha, w, "
+                    "t, nu and keep bitwise their sequential points'")
+        smoke.check(counts_b == counts_s, f"11c {name}: each lane's evaluations, Newton and CG "
+                    "steps equal its sequential point's")
+        both = launched["hinge_xtv_lanes_cuda"] + launched["hinge_xtv_cuda"]
+        smoke.check(both == launched["hinge_xd_lanes_cuda"] + launched["hinge_xd_cuda"] == steps
+                    > 0 and launched["hinge_xtv_lanes_cuda"] > 0,
+                    f"11c {name}: lane-batched ({launched['hinge_xtv_lanes_cuda']}) + single "
+                    f"({launched['hinge_xtv_cuda']}) hinge launches = batched CG steps "
+                    f"({steps})")
+    del Xtr, ytr, runs, pts0, carry0, cold_out, warm_out
+    torch.cuda.empty_cache()
+
+    print(f"    phase 11: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def gram_bitwise_only(torch, other: Path, modes) -> int:
@@ -1674,6 +1874,11 @@ def main() -> int:
     print("[9] sven_batch: lane-batched solves vs sequential sven", flush=True)
     rows.update(phase_batch(torch, smoke, kernels, svm_state, count, dev, gen))
     torch.cuda.empty_cache()
+
+    # -- 11. batched penalized solves and cross-validation ---------------------
+    print("[11] enet_batch and cross-validation: lane-batched root-finds vs sequential",
+          flush=True)
+    phase_cv(torch, smoke, kernels, svm_state, count, dev)
 
     # -- summary ---------------------------------------------------------------
     for name, n_launch in path_launches.items():

@@ -71,7 +71,9 @@ def path_config_from_jax(fields: Mapping) -> PathConfig:
 
 def carry_from_jax(beta, alpha, w, t, nu, *, device: DeviceLike = None,
                    dtype: torch.dtype = torch.float64) -> EnetCarry:
-    """The port's EnetCarry from the fields of a JAX `EnetCarry`."""
+    """The port's EnetCarry from the fields of a JAX `EnetCarry`: one
+    point's, or a stacked one (every field with a leading (B,) axis) for
+    `enet_batch`'s `warm`."""
     dev = resolve_device(device)
     return EnetCarry(*(torch.tensor(np.asarray(a), dtype=dtype, device=dev)
                        for a in (beta, alpha, w, t, nu)))

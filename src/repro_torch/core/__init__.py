@@ -1,6 +1,6 @@
 """The paper's reduction, the constrained SVEN engine and its batched
-solves, gap-safe screening and the glmnet-parity penalized front end, in
-PyTorch."""
+solves, gap-safe screening, the glmnet-parity penalized front end and its
+batched cross-validation, in PyTorch."""
 from repro_torch.core import elastic_net
 from repro_torch.core.reduction import (
     LAMBDA2_FLOOR,
@@ -32,6 +32,7 @@ from repro_torch.core.api import (
     Scaler,
     cold_carry,
     enet,
+    enet_batch,
     enet_path,
     lambda_grid,
     penalized_from_glmnet,
@@ -41,6 +42,7 @@ from repro_torch.core.api import (
     standardize_fit,
     unscale_coef,
 )
+from repro_torch.core.cv import CVResult, ElasticNetCV, cross_validate, cross_validate_reference
 
 __all__ = [
     "LAMBDA2_FLOOR",
@@ -76,6 +78,7 @@ __all__ = [
     "Scaler",
     "cold_carry",
     "enet",
+    "enet_batch",
     "enet_path",
     "lambda_grid",
     "penalized_from_glmnet",
@@ -84,4 +87,9 @@ __all__ = [
     "resolve_path_config",
     "standardize_fit",
     "unscale_coef",
+    # batched cross-validation (core/cv.py)
+    "CVResult",
+    "ElasticNetCV",
+    "cross_validate",
+    "cross_validate_reference",
 ]

@@ -16,7 +16,10 @@ along a lambda grid. PyTorch counterpart of `repro/core/api.py`:
     the t* with nu(t*) = lambda1 is found by a guarded Illinois (modified
     regula falsi) iteration whose every evaluation is one warm-started
     `_sven_core` solve, on a gap-safe screened X (`core/screening.py`).
-  - `ElasticNet`: the sklearn-style fit/predict wrapper.
+  - `enet_batch` solves a stack of penalized problems at once (the serving
+    layer's call; `core/cv.py` runs its folds the same way).
+  - `ElasticNet`: the sklearn-style fit/predict wrapper (`core/cv.py` adds
+    `ElasticNetCV`).
 
 JAX runs the root-find as a `lax.while_loop` and the path as one `lax.scan`;
 here both are host loops with the same arithmetic, stops and endpoint
@@ -24,7 +27,12 @@ halving. The bracket scalars (t, f = nu - lambda1) are host floats, so each
 evaluation reads nu back once (`host_float`, counted in `host_bool.syncs`).
 Every evaluation runs the solver's kernels: on a CUDA tensor with the
 default backend, the Gram kernel (dual) or the hinge kernels (primal).
-`enet_batch`, `core/cv.py` and `ElasticNetCV` are not ported yet.
+
+JAX's `enet_batch` vmaps the point solver; here `_enet_point_lanes` is a
+lane-batched host loop: each lane keeps its own bracket on the host, every
+evaluation solves the lanes still running in one `_sven_core_lanes` (one
+launch of each hinge pass per CG step for all of them), and the host reads
+their multipliers in one read. Each lane is bitwise its sequential point.
 """
 from __future__ import annotations
 
@@ -36,8 +44,10 @@ import torch
 
 from repro_torch.core import elastic_net as en
 from repro_torch.core.screening import gap_safe_screen
-from repro_torch.core.sven import SvenConfig, _operands, _sven_core, resolve_backend
-from repro_torch.core.svm.state import host_float
+from repro_torch.core.sven import (SvenConfig, _lane, _operands, _sven_core, _sven_core_lanes,
+                                   resolve_backend)
+from repro_torch.core.svm.state import host_float, host_list, lane_where, pitched
+from repro_torch.device import resolve_device
 
 
 # ---------------------------------------------------------------------------
@@ -156,7 +166,8 @@ def resolve_path_config(config: PathConfig, *tensors) -> PathConfig:
 
 
 class EnetCarry(NamedTuple):
-    """Warm state threaded across lambda points."""
+    """Warm state threaded across lambda points (and, stacked with a leading
+    (B,) axis on every field, across lanes)."""
 
     beta: torch.Tensor   # (p,)  last solution (screening warm point)
     alpha: torch.Tensor  # (2p,) dual warm start
@@ -178,6 +189,8 @@ class EnetPoint(NamedTuple):
     evals: int            # Illinois iterations spent (== SVEN solves)
     sven_iters: int       # total outer solver iterations across evals
     cg_iters: int         # total inner CG iterations across evals
+    # (of B lanes, `_enet_point_lanes`: each tensor with a leading (B,) axis,
+    # evals, sven_iters and cg_iters tuples of B ints)
 
 
 def cold_carry(X: torch.Tensor, y: torch.Tensor) -> EnetCarry:
@@ -205,6 +218,94 @@ def _ridge_l1(X: torch.Tensor, y: torch.Tensor, lambda2: float) -> torch.Tensor:
     return torch.sum(torch.abs(b))
 
 
+class _Illinois:
+    """One point's multiplier root-find on the host: the bracket of
+    f(t) = nu(t) - lambda1, its stops and its counts, as Python floats and
+    ints (JAX's `_Illinois` carry). `_enet_point` runs one and
+    `_enet_point_lanes` one per lane, so a lane's t_c are the sequential
+    ones, bit for bit."""
+
+    def __init__(self, lambda1: float, l1max_m: float, t_ridge: float, carry_t: float,
+                 carry_nu: float, config: PathConfig):
+        self.lambda1, self.l1max_m = lambda1, l1max_m
+        self.t_floor = config.t_floor_rel * t_ridge + 1e-30
+        self.ftol = config.f_rtol * max(l1max_m, 1e-30)
+        self.wtol = 1e-12 * t_ridge
+        self.max_evals = config.max_evals
+        self.has_root = l1max_m > lambda1          # else beta* = 0 (top of the path)
+        # Bracket f(t) = nu(t) - lambda1: analytic endpoints nu(0) = l1max_m and
+        # nu(t_ridge) = 0; the warm (t, nu) from the previous (larger) lambda is a
+        # tighter lower endpoint whenever it is on the correct side.
+        f_warm = carry_nu - lambda1
+        warm_ok = f_warm > 0 and 0 < carry_t < t_ridge
+        self.t_lo = carry_t if warm_ok else 0.0
+        self.f_lo = f_warm if warm_ok else l1max_m - lambda1
+        self.t_hi, self.f_hi = t_ridge, -lambda1
+        self.side = 0         # +1: last eval replaced lo, -1: hi, 0: fresh
+        self.nu, self.f = carry_nu, self.f_lo
+        self.evals = self.iters = self.cg_iters = 0
+
+    def running(self) -> bool:
+        """The loop test: another evaluation is due."""
+        return (self.evals < self.max_evals and self.has_root
+                and self.t_hi - self.t_lo > self.wtol and abs(self.f) > self.ftol)
+
+    def next_t(self) -> float:
+        """The secant point of the bracket, the budget of the next solve."""
+        frac = self.f_lo / max(self.f_lo - self.f_hi, 1e-30)
+        frac = min(max(frac, 0.05), 0.95)   # never stall on an endpoint
+        return max(self.t_lo + frac * (self.t_hi - self.t_lo), self.t_floor)
+
+    def update(self, t_c: float, nu_c: float, iters: int, cg_iters: int) -> None:
+        """Take the evaluation at t_c (multiplier nu_c, solver counts)."""
+        f_c = nu_c - self.lambda1
+        # Illinois: replacing the same endpoint twice halves the stale side's
+        # f, forcing the secant off that endpoint (superlinear on kinks).
+        if f_c >= 0:
+            if self.side == 1:
+                self.f_hi = 0.5 * self.f_hi
+            self.t_lo, self.f_lo, self.side = t_c, f_c, 1
+        else:
+            if self.side == -1:
+                self.f_lo = 0.5 * self.f_lo
+            self.t_hi, self.f_hi, self.side = t_c, f_c, -1
+        self.nu, self.f = nu_c, f_c
+        self.evals += 1
+        self.iters += iters
+        self.cg_iters += cg_iters
+
+
+def _screen(X: torch.Tensor, y: torch.Tensor, beta: torch.Tensor, lambda1: float,
+            lambda2: float, config: PathConfig):
+    """The point's gap-safe keep mask and duality gap at the warm beta (all
+    kept and gap 0 without screening)."""
+    if config.screen:
+        scr = gap_safe_screen(X, y, beta, lambda1, lambda2)
+        return scr.keep, scr.gap
+    return torch.ones(X.shape[-1], dtype=torch.bool, device=X.device), X.new_zeros(())
+
+
+def _multiplier(Xm: torch.Tensor, y: torch.Tensor, beta: torch.Tensor, lambda2: float,
+                keepf: torch.Tensor) -> torch.Tensor:
+    """nu at a solve's beta: max |g_j| over the kept columns (0-d)."""
+    return torch.max(torch.abs(en.smooth_grad(Xm, y, beta, lambda2)) * keepf)
+
+
+def _point_out(X, y, lambda2: float, keep, gap, keepf, br: _Illinois, beta, alpha, w):
+    """(next_carry, EnetPoint) of a finished root-find."""
+    ok = float(br.has_root)
+    beta = beta * keepf * ok
+    t_out = torch.sum(torch.abs(beta))
+    nu_out = torch.tensor(br.nu if br.has_root else br.l1max_m, dtype=X.dtype,
+                          device=X.device)
+    next_carry = EnetCarry(beta=beta, alpha=alpha * ok, w=w * ok, t=t_out, nu=nu_out)
+    point = EnetPoint(beta=beta, t=t_out, nu=nu_out,
+                      kkt=en.kkt_violation(X, y, beta, lambda2),
+                      keep=keep, n_kept=torch.sum(keep), gap=gap,
+                      evals=br.evals, sven_iters=br.iters, cg_iters=br.cg_iters)
+    return next_carry, point
+
+
 def _enet_point(X: torch.Tensor, y: torch.Tensor, lambda1: float, lambda2: float,
                 carry: EnetCarry, config: PathConfig):
     """Solve one penalized (lambda1, lambda2) point on the constrained engine.
@@ -212,76 +313,203 @@ def _enet_point(X: torch.Tensor, y: torch.Tensor, lambda1: float, lambda2: float
     `config.solver` must be resolved (`resolve_path_config`). Returns
     (next_carry, EnetPoint).
     """
-    p = X.shape[1]
-    dtype = X.dtype
     lambda1, lambda2 = float(lambda1), float(lambda2)
-
-    if config.screen:
-        scr = gap_safe_screen(X, y, carry.beta, lambda1, lambda2)
-        keep, gap = scr.keep, scr.gap
-    else:
-        keep = torch.ones(p, dtype=torch.bool, device=X.device)
-        gap = X.new_zeros(())
-    keepf = keep.to(dtype)
+    keep, gap = _screen(X, y, carry.beta, lambda1, lambda2, config)
+    keepf = keep.to(X.dtype)
     Xm = X * keepf[None, :]
-
-    l1max_m = host_float(2.0 * torch.max(torch.abs(Xm.T @ y)))
-    t_ridge = host_float(_ridge_l1(Xm, y, lambda2))
-    t_floor = config.t_floor_rel * t_ridge + 1e-30
-    ftol = config.f_rtol * max(l1max_m, 1e-30)
-    wtol = 1e-12 * t_ridge
-    has_root = l1max_m > lambda1          # else beta* = 0 (top of the path)
-
-    # Bracket f(t) = nu(t) - lambda1: analytic endpoints nu(0) = l1max_m and
-    # nu(t_ridge) = 0; the warm (t, nu) from the previous (larger) lambda is a
-    # tighter lower endpoint whenever it is on the correct side.
-    carry_t, carry_nu = host_float(carry.t), host_float(carry.nu)
-    f_warm = carry_nu - lambda1
-    warm_ok = f_warm > 0 and 0 < carry_t < t_ridge
-    t_lo = carry_t if warm_ok else 0.0
-    f_lo = f_warm if warm_ok else l1max_m - lambda1
-    t_hi, f_hi = t_ridge, -lambda1
-    side = 0              # +1: last eval replaced lo, -1: hi, 0: fresh
+    br = _Illinois(lambda1, host_float(en.lambda1_max(Xm, y)), host_float(_ridge_l1(Xm, y, lambda2)),
+                   host_float(carry.t), host_float(carry.nu), config)
     beta = carry.beta * keepf
     alpha = carry.alpha * torch.cat([keepf, keepf])
     w = carry.w
-    nu, f = carry_nu, f_lo
-    evals = iters = cg_iters = 0
-
-    while (evals < config.max_evals and has_root and t_hi - t_lo > wtol
-           and abs(f) > ftol):
-        frac = f_lo / max(f_lo - f_hi, 1e-30)
-        frac = min(max(frac, 0.05), 0.95)   # never stall on an endpoint
-        t_c = max(t_lo + frac * (t_hi - t_lo), t_floor)
+    while br.running():
+        t_c = br.next_t()
         sol = _sven_core(Xm, y, t_c, lambda2, alpha, w, config.solver)
-        g = en.smooth_grad(Xm, y, sol.beta, lambda2)
-        nu_c = host_float(torch.max(torch.abs(g) * keepf))
-        f_c = nu_c - lambda1
-        # Illinois: replacing the same endpoint twice halves the stale side's
-        # f, forcing the secant off that endpoint (superlinear on kinks).
-        if f_c >= 0:
-            if side == 1:
-                f_hi = 0.5 * f_hi
-            t_lo, f_lo, side = t_c, f_c, 1
-        else:
-            if side == -1:
-                f_lo = 0.5 * f_lo
-            t_hi, f_hi, side = t_c, f_c, -1
-        beta, alpha, w, nu, f = sol.beta, sol.alpha, sol.w, nu_c, f_c
-        evals += 1
-        iters += sol.iters
-        cg_iters += sol.cg_iters
+        br.update(t_c, host_float(_multiplier(Xm, y, sol.beta, lambda2, keepf)), sol.iters,
+                  sol.cg_iters)
+        beta, alpha, w = sol.beta, sol.alpha, sol.w
+    return _point_out(X, y, lambda2, keep, gap, keepf, br, beta, alpha, w)
 
-    ok = float(has_root)
-    beta = beta * keepf * ok
-    t_out = torch.sum(torch.abs(beta))
-    nu_out = torch.tensor(nu if has_root else l1max_m, dtype=dtype, device=X.device)
-    next_carry = EnetCarry(beta=beta, alpha=alpha * ok, w=w * ok, t=t_out, nu=nu_out)
-    point = EnetPoint(beta=beta, t=t_out, nu=nu_out,
-                      kkt=en.kkt_violation(X, y, beta, lambda2),
-                      keep=keep, n_kept=torch.sum(keep), gap=gap,
-                      evals=evals, sven_iters=iters, cg_iters=cg_iters)
+
+def _cold_carry_lanes(X: torch.Tensor, y: torch.Tensor, B: int) -> EnetCarry:
+    """`cold_carry` of B lanes, each field with a leading (B,) axis: X
+    (n, p) shared or (B, n, p), y (n,) or (B, n)."""
+    n, p = X.shape[-2:]
+    Xl = X if X.dim() == 2 else pitched(X)
+    yl = y if y.dim() == 1 else pitched(y)
+    nu = torch.stack([en.lambda1_max(_lane(Xl, i, 2), _lane(yl, i, 1))
+                      for i in range(B)]).to(X.dtype)
+    return EnetCarry(beta=X.new_zeros(B, p), alpha=X.new_zeros(B, 2 * p), w=X.new_zeros(B, n),
+                     t=X.new_zeros(B), nu=nu)
+
+
+def _take(stack: torch.Tensor, idx: list) -> torch.Tensor:
+    """Lanes idx of a `pitched` stack, laid out as one: the stack itself
+    when idx names all its lanes, else a new stack."""
+    if idx == list(range(stack.shape[0])):
+        return stack
+    return pitched(stack[torch.tensor(idx, device=stack.device)])
+
+
+def _solve_active(Xm, y, idx: list, t_c: list, lambda2s: list, alphas: list, ws: list,
+                  config: SvenConfig):
+    """The solves of the lanes idx of the screened stack Xm (B, n, p) at the
+    budgets t_c: `_sven_core` on one lane, `_sven_core_lanes` on more.
+    Returns the solved lanes' beta (A, p), alpha (A, 2p) and w (A, n), and
+    their Newton and CG counts as (A,) tensors of Xm's dtype on its device
+    (read by the caller with the multipliers)."""
+    dtype, dev = Xm.dtype, Xm.device
+    alpha0, w0 = torch.stack(alphas), torch.stack(ws)
+    ya = y if y.dim() == 1 else _take(y, idx)
+    if len(idx) == 1:
+        sol = _sven_core(Xm[idx[0]], ya if y.dim() == 1 else ya[0], t_c[0], lambda2s[0],
+                         alpha0[0], w0[0], config)
+        counts = torch.tensor([sol.iters, sol.cg_iters], dtype=dtype, device=dev)
+        return sol.beta[None], sol.alpha[None], sol.w[None], counts[:1], counts[1:]
+    sol = _sven_core_lanes(_take(Xm, idx), ya, torch.tensor(t_c, dtype=dtype, device=dev),
+                           torch.tensor(lambda2s, dtype=dtype, device=dev), alpha0, w0,
+                           config, ts=torch.tensor(t_c, dtype=dtype).tolist())
+    return sol.beta, sol.alpha, sol.w, sol.iters.to(dtype), sol.cg_iters.to(dtype)
+
+
+def _enet_point_lanes(X: torch.Tensor, y: torch.Tensor, lambda1s: list, lambda2s: list,
+                      carry: EnetCarry, config: PathConfig):
+    """`_enet_point` on B lanes at once: the port of `vmap(_enet_point)`.
+
+    X (n, p) shared by the lanes or (B, n, p); y (n,) or (B, n); lambda1s and
+    lambda2s B floats each; carry an `EnetCarry` whose fields have a leading
+    (B,) axis; `config.solver` resolved. Each lane runs its own Illinois
+    root-find on the host (`_Illinois`), and each evaluation solves only the
+    lanes whose loop test still holds: one `_sven_core_lanes` for them all
+    (on the kernel path one launch of each hinge pass per CG step for all
+    of them, or one Gram per lane), `_sven_core` when one is left. Every
+    per-lane product and reduction runs on its lane laid out as a fresh
+    tensor (`pitched`), so each lane is bitwise `_enet_point` on its
+    operands. The host reads the lanes' (l1max_m, t_ridge, carry t, carry
+    nu) in one read, and their multipliers and solver counts in one read
+    per evaluation.
+    Returns (next_carry, EnetPoint), each tensor field with a leading (B,)
+    axis, and evals, sven_iters and cg_iters tuples of B ints.
+    """
+    B = len(lambda1s)
+    dtype = X.dtype
+    lambda1s, lambda2s = [float(v) for v in lambda1s], [float(v) for v in lambda2s]
+    Xl = X if X.dim() == 2 else pitched(X)
+    yl = y if y.dim() == 1 else pitched(y)
+
+    def lane(i):
+        return _lane(Xl, i, 2), _lane(yl, i, 1)
+
+    betal = pitched(carry.beta)
+    screens = [_screen(*lane(i), betal[i], lambda1s[i], lambda2s[i], config) for i in range(B)]
+    keepf = torch.stack([keep for keep, _ in screens]).to(dtype)
+    Xm = pitched(Xl * keepf.unsqueeze(-2))       # (B, n, p), a shared X too
+    heads = torch.stack([en.lambda1_max(Xm[i], lane(i)[1]) for i in range(B)])
+    ridges = torch.stack([_ridge_l1(Xm[i], lane(i)[1], lambda2s[i]) for i in range(B)])
+    vals = host_list(torch.cat([heads, ridges, carry.t, carry.nu]))
+    brs = [_Illinois(lambda1s[i], vals[i], vals[B + i], vals[2 * B + i], vals[3 * B + i],
+                     config) for i in range(B)]
+    beta = [betal[i] * keepf[i] for i in range(B)]
+    alpha = [carry.alpha[i] * torch.cat([keepf[i], keepf[i]]) for i in range(B)]
+    w = list(carry.w)
+    while True:
+        idx = [i for i in range(B) if brs[i].running()]
+        if not idx:
+            break
+        t_c = [brs[i].next_t() for i in idx]
+        sb, sa, sw, iters, cg = _solve_active(
+            Xm, yl, idx, t_c, [lambda2s[i] for i in idx], [alpha[i] for i in idx],
+            [w[i] for i in idx], config.solver)
+        sb = pitched(sb)
+        nus = torch.stack([_multiplier(Xm[i], lane(i)[1], sb[j], lambda2s[i], keepf[i])
+                           for j, i in enumerate(idx)])
+        read = host_list(torch.cat([nus, iters, cg]))   # one read an evaluation
+        A = len(idx)
+        for j, i in enumerate(idx):
+            brs[i].update(t_c[j], read[j], int(read[A + j]), int(read[2 * A + j]))
+            beta[i], alpha[i], w[i] = sb[j], sa[j], sw[j]
+    del Xm
+    outs = [_point_out(*lane(i), lambda2s[i], screens[i][0], screens[i][1], keepf[i], brs[i],
+                       beta[i], alpha[i], w[i]) for i in range(B)]
+    carries, points = zip(*outs)
+    next_carry = EnetCarry(*(torch.stack(f) for f in zip(*carries)))
+    point = EnetPoint(*(torch.stack(f) if isinstance(f[0], torch.Tensor) else tuple(f)
+                        for f in zip(*points)))
     return next_carry, point
+
+
+def _path_points(X: torch.Tensor, y: torch.Tensor, lambda1s: list, lambda2: float,
+                 config: PathConfig) -> list:
+    """The points of a path over the floats lambda1s from `cold_carry`,
+    each warm-started from the one before (`enet_path`'s loop, on the
+    problem as given)."""
+    carry = cold_carry(X, y)
+    pts = []
+    for lam1 in lambda1s:
+        carry, pt = _enet_point(X, y, lam1, lambda2, carry, config)
+        pts.append(pt)
+    return pts
+
+
+def enet_batch(X, y, lambda1s, lambda2s,
+               config: PathConfig = PathConfig(), *,
+               warm: Optional[EnetCarry] = None,
+               has_warm=None,
+               return_carry: bool = False,
+               route: str = "auto"):
+    """Stacked penalized solves in one lane-batched root-find (the serving
+    layer's call), `_enet_point_lanes` on the stack.
+
+    Batch axes by rank, as in `core.batch.sven_batch`: X (B, n, p) or (n, p)
+    shared; y (B, n) or (n,); lambda1s / lambda2s (B,) or scalar. Every
+    tensor field of the returned EnetPoint has a leading (B,) axis; evals,
+    sven_iters and cg_iters are tuples of B ints. Each lane is bitwise
+    `enet` on its operands (no standardization). A (B, p) screening mask
+    makes even a shared X a stack of masked lanes, so a lane-batched solve
+    of them takes the stacked route of the hinge passes.
+
+    `warm` is an optional stacked EnetCarry (every field with a leading (B,)
+    axis) and `has_warm` a (B,) bool selecting, per problem, the warm state
+    over a cold start. With `return_carry` the final stacked EnetCarry comes
+    back beside the points, as (points, carry). Runs where X lies
+    (array-likes go to the CUDA device). `route` ("auto", "batch" or
+    "single") is accepted for JAX's signature and has no effect: the port
+    has no device mesh to fan the lanes out over.
+    """
+    from repro_torch.core.batch import ROUTES
+
+    if route not in ROUTES:
+        raise ValueError(f"enet_batch: route must be one of {ROUTES}, got {route!r}")
+    dev = resolve_device(None, X, y, lambda1s, lambda2s)
+    X = torch.as_tensor(X, device=dev)
+    dtype = X.dtype
+    y = torch.as_tensor(y, dtype=dtype, device=dev)
+    if X.dim() not in (2, 3) or y.dim() not in (1, 2) or y.shape[-1] != X.shape[-2]:
+        raise ValueError(f"enet_batch: X must be (n, p) or (B, n, p) and y (n,) or "
+                         f"(B, n), got {tuple(X.shape)} and {tuple(y.shape)}")
+    lambda1s = torch.as_tensor(lambda1s, dtype=dtype, device=dev)
+    lambda2s = torch.as_tensor(lambda2s, dtype=dtype, device=dev)
+    operands = (X, y, lambda1s, lambda2s)
+    sizes = {op.shape[0] for op, lead in zip(operands, (3, 2, 1, 1)) if op.dim() == lead}
+    if not sizes:
+        raise ValueError("enet_batch: no batched operand (use enet())")
+    if (warm is None) != (has_warm is None):
+        raise ValueError("enet_batch: warm and has_warm must be given together")
+    if has_warm is not None:
+        has_warm = torch.as_tensor(has_warm, device=dev).to(torch.bool)
+        warm = EnetCarry(*(torch.as_tensor(f, device=dev).to(dtype) for f in warm))
+        sizes.update(f.shape[0] for f in warm)
+        sizes.add(has_warm.shape[0])
+    if len(sizes) != 1:
+        raise ValueError(f"enet_batch: inconsistent batch sizes {sorted(sizes)}")
+    B = sizes.pop()
+    config = resolve_path_config(config, X, y)
+    lams = host_list(torch.cat([lambda1s.expand(B), lambda2s.expand(B)]))
+    carry = _cold_carry_lanes(X, y, B)
+    if warm is not None:
+        carry = EnetCarry(*lane_where(has_warm, tuple(warm), tuple(carry)))
+    carry, points = _enet_point_lanes(X, y, lams[:B], lams[B:], carry, config)
+    return (points, carry) if return_carry else points
 
 
 # ---------------------------------------------------------------------------
@@ -351,11 +579,7 @@ def enet_path(X, y, *, lambda1s=None, n_lambdas: int = 40,
         lambda1s = torch.tensor(np.asarray(lambda1s, dtype=np.float64))
     lambda1s = lambda1s.to(dtype=X.dtype, device=X.device)
     config = resolve_path_config(config, Xs, ys)
-    carry = cold_carry(Xs, ys)
-    pts = []
-    for lam1 in lambda1s.tolist():
-        carry, pt = _enet_point(Xs, ys, lam1, float(lambda2), carry, config)
-        pts.append(pt)
+    pts = _path_points(Xs, ys, lambda1s.tolist(), float(lambda2), config)
     betas, intercepts = unscale_coef(torch.stack([pt.beta for pt in pts]), scaler)
 
     def stack(field):

@@ -275,7 +275,7 @@ def _lane(x: torch.Tensor, i: int, shared_dim: int) -> torch.Tensor:
 
 
 def _sven_core_lanes(X, y, t: torch.Tensor, lambda2: torch.Tensor, warm_alpha, warm_w,
-                     config: SvenConfig, keep=None) -> SvenBatchSolution:
+                     config: SvenConfig, keep=None, ts=None) -> SvenBatchSolution:
     """`_sven_core` for B problems at once, on resolved operands.
 
     X (n, p) shared by the lanes or (B, n, p); y (n,) or (B, n); t and
@@ -287,7 +287,8 @@ def _sven_core_lanes(X, y, t: torch.Tensor, lambda2: torch.Tensor, warm_alpha, w
     Gram per lane, stacked to (B, 2p, 2p). Each lane's arithmetic is that
     of `_sven_core` on its operands, to the bit: products and reductions
     run per lane (`core/svm/state.py::lanes`), and each lane of the hinge
-    passes is bitwise a single launch's. t is read to the host once.
+    passes is bitwise a single launch's. t is read to the host once, unless
+    the caller hands its values over as `ts` (a list of B floats).
     """
     n, p = X.shape[-2:]
     B = t.shape[0]
@@ -308,7 +309,7 @@ def _sven_core_lanes(X, y, t: torch.Tensor, lambda2: torch.Tensor, warm_alpha, w
     C = (1.0 / (2.0 * torch.clamp(lambda2.to(torch.float64),
                                   min=config.lambda2_floor))).to(dtype)
     mode = _pick_mode(n, p, config)
-    ts = host_list(t)
+    ts = host_list(t) if ts is None else ts
     op = red.SvenLaneOperator(X=X, y=y, t=ts)
     kernels = config.backend != "torch"
 

@@ -1,7 +1,8 @@
-"""The lane-batched solve and its hinge passes against single solves and
-single launches on freshly allocated copies of each lane's operands, on the
-card. Every test is `gpu`-marked and skips where there is no CUDA device.
-This module imports no JAX (run it with `--noconftest`):
+"""The lane-batched solves (`sven_batch`, `enet_batch`) and the hinge
+passes against single solves and single launches on freshly allocated
+copies of each lane's operands, on the card. Every test is `gpu`-marked
+and skips where there is no CUDA device. This module imports no JAX (run
+it with `--noconftest`):
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_batch_gpu.py
 
@@ -17,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.api import enet, enet_batch
 from repro_torch.core.batch import cv_folds, en_grid, sven_batch
 from repro_torch.core.sven import sven
 from repro_torch.core.svm import pitched
@@ -118,6 +120,35 @@ def test_cuda_sven_batch_lanes_bitwise_fresh_sequential_solves(cuda_device, shar
                  float(l2 if l2.dim() == 0 else l2[i]))
         assert (int(sol.iters[i]), int(sol.cg_iters[i])) == (s.iters, s.cg_iters), f"lane {i}"
         assert torch.equal(sol.beta[i], s.beta), f"lane {i}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared", [True, False])
+def test_cuda_enet_batch_lanes_bitwise_fresh_sequential_enets(cuda_device, shared):
+    """`enet_batch` on a primal stack of odd p (stacked folds with one
+    lambda1 each, or lambda1 x lambda2 pairs on a shared X), default
+    config: every lane is bitwise `enet` on freshly allocated copies of its
+    operands, with equal evaluations, Newton and CG counts."""
+    X, y, _, _ = _primal_stack(cuda_device, shared)
+    B = 6 if shared else X.shape[0]
+    f64 = dict(dtype=torch.float64, device=cuda_device)
+    if shared:
+        head = 2.0 * (X.T @ y).abs().max().item()
+        l1 = torch.tensor([0.4, 0.2, 0.1] * 2, **f64) * head
+        l2 = torch.tensor([0.5] * 3 + [2.0] * 3, **f64)
+    else:
+        heads = torch.stack([2.0 * (X[i].T @ y[i]).abs().max() for i in range(B)])
+        l1 = heads * torch.linspace(0.1, 0.5, B, **f64)
+        l2 = torch.tensor(1.0, **f64)
+    pts = enet_batch(X, y, l1, l2)
+    assert len(pts.evals) == B and len(set(pts.evals)) > 1
+    for i in range(B):
+        Xi = (X if shared else X[i]).clone()
+        yi = (y if shared else y[i]).clone()
+        r = enet(Xi, yi, float(l1[i]), float(l2 if l2.dim() == 0 else l2[i]))
+        assert (pts.evals[i], pts.sven_iters[i], pts.cg_iters[i]) == \
+            (r.evals, r.sven_iters, r.cg_iters), f"lane {i}"
+        assert torch.equal(pts.beta[i], r.beta) and torch.equal(pts.t[i], r.t), f"lane {i}"
 
 
 @pytest.mark.gpu
