@@ -69,7 +69,25 @@ port's main path through the entry points a user calls:
      lanes 0, 2 and 4, each lane bitwise the sequential `_enet_point` on
      fresh copies of its operands. The hinge launches, lane-batched plus
      single (one lane left), equal the batched CG steps; the dual launches
-     one Gram per lane and evaluation.
+     one Gram per lane and evaluation;
+ 12. the serving runtime (float64, default config): (12a) 2 waves of 10
+     requests on one GLA-BRA-180-shaped data set (a fifth of them
+     penalized; bucket 256 x 65,536, primal; the constrained requests at
+     0.01 x the loadgen's t, where the l1 constraint binds) played open
+     loop into one
+     `ContinuousScheduler(max_batch=8, max_wait=None, fixed_batch=True)`
+     with its warm-start cache, each wave also drained cold by
+     `ElasticNetEngine(max_batch=8, cache=None).drain_reference()`, and
+     (12b) the same at the YMSD shape (5 requests a wave, bucket 524,288 x
+     128, dual, max_batch=4): every
+     request "ok", each beta within 1e-6 of the reference's, the first two
+     of each wave within 1e-6 of a direct `sven` / `enet` on the unpadded
+     problem, wave 2 with a cache hit, no more Newton steps than the cold
+     reference and no new launch shape, the hinge (12a) or Gram (12b)
+     kernels launched; (12c) `OnlineElasticNet` fed the YMSD rows in blocks
+     of 16,384, solved at t and warm at 1.03 t, each within 1e-8 x
+     max|beta| of `sven` on the whole X, the warm solve in no more Newton
+     steps than `sven`'s.
 
 The CG loop (`repro_torch.core.svm.state.cg_lanes`) reads its test once
 per block of k = `CG_READ_EVERY` steps and launches up to k - 1 dead steps
@@ -124,6 +142,11 @@ and 9a under torch.profiler: per CG step launched, the host's time in
 reads, in launch calls and elsewhere, the device's busy time (hinge passes
 and the rest), its idle share, and the launches by op. It prints no result
 line; a copy placed in a checkout of another commit traces that commit.
+
+    python3 chip_smoke.py --serving
+
+runs phase 12 alone (the kernels built first), with its checks, and prints
+no result line.
 
     python3 chip_smoke.py --lane-time
 
@@ -1509,6 +1532,207 @@ def phase_cv(torch, smoke, kernels, svm_state, count, dev) -> None:
     print(f"    phase 11: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+#: phase 12's cells: label, request shape, requests a wave, penalized
+#: fraction, max_batch, the kernels its solves must launch, and the factor
+#: on the loadgen's t of each constrained request. At GLA-BRA the
+#: loadgen's t (0.15 sum_j |x_j^T y| / n) lies far above the l1 norm of
+#: the unconstrained solution, so every such request would be the same
+#: 2-Newton solve, warm or cold, and wave 2's warm-start check could not
+#: fail; at 0.01 x it the constraint binds and a cold solve takes tens of
+#: Newton and hundreds of CG steps
+SERVE_CELLS = (("12a", GLA_BRA, 10, 0.2, 8, "hinge", 0.01),
+               ("12b", YMSD, 5, 0.0, 4, "gram", 1.0))
+SERVE_WAVES = 2
+SERVE_DATA_SEED = 11       # the requests' data set (`LoadSpec.data_seed`)
+ONLINE_BLOCK = 16_384      # rows a block fed to `OnlineElasticNet` (12c)
+
+
+def phase_serving(torch, smoke, kernels, svm_state, count, dev, cells=SERVE_CELLS,
+                  waves=SERVE_WAVES, block=ONLINE_BLOCK) -> None:
+    """Phase 12: the serving runtime on float64 data, default config. Each
+    cell of `cells` plays `waves` seeded waves of one data set's requests
+    (`runtime.LoadSpec`, seed = the wave) open loop into one
+    `ContinuousScheduler(max_batch, max_wait=None, fixed_batch=True)` (its
+    warm-start cache carried from wave to wave; every launch padded to
+    max_batch with all-zero dummy lanes), and drains each wave again cold
+    through `ElasticNetEngine(max_batch, cache=None).drain_reference()`;
+    then (12c) `OnlineElasticNet` takes the last cell's rows in blocks of
+    `block` and solves at t and 1.03 t. A cell's constrained requests are
+    served at its t factor times the loadgen's t (the penalized ones as
+    drawn), so that wave 2's warm starts have Newton steps to save."""
+    import numpy as np
+
+    from repro_torch.core import enet, sven
+    from repro_torch.runtime import (PENALIZED, ContinuousScheduler, LoadSpec,
+                                     OnlineElasticNet, fingerprint_problem, make_workload,
+                                     run_open_loop)
+    from repro_torch.runtime.scheduler import stack_padded
+    from repro_torch.serve import ElasticNetEngine
+
+    def host_seconds(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    t_phase = time.perf_counter()
+    hinge = ("hinge_xtv_lanes_cuda", "hinge_xtv_cuda", "hinge_xd_lanes_cuda", "hinge_xd_cuda")
+    for label, shape, n_req, pen, max_batch, kind, t_scale in cells:
+        t_cell = time.perf_counter()
+        # fixed_batch pads every launch to max_batch, as JAX's loadgen smoke
+        # does to pin its launch shapes: the waves' form mixes differ (seed =
+        # wave), and the power-of-two ladder would give a new rung for it
+        sched = ContinuousScheduler(max_batch=max_batch, max_wait=None, fixed_batch=True,
+                                    device=dev)
+        reference = ElasticNetEngine(max_batch=max_batch, cache=None, device=dev)
+        print(f"[{label}] serving {waves} waves of {n_req} requests (penalized fraction "
+              f"{pen}) on one {shape[0]} x {shape[1]} data set: bucket "
+              f"{sched.bucket_of(*shape)}, max_batch {max_batch}", flush=True)
+        cell_launched = {}
+        for wave in range(waves):
+            workload = make_workload(LoadSpec(shapes=(shape,), n_datasets=1, n_requests=n_req,
+                                              penalized_fraction=pen,
+                                              data_seed=SERVE_DATA_SEED, seed=wave))
+            workload = [i if i.form == PENALIZED else i._replace(lam=t_scale * i.lam)
+                        for i in workload]
+            shapes0, padded0 = sched.stats.bucket_shapes, sched.stats.padded_slots
+            hits0, misses0 = sched.cache.hits, sched.cache.misses
+            out, secs, launched, syncs = run_path(torch, kernels, svm_state,
+                                                  lambda: run_open_loop(sched, workload))
+            count(launched)
+            ref_ids = [reference.submit_penalized(i.X, i.y, i.lam, i.lambda2)
+                       if i.form == PENALIZED else reference.submit(i.X, i.y, i.lam, i.lambda2)
+                       for i in workload]
+            ref, ref_s, ref_launched, ref_syncs = run_path(torch, kernels, svm_state,
+                                                           reference.drain_reference)
+            count(ref_launched)
+            for k, v in list(launched.items()) + list(ref_launched.items()):
+                cell_launched[k] = cell_launched.get(k, 0) + v
+            res = [out["results"][rid] for rid in out["ids"]]
+            refs = [ref[rid] for rid in ref_ids]
+            statuses = sorted({r.status for r in res})
+            ref_dev = max(float(np.abs(r.beta - q.beta).max()) for r, q in zip(res, refs))
+            newton = [int(r.iters) for r in res]
+            ref_newton = [int(q.iters) for q in refs]
+            hits, misses = sched.cache.hits - hits0, sched.cache.misses - misses0
+            new_shapes = sched.stats.bucket_shapes - shapes0
+            forms = [i.form[0] for i in workload]
+            print(f"    wave {wave + 1} ({''.join(forms)}): runtime {secs:.3f} s "
+                  f"({syncs} host syncs, launches {launched}), reference {ref_s:.3f} s "
+                  f"({ref_syncs} host syncs), reference / runtime {ref_s / secs:.2f}x; p50 "
+                  f"{out['p50_latency_s']:.3f} s, p99 {out['p99_latency_s']:.3f} s; padded "
+                  f"slots {sched.stats.padded_slots - padded0}; cache hits {hits} / "
+                  f"{hits + misses} ({hits / max(1, hits + misses):.2f}); new launch shapes "
+                  f"{new_shapes}; Newton steps {sum(newton)} {newton}, cold reference "
+                  f"{sum(ref_newton)} {ref_newton}; "
+                  f"max|beta - beta_ref| {ref_dev:.3e}", flush=True)
+            smoke.check(statuses == ["ok"] and len(res) == n_req,
+                        f"{label} wave {wave + 1}: all {n_req} requests ok ({statuses})")
+            smoke.check(all(r.beta.shape == (shape[1],) and bool(np.isfinite(r.beta).all())
+                            for r in res), f"{label} wave {wave + 1}: betas finite, shape (p,)")
+            smoke.check(ref_dev < 1e-6, f"{label} wave {wave + 1}: max|beta - "
+                        f"drain_reference| = {ref_dev:.3e} < 1e-6")
+            for item, r in list(zip(workload, res))[:2]:
+                Xd = torch.as_tensor(item.X, device=dev)
+                yd = torch.as_tensor(item.y, device=dev)
+                direct = (enet(Xd, yd, item.lam, item.lambda2) if item.form == PENALIZED
+                          else sven(Xd, yd, item.lam, item.lambda2)).beta.cpu().numpy()
+                dev_d = float(np.abs(r.beta - direct).max())
+                rel = dev_d / max(float(np.abs(direct).max()), 1e-300)
+                del Xd, yd
+                smoke.check(dev_d < 1e-6, f"{label} wave {wave + 1}: {item.form} request vs "
+                            f"a direct solve of the unpadded problem: max|beta - direct| = "
+                            f"{dev_d:.3e} < 1e-6 ({rel:.3e} x max|beta|)")
+            if wave > 0:
+                smoke.check(hits > 0, f"{label} wave {wave + 1}: {hits} cache hits > 0")
+                smoke.check(sum(newton) <= sum(ref_newton), f"{label} wave {wave + 1}: Newton "
+                            f"steps {sum(newton)} <= the cold reference's {sum(ref_newton)}")
+                smoke.check(new_shapes == 0, f"{label} wave {wave + 1}: no new launch shape "
+                            f"({sched.stats.bucket_shapes} in all)")
+            torch.cuda.empty_cache()
+        if kind == "hinge":
+            n_kernel = sum(cell_launched.get(k, 0) for k in hinge[:2])
+            smoke.check(n_kernel > 0 and n_kernel == sum(cell_launched.get(k, 0)
+                                                         for k in hinge[2:]),
+                        f"{label}: hinge launches (lane-batched + single) {n_kernel} > 0, "
+                        "both passes alike")
+        else:
+            n_kernel = cell_launched.get("shifted_gram_cuda", 0)
+            smoke.check(n_kernel > 0, f"{label}: Gram launches {n_kernel} > 0")
+        # the runtime's host work apart: a request's fingerprint, and a
+        # launch's staging into host buffers and its copy to the card
+        X, y = workload[0].X, workload[0].y
+        bn, bp = sched.bucket_of(*shape)
+        fp_s = host_seconds(lambda: fingerprint_problem(X, y))
+        stage_s = host_seconds(lambda: stack_padded(workload[:max_batch], bn, bp, max_batch,
+                                                    np.float64))
+        Xb, _ = stack_padded(workload[:1], bn, bp, max_batch, np.float64)
+        copy_s = host_seconds(lambda: torch.from_numpy(Xb).to(dev))
+        del Xb
+        print(f"    {label}: {time.perf_counter() - t_cell:.1f} s; launches {cell_launched}; "
+              f"host work: fingerprint {fp_s:.3f} s a request, staging {stage_s:.3f} s and "
+              f"copy to the card {copy_s:.3f} s a launch of {max_batch} ({bn} x {bp})",
+              flush=True)
+        t = next((i.lam for i in workload if i.form != PENALIZED), None)
+        del sched, reference, workload, out, ref, res, refs
+        torch.cuda.empty_cache()
+
+    # 12c: the online session on the last cell's data set
+    n, p = X.shape
+    print(f"[12c] OnlineElasticNet(p={p}): {n} rows in blocks of {block}, solved at t = "
+          f"{t:.6g} and warm at 1.03 t", flush=True)
+    online = OnlineElasticNet(p=p, device=dev)
+    t0 = time.perf_counter()
+    for lo in range(0, n, block):
+        online.update(X[lo:lo + block], y[lo:lo + block])
+    torch.cuda.synchronize()
+    upd_s = time.perf_counter() - t0
+    Xd, yd = torch.as_tensor(X, device=dev), torch.as_tensor(y, device=dev)
+    for tt, name in ((t, "cold"), (1.03 * t, "warm")):
+        sol, secs, launched, syncs = run_path(torch, kernels, svm_state,
+                                              lambda: online.solve(tt, 1.0))
+        ref_sol, ref_s, ref_launched, _ = run_path(torch, kernels, svm_state,
+                                                   lambda: sven(Xd, yd, tt, 1.0))
+        count(ref_launched)
+        scale = ref_sol.beta.abs().max().item()
+        dev_o = max_dev(torch, sol.beta, ref_sol.beta)
+        print(f"    {name} at {tt:.6g}: {sol.iters} Newton, {secs:.3f} s, {syncs} host syncs, "
+              f"kkt {sol.kkt.item():.3e}; sven on all {n} rows: {ref_sol.iters} Newton, "
+              f"{ref_s:.3f} s; max|beta - beta_sven| {dev_o:.3e} ({dev_o / scale:.3e} x "
+              f"max|beta|)", flush=True)
+        smoke.check(sol.n == n and bool(torch.isfinite(sol.beta).all()),
+                    f"12c {name}: beta finite after {sol.n} rows")
+        smoke.check(dev_o <= 1e-8 * scale, f"12c {name}: max|beta - beta_sven| = {dev_o:.3e} "
+                    f"<= 1e-8 x max|beta| = {1e-8 * scale:.3e}")
+        if name == "warm":
+            smoke.check(sol.iters <= ref_sol.iters, f"12c warm: {sol.iters} Newton steps <= "
+                        f"sven's cold {ref_sol.iters}")
+    print(f"    12c: {upd_s:.3f} s for {online.updates} updates", flush=True)
+    del Xd, yd, online
+    torch.cuda.empty_cache()
+    print(f"    phase 12: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def serving_only(torch) -> int:
+    """`--serving`: phase 12 alone (the kernels built first), with its
+    checks; prints no result line. Exits 1 if a check failed."""
+    from repro_torch import kernels
+    from repro_torch.core.svm import state as svm_state
+    from repro_torch.kernels import _build
+
+    print(f"card: {nvidia_smi()}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    smoke = Smoke()
+    t0 = time.perf_counter()
+    phase_serving(torch, smoke, kernels, svm_state, lambda launched: None,
+                  torch.device("cuda", 0))
+    print(f"total {time.perf_counter() - t0:.1f} s; {len(smoke.failures)} check(s) failed",
+          flush=True)
+    return 1 if smoke.failures else 0
+
+
 def gram_bitwise_only(torch, other: Path, modes) -> int:
     """`--gram-bitwise`: this checkout's Gram against a build of another
     `gram.cu` (`other`), in each of `modes` (f64: float64 operands at
@@ -1673,6 +1897,8 @@ def main() -> int:
         return lane_time_only(torch)
     if sys.argv[1:] == ["--loop-trace"]:
         return loop_trace_only(torch)
+    if sys.argv[1:] == ["--serving"]:
+        return serving_only(torch)
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -1879,6 +2105,12 @@ def main() -> int:
     print("[11] enet_batch and cross-validation: lane-batched root-finds vs sequential",
           flush=True)
     phase_cv(torch, smoke, kernels, svm_state, count, dev)
+    torch.cuda.empty_cache()
+
+    # -- 12. the serving runtime -----------------------------------------------
+    print("[12] the serving runtime: open-loop waves vs the cold reference drain, and "
+          "the online session", flush=True)
+    phase_serving(torch, smoke, kernels, svm_state, count, dev)
 
     # -- summary ---------------------------------------------------------------
     for name, n_launch in path_launches.items():
