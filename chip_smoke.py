@@ -87,7 +87,33 @@ port's main path through the entry points a user calls:
      kernels launched; (12c) `OnlineElasticNet` fed the YMSD rows in blocks
      of 16,384, solved at t and warm at 1.03 t, each within 1e-8 x
      max|beta| of `sven` on the whole X, the warm solve in no more Newton
-     steps than `sven`'s.
+     steps than `sven`'s; every launch priced by the router's estimate
+     from the calibration the scheduler measured on the card when it was
+     built (modeled_s > 0), the median log10(actual / modeled) per route
+     path within [0, 4];
+ 13. the multi-device layer (float64, default config): 2 ranks on the one
+     card over gloo (`repro_torch.dist.launch`: spawned processes, a
+     `file://` rendezvous), each check against the single-device call on
+     the card: (13a) `sven_sharded` on the YMSD dual (231,858 rows a rank;
+     one Gram launch a rank, beta 1e-10 x max|beta|, Newton steps equal),
+     (13b) on the GLA-BRA primal (90 rows a rank; beta 1e-8 x, Newton
+     equal, CG within 1 %; collectives per CG step), (13c) the lane fan-out
+     of `sven_batch` (an 8-lane 4 t x 2 lambda2 `en_grid` on the shared
+     GLA-BRA X) and of `enet_batch` (`cv_folds` at YMSD, lambda1 = 0.1 x
+     each fold's lambda1_max), each lane bitwise the one-device stack's,
+     (13d) the fold fan-out of `cross_validate(k=4, n_lambdas=10)` at YMSD
+     bitwise `mesh=None`, and k = 5 with mesh="auto" under the 2-rank
+     context declined, (13e) `calibrate` (every field finite and
+     positive), the router's decisions and prices at 13a-13c, each no
+     dearer than "single", `sven_routed(route="auto")` at 13a's and 13b's
+     bounds, and a one-rank mesh's "one device: nothing to route", (13f)
+     Shotgun at its callers' problems (`benchmarks/common.py` gla_bra_like
+     180 x 3,500 at parallel 128, ymsd_like 10,000 x 90 at 64) and at
+     ymsd_like with a full draw (parallel 90): the stop rule held on the
+     last round's draw, beta within a fixed tolerance of the port's
+     `enet` (5e-2 x max|beta| at gla_bra_like, whose stop rule sees 128 of
+     3,500 coordinates a round; 1e-8 x at ymsd_like), and the full draw
+     within the distance its stop rule certifies.
 
 The CG loop (`repro_torch.core.svm.state.cg_lanes`) reads its test once
 per block of k = `CG_READ_EVERY` steps and launches up to k - 1 dead steps
@@ -146,6 +172,11 @@ line; a copy placed in a checkout of another commit traces that commit.
     python3 chip_smoke.py --serving
 
 runs phase 12 alone (the kernels built first), with its checks, and prints
+no result line.
+
+    python3 chip_smoke.py --multi-device
+
+runs phase 13 alone (the kernels built first), with its checks, and prints
 no result line.
 
     python3 chip_smoke.py --lane-time
@@ -1543,6 +1574,11 @@ def phase_cv(torch, smoke, kernels, svm_state, count, dev) -> None:
 SERVE_CELLS = (("12a", GLA_BRA, 10, 0.2, 8, "hinge", 0.01),
                ("12b", YMSD, 5, 0.0, 4, "gram", 1.0))
 SERVE_WAVES = 2
+#: phase 12: the top of the band that each route path's median
+#: log10(actual / modeled seconds) must lie in; the bottom is 0. The cost
+#: model counts FLOPs at the card's measured rates (JAX's iteration
+#: constants), and a launch of the runtime runs slower than that
+RESIDUAL_BAND = 4.0
 SERVE_DATA_SEED = 11       # the requests' data set (`LoadSpec.data_seed`)
 ONLINE_BLOCK = 16_384      # rows a block fed to `OnlineElasticNet` (12c)
 
@@ -1562,7 +1598,7 @@ def phase_serving(torch, smoke, kernels, svm_state, count, dev, cells=SERVE_CELL
     drawn), so that wave 2's warm starts have Newton steps to save."""
     import numpy as np
 
-    from repro_torch.core import enet, sven
+    from repro_torch.core import enet, routing, sven
     from repro_torch.runtime import (PENALIZED, ContinuousScheduler, LoadSpec,
                                      OnlineElasticNet, fingerprint_problem, make_workload,
                                      run_open_loop)
@@ -1660,6 +1696,28 @@ def phase_serving(torch, smoke, kernels, svm_state, count, dev, cells=SERVE_CELL
         else:
             n_kernel = cell_launched.get("shifted_gram_cuda", 0)
             smoke.check(n_kernel > 0, f"{label}: Gram launches {n_kernel} > 0")
+        # every launch is priced by the router's estimate on one device,
+        # from the calibration the scheduler measured on the card when it
+        # was built; the model counts FLOPs only, and the runtime runs
+        # slower than its FLOPs at the measured rate (PERF.md §5)
+        recs = sched.solve_log.records()
+        rep = sched.solve_log.residual_report()
+        cal = routing._CALIBRATIONS.get(("cuda", 1))
+        print(f"    {label}: {len(recs)} launches, priced with {cal}; modeled against actual "
+              f"per route path {rep['by_path']} ({rep['n_unmodeled']} unmodeled)", flush=True)
+        smoke.check(cal is not None and cal.kernel_backend == "cuda"
+                    and cal.flops_per_s > 1e12 and cal.gram_flops_per_s > 1e12,
+                    f"{label}: the launches are priced with the card's measured rates, "
+                    "not the shape-only default")
+        smoke.check(len(recs) > 0 and all(r.modeled_s == routing.estimate_batch_seconds(
+            *r.bucket, r.batch, form=r.form, device=dev) > 0.0 for r in recs),
+                    f"{label}: every launch priced (modeled_s > 0; "
+                    f"{[round(r.modeled_s, 6) for r in recs]})")
+        p50 = {k: v["log10_ratio_p50"] for k, v in rep["by_path"].items()}
+        smoke.check(set(p50) == {"single"} and all(0.0 <= v <= RESIDUAL_BAND for v in
+                                                     p50.values()),
+                    f"{label}: the median log10(actual / modeled) {p50} within "
+                    f"[0, {RESIDUAL_BAND}]")
         # the runtime's host work apart: a request's fingerprint, and a
         # launch's staging into host buffers and its copy to the card
         X, y = workload[0].X, workload[0].y
@@ -1809,6 +1867,342 @@ def gram_split_only(torch, modes) -> int:
     return 0
 
 
+#: phase 13: the ranks of its mesh (all on the one card, over gloo), the
+#: 8-lane grid of 13c (4 t x 2 lambda2) and the folds of 13c and 13d
+MULTI_WORLD = 2
+MULTI_TS = (0.25, 0.5, 0.75, 1.0)
+MULTI_L2S = (0.5, 1.0)
+MULTI_FOLDS = 4
+MULTI_LAMBDAS = 10
+#: 13f: the shotgun baseline at its callers' problems (`benchmarks/common.py`:
+#: gla_bra_like and ymsd_like, `bench_pggn.py` / `bench_nggp.py`'s parallel),
+#: and ymsd_like with a full draw (parallel = p). The last field is the
+#: tolerance against `enet`, x max|beta|: a partial draw's stop rule sees
+#: only the drawn coordinates, and at gla_bra_like (128 of 3,500 a round)
+#: Shotgun stops 2.4e-2 x from the optimum (JAX's alike on the CPU); at
+#: ymsd_like it stops within 4e-11 x. A full draw is also held to the
+#: bound its stop rule certifies (`baselines/shotgun.py::full_draw_bound`).
+SHOTGUN_CELLS = (("gla_bra_like", 180, 3500, 0.4, 128, 5e-2),
+                 ("ymsd_like", 10_000, 90, 0.2, 64, 1e-8),
+                 ("ymsd_like", 10_000, 90, 0.2, 90, 1e-8))
+
+
+def _lane_counts(torch, sol):
+    return [torch.as_tensor(v).tolist() for v in (sol.iters, sol.cg_iters)]
+
+
+def multi_rank(mesh):
+    """Phase 13's work on one rank of `mesh` (every rank runs it alike):
+    13a-13e, each timed and counted on this rank; returns rank 0's results
+    with the per-rank counts gathered (CPU tensors)."""
+    import torch
+
+    from repro_torch import dist, kernels
+    from repro_torch.core import routing
+    from repro_torch.core.api import enet_batch
+    from repro_torch.core.batch import cv_folds, en_grid, sven_batch
+    from repro_torch.core.cv import cross_validate
+    from repro_torch.core.distributed import sven_sharded
+    from repro_torch.core.elastic_net import lambda1_max
+    from repro_torch.core.svm import state as svm_state
+    from repro_torch.data.synthetic import make_regression
+
+    dev = mesh.device
+    out = {"size": mesh.size, "backend": mesh.backend, "device": str(dev)}
+
+    def per_rank(v):        # each rank's number, in rank order
+        return dist.gather(mesh, torch.tensor([float(v)], dtype=torch.float64,
+                                              device=dev)).tolist()
+
+    def run(fn):
+        torch.cuda.synchronize()
+        dist.all_reduce(mesh, torch.zeros(1, device=dev))      # start together
+        kernels.reset_launches()
+        svm_state.cg_lanes.steps = svm_state.cg_lanes.dead = dist.all_reduce.calls = 0
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched, calls, steps = kernels.launches(), dist.all_reduce.calls, \
+            svm_state.cg_lanes.steps          # read before the gathers below add to them
+        return res, {"seconds": per_rank(secs), "launches": {
+            k: per_rank(v) for k, v in launched.items() if v},
+            "collectives": per_rank(calls), "cg_steps": per_rank(steps)}
+
+    Xd, yd, bd = make_regression(*YMSD, seed=1, device=dev)
+    td = 0.5 * bd.abs().sum().item()
+    Xp, yp, bp = make_regression(*GLA_BRA, seed=2, device=dev)
+    tp = 0.5 * bp.abs().sum().item()
+    # 13a, 13b: rows split over the ranks (13a once untimed first: a rank's
+    # first solve pays its process's CUDA and library set-up)
+    sven_sharded(Xd, yd, td, LAMBDA2, mesh=mesh)
+    sol, out["13a_run"] = run(lambda: sven_sharded(Xd, yd, td, LAMBDA2, mesh=mesh))
+    out["13a"] = (sol.beta, sol.iters, sol.cg_iters, sol.mode)
+    sol, out["13b_run"] = run(lambda: sven_sharded(Xp, yp, tp, LAMBDA2, mesh=mesh))
+    out["13b"] = (sol.beta, sol.iters, sol.cg_iters, sol.mode)
+    # 13c: lane fan-out, pinned
+    ts, l2s = en_grid(torch.tensor([f * tp for f in MULTI_TS], device=dev),
+                      torch.tensor(MULTI_L2S, device=dev, dtype=torch.float64))
+    with dist.mesh_context(mesh):
+        sol, out["13c_grid_run"] = run(lambda: sven_batch(Xp, yp, ts, l2s, route="batch"))
+    out["13c_grid"] = sol
+    Xtr, ytr, _, _ = cv_folds(Xd, yd, MULTI_FOLDS)
+    l1 = torch.stack([0.1 * lambda1_max(Xtr[i], ytr[i]) for i in range(MULTI_FOLDS)])
+    with dist.mesh_context(mesh):
+        pts, out["13c_folds_run"] = run(lambda: enet_batch(Xtr, ytr, l1, LAMBDA2,
+                                                           route="batch"))
+    out["13c_folds"] = pts
+    del Xtr, ytr
+    torch.cuda.empty_cache()
+    # 13d: fold fan-out; then k = 5 under the context, which the mesh does not divide
+    cv, out["13d_run"] = run(lambda: cross_validate(Xd, yd, k=MULTI_FOLDS,
+                                                    n_lambdas=MULTI_LAMBDAS, mesh=mesh))
+    out["13d"] = cv
+    with dist.mesh_context(mesh):
+        cv5, out["13d_nested_run"] = run(lambda: cross_validate(
+            Xd, yd, k=MULTI_FOLDS + 1, n_lambdas=MULTI_LAMBDAS, mesh="auto"))
+    out["13d_nested"] = cv5
+    torch.cuda.empty_cache()
+    # 13e: the router on this card
+    out["13e_cal"] = routing.calibrate(mesh, force=True)
+    n_tr = (YMSD[0] // MULTI_FOLDS) * (MULTI_FOLDS - 1)
+    out["13e_decisions"] = {
+        "13a dual": routing.route_solve(*YMSD, mesh=mesh),
+        "13b primal": routing.route_solve(*GLA_BRA, mesh=mesh),
+        "13c grid": routing.route_batch(*GLA_BRA, len(MULTI_TS) * len(MULTI_L2S), mesh),
+        "13c folds": routing.route_batch(n_tr, YMSD[1], MULTI_FOLDS, mesh, form="penalized"),
+    }
+    for label, (X, y, t) in (("13a", (Xd, yd, td)), ("13b", (Xp, yp, tp))):
+        sol, out[f"13e_{label}_run"] = run(lambda: routing.sven_routed(X, y, t, LAMBDA2,
+                                                                       mesh=mesh))
+        out[f"13e_{label}"] = sol.beta
+    return out
+
+
+def phase_multi_device(torch, smoke, kernels, svm_state, count, dev) -> None:
+    """Phase 13: the multi-device layer, `MULTI_WORLD` ranks on this card
+    over gloo (`dist.launch`), float64, default config; every check against
+    the single-device call on the card, made here. 13a `sven_sharded` on
+    the YMSD dual (one Gram per rank), 13b on the GLA-BRA primal, 13c the
+    lane fan-out of `sven_batch` (8-lane grid, shared X) and `enet_batch`
+    (YMSD folds) bitwise, 13d the fold fan-out of `cross_validate` bitwise
+    and a k no mesh divides declined, 13e the router's calibration and
+    decisions and `sven_routed`, 13f Shotgun at its callers' problems."""
+    import numpy as np
+
+    from repro_torch import dist
+    from repro_torch.baselines.shotgun import (coordinate_steps, drawn_coordinates,
+                                              elastic_net_shotgun, error_bound,
+                                              full_draw_bound, stop_rule_bounds)
+    from repro_torch.core import routing
+    from repro_torch.core.api import enet, enet_batch
+    from repro_torch.core.batch import cv_folds, en_grid, sven_batch
+    from repro_torch.core.cv import cross_validate
+    from repro_torch.core.elastic_net import lambda1_max, objective_penalized
+    from repro_torch.core.sven import sven
+    from repro_torch.data.synthetic import make_regression, make_regression_numpy
+
+    t_phase = time.perf_counter()
+    devices, backend = dist.topology(MULTI_WORLD, "cuda")
+    print(f"[13] multi-device: {MULTI_WORLD} ranks on {sorted(set(devices))} over {backend} "
+          "(ranks share one card: gloo; NCCL needs a card a rank)", flush=True)
+    t0 = time.perf_counter()
+    got = dist.launch(multi_rank, MULTI_WORLD, device="cuda", timeout=600,
+                      collective_timeout=300)
+    ranks_s = time.perf_counter() - t0
+    smoke.check(got["size"] == MULTI_WORLD and got["backend"] == backend,
+                f"13: {got['size']} ranks over {got['backend']} on {got['device']}")
+    print(f"    ranks: {ranks_s:.1f} s from spawn to rank 0's result", flush=True)
+
+    def report(label):
+        r = got[f"{label}_run"]
+        for k, v in r["launches"].items():
+            count({k: int(sum(v))})
+        print(f"    {label}: seconds per rank {[round(s, 3) for s in r['seconds']]}, launches "
+              f"per rank {r['launches']}, collectives per rank {r['collectives']}, batched CG "
+              f"steps per rank {r['cg_steps']}", flush=True)
+        return r
+
+    def rel(a, b):
+        return max_dev(torch, a, b), max(b.abs().max().item(), 1e-300)
+
+    # -- 13a / 13b: rows split over the ranks ------------------------------
+    Xd, yd, bd = make_regression(*YMSD, seed=1, device=dev)
+    td = 0.5 * bd.abs().sum().item()
+    Xp, yp, bp = make_regression(*GLA_BRA, seed=2, device=dev)
+    tp = 0.5 * bp.abs().sum().item()
+    for label, (X, y, t), tol in (("13a", (Xd, yd, td), 1e-10), ("13b", (Xp, yp, tp), 1e-8)):
+        beta, iters, cg, mode = got[label]
+        one, one_s, _, _ = run_path(torch, kernels, svm_state, lambda: sven(X, y, t, LAMBDA2))
+        d, scale = rel(beta.to(dev), one.beta)
+        r = report(label)
+        n, p = X.shape
+        print(f"    {label} sven_sharded ({mode}, {n} x {p}, {-(-n // MULTI_WORLD)} rows a rank): "
+              f"{iters} Newton / {cg} CG; one device {one.iters} / {one.cg_iters}, "
+              f"{one_s:.3f} s; max|beta - beta_one| {d:.3e} ({d / scale:.3e} x max|beta|)",
+              flush=True)
+        smoke.check(bool(torch.isfinite(beta).all()) and beta.shape == (p,),
+                    f"{label}: beta finite, shape (p,)")
+        smoke.check(d <= tol * scale, f"{label}: max|beta - beta_one| = {d:.3e} <= {tol:g} x "
+                    f"max|beta| = {tol * scale:.3e}")
+        smoke.check(iters == one.iters, f"{label}: Newton steps {iters} = one device's "
+                    f"{one.iters}")
+        if label == "13a":
+            grams = r["launches"].get("shifted_gram_cuda", [0] * MULTI_WORLD)
+            smoke.check(grams == [1.0] * MULTI_WORLD, f"13a: Gram launches per rank {grams}: "
+                        "exactly one")
+        else:
+            cg_rel = abs(cg - one.cg_iters) / one.cg_iters
+            smoke.check(cg_rel <= 0.01, f"13b: CG steps {cg} within 1 % of one device's "
+                        f"{one.cg_iters} ({100 * cg_rel:.2f} %)")
+            steps = r["cg_steps"][0]
+            print(f"    13b: {r['seconds'][0]:.3f} s; {r['collectives'][0]:.0f} collectives over "
+                  f"{steps:.0f} CG steps launched: {r['collectives'][0] / max(steps, 1):.2f} a "
+                  "step (one all-reduce of p + 1 floats a Xhat w, one gather of n a Xhat^T v)",
+                  flush=True)
+        del one
+    torch.cuda.empty_cache()
+
+    # -- 13c: lane fan-out, bitwise the one-device stack -------------------
+    ts, l2s = en_grid(torch.tensor([f * tp for f in MULTI_TS], device=dev),
+                      torch.tensor(MULTI_L2S, device=dev, dtype=torch.float64))
+    one, one_s, one_l, _ = run_path(torch, kernels, svm_state,
+                                    lambda: sven_batch(Xp, yp, ts, l2s))
+    fan = got["13c_grid"]
+    r = report("13c_grid")
+    same = [torch.equal(fan.beta[i], one.beta[i].cpu()) for i in range(len(ts))]
+    print(f"    13c sven_batch, {len(ts)}-lane en_grid on the GLA-BRA X (shared), "
+          f"{len(ts) // MULTI_WORLD} lanes a rank: Newton {fan.iters.tolist()}, CG "
+          f"{fan.cg_iters.tolist()}; one device {one_s:.3f} s, launches {one_l}; {sum(same)} "
+          f"of {len(ts)} lanes bitwise", flush=True)
+    smoke.check(all(same) and _lane_counts(torch, fan) == _lane_counts(torch, one),
+                f"13c grid: {sum(same)} of {len(ts)} lanes bitwise the one-device stack's, "
+                "Newton and CG lists equal")
+    smoke.check(sum(r["launches"].get("hinge_xtv_lanes_cuda", [0])) > 0,
+                "13c grid: the ranks ran the lane-batched hinge passes")
+    del one
+    Xtr, ytr, _, _ = cv_folds(Xd, yd, MULTI_FOLDS)
+    l1 = torch.stack([0.1 * lambda1_max(Xtr[i], ytr[i]) for i in range(MULTI_FOLDS)])
+    one, one_s, one_l, _ = run_path(torch, kernels, svm_state,
+                                    lambda: enet_batch(Xtr, ytr, l1, LAMBDA2))
+    fan = got["13c_folds"]
+    r = report("13c_folds")
+    same = [torch.equal(fan.beta[i], one.beta[i].cpu()) for i in range(MULTI_FOLDS)]
+    counts = [(f.evals, f.sven_iters, f.cg_iters) for f in (fan, one)]
+    print(f"    13c enet_batch on cv_folds(X, y, {MULTI_FOLDS}) at YMSD, lambda1 = 0.1 x each "
+          f"fold's lambda1_max, {MULTI_FOLDS // MULTI_WORLD} lanes a rank: evals {fan.evals}, "
+          f"Newton {fan.sven_iters}, CG {fan.cg_iters}; one device {one_s:.3f} s; {sum(same)} "
+          f"of {MULTI_FOLDS} lanes bitwise", flush=True)
+    smoke.check(all(same) and counts[0] == counts[1],
+                f"13c folds: {sum(same)} of {MULTI_FOLDS} lanes bitwise, evaluations, Newton "
+                "and CG lists equal")
+    smoke.check(sum(r["launches"].get("shifted_gram_cuda", [0])) > 0,
+                "13c folds: the ranks ran the Gram")
+    del Xtr, ytr, one
+    torch.cuda.empty_cache()
+
+    # -- 13d: fold fan-out --------------------------------------------------
+    for label, k in (("13d", MULTI_FOLDS), ("13d_nested", MULTI_FOLDS + 1)):
+        one, one_s, _, _ = run_path(torch, kernels, svm_state, lambda: cross_validate(
+            Xd, yd, k=k, n_lambdas=MULTI_LAMBDAS, mesh=None))
+        cv = got[label]
+        r = report(label)
+        same = (torch.equal(cv.mse_path, one.mse_path.cpu()) and cv.index_min == one.index_min
+                and torch.equal(cv.evals, one.evals.cpu()))
+        how = "mesh pinned" if label == "13d" else "mesh='auto' under the 2-rank context"
+        print(f"    {label}: cross_validate(k={k}, n_lambdas={MULTI_LAMBDAS}) at YMSD, {how}: "
+              f"index_min {cv.index_min} (one device {one.index_min}), evals "
+              f"{int(cv.evals.sum())}; one device (mesh=None) {one_s:.3f} s", flush=True)
+        smoke.check(same, f"{label}: mse_path bitwise, index_min and evaluations equal to "
+                    "mesh=None")
+        if label == "13d_nested":
+            smoke.check(sum(r["collectives"]) == 0, f"13d: k = {k} declines the "
+                        f"{MULTI_WORLD}-rank mesh (collectives {r['collectives']})")
+        del one
+    torch.cuda.empty_cache()
+
+    # -- 13e: the router ----------------------------------------------------
+    cal = got["13e_cal"]
+    print(f"    13e calibrate (force): {cal._asdict()}", flush=True)
+    nums = [getattr(cal, f) for f in routing._NUMERIC]
+    smoke.check(all(np.isfinite(v) and v > 0 for v in nums),
+                f"13e: every calibration field finite and positive ({nums})")
+    for name, dec in got["13e_decisions"].items():
+        print(f"    13e {name}: {dec.path} ({dec.reason}); costs {dec.costs}", flush=True)
+        smoke.check(dec.costs[dec.path] <= dec.costs["single"] + 1e-12,
+                    f"13e {name}: the chosen cost is at most single's")
+    for label, (X, y, t), tol in (("13a", (Xd, yd, td), 1e-10), ("13b", (Xp, yp, tp), 1e-8)):
+        one = sven(X, y, t, LAMBDA2).beta
+        d, scale = rel(got[f"13e_{label}"].to(dev), one)
+        report(f"13e_{label}")
+        smoke.check(d <= tol * scale, f"13e sven_routed(route='auto') at {label}'s problem: "
+                    f"max|beta - beta_one| = {d:.3e} <= {tol:g} x max|beta|")
+    one_rank = routing.route_solve(*YMSD, mesh=dist.data_mesh(1))
+    smoke.check(one_rank.reason == "one device: nothing to route",
+                f"13e: a one-rank mesh says '{one_rank.reason}'")
+    del Xd, yd, Xp, yp
+    torch.cuda.empty_cache()
+
+    # -- 13f: Shotgun at its callers' problems ------------------------------
+    for name, n, p, rho, par, tol in SHOTGUN_CELLS:
+        Xn, yn, _ = make_regression_numpy(n, p, k_true=max(5, p // 100), rho=rho, noise=0.3,
+                                          seed=0)
+        X, y = (torch.as_tensor(a, device=dev) for a in (Xn, yn))
+        l1 = 0.1 * lambda1_max(X, y).item()
+        res, secs, _, syncs = run_path(torch, kernels, svm_state,
+                                       lambda: elastic_net_shotgun(X, y, l1, LAMBDA2,
+                                                                   parallel=par))
+        ref, ref_s, _, _ = run_path(torch, kernels, svm_state, lambda: enet(X, y, l1, LAMBDA2))
+        D = drawn_coordinates(p, par, res.rounds, device=dev)
+        steps = coordinate_steps(X, y, res.beta, l1, LAMBDA2)[D].abs()
+        stop_ok = bool((steps <= stop_rule_bounds(X, D, LAMBDA2)).all())
+        own, other = (error_bound(X, y, b, l1, LAMBDA2) for b in (res.beta, ref.beta))
+        dist2 = torch.linalg.norm(res.beta - ref.beta).item()
+        d, scale = rel(res.beta, ref.beta)
+        gap = (objective_penalized(X, y, res.beta, l1, LAMBDA2)
+               - objective_penalized(X, y, ref.beta, l1, LAMBDA2)).item()
+        cell = f"{name} at parallel {par}"
+        print(f"    13f shotgun {name} ({n} x {p}, parallel {par}): {res.rounds} rounds of "
+              f"max 20000 (last delta {res.delta:.2e}), {secs:.3f} s, {syncs} host syncs; enet "
+              f"{ref_s:.3f} s; max|beta - beta_enet| {d:.3e} ({d / scale:.3e} x max|beta|, "
+              f"tolerance {tol:.0e} x), ||.||_2 {dist2:.3e}, the two iterates' error bounds "
+              f"{own + other:.3e} (shotgun's {own:.3e}, enet's {other:.3e}); objective above "
+              f"enet's by {gap:.3e}", flush=True)
+        smoke.check(res.rounds < 20000 and res.delta <= 1e-10 and stop_ok,
+                    f"13f {cell}: the stop rule held on the last round's {len(D)} coordinates")
+        smoke.check(bool(torch.isfinite(res.beta).all()) and d <= tol * scale,
+                    f"13f {cell}: max|beta - beta_enet| = {d:.3e} <= {tol:.0e} x max|beta| "
+                    f"({d / scale:.3e} x)")
+        if par >= p:
+            cert = full_draw_bound(X, LAMBDA2)
+            smoke.check(dist2 <= cert + other and own <= cert,
+                        f"13f {cell}: ||beta - beta_enet|| = {dist2:.3e} <= the full draw's "
+                        f"certificate {cert:.3e} + enet's error bound {other:.3e}")
+        del X, y
+    print(f"    phase 13: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def multi_device_only(torch) -> int:
+    """`--multi-device`: phase 13 alone (the kernels built first), with its
+    checks; prints no result line. Exits 1 if a check failed."""
+    from repro_torch import kernels
+    from repro_torch.core.svm import state as svm_state
+    from repro_torch.kernels import _build
+
+    print(f"card: {nvidia_smi()}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    smoke = Smoke()
+    t0 = time.perf_counter()
+    phase_multi_device(torch, smoke, kernels, svm_state, lambda launched: None,
+                       torch.device("cuda", 0))
+    print(f"total {time.perf_counter() - t0:.1f} s; {len(smoke.failures)} check(s) failed",
+          flush=True)
+    for f in smoke.failures:
+        print(f"  FAILED {f}", flush=True)
+    return 1 if smoke.failures else 0
+
+
 def run_path(torch, kernels, svm_state, fn):
     """Run fn with every launch counter, the sync counter and the CG loop's
     counters (`cg_lanes.steps`, `.dead`) at 0; return (result, seconds,
@@ -1899,6 +2293,8 @@ def main() -> int:
         return loop_trace_only(torch)
     if sys.argv[1:] == ["--serving"]:
         return serving_only(torch)
+    if sys.argv[1:] == ["--multi-device"]:
+        return multi_device_only(torch)
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -2111,6 +2507,10 @@ def main() -> int:
     print("[12] the serving runtime: open-loop waves vs the cold reference drain, and "
           "the online session", flush=True)
     phase_serving(torch, smoke, kernels, svm_state, count, dev)
+    torch.cuda.empty_cache()
+
+    # -- 13. the multi-device layer --------------------------------------------
+    phase_multi_device(torch, smoke, kernels, svm_state, count, dev)
 
     # -- summary ---------------------------------------------------------------
     for name, n_launch in path_launches.items():

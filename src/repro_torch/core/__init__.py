@@ -1,6 +1,7 @@
 """The paper's reduction, the constrained SVEN engine and its batched
 solves, gap-safe screening, the glmnet-parity penalized front end and its
-batched cross-validation, in PyTorch."""
+batched cross-validation, the row-sharded solves over a process group and
+the cost-model router, in PyTorch."""
 from repro_torch.core import elastic_net
 from repro_torch.core.reduction import (
     LAMBDA2_FLOOR,
@@ -21,6 +22,16 @@ from repro_torch.core.sven import (
     sven_path_solutions,
 )
 from repro_torch.core.batch import cv_folds, en_grid, sven_batch
+from repro_torch.core.distributed import sharded_gram_stats, sharded_hinge_stats, sven_sharded
+from repro_torch.core.routing import (
+    Calibration,
+    RouteDecision,
+    calibrate,
+    clear_calibration,
+    route_batch,
+    route_solve,
+    sven_routed,
+)
 from repro_torch.core.screening import ScreenResult, gap_safe_screen, sven_with_screening
 from repro_torch.core.api import (
     ElasticNet,
@@ -64,6 +75,18 @@ __all__ = [
     "cv_folds",
     "en_grid",
     "sven_batch",
+    # data-parallel sharded solve path (core/distributed.py)
+    "sven_sharded",
+    "sharded_gram_stats",
+    "sharded_hinge_stats",
+    # cost-model layout routing (core/routing.py)
+    "sven_routed",
+    "route_solve",
+    "route_batch",
+    "calibrate",
+    "clear_calibration",
+    "Calibration",
+    "RouteDecision",
     # screening (core/screening.py)
     "ScreenResult",
     "gap_safe_screen",

@@ -33,6 +33,7 @@ lane-batched host loop: each lane keeps its own bracket on the host, every
 evaluation solves the lanes still running in one `_sven_core_lanes` (one
 launch of each hinge pass per CG step for all of them), and the host reads
 their multipliers in one read. Each lane is bitwise its sequential point.
+Under a mesh context the lanes fan out over the ranks (`core/batch.py`).
 """
 from __future__ import annotations
 
@@ -472,11 +473,15 @@ def enet_batch(X, y, lambda1s, lambda2s,
     axis) and `has_warm` a (B,) bool selecting, per problem, the warm state
     over a cold start. With `return_carry` the final stacked EnetCarry comes
     back beside the points, as (points, carry). Runs where X lies
-    (array-likes go to the CUDA device). `route` ("auto", "batch" or
-    "single") is accepted for JAX's signature and has no effect: the port
-    has no device mesh to fan the lanes out over.
+    (array-likes go to the CUDA device). Under an active
+    `repro_torch.dist.mesh_context` the lanes fan out over the ranks as in
+    `core.batch.sven_batch` (each rank runs its block's whole root-finds,
+    no collective inside; results gathered in lane order) when the cost
+    model prices the fan-out lower (`form="penalized"`); `route` pins the
+    layout ("batch" / "single"). Each lane is bitwise the same either way.
     """
-    from repro_torch.core.batch import ROUTES
+    from repro_torch.core.batch import ROUTES, batch_mesh, gather_lanes
+    from repro_torch.dist import local_block
 
     if route not in ROUTES:
         raise ValueError(f"enet_batch: route must be one of {ROUTES}, got {route!r}")
@@ -505,10 +510,24 @@ def enet_batch(X, y, lambda1s, lambda2s,
     B = sizes.pop()
     config = resolve_path_config(config, X, y)
     lams = host_list(torch.cat([lambda1s.expand(B), lambda2s.expand(B)]))
+    l1s, l2s = lams[:B], lams[B:]
+    mesh = batch_mesh(B, X.shape[-2], X.shape[-1], form="penalized", route=route)
+    if mesh is not None:
+        # this rank's block of lanes: the whole root-find of each, no
+        # collective inside; the shared operands stay whole
+        lo, B = mesh.rank * (B // mesh.size), B // mesh.size
+        X = local_block(mesh, X) if X.dim() == 3 else X
+        y = local_block(mesh, y) if y.dim() == 2 else y
+        l1s, l2s = l1s[lo:lo + B], l2s[lo:lo + B]
+        if warm is not None:
+            warm = EnetCarry(*(local_block(mesh, f) for f in warm))
+            has_warm = local_block(mesh, has_warm)
     carry = _cold_carry_lanes(X, y, B)
     if warm is not None:
         carry = EnetCarry(*lane_where(has_warm, tuple(warm), tuple(carry)))
-    carry, points = _enet_point_lanes(X, y, lams[:B], lams[B:], carry, config)
+    carry, points = _enet_point_lanes(X, y, l1s, l2s, carry, config)
+    if mesh is not None:
+        carry, points = gather_lanes(mesh, carry), gather_lanes(mesh, points)
     return (points, carry) if return_carry else points
 
 

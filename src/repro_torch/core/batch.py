@@ -18,10 +18,14 @@ patterns the serving layer needs all go through here:
 Any subset of {X, y, t, lambda2} may carry the batch axis; the rest
 broadcast. A shared X stays one (n, p) tensor that every lane reads.
 
-Not ported: JAX's `shard_map_lanes`, `batch_mesh` and `_maybe_shard_batch`
-fan the lanes out over a device mesh (`repro.dist.mesh_context`); the port
-has no mesh yet, so every stack runs on one device and `route` has no
-effect, as in JAX without a mesh context.
+Under an active `repro_torch.dist.mesh_context` whose size divides the
+batch, the lanes fan out over the ranks (`shard_map_lanes`, DESIGN.md §9.2):
+each rank solves its own block of lanes with the lane machines as they are,
+with no collective inside the solve, and the results are gathered in lane
+order (an all-reduce of zero-filled buffers, exact). Every lane is then
+bitwise the one-device stack's. `batch_mesh` declines the mesh when it does
+not divide the batch, and asks the `core.routing` cost model whether the
+fan-out pays; `route` pins the layout ("batch" / "single").
 """
 from __future__ import annotations
 
@@ -29,13 +33,85 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import dist
 from repro_torch.core.sven import (SvenBatchSolution, SvenConfig, _sven_core,
                                    _sven_core_lanes, resolve_backend)
 from repro_torch.core.svm import host_float, pitched
 from repro_torch.device import resolve_device
 
-#: the layouts `route` names in JAX (`batch_mesh`); none has an effect here
+#: the layouts `route` may pin (`batch_mesh`): "auto" asks the cost model
 ROUTES = ("auto", "batch", "single")
+
+
+def batch_mesh(batch_size: int, n: Optional[int] = None, p: Optional[int] = None, *,
+               form: str = "constrained", route: str = "auto") -> Optional[dist.Mesh]:
+    """The mesh a stacked launch should fan its batch axis over, or None.
+
+    Structural vetoes first (no context, a mesh of one rank, a mesh that
+    does not divide `batch_size` -> None: one device), then the COST MODEL:
+    with the problem shape (`n`, `p`) given, `core.routing` prices the
+    fan-out against one device and returns None when one device wins — an
+    active mesh_context is an OFFER of ranks, not an obligation.
+    `route="batch"` pins the fan-out, `route="single"` one device; without
+    a shape the offer is taken as it is. Every rank decides alike.
+    """
+    ctx = dist.current_context()
+    if ctx is None or route == "single":
+        return None
+    mesh = ctx[0]
+    if mesh.size <= 1 or batch_size % mesh.size != 0:
+        return None
+    if route == "batch" or n is None or p is None:
+        return mesh
+    from repro_torch.core import routing
+    decision = routing.route_batch(n, p, batch_size, mesh, form=form, route=route)
+    return mesh if decision.path == "batch" else None
+
+
+def _maybe_shard_batch(arr, batched: bool, ctx=None):
+    """This rank's block of a stacked operand's leading ("batch") axis, by
+    the rule table of `ctx` (a (mesh, rules) pair; default the innermost
+    `dist.mesh_context`); the operand itself when it is not batched, there
+    is no context, or the rules leave the axis whole. The one
+    implementation of batch-axis placement: CV's folds go through it too."""
+    if ctx is None:
+        ctx = dist.current_context()
+    if ctx is None or not batched or arr is None:
+        return arr
+    mesh, rules = ctx
+    spec = dist.resolve_spec(("batch",) + (None,) * (arr.dim() - 1), tuple(arr.shape),
+                             mesh, rules)
+    return dist.local_block(mesh, arr) if spec[0] is not None else arr
+
+
+def gather_lanes(mesh: dist.Mesh, out):
+    """The ranks' lane blocks of a stacked result (a named tuple of (B_loc,
+    ...) tensors, tuples of B_loc ints, and shared strings) stacked in lane
+    order on every rank: each tensor field by one all-reduce of a
+    zero-filled buffer (exact; booleans go as bytes), each int tuple as an
+    int64 tensor."""
+    def one(v):
+        if isinstance(v, torch.Tensor):
+            if v.dtype == torch.bool:
+                return dist.gather(mesh, v.to(torch.uint8)).to(torch.bool)
+            return dist.gather(mesh, v)
+        if isinstance(v, tuple):
+            return tuple(int(i) for i in dist.gather(mesh, torch.tensor(
+                v, dtype=torch.int64, device=mesh.device)).tolist())
+        return v
+    return type(out)(*(one(v) for v in out))
+
+
+def shard_map_lanes(mesh: dist.Mesh, axes: tuple, local, operands: tuple):
+    """Fan a stacked solve out over the ranks (DESIGN.md §9.2).
+
+    Problems are independent, so each rank runs `local` on ITS OWN block of
+    lanes with no collective: the solver loops stay per rank. Batched
+    operands (ax == 0) are cut to this rank's block, the rest are passed
+    whole; the results are gathered in lane order (`gather_lanes`)."""
+    ops = tuple(dist.local_block(mesh, op) if ax == 0 and op is not None else op
+                for op, ax in zip(operands, axes))
+    return gather_lanes(mesh, local(*ops))
 
 
 def solve_lanes(operands: tuple, axes: tuple, config: SvenConfig) -> SvenBatchSolution:
@@ -85,9 +161,10 @@ def sven_batch(
     Runs where X lies (array-likes go to the CUDA device). On CUDA tensors
     the default config runs the hand-written kernels: per CG step one launch
     of each hinge pass for all lanes, and one Gram launch per lane and dual
-    solve; on CPU tensors their plain versions. `route` ("auto", "batch" or
-    "single") is accepted for JAX's signature and has no effect: the port
-    has no device mesh to fan the lanes out over.
+    solve; on CPU tensors their plain versions. Under an active
+    `dist.mesh_context` the lanes fan out over the ranks when `batch_mesh`
+    takes the mesh (the cost model, or `route="batch"`); `route="single"`
+    pins one device. Each lane is bitwise the same either way.
     """
     if route not in ROUTES:
         raise ValueError(f"sven_batch: route must be one of {ROUTES}, got {route!r}")
@@ -125,8 +202,13 @@ def sven_batch(
     t = t.expand(B).contiguous()
     lambda2 = lambda2.expand(B).contiguous()
     config = resolve_backend(config, X, y)
-    return solve_lanes((X, y, t, lambda2, keep, warm_alpha, warm_w),
-                       (axes[0], axes[1], 0, 0) + axes[4:], config)
+    operands = (X, y, t, lambda2, keep, warm_alpha, warm_w)
+    axes = (axes[0], axes[1], 0, 0) + axes[4:]
+    mesh = batch_mesh(B, X.shape[-2], X.shape[-1], route=route)
+    if mesh is not None:
+        return shard_map_lanes(mesh, axes, lambda *ops: solve_lanes(ops, axes, config),
+                               operands)
+    return solve_lanes(operands, axes, config)
 
 
 def en_grid(ts, lambda2s) -> Tuple[torch.Tensor, torch.Tensor]:

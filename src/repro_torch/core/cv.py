@@ -19,10 +19,11 @@ data (`_enet_point`, as `enet` solves it). `cross_validate_reference` keeps
 the glmnet-style sequential per-fold loop as the testable reference
 (identical fold splits, identical grid).
 
-Not ported: JAX places the stacked fold axis on a device mesh
-(`_resolve_cv_mesh`, `_place_folds`, `_enet_cv_scan_sharded`); the port has
-no mesh yet, so every fold runs on one device and `mesh` accepts "auto" or
-None only, to no effect, as JAX does with one device.
+The stacked fold axis is the "batch" axis the mesh rules split: with a
+`repro_torch.dist` mesh (`_resolve_cv_mesh`) each rank walks the grid on
+its own block of folds with no collective (`_enet_cv_scan_sharded`), and the
+(L, k) surface is gathered in fold order; each fold is bitwise its
+one-device path, so the surface is the same bits with or without the mesh.
 """
 from __future__ import annotations
 
@@ -31,18 +32,68 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import dist
 from repro_torch.core import api
 from repro_torch.core.batch import cv_folds
 from repro_torch.core.sven import _operands
 from repro_torch.core.svm.state import host_float, host_list, pitched
 
 
-def _auto_fold_chunk(k: int, device: torch.device) -> int:
-    """How many folds advance together: all k on a CUDA device (one launch
-    of each hinge pass per CG step for them all), 1 on the CPU, where the
-    folds run one after another, as JAX picks k on any backend but the CPU
-    (`repro/core/cv.py::_auto_fold_chunk`)."""
+def _auto_fold_chunk(k: int, device: torch.device, mesh=None) -> int:
+    """How many folds advance together, keyed on where the folds are PLACED:
+    all k when a mesh of more than one rank carries the fold axis (each
+    rank then advances its own k / W) or on a CUDA device (one launch of
+    each hinge pass per CG step for them all), 1 on the CPU, where the folds
+    run one after another (`repro/core/cv.py::_auto_fold_chunk`). `mesh`
+    must be the RESOLVED placement (`_resolve_cv_mesh`)."""
+    if mesh is not None and mesh.size > 1:
+        return k
     return k if device.type == "cuda" else 1
+
+
+def _resolve_cv_mesh(mesh, k: int, n_tr: Optional[int] = None, p: Optional[int] = None,
+                     points: int = 1):
+    """mesh="auto" -> the innermost `dist.mesh_context`, else the process
+    group's data mesh (one rank when there is none), else None; a mesh
+    whose size does not divide k gives None (one device). An auto-resolved
+    mesh is an OFFER: with the fold problem's shape (`n_tr`, `p`, `points`
+    grid points a lane) the `core.routing` cost model prices it, and a
+    single device that would finish sooner declines it. An EXPLICIT mesh
+    pins the placement."""
+    auto = isinstance(mesh, str) and mesh == "auto"
+    if auto:
+        ctx = dist.current_context()
+        mesh = ctx[0] if ctx is not None else dist.data_mesh()
+    if mesh is not None and (mesh.size <= 1 or k % mesh.size != 0):
+        return None
+    if auto and mesh is not None and n_tr is not None and p is not None:
+        from repro_torch.core import routing
+        decision = routing.route_batch(n_tr, p, k, mesh, form="penalized", points=points)
+        if decision.path != "batch":
+            return None
+    return mesh
+
+
+def _place_folds(mesh, *arrays):
+    """This rank's block of each stacked array's leading (fold) axis, through
+    the one batch-axis placement (`core.batch._maybe_shard_batch`); the rules
+    come from the active context when it carries this mesh."""
+    from repro_torch.core.batch import _maybe_shard_batch
+
+    ctx = dist.current_context()
+    rules = ctx[1] if ctx is not None and ctx[0] is mesh else dict(dist.DEFAULT_RULES)
+    return tuple(_maybe_shard_batch(a, True, (mesh, rules)) for a in arrays)
+
+
+def _enet_cv_scan_sharded(Xtr, ytr, Xva, yva, lambda1s: list, lambda2: float,
+                          config: api.PathConfig, fold_chunk: int, mesh):
+    """Rank-parallel CV: each rank runs `_enet_cv_scan` on ITS OWN block of
+    folds with no collective (the solver loops never meet across ranks), and
+    the (L, k) surface is gathered in fold order. `fold_chunk` is the
+    PER-RANK lockstep width."""
+    local = _enet_cv_scan(*_place_folds(mesh, Xtr, ytr, Xva, yva), lambda1s, lambda2,
+                          config, fold_chunk)
+    return tuple(dist.gather(mesh, a.T.contiguous()).T for a in local)
 
 
 def _enet_cv_scan(Xtr, ytr, Xva, yva, lambda1s: list, lambda2: float,
@@ -130,24 +181,47 @@ def cross_validate(X, y, *, k: int = 5, lambda1s=None, n_lambdas: int = 40,
     because the scaler is global.
 
     `fold_chunk` sets how many folds advance together (must divide k); the
-    default is all k on a CUDA device and 1 on the CPU (`_auto_fold_chunk`).
-    Any chunk gives the same bits. Runs where X lies (array-likes go to the
-    CUDA device). `mesh` ("auto" or None) is accepted for JAX's signature
-    and has no effect: the port has no device mesh.
+    default is all k on a CUDA device or over a mesh, 1 on the CPU
+    (`_auto_fold_chunk`). Any chunk gives the same bits. On the mesh path
+    the chunk applies PER RANK (each holds k / W folds); an explicit chunk
+    the local block cannot honor exactly declines the mesh rather than
+    being overridden. Runs where X lies (array-likes go to the CUDA device).
+
+    `mesh` places the stacked fold axis over the ranks: a
+    `repro_torch.dist.Mesh` pins it, "auto" resolves the innermost
+    `dist.mesh_context` or the process group (priced by the cost model),
+    None is one device; a mesh whose size does not divide k declines
+    (`_resolve_cv_mesh`). Every rank calls this alike and gets the same
+    result, the same bits as with one device.
     """
-    if mesh not in ("auto", None):
-        raise ValueError(f"cross_validate: mesh must be 'auto' or None (the port has no "
-                         f"device mesh), got {mesh!r}")
+    if not (mesh is None or isinstance(mesh, dist.Mesh) or mesh == "auto"):
+        raise ValueError(f"cross_validate: mesh must be a repro_torch.dist.Mesh, 'auto' or "
+                         f"None, got {mesh!r}")
     Xs, ys, scaler, lambda1s = _prepare(X, y, lambda1s, n_lambdas, eps, standardize,
                                         fit_intercept)
+    n_tr = (Xs.shape[0] // k) * (k - 1)          # rows per training fold
+    mesh = _resolve_cv_mesh(mesh, k, n_tr, Xs.shape[1], points=int(lambda1s.shape[0]))
+    explicit_chunk = fold_chunk is not None
     if fold_chunk is None:
-        fold_chunk = _auto_fold_chunk(k, Xs.device)
+        fold_chunk = _auto_fold_chunk(k, Xs.device, mesh)
     if k % fold_chunk:
         raise ValueError(f"cross_validate: fold_chunk={fold_chunk} must divide k={k}")
+    chunk_local = fold_chunk
+    if mesh is not None:
+        k_local = k // mesh.size
+        if not explicit_chunk:
+            chunk_local = k_local
+        elif fold_chunk > k_local or k_local % fold_chunk:
+            mesh = None
     config = api.resolve_path_config(config, Xs, ys)
     lam1s, lam2 = host_list(lambda1s), float(lambda2)
     Xtr, ytr, Xva, yva = cv_folds(Xs, ys, k)
-    mse, n_kept, evals = _enet_cv_scan(Xtr, ytr, Xva, yva, lam1s, lam2, config, fold_chunk)
+    if mesh is not None:
+        mse, n_kept, evals = _enet_cv_scan_sharded(Xtr, ytr, Xva, yva, lam1s, lam2, config,
+                                                   chunk_local, mesh)
+    else:
+        mse, n_kept, evals = _enet_cv_scan(Xtr, ytr, Xva, yva, lam1s, lam2, config,
+                                           fold_chunk)
     del Xtr, ytr, Xva, yva
     mean_mse = torch.mean(mse, dim=1)
     i_min = int(host_float(torch.argmin(mean_mse)))

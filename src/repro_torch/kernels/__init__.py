@@ -6,7 +6,8 @@ from repro_torch.kernels.hinge import (hinge_xd_cuda, hinge_xd_lanes_cuda, hinge
                                       hinge_xtv_lanes_cuda)
 from repro_torch.kernels.hinge_stats import hinge_stats_cuda
 from repro_torch.kernels.ops import (hinge_hessian_matvec, hinge_hessian_matvec_lanes,
-                                     hinge_stats, shifted_gram)
+                                     hinge_stats, sharded_shifted_gram, shifted_gram)
+from repro_torch.kernels.registry import resolve_kernel_backend
 
 #: every kernel wrapper (each has a `.launches` counter)
 WRAPPERS = (shifted_gram_cuda, hinge_xtv_cuda, hinge_xd_cuda, hinge_stats_cuda,
@@ -27,4 +28,5 @@ def launches() -> dict:
 __all__ = ["WRAPPERS", "hinge_hessian_matvec", "hinge_hessian_matvec_lanes",
            "hinge_stats", "hinge_stats_cuda", "hinge_xd_cuda", "hinge_xd_lanes_cuda",
            "hinge_xtv_cuda", "hinge_xtv_lanes_cuda", "launches", "ops", "ref",
-           "registry", "reset_launches", "shifted_gram", "shifted_gram_cuda"]
+           "registry", "reset_launches", "resolve_kernel_backend", "sharded_shifted_gram",
+           "shifted_gram", "shifted_gram_cuda"]

@@ -167,3 +167,34 @@ def hinge_stats(
     galpha = torch.cat([gt, gb]).to(w.dtype)
     loss = (0.5 * (w @ w) + loss_part.sum()).to(w.dtype)
     return margin, act, loss, galpha
+
+
+# -- sharded Gram -----------------------------------------------------------
+
+def sharded_shifted_gram(
+    mesh,
+    X: torch.Tensor,
+    y: torch.Tensor,
+    t: float,
+    *,
+    backend: Optional[str] = None,
+    precision: str = "f32",
+) -> torch.Tensor:
+    """K = Zhat^T Zhat (2p, 2p) with the ROWS of X split over the ranks of
+    `mesh` (a `repro_torch.dist.Mesh`; DESIGN.md §9).
+
+    Every rank passes the same (X, y); rank r runs the Gram of the body
+    `backend` resolves (the CUDA kernel on a CUDA tensor) on its block of
+    ceil(n / W) rows, and ONE all-reduce of the (2p, 2p) partial K gives
+    every rank the whole K: the quadrant identity is linear in the blocks'
+    statistics (G, u, s), so the partial Ks sum exactly (a zero-padded
+    block adds nothing, so the blocks need no padding). On a mesh of one
+    rank it is `shifted_gram`, with no collective.
+    """
+    from repro_torch import dist
+
+    rows = -(-X.shape[0] // mesh.size)
+    lo = mesh.rank * rows
+    K = shifted_gram(X[lo:lo + rows], y[lo:lo + rows], t, backend=backend,
+                     precision=precision)
+    return dist.all_reduce(mesh, K)

@@ -7,9 +7,10 @@ screening keep-fraction (nonzero share of the solution — the quantity
 gap-safe screening trades against), and modeled-vs-actual seconds. The
 modeled price is the router's estimate taken AT DISPATCH (so it reflects
 the calibration the router actually used), the actual is dispatch ->
-harvest wall time with the blocking wait broken out. The port has no
-router yet (`core/routing.py` is not ported), so its scheduler records
-every launch unpriced (modeled_s = 0.0, route_path "single").
+harvest wall time with the blocking wait broken out. A launch on one
+device is priced by `core.routing.estimate_batch_seconds`, a routed one by
+`route_batch`'s price of the path it took; a pinned mesh's launches are
+recorded unpriced (modeled_s = 0.0).
 
 `SolveLog.residual_report()` folds the records into the cost-model
 residual summary: per route path, the distribution of log10(actual/modeled).

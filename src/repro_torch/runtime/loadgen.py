@@ -199,7 +199,7 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device to solve on (default: the CUDA device)")
     ap.add_argument("--hosts", type=int, default=0,
-                    help="> 0: a multihost coordinator (not ported yet)")
+                    help="> 0: a multihost coordinator (not ported yet: the next slice)")
     ap.add_argument("--trace-out", default="",
                     help="enable tracing; write Chrome-trace JSON here and "
                          "schema-check it")
@@ -213,7 +213,7 @@ def main(argv=None) -> None:
     if args.hosts > 0:
         raise NotImplementedError(
             "--hosts: the multihost coordinator (runtime/multihost.py) is not ported "
-            "yet (ROADMAP.md, Queue 1 item 7)")
+            "yet; it is the next slice (ROADMAP.md, Queue 1 item 7: multihost)")
     if args.trace_out:
         from repro_torch.obs.trace import enable_tracing
         enable_tracing()

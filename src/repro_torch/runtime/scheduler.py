@@ -36,10 +36,23 @@ What differs from JAX:
     copy of each stacked operand per launch. Requests on one data set are
     stacked like any others, so they take the stacked route of the hinge
     passes.
-  - No device mesh and no router (ROADMAP.md, Queue 1 item 7): `mesh`
-    accepts "auto" or None and anything else raises; `route` is validated
-    and has no effect, as in `core/batch.py`. Every launch is recorded
-    unpriced (modeled_s 0.0, route_path "single").
+  - The mesh is a `repro_torch.dist.Mesh` (every rank runs the same
+    scheduler on the same requests, SPMD), and it is opt-in: `mesh`
+    defaults to None (one device), where JAX's defaults to "auto". Mesh
+    placement is ROUTED, as in JAX: with mesh="auto" (the process group's
+    ranks, when there are more than one) `core.routing.route_batch` prices
+    each (bucket, batch) launch and its price is the launch's `modeled_s`;
+    an explicit mesh or `route="batch"` pins the fan-out (unpriced,
+    route_path "batch"). With no mesh, `routing.estimate_batch_seconds`
+    prices the launch. Either way the calibration is measured when the
+    scheduler is built, never on the admission path.
+  - On a mesh of more than one rank, a launch runs collectives, so every
+    rank must launch the same batches in the same order. Launches then come
+    from counts and explicit calls only (a full bucket, flush, drain,
+    result): a clock-driven trigger (`max_wait`, a request's `deadline`)
+    and speculation (whose slots follow each rank's cache) are refused,
+    since each rank's clock and cache would launch other batches at other
+    ticks and the ranks' collectives would not match.
 
 Warm starts come from `runtime.cache.SolutionCache`: hits are handed to the
 stacked solve as initial iterates (zero rows = cold start, so mixed
@@ -49,6 +62,7 @@ back, closing the loop the paper's adjacent-lambda observation suggests.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import heapq
 import math
@@ -57,6 +71,8 @@ from typing import Any, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import dist
+from repro_torch.core import routing
 from repro_torch.core.api import EnetCarry, PathConfig, enet_batch
 from repro_torch.core.batch import ROUTES, sven_batch
 from repro_torch.core.sven import SvenConfig
@@ -232,11 +248,11 @@ def _host_array(a, dtype) -> np.ndarray:
 
 
 def check_mesh(mesh, who: str) -> None:
-    """The port has no device mesh: "auto" and None run on one device."""
-    if mesh not in ("auto", None):
-        raise ValueError(
-            f"{who}: mesh must be 'auto' or None (got {mesh!r}); the port has no "
-            "device mesh yet (ROADMAP.md, Queue 1 item 7: routing and multihost)")
+    """A mesh argument is a `repro_torch.dist.Mesh`, "auto" or None."""
+    if not (mesh is None or isinstance(mesh, dist.Mesh)
+            or (isinstance(mesh, str) and mesh == "auto")):
+        raise ValueError(f"{who}: mesh must be a repro_torch.dist.Mesh, 'auto' or None "
+                         f"(got {mesh!r})")
 
 
 class ContinuousScheduler:
@@ -268,7 +284,7 @@ class ContinuousScheduler:
                  max_batch: int = 64, min_n: int = 16, min_p: int = 8,
                  max_wait: Optional[float] = 0.01,
                  cache="default", fixed_batch: bool = False,
-                 auto_launch_full: bool = True, mesh="auto",
+                 auto_launch_full: bool = True, mesh=None,
                  route: str = "auto", speculate: bool = False,
                  clock=obs_clock.monotonic, dtype: torch.dtype = torch.float64,
                  device: DeviceLike = None,
@@ -302,7 +318,26 @@ class ContinuousScheduler:
         self.solve_log = SolveLog()
         self.cache = (SolutionCache(registry=self.registry)
                       if cache == "default" else cache)
-        self.mesh = None
+        # mesh="auto": OFFER the process group's ranks when there are more
+        # than one, priced per launch by the router; an explicit Mesh pins
+        # the fan-out (routing skipped); `route` pins the layout for auto
+        # meshes ("batch" = always fan out, "single" = never)
+        self._mesh_pinned = isinstance(mesh, dist.Mesh)
+        if not self._mesh_pinned and mesh is not None:
+            mesh = dist.data_mesh()
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None and (max_wait is not None or speculate):
+            raise ValueError(
+                "ContinuousScheduler: a mesh of more than one rank launches on counts "
+                "and explicit calls only: max_wait must be None and speculate False "
+                "(each rank's clock and cache would launch other batches and the "
+                "ranks' collectives would not match)")
+        # measured here, once, so that pricing never measures on the
+        # admission path (every rank builds its scheduler alike)
+        if self.mesh is None:
+            routing.calibrate(dist.Mesh(device=self.device))
+        elif not self._mesh_pinned:
+            routing.calibrate(self.mesh)
         self.route = route
         self.fixed_batch = fixed_batch
         self.auto_launch_full = auto_launch_full
@@ -365,6 +400,9 @@ class ContinuousScheduler:
         if lambda1 is not None and not (lambda1 >= 0 and lambda2 >= 0):
             raise ValueError(f"submit: need lambda1 >= 0, lambda2 >= 0 "
                              f"(lambda1={lambda1}, lambda2={lambda2})")
+        if deadline is not None and self.mesh is not None:
+            raise ValueError("submit: a mesh of more than one rank takes no deadline "
+                             "(each rank's clock would fire it at another tick)")
         now = self.clock()
         if deadline is None:
             deadline = math.inf if self.max_wait is None else now + self.max_wait
@@ -695,27 +733,53 @@ class ContinuousScheduler:
             spec = self._fill_spec_slots(cands, key, b_real, Xb, yb, lamb,
                                          l2b, wa, ww, wb, wt, wnu, hot)
 
+        route_form = "penalized" if form == PENALIZED else "constrained"
+        mesh = self.mesh
+        modeled_s = 0.0
+        route_path = "single"
+        if mesh is not None and not self._mesh_pinned and self.route != "batch":
+            decision = routing.route_batch(bn, bp, b_pad, mesh, form=route_form,
+                                           route=self.route)
+            self.tracer.instant("route", path=decision.path, costs=dict(decision.costs),
+                                reason=decision.reason)
+            route_path = decision.path
+            modeled_s = float(decision.costs.get(decision.path, 0.0))
+            if decision.path != "batch":
+                mesh = None
+        elif mesh is None:
+            # one device by construction: nothing to route, but the solve
+            # telemetry still wants the model's price for this launch
+            modeled_s = float(routing.estimate_batch_seconds(bn, bp, b_pad, form=route_form,
+                                                             device=self.device))
+        else:
+            route_path = "batch"    # pinned mesh / route="batch": unpriced
+        ctx = dist.mesh_context(mesh) if mesh is not None else contextlib.nullcontext()
+        route = "batch" if mesh is not None else "auto"
+
         def dev(a):
             return torch.from_numpy(a).to(self.device)
 
         Xd, yd, lamd, l2d = dev(Xb), dev(yb), dev(lamb), dev(l2b)
-        if form == PENALIZED:
-            warm = EnetCarry(beta=dev(wb), alpha=dev(wa), w=dev(ww), t=dev(wt),
-                             nu=dev(wnu))
-            pts, carry = enet_batch(Xd, yd, lamd, l2d, self.path_config,
-                                    warm=warm, has_warm=dev(hot),
-                                    return_carry=True, route=self.route)
-            inf = _InFlight(key=key, reqs=tuple(reqs), beta=pts.beta,
-                            iters=pts.sven_iters, kkt=pts.kkt,
-                            alpha=carry.alpha, w=carry.w, t_out=pts.t,
-                            nu_out=pts.nu, spec=spec, t_dispatch=t_disp)
-        else:
-            sol = sven_batch(Xd, yd, lamd, l2d, self.config,
-                             warm_alpha=dev(wa), warm_w=dev(ww), route=self.route)
-            inf = _InFlight(key=key, reqs=tuple(reqs), beta=sol.beta,
-                            iters=sol.iters, kkt=sol.kkt, alpha=sol.alpha,
-                            w=sol.w, t_out=lamd, nu_out=torch.zeros_like(lamd),
-                            spec=spec, t_dispatch=t_disp)
+        with ctx:
+            if form == PENALIZED:
+                warm = EnetCarry(beta=dev(wb), alpha=dev(wa), w=dev(ww), t=dev(wt),
+                                 nu=dev(wnu))
+                pts, carry = enet_batch(Xd, yd, lamd, l2d, self.path_config,
+                                        warm=warm, has_warm=dev(hot),
+                                        return_carry=True, route=route)
+                inf = _InFlight(key=key, reqs=tuple(reqs), beta=pts.beta,
+                                iters=pts.sven_iters, kkt=pts.kkt,
+                                alpha=carry.alpha, w=carry.w, t_out=pts.t,
+                                nu_out=pts.nu, spec=spec, t_dispatch=t_disp,
+                                modeled_s=modeled_s, route_path=route_path)
+            else:
+                sol = sven_batch(Xd, yd, lamd, l2d, self.config,
+                                 warm_alpha=dev(wa), warm_w=dev(ww), route=route)
+                inf = _InFlight(key=key, reqs=tuple(reqs), beta=sol.beta,
+                                iters=sol.iters, kkt=sol.kkt, alpha=sol.alpha,
+                                w=sol.w, t_out=lamd, nu_out=torch.zeros_like(lamd),
+                                spec=spec, t_dispatch=t_disp,
+                                modeled_s=modeled_s, route_path=route_path)
         if self.device.type == "cuda":
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))

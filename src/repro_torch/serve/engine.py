@@ -65,7 +65,7 @@ class ElasticNetEngine:
                  max_batch: int = 64, min_n: int = 16, min_p: int = 8,
                  cache: Optional[SolutionCache] = "default",
                  cache_dir: Optional[str] = None, speculate: bool = False,
-                 mesh="auto", dtype: torch.dtype = torch.float64,
+                 mesh=None, dtype: torch.dtype = torch.float64,
                  device: DeviceLike = None):
         if max_batch < 1 or min_n < 1 or min_p < 1:
             raise ValueError(f"ElasticNetEngine: max_batch/min_n/min_p must be "

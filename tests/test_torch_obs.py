@@ -182,7 +182,8 @@ def test_solve_log_matches_jax():
 def test_runtime_spans_and_terminal_accounting():
     """The port's scheduler records the span taxonomy of a request's life,
     reads its stats through its registry, and lands every request in
-    exactly one terminal count; its launches are recorded unpriced."""
+    exactly one terminal count; its launches on one device are priced by the
+    router's estimate, on the "single" path."""
     X, y = problem(32, 16, seed=0, k_true=3)
     t = 0.2 * float(np.sum(np.abs(X.T @ y))) / 32
     sched = tsched.ContinuousScheduler(max_batch=2, max_wait=None, device="cpu")
@@ -205,7 +206,8 @@ def test_runtime_spans_and_terminal_accounting():
     for expected in ("admit", "launch", "warm_start", "harvest.block", "complete"):
         assert expected in names, (expected, names)
     rep = sched.solve_log.residual_report()
-    assert rep["n_records"] == 2 and rep["n_unmodeled"] == 2 and rep["by_path"] == {}
+    assert rep["n_records"] == 2 and rep["n_unmodeled"] == 0
+    assert set(rep["by_path"]) == {"single"} and rep["by_path"]["single"]["n"] == 2
 
 
 def test_port_runtime_takes_its_clocks_from_obs():

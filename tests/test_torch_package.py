@@ -25,7 +25,9 @@ PKG = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 def test_import_leaves_jax_repro_and_triton_out():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
             "repro_torch.convert, repro_torch.data, repro_torch.obs, repro_torch.runtime, "
-            "repro_torch.serve, repro_torch.utils, repro_torch.launch.serve_en\n"
+            "repro_torch.serve, repro_torch.utils, repro_torch.launch.serve_en, "
+            "repro_torch.dist, repro_torch.core.distributed, repro_torch.core.routing, "
+            "repro_torch.baselines.shotgun\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'triton'))\n"
             "print(bad)\n")

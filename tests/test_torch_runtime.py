@@ -709,16 +709,21 @@ def test_no_cuda_and_no_device_raises(monkeypatch):
 
 
 def test_mesh_route_and_hosts_arguments():
-    with pytest.raises(ValueError, match="Queue 1 item 7"):
+    """A mesh is a `repro_torch.dist.Mesh`, "auto" or None; with no process
+    group every one of them runs on one device. `--hosts` waits for the
+    multihost slice."""
+    from repro_torch import dist as tdist_mesh
+
+    with pytest.raises(ValueError, match="mesh must be a repro_torch.dist.Mesh"):
         tsched.ContinuousScheduler(mesh="batch", device="cpu")
-    with pytest.raises(ValueError, match="Queue 1 item 7"):
+    with pytest.raises(ValueError, match="mesh must be a repro_torch.dist.Mesh"):
         tengine.ElasticNetEngine(mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="route"):
         tsched.ContinuousScheduler(route="sharded", device="cpu")
-    for mesh in ("auto", None):
+    for mesh in ("auto", None, tdist_mesh.data_mesh(1)):
         for route in ("auto", "batch", "single"):
             assert tsched.ContinuousScheduler(mesh=mesh, route=route, device="cpu").mesh is None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="next slice"):
         tloadgen.main(["--hosts", "2", "--device", "cpu"])
     with pytest.raises(SystemExit):        # fault injection waits for multihost
         tloadgen.main(["--kill-host", "0", "--device", "cpu"])
@@ -727,15 +732,18 @@ def test_mesh_route_and_hosts_arguments():
 
 
 def test_routed_launches_are_unpriced_and_harvest_waits_on_nothing_on_cpu():
-    """The port records every launch unpriced on the one device, and on the
-    CPU a batch is ready as soon as it is dispatched."""
+    """A launch on one device is priced by the router's estimate (never
+    measured on the admission path) and recorded on the "single" path; on
+    the CPU a batch is ready as soon as it is dispatched."""
+    from repro_torch.core import routing
     X, y, t = _problem(20, 10, seed=3)
     s = tsched.ContinuousScheduler(max_batch=2, max_wait=None, device="cpu")
     s.submit(X, y, t=t, lambda2=1.0)
     s.submit(X, y, t=t * 1.1, lambda2=1.0)
     assert s.in_flight_count == 0 and len(s._results) == 2   # harvested at poll
     rec = s.solve_log.records()[0]
-    assert (rec.route_path, rec.modeled_s, rec.batch, rec.b_real) == ("single", 0.0, 2, 2)
+    assert (rec.route_path, rec.batch, rec.b_real) == ("single", 2, 2)
+    assert rec.modeled_s == routing.estimate_batch_seconds(32, 16, 2, device="cpu") > 0.0
     assert math.isfinite(rec.kkt_max)
 
 
