@@ -115,6 +115,23 @@ port's main path through the entry points a user calls:
      3,500 coordinates a round; 1e-8 x at ymsd_like), and the full draw
      within the distance its stop rule certifies.
 
+  14. the multi-host serving coordinator (float64, default config):
+     (14a) JAX's `bench_serve.run_multihost` protocol at GLA-BRA width:
+     `MultiHostCoordinator` over 2 spawned worker processes on the one
+     card (max_batch 4, a shared spill directory), 16 constrained requests
+     on 12a's data set at 0.01 x the loadgen's t, three waves (warm-up,
+     no-fault, and a fault wave that flushes and SIGKILLs host 0 at
+     request 8): every admitted request of every wave a result, balanced
+     accounting, every status "ok", exactly 1 host lost and a batch
+     requeued, fault p99 <= 3 x no-fault p99 (JAX's gate), the surviving
+     worker on a CUDA device with the hinge kernels launched there, and
+     the fault wave's first 8 betas within 1e-6 of a direct `sven` (printed
+     beside JAX's 1e-10); it prints each wave's seconds and p50 / p99, the
+     seconds from spawn to ready, a batch's pipe transport and a request's
+     fingerprint; (14b) `python -m repro_torch.runtime.loadgen --hosts 2
+     --kill-host 0 --waves 2` as a subprocess on the card, which must exit
+     0. `--multihost` runs phase 14 alone.
+
 The CG loop (`repro_torch.core.svm.state.cg_lanes`) reads its test once
 per block of k = `CG_READ_EVERY` steps and launches up to k - 1 dead steps
 past a CG solve's end: each hinge launch check counts the CG steps plus
@@ -177,6 +194,11 @@ no result line.
     python3 chip_smoke.py --multi-device
 
 runs phase 13 alone (the kernels built first), with its checks, and prints
+no result line.
+
+    python3 chip_smoke.py --multihost
+
+runs phase 14 alone (the kernels built first), with its checks, and prints
 no result line.
 
     python3 chip_smoke.py --lane-time
@@ -2203,6 +2225,189 @@ def multi_device_only(torch) -> int:
     return 1 if smoke.failures else 0
 
 
+#: phase 14: JAX's `bench_serve.run_multihost` protocol at GLA-BRA width
+MH_HOSTS = 2
+MH_MAX_BATCH = 4
+MH_REQUESTS = 16           # a wave; the fault wave kills host 0 at half of it
+MH_T_SCALE = 0.01          # x the loadgen's t, as 12a's constrained requests
+MH_P99_RATIO = 3.0         # JAX's gate: fault p99 <= 3 x no-fault p99
+MH_DIRECT = 8              # the fault wave's results held to a direct `sven`
+MH_TOL = 1e-6              # phase 12's bound on warm-started GLA-BRA results
+MH_JAX_TOL = 1e-10         # JAX's bench bound, which JAX checks at 48 x 24 only
+MH_HINGE = ("hinge_xtv_lanes_cuda", "hinge_xtv_cuda")
+
+
+def pipe_seconds(items) -> float:
+    """Seconds to send one batch's `items` as the coordinator does (one
+    message on a spawn-context duplex Pipe) to a reader thread of this
+    process, unpickled there: a batch's pipe transport."""
+    import multiprocessing as mp
+    import threading
+
+    a, b = mp.get_context("spawn").Pipe(duplex=True)
+    got = []
+    reader = threading.Thread(target=lambda: got.append(b.recv()))
+    t0 = time.perf_counter()
+    reader.start()
+    a.send(("solve", 0, items))
+    reader.join()
+    secs = time.perf_counter() - t0
+    a.close()
+    b.close()
+    return secs
+
+
+def phase_multihost(torch, smoke, count, dev, shape=GLA_BRA, cli=True) -> None:
+    """Phase 14: (14a) JAX's `bench_serve.run_multihost` protocol on
+    `MultiHostCoordinator` over MH_HOSTS spawned workers sharing the card
+    and a spill directory, float64, default config, at `shape`; (14b) the
+    loadgen's `--hosts 2 --kill-host 0` CLI as a subprocess (when `cli`)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import routing, sven
+    from repro_torch.runtime import (LoadSpec, MultiHostCoordinator, fingerprint_problem,
+                                     make_workload, run_open_loop)
+
+    t_phase = time.perf_counter()
+    workload = make_workload(LoadSpec(shapes=(shape,), n_datasets=1, n_requests=MH_REQUESTS,
+                                      penalized_fraction=0.0, data_seed=SERVE_DATA_SEED,
+                                      seed=SERVE_DATA_SEED))
+    workload = [i._replace(lam=MH_T_SCALE * i.lam) for i in workload]
+    kill_at = MH_REQUESTS // 2
+    print(f"[14a] MultiHostCoordinator: {MH_HOSTS} workers on one card, max_batch "
+          f"{MH_MAX_BATCH}, a shared spill directory; 3 waves of {MH_REQUESTS} constrained "
+          f"requests on one {shape[0]} x {shape[1]} data set, host 0 killed at request "
+          f"{kill_at} of the third", flush=True)
+    waves, lost = [], 0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        coord = MultiHostCoordinator(n_hosts=MH_HOSTS, max_batch=MH_MAX_BATCH, cache_dir=tmp,
+                                     device=dev)
+        spawn_s = time.perf_counter() - t0
+        try:
+            for name in ("warm-up", "no-fault"):
+                out = run_open_loop(coord, workload)
+                lost += len(set(out["ids"]) - set(out["results"]))
+                waves.append((name, out["wall_seconds"], out, list(out["results"].values())))
+            # the fault wave: flush at half, so host 0 holds in-flight work,
+            # SIGKILL it, submit the rest; detection, requeue and re-solve
+            # all land inside the measured window
+            coord.metrics.reset()
+            ids = []
+            t0 = time.perf_counter()
+            for i, item in enumerate(workload):
+                if i == kill_at:
+                    coord.flush()
+                    coord.kill_host(0)
+                ids.append(coord.submit(item.X, item.y, t=item.lam, lambda2=item.lambda2,
+                                        priority=item.priority))
+            results = coord.drain()
+            wall = time.perf_counter() - t0
+            lost += len(set(ids) - set(results))
+            waves.append(("fault", wall, coord.metrics.summary(), list(results.values())))
+            hosts_lost, requeued = coord.hosts_lost, coord.requeued_batches
+            acct = coord.accounting()
+        finally:
+            stats = coord.shutdown()
+    for name, wall, summ, res in waves:
+        statuses = sorted({r.status for r in res})
+        print(f"    {name}: {wall:.3f} s, p50 {summ['p50_latency_s']:.3f} s, p99 "
+              f"{summ['p99_latency_s']:.3f} s, statuses {statuses}", flush=True)
+        smoke.check(statuses == ["ok"] and len(res) == MH_REQUESTS,
+                    f"14a {name}: all {MH_REQUESTS} requests ok ({statuses})")
+    p99_nofault = waves[1][2]["p99_latency_s"]
+    p99_fault = waves[2][2]["p99_latency_s"]
+    ratio = p99_fault / max(p99_nofault, 1e-9)
+    print(f"    spawn to ready {spawn_s:.3f} s; hosts lost {hosts_lost}, batches requeued "
+          f"{requeued}; accounting {acct}; fault p99 / no-fault p99 {ratio:.3f}", flush=True)
+    smoke.check(lost == 0 and acct["balanced"] and acct["outstanding"] == 0,
+                f"14a: every admitted request of every wave has a result ({lost} lost), "
+                "accounting balanced")
+    smoke.check(hosts_lost == 1 and requeued >= 1,
+                f"14a: hosts lost {hosts_lost} == 1, batches requeued {requeued} >= 1")
+    smoke.check(ratio <= MH_P99_RATIO, f"14a: fault p99 {p99_fault:.3f} s <= {MH_P99_RATIO:g} x "
+                f"no-fault p99 {p99_nofault:.3f} s ({ratio:.3f} x)")
+    for s in stats:
+        hinge = {k: s["kernel_launches"].get(k, 0) for k in MH_HINGE}
+        print(f"    surviving worker on {s['device']}: {s['requests']} requests, "
+              f"{s['batches']} batches, cache hits {s['cache_hits']} (spill {s['spill_hits']}), "
+              f"misses {s['cache_misses']}; launches "
+              f"{ {k: v for k, v in s['kernel_launches'].items() if v} }", flush=True)
+        smoke.check(s["device"].startswith("cuda") and sum(hinge.values()) > 0,
+                    f"14a: the surviving worker ran on {s['device']} and launched the hinge "
+                    f"kernels ({hinge})")
+        count(s["kernel_launches"])
+    smoke.check(len(stats) == MH_HOSTS - 1, f"14a: {len(stats)} worker(s) reported final "
+                f"stats, the {MH_HOSTS - 1} survivor(s)")
+    spill = sum(s["spill_hits"] for s in stats)
+    # the fault wave's first results against direct solves of the unpadded problems
+    dev_max = rel_max = 0.0
+    for item, rid in list(zip(workload, ids))[:MH_DIRECT]:
+        r = results[rid]
+        if r.status != "ok":
+            continue
+        direct = sven(torch.as_tensor(item.X, device=dev), torch.as_tensor(item.y, device=dev),
+                      item.lam, item.lambda2).beta.cpu().numpy()
+        d = float(np.abs(r.beta - direct).max())
+        dev_max = max(dev_max, d)
+        rel_max = max(rel_max, d / max(float(np.abs(direct).max()), 1e-300))
+    print(f"    the fault wave's first {MH_DIRECT} against a direct sven: max|beta - direct| "
+          f"{dev_max:.3e} ({rel_max:.3e} x max|beta|): <= {MH_TOL:g} "
+          f"{dev_max <= MH_TOL}, <= JAX's {MH_JAX_TOL:g} {dev_max <= MH_JAX_TOL}", flush=True)
+    smoke.check(dev_max <= MH_TOL, f"14a: max|beta - direct sven| = {dev_max:.3e} <= {MH_TOL:g}")
+    # the host work apart: a batch through the pipe, a request's fingerprint
+    items = [{"req_id": k, "X": it.X, "y": it.y, "form": it.form, "lam": it.lam,
+              "lambda2": it.lambda2, "priority": it.priority}
+             for k, it in enumerate(workload[:MH_MAX_BATCH])]
+    pipe_s = [pipe_seconds(items) for _ in range(2)]
+    t0 = time.perf_counter()
+    fingerprint_problem(workload[0].X, workload[0].y)
+    fp_s = time.perf_counter() - t0
+    mb = sum(it["X"].nbytes for it in items) / 1e6
+    cal = routing._load_disk_calibration("cuda", 1)
+    print(f"    pipe transport a batch ({MH_MAX_BATCH} x {mb / MH_MAX_BATCH:.1f} MB of X): "
+          f"{', '.join(f'{v:.3f}' for v in pipe_s)} s; fingerprint {fp_s:.3f} s a request; "
+          f"spill hits {spill}; the calibration on disk (what a worker prices with) {cal}; "
+          f"14a {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    if cli:
+        cmd = [sys.executable, "-m", "repro_torch.runtime.loadgen", "--hosts", "2",
+               "--kill-host", "0", "--waves", "2"]
+        print(f"[14b] {' '.join(cmd[1:])}", flush=True)
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                             timeout=600)
+        for line in run.stdout.splitlines():
+            if line.startswith("[loadgen]"):
+                print(f"    {line}", flush=True)
+        smoke.check(run.returncode == 0, f"14b: the loadgen's multihost smoke exited "
+                    f"{run.returncode} in {time.perf_counter() - t0:.1f} s"
+                    + ("" if run.returncode == 0 else f": {run.stderr[-2000:]}"))
+    print(f"    phase 14: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def multihost_only(torch) -> int:
+    """`--multihost`: phase 14 alone (the kernels built first), with its
+    checks; prints no result line. Exits 1 if a check failed."""
+    from repro_torch.kernels import _build
+
+    print(f"card: {nvidia_smi()}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    smoke = Smoke()
+    t0 = time.perf_counter()
+    phase_multihost(torch, smoke, lambda launched: None, torch.device("cuda", 0))
+    print(f"total {time.perf_counter() - t0:.1f} s; {len(smoke.failures)} check(s) failed",
+          flush=True)
+    for f in smoke.failures:
+        print(f"  FAILED {f}", flush=True)
+    return 1 if smoke.failures else 0
+
+
 def run_path(torch, kernels, svm_state, fn):
     """Run fn with every launch counter, the sync counter and the CG loop's
     counters (`cg_lanes.steps`, `.dead`) at 0; return (result, seconds,
@@ -2295,6 +2500,8 @@ def main() -> int:
         return serving_only(torch)
     if sys.argv[1:] == ["--multi-device"]:
         return multi_device_only(torch)
+    if sys.argv[1:] == ["--multihost"]:
+        return multihost_only(torch)
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -2511,6 +2718,12 @@ def main() -> int:
 
     # -- 13. the multi-device layer --------------------------------------------
     phase_multi_device(torch, smoke, kernels, svm_state, count, dev)
+    torch.cuda.empty_cache()
+
+    # -- 14. the multi-host serving coordinator --------------------------------
+    print("[14] the multi-host serving coordinator: worker processes on the card, one "
+          "killed", flush=True)
+    phase_multihost(torch, smoke, count, dev)
 
     # -- summary ---------------------------------------------------------------
     for name, n_launch in path_launches.items():

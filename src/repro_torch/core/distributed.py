@@ -187,10 +187,17 @@ def distributed_gram_paper(mesh: dist.Mesh, X: torch.Tensor, y: torch.Tensor, t:
 def make_distributed_hessian_matvec(mesh: dist.Mesh, X: torch.Tensor, y: torch.Tensor,
                                     t: float, C: float):
     """Primal H v with ONE all-reduce of an n-vector a call, X's FEATURES
-    split over the ranks (p divisible by the mesh): rank r takes columns
-    [r p_loc, (r + 1) p_loc) and the matching slices of the (2p,) act mask.
-    Returns the `hess_matvec(v, act, C)` hook of `solve_primal_newton`."""
+    split over the ranks: rank r takes columns [r p_loc, (r + 1) p_loc) and
+    the matching slices of the (2p,) act mask. Returns the
+    `hess_matvec(v, act, C)` hook of `solve_primal_newton`.
+
+    Raises `ValueError` when the mesh size does not divide p (JAX's
+    `shard_map` refuses the uneven split too). Every rank checks the same p
+    and mesh size before any collective, so all ranks raise together."""
     p = X.shape[1]
+    if p % mesh.size:
+        raise ValueError(f"make_distributed_hessian_matvec: p = {p} columns are not "
+                         f"divisible by the mesh size {mesh.size}")
     p_loc = p // mesh.size
     lo = mesh.rank * p_loc
     X_loc = X[:, lo:lo + p_loc].contiguous()
@@ -339,7 +346,8 @@ def sven_primal_distributed(mesh: dist.Mesh, X: torch.Tensor, y: torch.Tensor, t
     """Full primal SVEN solve with the feature-split Hessian mat-vec (the
     hot loop, one all-reduce a product) and the margins and gradient on the
     replicated implicit operator; beta by Algorithm 1's recovery. Returns
-    (beta, the solver's result)."""
+    (beta, the solver's result). Raises `ValueError`, on every rank, when
+    the mesh size does not divide p."""
     n, p = X.shape
     C = red.svm_C(lambda2)
     op = red.SvenOperator(X=X, y=y, t=float(t))

@@ -8,12 +8,12 @@ a warm-start solution cache exploiting the paper's adjacent-lambda
 observation (`cache`), rank-1 streaming-row updates (`online`),
 latency/throughput percentile accounting (`metrics`) and a reproducible
 open-loop load generator (`loadgen` — also the serving smoke:
-``python -m repro_torch.runtime``).
+``python -m repro_torch.runtime``), and the coordinator that spans the
+scheduler over worker processes and survives a killed one (`multihost`).
 
 Telemetry (DESIGN.md §12) lives in `repro_torch.obs` — the registry /
 tracer / event-log surface is re-exported here because the runtime
-components are its primary producers. The multihost coordinator
-(`repro/runtime/multihost.py`) is not ported yet.
+components are its primary producers.
 """
 from repro_torch.obs import (EventLog, MetricsRegistry, SolveLog, SolveRecord, Tracer,
                              default_events, default_registry, disable_tracing,
@@ -23,12 +23,14 @@ from repro_torch.runtime.cache import (CONSTRAINED, PENALIZED, PersistentCacheTi
                                        fingerprint_problem)
 from repro_torch.runtime.loadgen import LoadItem, LoadSpec, make_workload, run_open_loop
 from repro_torch.runtime.metrics import LatencyRecorder, percentile
+from repro_torch.runtime.multihost import MultiHostCoordinator
 from repro_torch.runtime.online import OnlineElasticNet, OnlineSolution, OnlineStats
 from repro_torch.runtime.scheduler import (ContinuousScheduler, EnRequest, EnResult,
                                            RuntimeStats, ceil_pow2)
 
 __all__ = [
     "ContinuousScheduler",
+    "MultiHostCoordinator",
     "EnRequest",
     "EnResult",
     "RuntimeStats",

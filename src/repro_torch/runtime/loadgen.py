@@ -9,6 +9,7 @@ completions between submissions (open loop: arrival times are independent
 of service times).
 
     PYTHONPATH=src python -m repro_torch.runtime --requests 24 --waves 3
+    PYTHONPATH=src python -m repro_torch.runtime --hosts 2 --kill-host 0
 
 The CLI is the serving smoke: every wave after the first must complete
 every request and add ZERO new launch shapes (`stats.bucket_shapes`,
@@ -16,6 +17,10 @@ asserted) — the runtime serves steady-state traffic on a constant set of
 (bucket, batch, form) shapes, with the cache absorbing repeat/adjacent
 work. (The JAX smoke also asserts zero jit retraces; the port compiles
 nothing per shape.)
+
+With `--hosts N` the same waves go to a `MultiHostCoordinator` over N
+worker processes sharing a spill directory, and `--kill-host K` SIGKILLs
+host K before the second wave (`run_multihost`).
 
 A `LoadSpec` names the same stream in both packages: the same arrays, forms,
 priorities and lambdas, byte for byte.
@@ -183,6 +188,66 @@ def export_telemetry(args, *, registry_snapshot: dict,
         print(f"[loadgen] events: {len(default_events())} -> {path}")
 
 
+def run_multihost(args) -> None:
+    """Multi-process serving smoke (`--hosts N`): the same seeded waves
+    played into a `MultiHostCoordinator` spanning N worker processes, with
+    an optional host kill before wave 1 (`--kill-host`). Asserts the
+    cross-process no-silent-drops contract — every submitted request gets a
+    terminal result, and with no injected fault every status is "ok" — plus
+    warm-start hits through the shared spill tier. (The steady-state launch
+    shape assertion is per-process; the single-process smoke owns it.)"""
+    import tempfile
+
+    from repro_torch.runtime.multihost import MultiHostCoordinator
+
+    spec = LoadSpec(n_requests=args.requests,
+                    penalized_fraction=args.penalized, seed=args.seed)
+    workload = make_workload(spec)
+    with tempfile.TemporaryDirectory() as tmp:
+        coord = MultiHostCoordinator(n_hosts=args.hosts,
+                                     max_batch=args.max_batch,
+                                     cache_dir=tmp, speculate=True,
+                                     device=args.device)
+        try:
+            for wave in range(args.waves):
+                if args.kill_host >= 0 and wave == 1:
+                    coord.kill_host(args.kill_host)
+                    print(f"[loadgen] wave {wave}: injected SIGKILL on "
+                          f"host {args.kill_host}")
+                summary = run_open_loop(coord, workload)
+                statuses: dict = {}
+                for res in summary["results"].values():
+                    statuses[res.status] = statuses.get(res.status, 0) + 1
+                print(f"[loadgen] wave {wave}: {summary['n_completed']}/"
+                      f"{args.requests} done in "
+                      f"{summary['wall_seconds']*1e3:7.1f} ms"
+                      f" | p99 {summary['p99_latency_s']*1e3:6.1f} ms"
+                      f" | statuses={statuses}"
+                      f" hosts_lost={coord.hosts_lost}")
+                assert set(summary["results"]) == set(summary["ids"]), \
+                    "lost requests across hosts"
+                if args.kill_host < 0:
+                    assert statuses == {"ok": args.requests}, statuses
+        finally:
+            stats = coord.shutdown()
+        hits = sum(s["cache_hits"] for s in stats)
+        spill = sum(s["spill_hits"] for s in stats)
+        acct = coord.accounting()
+        print(f"[loadgen] multihost OK: {args.hosts} hosts, "
+              f"{coord.hosts_lost} lost, {coord.requeued_batches} batches "
+              f"requeued, {hits} warm hits ({spill} via shared spill).")
+        print(f"[loadgen] accounting: {acct['admitted']} admitted, "
+              f"terminals={acct['terminals']}")
+        assert acct["balanced"], f"terminal accounting broken: {acct}"
+        assert hits > 0, "multihost waves produced no warm-start hits"
+        export_telemetry(
+            args, registry_snapshot=coord.metrics_snapshot(),
+            required_metrics=("requests_admitted_total",
+                              "requests_terminal_total",
+                              "runtime_requests_total"),
+            required_spans=("mh.place",) if args.trace_out else ())
+
+
 def main(argv=None) -> None:
     """Serving smoke: steady-state waves must add no launch shapes."""
     import argparse
@@ -199,7 +264,10 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device to solve on (default: the CUDA device)")
     ap.add_argument("--hosts", type=int, default=0,
-                    help="> 0: a multihost coordinator (not ported yet: the next slice)")
+                    help="> 0: drive a MultiHostCoordinator over this many "
+                         "worker processes instead of an in-process scheduler")
+    ap.add_argument("--kill-host", type=int, default=-1,
+                    help="with --hosts: SIGKILL this host before wave 1")
     ap.add_argument("--trace-out", default="",
                     help="enable tracing; write Chrome-trace JSON here and "
                          "schema-check it")
@@ -210,13 +278,15 @@ def main(argv=None) -> None:
                     help="write the structured event log (JSONL) here")
     args = ap.parse_args(argv)
 
-    if args.hosts > 0:
-        raise NotImplementedError(
-            "--hosts: the multihost coordinator (runtime/multihost.py) is not ported "
-            "yet; it is the next slice (ROADMAP.md, Queue 1 item 7: multihost)")
+    if args.kill_host >= max(args.hosts, 0):
+        ap.error(f"--kill-host {args.kill_host} needs --hosts greater than it")
     if args.trace_out:
         from repro_torch.obs.trace import enable_tracing
         enable_tracing()
+
+    if args.hosts > 0:
+        run_multihost(args)
+        return
 
     # fixed_batch pins one launch shape per (bucket, form); repeating the
     # SAME seeded wave makes the steady-state assertion exact (launch sizes

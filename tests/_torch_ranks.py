@@ -20,12 +20,15 @@ from repro_torch.core.batch import en_grid, sven_batch
 from repro_torch.core.cv import cross_validate
 from repro_torch.core.sven import SvenConfig, sven
 from repro_torch.data.synthetic import make_regression_numpy
-from repro_torch.kernels.ref import hinge_stats_ref
+from repro_torch.kernels.ref import hessian_matvec_ref, hinge_stats_ref
 
 #: (n, p, seed, t, lambda2): a dual problem whose n the 4-rank mesh pads
 #: (102 = 4 x 25 + 2) and a primal one (2p > n; 50 = 4 x 12 + 2)
 DUAL = (102, 24, 0, 1.5, 1.0)
 PRIMAL = (50, 64, 1, 0.8, 0.7)
+#: a primal problem whose p = 121 no 2-rank mesh divides: the feature split
+#: of `make_distributed_hessian_matvec` refuses it
+INDIVISIBLE = (40, 121, 4, 0.8, 0.7)
 #: the stacked batch of tests/test_dist_solve.py: B problems of (n, p)
 BATCH = (8, 48, 12)
 #: the CV problem: (n, p, seed, k, n_lambdas), and the k no mesh divides
@@ -54,6 +57,12 @@ def hinge_w(n_pad):
     return np.random.default_rng(5).standard_normal(n_pad)
 
 
+def hess_inputs(n, p):
+    """(v, act) numpy arrays for one H v: v (n,), the (2p,) 0/1 act mask."""
+    rng = np.random.default_rng(7)
+    return rng.standard_normal(n), (rng.random(2 * p) < 0.5).astype(np.float64)
+
+
 def _t(a):
     return torch.tensor(np.asarray(a), dtype=torch.float64)
 
@@ -77,6 +86,15 @@ def solves(mesh):
             out[f"routed_{name}_{route}"] = (
                 routing.sven_routed(X, y, t, l2, mesh=mesh, route=route).beta,
                 sven(X, y, t, l2).beta)
+    # -- the feature-split primal (p = 64, divisible by 2 and 4) ---------
+    n, p, seed, t, l2 = PRIMAL
+    X, y = map(_t, problem(n, p, seed))
+    C = red.svm_C(l2)
+    v, act = map(_t, hess_inputs(n, p))
+    out["hess_matvec"] = (tdist.make_distributed_hessian_matvec(mesh, X, y, t, C)(v, act),
+                          hessian_matvec_ref(X, y, t, C, act[:p], act[p:], v))
+    beta, _ = tdist.sven_primal_distributed(mesh, X, y, t, l2)
+    out["primal_distributed"] = (beta, sven(X, y, t, l2).beta)
     # -- the Gram forms and the hinge stats on the dual problem ----------
     n, p, seed, t, _ = DUAL
     X, y = map(_t, problem(n, p, seed))
@@ -183,6 +201,25 @@ def refused_triggers(mesh):
         sched = ContinuousScheduler(max_wait=None, mesh=m, device="cpu")
         out.append(message(lambda: sched.submit(X, y, t=1.0, deadline=1.0)))
     return out
+
+
+def indivisible_p(mesh):
+    """Both feature-split calls at a p the mesh does not divide: each rank
+    notes whether each call raised ValueError, and the notes are gathered
+    (an all-reduce every rank reaches only if none of them hung). Returns
+    (the notes of every rank, in rank order; one message)."""
+    n, p, seed, t, l2 = INDIVISIBLE
+    X, y = map(_t, problem(n, p, seed))
+    raised, message = [], None
+    for call in (lambda: tdist.make_distributed_hessian_matvec(mesh, X, y, t, red.svm_C(l2)),
+                 lambda: tdist.sven_primal_distributed(mesh, X, y, t, l2)):
+        try:
+            call()
+            raised.append(0.0)
+        except ValueError as e:
+            raised.append(1.0)
+            message = str(e)
+    return dist.gather(mesh, torch.tensor(raised, dtype=torch.float64)).tolist(), message
 
 
 def fail_on_rank_1(mesh):

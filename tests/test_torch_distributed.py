@@ -15,6 +15,11 @@ and `core.cv`, and `kernels.ops.sharded_shifted_gram`.
   1e-12 x the scale of each output of `hinge_stats_ref`; the lane fan-out
   of `sven_batch` / `enet_batch` and the fold fan-out of `cross_validate`
   bitwise their one-device runs (the gather adds zeros).
+- The feature-split primal (`make_distributed_hessian_matvec`,
+  `sven_primal_distributed`) at 2 and 4 ranks, p divisible by both: H v
+  within 1e-12 x max|H v| of the whole problem's product, beta within
+  1e-10 of `sven`; at p = 121 on 2 ranks every rank raises `ValueError`
+  (JAX's `shard_map` refuses the uneven split) and the launch ends.
 - 2 ranks against JAX at 2 forced host devices (one subprocess): the
   results both compute, within 1e-10.
 - A rank that fails, or a collective that never completes, ends the launch
@@ -54,7 +59,9 @@ _JAX_2DEV = textwrap.dedent("""
     from repro import dist
     from repro.core import cross_validate, sven_batch, sven_sharded
     from repro.core.api import enet_batch
-    from repro.core.distributed import shard_rows, sharded_hinge_stats
+    from repro.core.distributed import (make_distributed_hessian_matvec, shard_rows,
+                                        sharded_hinge_stats, sven_primal_distributed)
+    from repro.core.reduction import svm_C
     from repro.core.routing import sven_routed
 
     mesh = dist.data_mesh()
@@ -77,6 +84,12 @@ _JAX_2DEV = textwrap.dedent("""
     w = jnp.asarray(R.hinge_w(Xs.shape[0]))
     out["hinge_stats"] = [np.asarray(o).reshape(-1).tolist()
                           for o in sharded_hinge_stats(mesh, Xs, ys, R.DUAL[3], w, 2.0)]
+    n, p, seed, t, l2 = R.PRIMAL
+    X, y = map(jnp.asarray, R.problem(n, p, seed))
+    v, act = map(jnp.asarray, R.hess_inputs(n, p))
+    out["hess_matvec"] = make_distributed_hessian_matvec(mesh, X, y, t, svm_C(l2))(
+        v, act).tolist()
+    out["primal_distributed"] = sven_primal_distributed(mesh, X, y, t, l2)[0].tolist()
     print("RESULT=" + json.dumps(out))
 """)
 
@@ -147,6 +160,9 @@ def _one_rank_pairs():
                           lambda A=A, b=b, t=t, l2=l2, cfg=cfg:
                           tdist.sven_sharded(A, b, t, l2, cfg, mesh=m1).beta,
                           lambda A=A, b=b, t=t, l2=l2, cfg=cfg: sven(A, b, t, l2, cfg).beta))
+    pairs.append(("sven_primal_distributed",
+                  lambda: tdist.sven_primal_distributed(m1, Xp, yp, 0.8, 0.7)[0],
+                  lambda: sven(Xp, yp, 0.8, 0.7).beta))
     for route in ("auto", "single", "sharded"):
         pairs.append((f"sven_routed_{route}",
                       lambda route=route: routing.sven_routed(X, y, 1.5, 1.0, mesh=m1,
@@ -353,6 +369,30 @@ def test_fold_fanout_is_bitwise_one_device(ranks, W, case):
     assert (a.index_min, a.lambda_min) == (b.index_min, b.lambda_min)
 
 
+@pytest.mark.parametrize("W", WORLDS)
+def test_feature_split_hessian_matches_the_whole_product(ranks, W):
+    """X's columns split over W ranks (p = 64), one all-reduce of the
+    n-vector: H v within 1e-12 x max|H v| of `hessian_matvec_ref` on the
+    whole problem."""
+    got, want = ranks[W]["hess_matvec"]
+    assert _dev(got, want) <= 1e-12 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("W", WORLDS)
+def test_sven_primal_distributed_matches_sven(ranks, W):
+    got, want = ranks[W]["primal_distributed"]
+    assert _dev(got, want) <= TOL
+
+
+def test_a_p_the_mesh_does_not_divide_raises_on_every_rank():
+    """p = 121 on 2 ranks: both calls raise ValueError on both ranks before
+    any collective, so the ranks meet in the gather and the launch ends."""
+    raised, message = dist.launch(R.indivisible_p, 2, device="cpu", threads=1, timeout=120,
+                                  collective_timeout=30)
+    assert raised == [1.0] * 4
+    assert "not divisible by the mesh size 2" in message
+
+
 # -- 2 ranks against JAX at 2 forced host devices ----------------------------
 
 
@@ -369,11 +409,14 @@ def _port_two(ranks, key):
         return got["enet_batch"][0][0].beta
     if key == "cv":
         return got["cv"][0].mse_path
+    if key in ("hess_matvec", "primal_distributed"):
+        return got[key][0]
     return torch.cat([o.reshape(-1) for o in got["hinge_stats"][0]])
 
 
 JAX_CASES = ("sharded_dual", "sharded_primal", "routed_dual", "routed_primal",
-             "sven_batch", "enet_batch", "cv", "hinge_stats")
+             "sven_batch", "enet_batch", "cv", "hinge_stats", "hess_matvec",
+             "primal_distributed")
 
 
 @pytest.mark.parametrize("key", JAX_CASES)

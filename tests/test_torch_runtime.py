@@ -710,8 +710,8 @@ def test_no_cuda_and_no_device_raises(monkeypatch):
 
 def test_mesh_route_and_hosts_arguments():
     """A mesh is a `repro_torch.dist.Mesh`, "auto" or None; with no process
-    group every one of them runs on one device. `--hosts` waits for the
-    multihost slice."""
+    group every one of them runs on one device. `--kill-host` names one of
+    the `--hosts` (tests/test_torch_multihost.py runs them)."""
     from repro_torch import dist as tdist_mesh
 
     with pytest.raises(ValueError, match="mesh must be a repro_torch.dist.Mesh"):
@@ -723,10 +723,10 @@ def test_mesh_route_and_hosts_arguments():
     for mesh in ("auto", None, tdist_mesh.data_mesh(1)):
         for route in ("auto", "batch", "single"):
             assert tsched.ContinuousScheduler(mesh=mesh, route=route, device="cpu").mesh is None
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tloadgen.main(["--hosts", "2", "--device", "cpu"])
-    with pytest.raises(SystemExit):        # fault injection waits for multihost
+    with pytest.raises(SystemExit):        # no host to kill
         tloadgen.main(["--kill-host", "0", "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        tloadgen.main(["--hosts", "2", "--kill-host", "2", "--device", "cpu"])
     with pytest.raises(ValueError, match="dtype"):
         tsched.ContinuousScheduler(dtype=torch.bfloat16, device="cpu")
 
