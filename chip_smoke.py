@@ -131,6 +131,29 @@ port's main path through the entry points a user calls:
      fingerprint; (14b) `python -m repro_torch.runtime.loadgen --hosts 2
      --kill-host 0 --waves 2` as a subprocess on the card, which must exit
      0. `--multihost` runs phase 14 alone.
+  15. the LM serving path (the dense-attention family, random weights from
+     seeded generators on the card): (15a) `python -m
+     repro_torch.launch.serve --arch internlm2-1.8b --no-smoke --batch 4
+     --prompt-len 64 --gen 32`, its full width (24 layers, d_model 2048,
+     vocab 92,544, 1.7 B parameters) in bf16, twice: prefill ms and decode
+     tokens per second, every token in the vocabulary, equal tokens both
+     runs; (15b) one float32 draw cast to bf16, and a float32 model on the
+     same (bf16-rounded) weights, TF32 off: the float32 model's decode
+     logits at 8 teacher-forced steps within JAX's atol = rtol = 2e-3 of
+     its forward's, and the bf16 model's last-position prefill logits
+     within 2e-2 x max|logits| of the float32 model's (the float32 model on
+     the unrounded draw printed beside, not gated); (15c) the float32
+     model cut to 2 layers, on the card against the CPU within 1e-4 x
+     max|logits|; (15d) `examples/feature_selection_lm.py`'s flow on the
+     bf16 model: 48 x 32 tokens, the last-position hidden states (48,
+     2048) in float64, standardized, y from 5 units, coordinate descent on
+     the CPU, then `sven` on the card at t = |beta_cd|_1: the primal
+     branch, one launch of each hinge pass per H v product, beta within
+     1e-8 x max|beta| of the plain float64 backend and 5e-4 x max|beta_cd|
+     of CD, the true units recovered printed; (15e) deepseek-7b,
+     phi3-medium-14b, qwen2.5-14b (QKV bias), musicgen-large (codebooks)
+     and internvl2-26b (patches) at SMOKE size, prefill and 4 decode steps
+     against forward at 2e-3. `--lm` runs phase 15 alone.
 
 The CG loop (`repro_torch.core.svm.state.cg_lanes`) reads its test once
 per block of k = `CG_READ_EVERY` steps and launches up to k - 1 dead steps
@@ -200,6 +223,19 @@ no result line.
 
 runs phase 14 alone (the kernels built first), with its checks, and prints
 no result line.
+
+    python3 chip_smoke.py --lm
+
+runs phase 15 alone (the kernels built first), with its checks, and prints
+no result line.
+
+    python3 chip_smoke.py --lm-trace
+
+shows where 15a's time goes: internlm2-1.8b at full width in bf16, batch
+4, prompt 64, a prefill and 8 decode steps untraced and then under
+torch.profiler, with the host's time in launch calls and elsewhere, the
+device's busy time and idle share, and the launches by op, per prefill and
+per decode step. It prints no result line.
 
     python3 chip_smoke.py --lane-time
 
@@ -2408,6 +2444,315 @@ def multihost_only(torch) -> int:
     return 1 if smoke.failures else 0
 
 
+#: phase 15: the LM serving path of the dense-attention family
+LM_ARCH = "internlm2-1.8b"
+LM_PROMPT, LM_BATCH = 64, 4
+LM_SERVE = ["--arch", LM_ARCH, "--no-smoke", "--batch", str(LM_BATCH), "--prompt-len",
+            str(LM_PROMPT), "--gen", "32"]
+LM_STEPS = 8                  # 15b's teacher-forced decode steps
+LM_DECODE_TOL = 2e-3          # atol = rtol: JAX's decode-vs-forward bound
+LM_BF16_TOL = 2e-2            # x max|logits|: bf16 against float32
+LM_CPU_TOL = 1e-4             # x max|logits|: the card against the CPU, float32
+LM_CPU_LAYERS = 2             # 15c's depth cut
+FS_SEQS, FS_LEN, FS_TRUE = 48, 32, 5     # 15d: examples/feature_selection_lm.py's sizes
+FS_LAMBDA2 = 0.5
+FS_TORCH_TOL = 1e-8           # x max|beta|: PERF.md §2's primal bound
+FS_CD_TOL = 5e-4              # x max|beta_cd|: PERF.md §2's primal bound against CD
+LM_TRACE_STEPS = 8            # `--lm-trace`: decode steps traced
+LM_OTHERS = ("deepseek-7b", "phi3-medium-14b", "qwen2.5-14b", "musicgen-large",
+             "internvl2-26b")
+
+
+def map_params(tree, fn):
+    """The parameter tree with fn applied to every tensor."""
+    if isinstance(tree, dict):
+        return {k: map_params(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_params(v, fn) for v in tree]
+    return fn(tree)
+
+
+def param_count(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(param_count(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(param_count(v) for v in tree)
+    return tree.numel()
+
+
+def teacher_forced(torch, M, params, cfg, batch, steps):
+    """[(decode logits, forward logits)] for the last `steps` text tokens of
+    `batch`: a prefill of the rest, then a decode step a token, each beside
+    the forward's logits at that token's position."""
+    with torch.inference_mode():
+        full, _ = M.forward(params, cfg, batch)
+        toks = batch["tokens"]
+        s_txt = toks.shape[1]
+        offset = full.shape[1] - s_txt            # the prepended patches
+        pre = dict(batch, tokens=toks[:, :s_txt - steps])
+        _, caches = M.prefill(params, cfg, pre, max_len=full.shape[1] + 4)
+        pairs = []
+        for s in range(steps):
+            pos = s_txt - steps + s
+            logits, caches = M.decode_step(params, cfg, toks[:, pos], caches)
+            pairs.append((logits, full[:, offset + pos]))
+    return pairs
+
+
+def decode_vs_forward(pairs) -> float:
+    """The largest |decode - forward| - rtol |forward| over `pairs`: within
+    JAX's bound (atol = rtol = LM_DECODE_TOL) when <= LM_DECODE_TOL."""
+    return max(((a - b).abs() - LM_DECODE_TOL * b.abs()).max().item() for a, b in pairs)
+
+
+def phase_lm(torch, smoke, kernels, svm_state, count, dev, card: str) -> None:
+    """Phase 15: the LM serving path (dense-attention family). 15a the
+    launcher at internlm2-1.8b's full width in bf16, twice; 15b float32
+    decode against forward, and bf16 against float32, on one float32 draw;
+    15c the card against the CPU at 2 layers; 15d the feature-selection
+    flow on the bf16 model's hidden states, solved by `sven` on the hinge
+    kernels; 15e the five other dense-family SMOKE configs."""
+    import dataclasses
+
+    from repro_torch.baselines import elastic_net_cd
+    from repro_torch.configs import get_config
+    from repro_torch.core.elastic_net import lambda1_max
+    from repro_torch.core.sven import SvenConfig, sven
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import model as M
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    vocab = cfg.vocab_size
+
+    # -- 15a: the launcher at full width, bf16 -----------------------------------
+    print(f"[15a] python -m repro_torch.launch.serve {' '.join(LM_SERVE)} (bf16), twice",
+          flush=True)
+    runs = [launcher.serve(LM_SERVE) for _ in range(2)]
+    for i, r in enumerate(runs):
+        print(f"    run {i + 1}: prefill {LM_BATCH} x {LM_PROMPT} {r.prefill_s * 1e3:.3f} ms, "
+              f"decode {r.n_decoded} tokens in {r.decode_s:.4f} s = {r.tok_per_s:.1f} tok/s; "
+              f"{card}", flush=True)
+    toks = runs[0].tokens
+    smoke.check(toks.shape == (LM_BATCH, 33) and int(toks.min()) >= 0
+                and int(toks.max()) < vocab,
+                f"15a: tokens {tuple(toks.shape)}, every one in [0, {vocab})")
+    smoke.check(torch.equal(runs[0].tokens, runs[1].tokens),
+                "15a: two greedy runs give equal tokens")
+    del runs
+    torch.cuda.empty_cache()
+
+    # -- 15b: float32 and bf16 on the same weights, one float32 draw --------------
+    # the bf16 model holds the draw cast to bf16; the float32 model holds the
+    # same values widened back, so the two differ in their arithmetic alone
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, param_dtype=torch.float32)
+    cfg16 = dataclasses.replace(cfg, dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    draw = M.init_model(cfg32, generator=torch.Generator(dev).manual_seed(0), device=dev)
+    p16 = map_params(draw, lambda t: t.to(torch.bfloat16))
+    n_params = param_count(p16)
+    print(f"[15b] {LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {vocab}: "
+          f"{n_params:,} parameters, {2 * n_params / 1e9:.2f} GB in bf16; float32 "
+          f"(TF32 {torch.backends.cuda.matmul.allow_tf32}) and bf16 on the same weights",
+          flush=True)
+    gen = torch.Generator(dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, vocab, (LM_BATCH, LM_PROMPT + LM_STEPS),
+                                     generator=gen, device=dev)}
+    prompt = {"tokens": batch["tokens"][:, :LM_PROMPT]}
+    with torch.inference_mode():
+        l_draw = M.prefill(draw, cfg32, prompt, max_len=LM_PROMPT + 4)[0][:, -1]
+    del draw
+    p32 = map_params(p16, lambda t: t.to(torch.float32))
+    worst = decode_vs_forward(teacher_forced(torch, M, p32, cfg32, batch, LM_STEPS))
+    smoke.check(worst <= LM_DECODE_TOL,
+                f"15b: float32 decode logits at {LM_STEPS} teacher-forced steps match "
+                f"forward's within atol = rtol = {LM_DECODE_TOL} (worst |d - f| - rtol |f| "
+                f"= {worst:.3e})")
+    with torch.inference_mode():
+        l32 = M.prefill(p32, cfg32, prompt, max_len=LM_PROMPT + 4)[0][:, -1]
+        l16 = M.prefill(p16, cfg16, prompt, max_len=LM_PROMPT + 4)[0][:, -1]
+    scale = l32.abs().max().item()
+    dev16 = (l16 - l32).abs().max().item()
+    dev_draw = (l16 - l_draw).abs().max().item() / l_draw.abs().max().item()
+    print(f"    bf16 against float32, last-position prefill logits: max|d| {dev16:.4e}, "
+          f"max|logits| {scale:.4f}, ratio {dev16 / scale:.4e} (against the float32 model "
+          f"on the unrounded draw, not gated: {dev_draw:.4e}); {card}", flush=True)
+    smoke.check(dev16 <= LM_BF16_TOL * scale,
+                f"15b: bf16 prefill logits within {LM_BF16_TOL} x max|logits| of float32's "
+                f"({dev16 / scale:.4e} x)")
+    del l32, l16, l_draw
+
+    # -- 15c: the card against the CPU, 2 layers at full width ---------------------
+    cfg2 = dataclasses.replace(cfg32, n_layers=LM_CPU_LAYERS)
+    p2 = dict(p32, layers=p32["layers"][:LM_CPU_LAYERS])
+    b2 = {"tokens": batch["tokens"][:2, :32]}
+    with torch.inference_mode():
+        on_card = M.forward(p2, cfg2, b2)[0].cpu()
+        t0 = time.perf_counter()
+        on_cpu = M.forward(map_params(p2, lambda t: t.cpu()), cfg2,
+                           {"tokens": b2["tokens"].cpu()})[0]
+        cpu_s = time.perf_counter() - t0
+    scale = on_cpu.abs().max().item()
+    dev_cpu = (on_card - on_cpu).abs().max().item()
+    print(f"    [15c] {LM_CPU_LAYERS} layers, logits {tuple(on_cpu.shape)}: card against CPU "
+          f"max|d| {dev_cpu:.3e} = {dev_cpu / scale:.3e} x max|logits| (CPU forward "
+          f"{cpu_s:.2f} s)", flush=True)
+    smoke.check(dev_cpu <= LM_CPU_TOL * scale,
+                f"15c: float32 logits on the card within {LM_CPU_TOL} x max|logits| of the "
+                "CPU's")
+    del p32, p2, on_card, on_cpu
+    torch.cuda.empty_cache()
+
+    # -- 15d: feature selection on the bf16 model's hidden states ------------------
+    gen = torch.Generator(dev).manual_seed(2)
+    fs_toks = torch.randint(0, vocab, (FS_SEQS, FS_LEN), generator=gen, device=dev)
+    with torch.inference_mode():
+        _, _, h = M.forward(p16, cfg16, {"tokens": fs_toks}, return_hidden=True)
+    X = h[:, -1, :].to(torch.float64)
+    X = (X - X.mean(0)) / (X.std(0, correction=0) + 1e-9)
+    true_idx = torch.randperm(cfg.d_model, generator=gen, device=dev)[:FS_TRUE]
+    w = torch.randn(FS_TRUE, generator=gen, dtype=torch.float64, device=dev)
+    y = X[:, true_idx] @ w + 0.05 * torch.randn(FS_SEQS, generator=gen, dtype=torch.float64,
+                                                device=dev)
+    y = y - y.mean()
+    del h, p16
+    t0 = time.perf_counter()
+    cd = elastic_net_cd(X.cpu(), y.cpu(), 0.25 * float(lambda1_max(X, y)), FS_LAMBDA2)
+    cd_s = time.perf_counter() - t0
+    beta_cd = cd.beta.to(dev)
+    t = float(beta_cd.abs().sum())
+    sol, secs, launched, syncs = run_path(torch, kernels, svm_state,
+                                          lambda: sven(X, y, t, FS_LAMBDA2))
+    dead = svm_state.cg_lanes.dead
+    count(launched)
+    ref, ref_s, _, _ = run_path(torch, kernels, svm_state,
+                                lambda: sven(X, y, t, FS_LAMBDA2, SvenConfig(backend="torch")))
+    picked = set(torch.nonzero(sol.beta.abs() > 1e-6).flatten().tolist())
+    hit = len(set(true_idx.tolist()) & picked)
+    print(f"[15d] feature selection: X = last-position hidden states ({FS_SEQS}, "
+          f"{cfg.d_model}) of the bf16 model, float64, standardized; CD on the CPU "
+          f"{cd.sweeps} sweeps, {cd_s:.2f} s; sven: mode {sol.mode}, {sol.iters} Newton / "
+          f"{sol.cg_iters} CG + {dead} dead, {secs:.3f} s, {syncs} host syncs, launches "
+          f"{launched}; torch backend {ref_s:.3f} s; {len(picked)} selected, recovered "
+          f"{hit}/{FS_TRUE} true units", flush=True)
+    smoke.check(sol.mode == "primal", "15d: p = d_model > n takes the primal branch")
+    smoke.check(launched["hinge_xtv_cuda"] == launched["hinge_xd_cuda"]
+                == sol.cg_iters + dead > 0, "15d: one launch of each hinge pass per H v "
+                f"product: CG steps {sol.cg_iters} + dead steps {dead}")
+    scale = ref.beta.abs().max().item()
+    dev_b = max_dev(torch, sol.beta, ref.beta)
+    smoke.check(dev_b <= FS_TORCH_TOL * scale, f"15d: max|beta - beta_torch| = {dev_b:.3e} "
+                f"<= {FS_TORCH_TOL} x max|beta| = {FS_TORCH_TOL * scale:.3e}")
+    scale = beta_cd.abs().max().item()
+    dev_cd = max_dev(torch, sol.beta, beta_cd)
+    smoke.check(dev_cd <= FS_CD_TOL * scale, f"15d: max|beta - beta_cd| = {dev_cd:.3e} <= "
+                f"{FS_CD_TOL} x max|beta_cd| = {FS_CD_TOL * scale:.3e}")
+    torch.cuda.empty_cache()
+
+    # -- 15e: the other dense-family configs at SMOKE size -------------------------
+    for arch in LM_OTHERS:
+        c = get_config(arch, smoke=True)
+        params = M.init_model(c, generator=torch.Generator(dev).manual_seed(0), device=dev)
+        b = launcher.make_batch(c, 2, 16, torch.Generator(dev).manual_seed(1), dev)
+        worst = decode_vs_forward(teacher_forced(torch, M, params, c, b, 4))
+        smoke.check(worst <= LM_DECODE_TOL,
+                    f"15e: {c.name} ({c.frontend}{', qkv bias' if c.qkv_bias else ''}): "
+                    f"prefill + 4 decode steps match forward within {LM_DECODE_TOL} "
+                    f"(worst {worst:.3e})")
+    print(f"    phase 15: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def lm_only(torch) -> int:
+    """`--lm`: phase 15 alone (the kernels built first), with its checks;
+    prints no result line. Exits 1 if a check failed."""
+    from repro_torch import kernels
+    from repro_torch.core.svm import state as svm_state
+    from repro_torch.kernels import _build
+
+    card = nvidia_smi()
+    print(f"card: {card}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    smoke = Smoke()
+    t0 = time.perf_counter()
+    phase_lm(torch, smoke, kernels, svm_state, lambda launched: None,
+             torch.device("cuda", 0), card)
+    print(f"total {time.perf_counter() - t0:.1f} s; {len(smoke.failures)} check(s) failed",
+          flush=True)
+    for f in smoke.failures:
+        print(f"  FAILED {f}", flush=True)
+    return 1 if smoke.failures else 0
+
+
+def lm_trace_only(torch) -> int:
+    """`--lm-trace`: where 15a's time goes (internlm2-1.8b at full width in
+    bf16, batch 4, prompt 64). Untraced, a prefill and decode steps (after
+    warm-up), host clock ending in a synchronisation; then one prefill and
+    LM_TRACE_STEPS decode steps under torch.profiler (CPU and CUDA
+    activities), each split by `trace_split` (per prefill, per decode step):
+    host time in launch calls and the rest, the device's busy time, its
+    idle share, launches by op. Traced numbers compare only with traced
+    numbers. Prints no result line."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_batch
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+
+    print(f"card: {nvidia_smi()}", flush=True)
+    dev = torch.device("cuda", 0)
+    cfg = get_config(LM_ARCH)
+    params = M.init_model(cfg, generator=torch.Generator(dev).manual_seed(0), device=dev)
+    batch = make_batch(cfg, LM_BATCH, LM_PROMPT, torch.Generator(dev).manual_seed(1), dev)
+    steps = LM_TRACE_STEPS
+    prefill = make_prefill_step(cfg, max_len=LM_PROMPT + 4 * steps + 4)
+    decode = make_decode_step(cfg)
+
+    def run_prefill():
+        logits, caches = prefill(params, batch)
+        return torch.argmax(logits, dim=-1), caches
+
+    def run_decode(tok, caches):
+        for _ in range(steps):
+            logits, caches = decode(params, tok, caches)
+            tok = torch.argmax(logits, dim=-1)
+        return tok, caches
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (tok, caches), _ = timed(run_prefill)                    # first calls paid
+    (tok, caches), _ = timed(run_decode, tok, caches)
+    (tok, caches), pre_s = timed(run_prefill)
+    (tok, caches), dec_s = timed(run_decode, tok, caches)
+    print(f"  untraced: prefill {LM_BATCH} x {LM_PROMPT} {pre_s * 1e3:.3f} ms; decode "
+          f"{dec_s / steps * 1e3:.3f} ms a step = {LM_BATCH * steps / dec_s:.1f} tok/s",
+          flush=True)
+    out_dir = ROOT / "build" / "lm-trace"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for label, fn, n in (("prefill", run_prefill, 1),
+                         ("decode", lambda: run_decode(tok, caches), steps)):
+        path = out_dir / f"{label}.json"
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            (tok, caches), secs = timed(fn)
+        prof.export_chrome_trace(str(path))
+        sp = trace_split(path, secs, n)
+        path.unlink()
+        del prof
+        ops = ", ".join(f"{name} {k:.1f}" for name, k in list(sp["by_op"].items())[:12])
+        print(f"  {label} traced, per {'call' if n == 1 else 'step'} ({n} traced): wall "
+              f"{sp['wall_us']:.1f} us = launch calls {sp['launch_us']:.1f} "
+              f"({sp['launch_calls']:.1f}) + reads {sp['read_us']:.1f} + other host "
+              f"{sp['other_host_us']:.1f}; device busy {sp['busy_us']:.1f} us, idle share "
+              f"{sp['idle']:.3f}; {sp['launches']:.1f} device launches: {ops}", flush=True)
+    return 0
+
+
 def run_path(torch, kernels, svm_state, fn):
     """Run fn with every launch counter, the sync counter and the CG loop's
     counters (`cg_lanes.steps`, `.dead`) at 0; return (result, seconds,
@@ -2502,6 +2847,10 @@ def main() -> int:
         return multi_device_only(torch)
     if sys.argv[1:] == ["--multihost"]:
         return multihost_only(torch)
+    if sys.argv[1:] == ["--lm"]:
+        return lm_only(torch)
+    if sys.argv[1:] == ["--lm-trace"]:
+        return lm_trace_only(torch)
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -2724,6 +3073,12 @@ def main() -> int:
     print("[14] the multi-host serving coordinator: worker processes on the card, one "
           "killed", flush=True)
     phase_multihost(torch, smoke, count, dev)
+    torch.cuda.empty_cache()
+
+    # -- 15. the LM serving path -----------------------------------------------
+    print("[15] the LM serving path: internlm2-1.8b at full width, and sven on its hidden "
+          "states", flush=True)
+    phase_lm(torch, smoke, kernels, svm_state, count, dev, card)
 
     # -- summary ---------------------------------------------------------------
     for name, n_launch in path_launches.items():

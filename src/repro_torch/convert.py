@@ -1,8 +1,9 @@
-"""Carry a JAX-package solve across to the port.
+"""Carry a JAX-package solve or model across to the port.
 
 SVEN has no weights: what crosses is the problem, the solve settings and
-the warm-start carry. These functions take plain numpy arrays and dicts
-(`dataclasses.asdict` of a `repro.core.sven.SvenConfig` or of a
+the warm-start carry. The LM's parameters cross as a tree of numpy arrays
+(`model_params_from_jax`). These functions take plain numpy arrays and
+dicts (`dataclasses.asdict` of a `repro.core.sven.SvenConfig` or of a
 `repro.core.api.PathConfig`), so this package still imports nothing of
 `repro`.
 """
@@ -16,6 +17,7 @@ import torch
 from repro_torch.core.api import EnetCarry, PathConfig
 from repro_torch.core.sven import SvenConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.model import ModelConfig
 
 #: JAX SvenConfig.backend -> port backend
 _BACKEND = {"xla": "torch", "auto": "auto", "pallas": "auto", "tpu": "auto",
@@ -77,3 +79,42 @@ def carry_from_jax(beta, alpha, w, t, nu, *, device: DeviceLike = None,
     dev = resolve_device(device)
     return EnetCarry(*(torch.tensor(np.asarray(a), dtype=dtype, device=dev)
                        for a in (beta, alpha, w, t, nu)))
+
+
+def _tree(node, fn):
+    if isinstance(node, dict):
+        return {k: _tree(v, fn) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_tree(v, fn) for v in node]
+    return fn(node)
+
+
+def model_params_from_jax(params, cfg: ModelConfig, *, device: DeviceLike = None) -> dict:
+    """The port's parameters from a JAX `init_model` tree of numpy arrays
+    (`jax.tree.map(np.asarray, params)`), on `device` (CUDA when none is
+    named).
+
+    JAX keeps the dense prefix as a list and stacks the body across
+    periods: `params["body"][j]` holds position j of every period along a
+    leading axis. The port holds one dict a layer in `params["layers"]`, so
+    period r of `body[j]` becomes layer `dense_prefix + r * period + j`.
+    Every other entry crosses as it is.
+    """
+    dev = resolve_device(device)
+
+    def cross(a):
+        return torch.tensor(np.asarray(a), device=dev)
+
+    out = {k: _tree(v, cross) for k, v in params.items() if k not in ("prefix", "body")}
+    layers = [None] * cfg.n_layers
+    for i, layer in enumerate(params["prefix"]):
+        layers[i] = _tree(layer, cross)
+    for j, stacked in enumerate(params["body"]):
+        for r in range(cfg.n_periods):
+            layers[cfg.dense_prefix + r * cfg.period + j] = _tree(
+                stacked, lambda a, r=r: cross(np.asarray(a)[r]))
+    if any(layer is None for layer in layers):
+        raise ValueError(f"model_params_from_jax: the tree does not hold the "
+                         f"{cfg.n_layers} layers of {cfg.name}")
+    out["layers"] = layers
+    return out

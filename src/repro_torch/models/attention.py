@@ -1,0 +1,208 @@
+"""GQA attention (optional QKV bias, sliding window) with train / prefill /
+decode paths and a KV cache (a rolling buffer under SWA). The port of
+`repro/models/attention.py`: plain PyTorch, as JAX's is plain jnp, with
+JAX's layouts (`wq (d, H, hd)`, `wo (H, hd, d)`) and its arithmetic (scores
+in float32, masked with -1e30, probabilities cast back to q's dtype before
+P V). The chunked path is JAX's double `lax.scan` as two Python loops.
+
+The cache's `pos` is a Python int: the number of tokens already written,
+which JAX carries as an int32 scalar array. `decode_step` writes the new
+key and value into the cache's tensors in place, where JAX returns new
+arrays."""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.models.layers import apply_rope, normal, rope_freqs
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor     # (B, S_buf, kv_heads, head_dim) — roped keys
+    v: torch.Tensor     # (B, S_buf, kv_heads, head_dim)
+    pos: int            # number of tokens already written
+
+
+def init_attention(generator: torch.Generator, d_model: int, n_heads: int,
+                   n_kv_heads: int, head_dim: int, dtype: torch.dtype,
+                   device: torch.device, qkv_bias: bool = False) -> dict:
+    s = d_model ** -0.5
+    p = {
+        "wq": normal(generator, (d_model, n_heads, head_dim), dtype, device, s),
+        "wk": normal(generator, (d_model, n_kv_heads, head_dim), dtype, device, s),
+        "wv": normal(generator, (d_model, n_kv_heads, head_dim), dtype, device, s),
+        "wo": normal(generator, (n_heads, head_dim, d_model), dtype, device,
+                     (n_heads * head_dim) ** -0.5),
+    }
+    if qkv_bias:
+        p["bq"] = torch.zeros((n_heads, head_dim), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((n_kv_heads, head_dim), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((n_kv_heads, head_dim), dtype=dtype, device=device)
+    return p
+
+
+def _project_qkv(params: dict, x: torch.Tensor):
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    if "bq" in params:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    return q, k, v
+
+
+def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B,S,kv,dh) -> (B,S,H,dh) by repeating each kv head H/kv times."""
+    rep = n_heads // k.shape[2]
+    if rep == 1:
+        return k
+    return torch.repeat_interleave(k, rep, dim=2)
+
+
+def _sdpa(q, k, v, mask, head_dim):
+    """q (B,Sq,H,dh), k/v (B,Sk,H,dh), mask (1|B, 1, Sq, Sk) bool."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * (head_dim ** -0.5)
+    scores = scores.masked_fill(~mask, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+# Materialized-score SDPA is used below this many query positions; above it
+# the online-softmax (flash-style) chunked path runs.
+CHUNKED_THRESHOLD = 2048
+CHUNK_Q = 1024
+CHUNK_KV = 1024
+
+
+def sdpa_chunked(q, k, v, *, scale: float, window: Optional[int] = None,
+                 causal: bool = True, chunk_q: int = CHUNK_Q, chunk_kv: int = CHUNK_KV):
+    """Online-softmax attention: never materializes (Sq, Sk) scores.
+
+    q (B,Sq,H,dh_qk), k (B,Sk,H,dh_qk), v (B,Sk,H,dh_v). A loop over query
+    chunks around a loop over KV chunks with running (m, l, o) accumulators,
+    the flash-attention recurrence, so live memory is one (cq, ckv) score
+    tile. Assumes q positions == arange(Sq), k positions == arange(Sk).
+    """
+    B, Sq, H, _ = q.shape
+    Sk = k.shape[1]
+    Dv = v.shape[-1]
+    cq = min(chunk_q, Sq)
+    ckv = min(chunk_kv, Sk)
+    if Sq % cq or Sk % ckv:
+        raise ValueError(f"sdpa_chunked: chunks ({cq}, {ckv}) must divide ({Sq}, {Sk})")
+    dev = q.device
+    outs = []
+    for iq in range(Sq // cq):
+        q_c = q[:, iq * cq:(iq + 1) * cq]
+        q_pos = iq * cq + torch.arange(cq, device=dev)
+        m = torch.full((B, H, cq), -torch.inf, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, H, cq), dtype=torch.float32, device=dev)
+        o = torch.zeros((B, H, cq, Dv), dtype=torch.float32, device=dev)
+        for jk in range(Sk // ckv):
+            k_c = k[:, jk * ckv:(jk + 1) * ckv]
+            v_c = v[:, jk * ckv:(jk + 1) * ckv]
+            k_pos = jk * ckv + torch.arange(ckv, device=dev)
+            s = torch.einsum("bqhd,bkhd->bhqk", q_c, k_c).to(torch.float32) * scale
+            mask = torch.ones((cq, ckv), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= k_pos[None, :] <= q_pos[:, None]
+            if window is not None:
+                mask &= (q_pos[:, None] - k_pos[None, :]) < window
+            s = s.masked_fill(~mask[None, None], -1e30)
+            m_new = torch.maximum(m, s.amax(-1))                   # (B,H,cq)
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            o = o * alpha[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(v_c.dtype), v_c).to(torch.float32)
+            m = m_new
+        out_c = (o / torch.clamp(l, min=1e-30)[..., None]).permute(0, 2, 1, 3)
+        outs.append(out_c.to(q.dtype))                             # (B,cq,H,Dv)
+    return torch.cat(outs, dim=1)
+
+
+def _self_attention(q, kf, vf, positions, *, head_dim, window, dense_max):
+    """Causal self-attention of q against the repeated kf/vf over the whole
+    sequence: materialized scores up to `dense_max` positions, else chunked."""
+    if q.shape[1] > dense_max:
+        return sdpa_chunked(q, kf, vf, scale=head_dim ** -0.5, window=window)
+    i = positions[:, None]
+    j = positions[None, :]
+    mask = j <= i
+    if window is not None:
+        mask &= (i - j) < window
+    return _sdpa(q, kf, vf, mask[None, None], head_dim)
+
+
+def _roped_qkv(params, x, positions, head_dim, rope_theta):
+    q, k, v = _project_qkv(params, x)
+    cos, sin = rope_freqs(head_dim, rope_theta, positions)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def attend_full(params: dict, x: torch.Tensor, *, n_heads: int, head_dim: int,
+                rope_theta: float, window: Optional[int] = None,
+                positions: Optional[torch.Tensor] = None,
+                dense_max: int = CHUNKED_THRESHOLD) -> torch.Tensor:
+    """Training / prefill self-attention over the whole sequence (causal)."""
+    S = x.shape[1]
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    q, k, v = _roped_qkv(params, x, positions, head_dim, rope_theta)
+    out = _self_attention(q, _repeat_kv(k, n_heads), _repeat_kv(v, n_heads), positions,
+                          head_dim=head_dim, window=window, dense_max=dense_max)
+    return torch.einsum("bqhd,hdm->bqm", out, params["wo"])
+
+
+def prefill(params: dict, x: torch.Tensor, *, n_heads: int, head_dim: int,
+            rope_theta: float, window: Optional[int] = None,
+            cache_len: Optional[int] = None,
+            dense_max: int = CHUNKED_THRESHOLD) -> tuple[torch.Tensor, KVCache]:
+    """Full-sequence attention that also returns the KV cache (a rolling
+    buffer of size `window` when SWA is active)."""
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)
+    q, k, v = _roped_qkv(params, x, positions, head_dim, rope_theta)
+    out = _self_attention(q, _repeat_kv(k, n_heads), _repeat_kv(v, n_heads), positions,
+                          head_dim=head_dim, window=window, dense_max=dense_max)
+    out = torch.einsum("bqhd,hdm->bqm", out, params["wo"])
+
+    buf = cache_len if cache_len is not None else S
+    if window is not None:
+        buf = min(buf, window)
+    if buf >= S:
+        pad = buf - S
+        k_buf = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v_buf = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    else:  # rolling buffer keeps the trailing `buf` positions at slot pos % buf
+        shift = S % buf
+        k_buf = torch.roll(k[:, S - buf:], shift, dims=1)
+        v_buf = torch.roll(v[:, S - buf:], shift, dims=1)
+    return out, KVCache(k=k_buf, v=v_buf, pos=S)
+
+
+def decode_step(params: dict, x: torch.Tensor, cache: KVCache, *, n_heads: int,
+                head_dim: int, rope_theta: float,
+                window: Optional[int] = None) -> tuple[torch.Tensor, KVCache]:
+    """One-token decode: x (B, 1, d) against the cache. Without a window the
+    slot is min(pos, S_buf - 1), so a full cache overwrites its last slot
+    (JAX's behaviour, kept)."""
+    S_buf = cache.k.shape[1]
+    pos = cache.pos
+    dev = x.device
+    q, k, v = _roped_qkv(params, x, torch.tensor([pos], device=dev), head_dim, rope_theta)
+
+    slot = min(pos, S_buf - 1) if window is None else pos % S_buf
+    cache.k[:, slot:slot + 1] = k.to(cache.k.dtype)
+    cache.v[:, slot:slot + 1] = v.to(cache.v.dtype)
+
+    if window is not None and pos >= S_buf:     # a full rolling buffer: every slot
+        valid = torch.ones(S_buf, dtype=torch.bool, device=dev)
+    else:
+        valid = torch.arange(S_buf, device=dev) <= pos
+    out = _sdpa(q, _repeat_kv(cache.k, n_heads), _repeat_kv(cache.v, n_heads),
+                valid[None, None, None, :], head_dim)
+    out = torch.einsum("bqhd,hdm->bqm", out, params["wo"])
+    return out, KVCache(k=cache.k, v=cache.v, pos=pos + 1)

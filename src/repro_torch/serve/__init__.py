@@ -1,9 +1,14 @@
-"""Serving entry points of the port: the Elastic Net engine (the LM half of
-`repro/serve` waits for the port of the LM workload)."""
-from repro_torch.serve.engine import ElasticNetEngine, EngineStats, EnResult
+"""Serving entry points of the port: the LM's prefill / decode step
+builders and greedy generation, and the Elastic Net engine."""
+from repro_torch.serve.engine import (ElasticNetEngine, EngineStats, EnResult,
+                                      greedy_generate, make_decode_step,
+                                      make_prefill_step)
 
 __all__ = [
     "ElasticNetEngine",
     "EngineStats",
     "EnResult",
+    "make_decode_step",
+    "make_prefill_step",
+    "greedy_generate",
 ]

@@ -1,14 +1,17 @@
-"""Serving entry points: the Elastic Net half of `repro/serve/engine.py`.
+"""Serving entry points, the port of `repro/serve/engine.py`.
 
-`ElasticNetEngine` — the shape-bucketed batch server of DESIGN.md §6.4, a
-facade over the continuous-batching runtime (`repro_torch.runtime.scheduler`,
-DESIGN.md §8). Incoming (n, p) problems are padded up to a small ladder of
-power-of-two buckets, so arbitrary request shapes hit a bounded set of
-launch shapes. Padding is exact, not approximate: zero rows (with zero
-responses) add nothing to the Elastic Net objective, and zero columns
-provably carry beta_j = 0 through the SVM reduction, so the unpadded slice
-of the padded solution IS the original solution (tested against unpadded
-`sven`).
+LM side: prefill_step / decode_step builders and a batched greedy
+generation driver, each run under `torch.inference_mode()`.
+
+Elastic Net side: `ElasticNetEngine` — the shape-bucketed batch server of
+DESIGN.md §6.4, a facade over the continuous-batching runtime
+(`repro_torch.runtime.scheduler`, DESIGN.md §8). Incoming (n, p) problems
+are padded up to a small ladder of power-of-two buckets, so arbitrary
+request shapes hit a bounded set of launch shapes. Padding is exact, not
+approximate: zero rows (with zero responses) add nothing to the Elastic
+Net objective, and zero columns provably carry beta_j = 0 through the SVM
+reduction, so the unpadded slice of the padded solution IS the original
+solution (tested against unpadded `sven`).
 
 The engine speaks both of the paper's problem forms: `submit` takes the
 constrained (t, lambda2) and `submit_penalized` the glmnet-style
@@ -21,9 +24,6 @@ and the dummy batch-fill problems (X = 0) short-circuit to beta = 0.
 scheduler's solution cache. `drain_reference()` keeps the synchronous path —
 one blocking, cold `sven_batch`/`enet_batch` call per bucket chunk — as the
 parity oracle the runtime is tested and measured against.
-
-The LM half of the JAX module (prefill/decode step builders, greedy
-generation) waits for the port of the LM workload.
 """
 from __future__ import annotations
 
@@ -36,12 +36,52 @@ from repro_torch.core.api import PathConfig, enet_batch
 from repro_torch.core.batch import sven_batch
 from repro_torch.core.sven import SvenConfig
 from repro_torch.device import DeviceLike
+from repro_torch.models import model as M
 from repro_torch.runtime.cache import PENALIZED, SolutionCache
 from repro_torch.runtime.scheduler import (ContinuousScheduler, EnResult, RuntimeStats,
                                            ceil_pow2, stack_padded)
 
 #: The engine's stats ARE the runtime scheduler's.
 EngineStats = RuntimeStats
+
+
+def make_prefill_step(cfg: M.ModelConfig, max_len: int):
+    """prefill_step(params, batch) -> (last_logits, caches)."""
+
+    @torch.inference_mode()
+    def prefill_step(params, batch):
+        logits, caches = M.prefill(params, cfg, batch, max_len=max_len)
+        return logits[:, -1], caches
+
+    return prefill_step
+
+
+def make_decode_step(cfg: M.ModelConfig):
+    """decode_step(params, tokens, caches) -> (logits, caches): one new token
+    against the KV caches, which it writes in place."""
+
+    @torch.inference_mode()
+    def decode_step(params, tokens, caches):
+        return M.decode_step(params, cfg, tokens, caches)
+
+    return decode_step
+
+
+def greedy_generate(params, cfg: M.ModelConfig, batch: dict, *, steps: int,
+                    max_len: int) -> torch.Tensor:
+    """Prefill then greedy-decode `steps` tokens: (B, steps + 1) token ids,
+    (B, steps + 1, K) for codebooks, the first from the prefill's logits."""
+    prefill_step = make_prefill_step(cfg, max_len)
+    decode_step = make_decode_step(cfg)
+    logits, caches = prefill_step(params, batch)
+    tok = torch.argmax(logits, dim=-1)
+    outs = []
+    for _ in range(steps):
+        outs.append(tok)
+        logits, caches = decode_step(params, tok, caches)
+        tok = torch.argmax(logits, dim=-1)
+    outs.append(tok)
+    return torch.stack(outs, dim=1)
 
 
 class ElasticNetEngine:

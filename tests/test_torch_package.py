@@ -27,7 +27,10 @@ def test_import_leaves_jax_repro_and_triton_out():
             "repro_torch.convert, repro_torch.data, repro_torch.obs, repro_torch.runtime, "
             "repro_torch.serve, repro_torch.utils, repro_torch.launch.serve_en, "
             "repro_torch.dist, repro_torch.core.distributed, repro_torch.core.routing, "
-            "repro_torch.baselines.shotgun\n"
+            "repro_torch.baselines.shotgun, repro_torch.models, repro_torch.models.model, "
+            "repro_torch.configs, repro_torch.launch.serve\n"
+            "from repro_torch.configs import ARCHS, get_config\n"
+            "[get_config(a) for a in ARCHS]\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'triton'))\n"
             "print(bad)\n")
@@ -71,6 +74,20 @@ def test_no_device_and_no_cuda_raises(monkeypatch):
     Xc, yc, _ = make_regression(20, 5, device="cpu")
     assert Xc.device.type == "cpu"
     assert sven(Xc, yc, 1.0, 1.0).beta.device.type == "cpu"
+
+
+def test_lm_without_a_device_and_cuda_raises(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import model as M
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("internlm2-1.8b", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        M.init_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launcher.run(["--arch", "internlm2-1.8b", "--gen", "1"])
+    # told the CPU, it runs there
+    assert M.init_model(cfg, device="cpu")["embed"]["table"].device.type == "cpu"
 
 
 def test_registry_resolves_from_the_operands_device():
