@@ -153,7 +153,34 @@ port's main path through the entry points a user calls:
      of CD, the true units recovered printed; (15e) deepseek-7b,
      phi3-medium-14b, qwen2.5-14b (QKV bias), musicgen-large (codebooks)
      and internvl2-26b (patches) at SMOKE size, prefill and 4 decode steps
-     against forward at 2e-3. `--lm` runs phase 15 alone.
+     against forward at 2e-3.
+  16. the MoE, SSM and MLA serving path (random weights from seeded
+     generators): (16a) mixtral-8x7b at full width (d_model 4096, 32 / 8
+     heads, SWA 4096, 8 experts of d_ff 14,336, top-2, vocab 32,000) cut
+     to 16 of 32 layers (46.7 GB in bf16), served twice through
+     `launch.serve.serve_config` (batch 4, prompt 64, gen 32): prefill ms,
+     decode tokens per second beside the bytes bound, peak memory, every
+     token in the vocabulary, equal tokens both runs; and `python -m
+     repro_torch.launch.serve` with no arguments (JAX's default arch,
+     mixtral SMOKE) as a subprocess, exit 0; (16b) the same width in
+     float32 at 1 layer, capacity factor n_experts / top_k (C >= S, no
+     drop): decode logits at 8 teacher-forced steps within atol = rtol =
+     2e-3 of forward's, the card within 1e-4 x max|logits| of the CPU, the
+     router's top-k experts equal on both; (16c) mamba2-130m whole (24
+     layers) through the launcher (`--no-smoke`) in bf16, twice, equal
+     tokens; its float32 model's decode against forward (2e-3) and card
+     against CPU (1e-4 x); a prefill of one 128-token chunk and 128
+     decode steps against the forward of two chunks (2e-3), and the
+     states against a prefill of both; (16d) deepseek-v3 at full width
+     (MLA 128 heads, ranks 1,536 / 512, 256 experts of d_ff 2,048, top-8,
+     1 shared, vocab 129,280, MTP) cut to 2 layers (1 dense MLA, 1 MLA +
+     MoE), served twice as 16a, `mtp_logits` on the prompt's hidden states
+     finite and (4, 64, vocab), and one MLA layer in float32: `mla_prefill`
+     + 8 absorbed `mla_decode_step`s against `mla_full` (2e-3); (16e)
+     mixtral, mamba2, jamba and deepseek-v3 at SMOKE size, prefill and 4
+     decode steps against forward at 2e-3, and a prefill and 2 decode steps
+     with no synchronizing CUDA call. `--lm` runs phases 15 and 16
+     alone. `rehearse_lm_moe()` runs phase 16 on the CPU at reduced widths.
 
 The CG loop (`repro_torch.core.svm.state.cg_lanes`) reads its test once
 per block of k = `CG_READ_EVERY` steps and launches up to k - 1 dead steps
@@ -226,13 +253,14 @@ no result line.
 
     python3 chip_smoke.py --lm
 
-runs phase 15 alone (the kernels built first), with its checks, and prints
-no result line.
+runs phases 15 and 16 alone (the kernels built first), with their checks,
+and prints no result line.
 
-    python3 chip_smoke.py --lm-trace
+    python3 chip_smoke.py --lm-trace [ARCH]
 
-shows where 15a's time goes: internlm2-1.8b at full width in bf16, batch
-4, prompt 64, a prefill and 8 decode steps untraced and then under
+shows where 15a's time goes (or, given ARCH, that arch's: mixtral-8x7b and
+deepseek-v3-671b at phase 16's depth cuts): internlm2-1.8b at full width
+in bf16, batch 4, prompt 64, a prefill and 8 decode steps untraced and then under
 torch.profiler, with the host's time in launch calls and elsewhere, the
 device's busy time and idle share, and the launches by op, per prefill and
 per decode step. It prints no result line.
@@ -248,8 +276,10 @@ times that commit's passes.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -2480,6 +2510,14 @@ def param_count(tree) -> int:
     return tree.numel()
 
 
+def param_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(param_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(param_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
 def teacher_forced(torch, M, params, cfg, batch, steps):
     """[(decode logits, forward logits)] for the last `steps` text tokens of
     `batch`: a prefill of the rest, then a decode step a token, each beside
@@ -2512,8 +2550,6 @@ def phase_lm(torch, smoke, kernels, svm_state, count, dev, card: str) -> None:
     15c the card against the CPU at 2 layers; 15d the feature-selection
     flow on the bf16 model's hidden states, solved by `sven` on the hinge
     kernels; 15e the five other dense-family SMOKE configs."""
-    import dataclasses
-
     from repro_torch.baselines import elastic_net_cd
     from repro_torch.configs import get_config
     from repro_torch.core.elastic_net import lambda1_max
@@ -2661,8 +2697,371 @@ def phase_lm(torch, smoke, kernels, svm_state, count, dev, card: str) -> None:
     print(f"    phase 15: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+#: phase 16: the MoE, SSM and MLA serving path
+MOE_ARCH, MOE_LAYERS = "mixtral-8x7b", 16     # 16a's depth cut: 32 layers hold 93 GB
+SSM_ARCH = "mamba2-130m"
+MLA_ARCH, MLA_LAYERS = "deepseek-v3-671b", 2  # 16d: 1 dense MLA layer, 1 MLA + MoE layer
+LM_GEN = 32
+SSM_CHUNKS = 2                # 16c: a prefill of one chunk, decode through the second
+LM_NEW_SMOKE = ("mixtral-8x7b", "mamba2-130m", "jamba-v0.1-52b", "deepseek-v3-671b")
+
+
+def f32_of(torch, cfg, **kw):
+    return dataclasses.replace(cfg, dtype=torch.float32, param_dtype=torch.float32, **kw)
+
+
+def ample_capacity(cfg):
+    """`cfg` with its MoE capacity factor at n_experts / top_k: then C >= S,
+    and a forward drops no token that a decode step keeps."""
+    moe = cfg.moe._replace(capacity_factor=cfg.moe.n_experts / cfg.moe.top_k)
+    return dataclasses.replace(cfg, moe=moe)
+
+
+def settle(torch, dev, reset_peak=False) -> None:
+    """Free the card's cached blocks (and restart its peak count)."""
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        if reset_peak:
+            torch.cuda.reset_peak_memory_stats(dev)
+
+
+def peak_text(torch, dev) -> str:
+    if dev.type != "cuda":
+        return "peak not measured (CPU)"
+    return f"peak {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB allocated"
+
+
+def decode_bound(params, cfg, moe_mod) -> str:
+    """The least time of a decode step: every expert runs on C slots (C >=
+    1 at S = 1), so a step reads every weight but the MTP module's."""
+    nbytes = param_bytes(params) - param_bytes(params.get("mtp", {}))
+    return (f"A decode step runs every expert on C = {moe_mod._capacity(1, cfg.moe)} slots, "
+            f"so it reads every weight but MTP's, {nbytes / 1e9:.3f} GB: bound "
+            f"{nbytes / PEAK_BYTES_PER_S * 1e3:.3f} ms a step = "
+            f"{LM_BATCH * PEAK_BYTES_PER_S / nbytes:.1f} tok/s at batch {LM_BATCH}")
+
+
+def serve_twice(torch, smoke, launcher, cfg, params, dev, card, label) -> None:
+    """`serve_config` twice on the same weights (batch LM_BATCH, prompt
+    LM_PROMPT, LM_GEN tokens): each run's prefill ms and decode tokens per
+    second; every token in the vocabulary, equal tokens both runs."""
+    runs = [launcher.serve_config(cfg, batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN,
+                                  device=dev, params=params) for _ in range(2)]
+    report_runs(torch, smoke, runs, cfg.vocab_size, dev, card, label)
+
+
+def report_runs(torch, smoke, runs, vocab, dev, card, label) -> None:
+    for i, r in enumerate(runs):
+        print(f"    {label} run {i + 1}: prefill {LM_BATCH} x {LM_PROMPT} "
+              f"{r.prefill_s * 1e3:.3f} ms, decode {r.n_decoded} tokens in {r.decode_s:.4f} s "
+              f"= {r.tok_per_s:.1f} tok/s ({r.decode_s / LM_GEN * 1e3:.3f} ms a step); "
+              f"{peak_text(torch, dev)}; {card}", flush=True)
+    toks = runs[0].tokens
+    smoke.check(toks.shape == (LM_BATCH, LM_GEN + 1) and int(toks.min()) >= 0
+                and int(toks.max()) < vocab,
+                f"{label}: tokens {tuple(toks.shape)}, every one in [0, {vocab})")
+    smoke.check(torch.equal(runs[0].tokens, runs[1].tokens),
+                f"{label}: two greedy runs give equal tokens")
+
+
+def card_vs_cpu(torch, smoke, M, params, cfg, tokens, label) -> None:
+    """The forward of `tokens` on `params` and on a CPU copy of them:
+    logits within LM_CPU_TOL x max|logits|."""
+    with torch.inference_mode():
+        on_card = M.forward(params, cfg, {"tokens": tokens})[0].cpu()
+        cpu_params = map_params(params, lambda t: t.cpu())
+        t0 = time.perf_counter()
+        on_cpu = M.forward(cpu_params, cfg, {"tokens": tokens.cpu()})[0]
+        secs = time.perf_counter() - t0
+    scale = on_cpu.abs().max().item()
+    dev_cpu = (on_card - on_cpu).abs().max().item()
+    print(f"    [{label}] {cfg.n_layers} layer(s), logits {tuple(on_cpu.shape)}: card against "
+          f"CPU max|d| {dev_cpu:.3e} = {dev_cpu / scale:.3e} x max|logits| (CPU forward "
+          f"{secs:.2f} s)", flush=True)
+    smoke.check(dev_cpu <= LM_CPU_TOL * scale,
+                f"{label}: float32 logits on the card within {LM_CPU_TOL} x max|logits| of the "
+                "CPU's")
+
+
+def lm_tokens(torch, cfg, shape, seed, dev):
+    gen = torch.Generator(dev).manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, shape, generator=gen, device=dev)
+
+
+def decode_check(torch, smoke, M, params, cfg, dev, label) -> None:
+    """LM_STEPS teacher-forced decode steps after a prompt of LM_PROMPT,
+    against the forward, within JAX's atol = rtol = LM_DECODE_TOL."""
+    batch = {"tokens": lm_tokens(torch, cfg, (LM_BATCH, LM_PROMPT + LM_STEPS), 1, dev)}
+    worst = decode_vs_forward(teacher_forced(torch, M, params, cfg, batch, LM_STEPS))
+    smoke.check(worst <= LM_DECODE_TOL,
+                f"{label}: float32 decode logits at {LM_STEPS} teacher-forced steps match "
+                f"forward's within atol = rtol = {LM_DECODE_TOL} (worst |d - f| - rtol |f| = "
+                f"{worst:.3e})")
+
+
+def no_host_sync(torch, M, params, cfg, batch) -> bool:
+    """Whether a prefill of `batch` and 2 greedy decode steps run without a
+    synchronizing CUDA call (one that waits for the card), so the host
+    can queue a step while the card runs the one before."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            logits, caches = M.prefill(params, cfg, batch, max_len=batch["tokens"].shape[1] + 4)
+            tok = torch.argmax(logits[:, -1], dim=-1)
+            for _ in range(2):
+                logits, caches = M.decode_step(params, cfg, tok, caches)
+                tok = torch.argmax(logits, dim=-1)
+    except RuntimeError as e:
+        print(f"    a synchronizing call: {e}", flush=True)
+        return False
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return True
+
+
+def phase_lm_moe(torch, smoke, dev, card: str) -> None:
+    """Phase 16: the MoE, SSM and MLA serving path. 16a mixtral-8x7b at full
+    width in bf16, cut to MOE_LAYERS layers, served twice, and the launcher
+    with no arguments; 16b the same width in float32 at 1 layer: decode
+    against forward, the card against the CPU, the router's choices equal
+    on both; 16c mamba2-130m whole: the launcher twice in bf16, float32
+    decode against forward, the card against the CPU, and the chunk carry
+    (a prefill of one chunk, decode through the second, against the
+    forward of both); 16d deepseek-v3 at full width in bf16, cut to
+    MLA_LAYERS layers, served twice, with `mtp_logits`, and one MLA layer
+    in float32: the absorbed decode against the expanded form; 16e the four
+    SMOKE configs. Runs on the CPU too (`rehearse_lm_moe`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import mla as mla_mod
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+
+    t_phase = time.perf_counter()
+
+    # -- 16a: mixtral-8x7b at full width, bf16, MOE_LAYERS layers ----------------
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    settle(torch, dev, reset_peak=True)
+    params = M.init_model(cfg, generator=torch.Generator(dev).manual_seed(0), device=dev)
+    print(f"[16a] {MOE_ARCH}: {cfg.n_layers} of {full.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads, SWA {cfg.swa_window}, "
+          f"{cfg.moe.n_experts} experts of d_ff {cfg.moe.d_ff_expert} top-{cfg.moe.top_k}, vocab "
+          f"{cfg.vocab_size}: {param_count(params):,} parameters, "
+          f"{param_bytes(params) / 1e9:.3f} GB in bf16. {decode_bound(params, cfg, moe_mod)}",
+          flush=True)
+    serve_twice(torch, smoke, launcher, cfg, params, dev, card, "16a")
+    del params
+    settle(torch, dev)
+    argv = [] if dev.type == "cuda" else ["--device", "cpu"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *argv], cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                          capture_output=True, text=True, timeout=600)
+    out = proc.stdout.strip()
+    print(f"    python -m repro_torch.launch.serve {' '.join(argv)}: exit {proc.returncode} "
+          f"in {time.perf_counter() - t0:.1f} s: {out[-200:]}", flush=True)
+    smoke.check(proc.returncode == 0 and f"[serve] {MOE_ARCH}-smoke:" in out,
+                f"16a: the launcher with no arguments serves {MOE_ARCH} SMOKE "
+                f"(exit {proc.returncode}) {proc.stderr.strip()[-400:]}")
+
+    # -- 16b: the same width in float32, 1 layer ---------------------------------
+    cfg32 = ample_capacity(f32_of(torch, full, n_layers=1))
+    settle(torch, dev, reset_peak=True)
+    p32 = M.init_model(cfg32, generator=torch.Generator(dev).manual_seed(0), device=dev)
+    print(f"[16b] {MOE_ARCH} in float32, 1 layer, capacity factor "
+          f"{cfg32.moe.capacity_factor} (C >= S): {4 * param_count(p32) / 1e9:.3f} GB", flush=True)
+    decode_check(torch, smoke, M, p32, cfg32, dev, "16b")
+    chosen = []
+    route = moe_mod.route
+
+    def record(p, x, c):
+        picked = route(p, x, c)
+        chosen.append(picked[2].cpu())
+        return picked
+
+    moe_mod.route = record
+    try:
+        card_vs_cpu(torch, smoke, M, p32, cfg32, lm_tokens(torch, cfg32, (2, 32), 2, dev), "16b")
+    finally:
+        moe_mod.route = route
+    smoke.check(len(chosen) == 2 and torch.equal(chosen[0], chosen[1]),
+                f"16b: the router's top-{cfg32.moe.top_k} experts of all "
+                f"{chosen[0].shape[0] * chosen[0].shape[1]} tokens equal on the card and on "
+                "the CPU")
+    # bf16 against float32 on the same (bf16-rounded) weights, the router
+    # float32 in both: printed, not gated, since a near-tie of the router
+    # may choose another expert in bf16 and move that token by O(1)
+    p16 = map_params(p32, lambda t: t.to(torch.bfloat16))
+    for l32, l16 in zip(p32["layers"], p16["layers"]):
+        l16["mlp"]["router"] = l32["mlp"]["router"]
+    widened = map_params(p16, lambda t: t.to(torch.float32))
+    cfg16 = dataclasses.replace(cfg32, dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    prompt = {"tokens": lm_tokens(torch, cfg32, (LM_BATCH, LM_PROMPT), 1, dev)}
+    chosen.clear()
+    moe_mod.route = record
+    try:
+        with torch.inference_mode():
+            l32 = M.prefill(widened, cfg32, prompt, max_len=LM_PROMPT + 4)[0][:, -1]
+            l16 = M.prefill(p16, cfg16, prompt, max_len=LM_PROMPT + 4)[0][:, -1]
+    finally:
+        moe_mod.route = route
+    flips = int((chosen[0].sort(-1).values != chosen[1].sort(-1).values).any(-1).sum())
+    ratio = (l16 - l32).abs().max().item() / l32.abs().max().item()
+    print(f"    [16b] bf16 against float32 on the same weights, last-position prefill logits: "
+          f"{ratio:.4e} x max|logits| (not gated); tokens routed to another expert set "
+          f"{flips} of {chosen[0].shape[0] * chosen[0].shape[1]}", flush=True)
+    del p16, widened, l32, l16
+    print(f"    16b {peak_text(torch, dev)}; {card}", flush=True)
+    del p32
+    settle(torch, dev)
+
+    # -- 16c: mamba2-130m whole ---------------------------------------------------
+    cfg = get_config(SSM_ARCH)
+    serve_args = ["--arch", SSM_ARCH, "--no-smoke", "--batch", str(LM_BATCH), "--prompt-len",
+                  str(LM_PROMPT), "--gen", str(LM_GEN)]
+    if dev.type != "cuda":
+        serve_args += ["--device", "cpu"]
+    print(f"[16c] python -m repro_torch.launch.serve {' '.join(serve_args)} (bf16), twice; "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, d_state {cfg.ssm.d_state}, chunk "
+          f"{cfg.ssm.chunk}", flush=True)
+    settle(torch, dev, reset_peak=True)
+    report_runs(torch, smoke, [launcher.serve(serve_args) for _ in range(2)], cfg.vocab_size,
+                dev, card, "16c")
+    cfg32 = f32_of(torch, cfg)
+    p32 = M.init_model(cfg32, generator=torch.Generator(dev).manual_seed(0), device=dev)
+    decode_check(torch, smoke, M, p32, cfg32, dev, "16c")
+    card_vs_cpu(torch, smoke, M, p32, cfg32, lm_tokens(torch, cfg32, (2, 32), 2, dev), "16c")
+    Q, S = cfg32.ssm.chunk, SSM_CHUNKS * cfg32.ssm.chunk
+    toks = lm_tokens(torch, cfg32, (2, S), 3, dev)
+    with torch.inference_mode():
+        full_logits, _ = M.forward(p32, cfg32, {"tokens": toks})
+        _, caches = M.prefill(p32, cfg32, {"tokens": toks[:, :Q]}, max_len=S)
+        pairs = []
+        for pos in range(Q, S):
+            logits, caches = M.decode_step(p32, cfg32, toks[:, pos], caches)
+            pairs.append((logits, full_logits[:, pos]))
+        _, whole = M.prefill(p32, cfg32, {"tokens": toks}, max_len=S)
+    h_dev = max(((a.h - b.h).abs().max() / b.h.abs().max()).item()
+                for a, b in zip(caches["layers"], whole["layers"]))
+    worst = decode_vs_forward(pairs)
+    smoke.check(worst <= LM_DECODE_TOL and h_dev <= LM_DECODE_TOL,
+                f"16c: a prefill of {Q} and {S - Q} decode steps match the {SSM_CHUNKS}-chunk "
+                f"forward of {S} within {LM_DECODE_TOL} (worst {worst:.3e}), and the states the "
+                f"prefill of {S} leaves within {LM_DECODE_TOL} x max|h| ({h_dev:.3e} x)")
+    print(f"    16c {peak_text(torch, dev)}; {card}", flush=True)
+    del p32, full_logits, caches, whole, pairs
+    settle(torch, dev)
+
+    # -- 16d: deepseek-v3 at full width, bf16, MLA_LAYERS layers, MTP -------------
+    full = get_config(MLA_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MLA_LAYERS, dense_prefix=1)
+    settle(torch, dev, reset_peak=True)
+    params = M.init_model(cfg, generator=torch.Generator(dev).manual_seed(0), device=dev)
+    print(f"[16d] {MLA_ARCH}: {cfg.n_layers} of {full.n_layers} layers "
+          f"{[cfg.layer_spec(i) for i in range(cfg.n_layers)]}, d_model {cfg.d_model}, MLA "
+          f"{cfg.mla.n_heads} heads, ranks {cfg.mla.q_lora_rank} / {cfg.mla.kv_lora_rank}, "
+          f"{cfg.moe.n_experts} experts of d_ff {cfg.moe.d_ff_expert} top-{cfg.moe.top_k} + "
+          f"{cfg.moe.n_shared} shared, vocab {cfg.vocab_size}, MTP depth {cfg.mtp_depth}: "
+          f"{param_count(params):,} parameters, {param_bytes(params) / 1e9:.3f} GB in bf16. "
+          f"{decode_bound(params, cfg, moe_mod)}", flush=True)
+    serve_twice(torch, smoke, launcher, cfg, params, dev, card, "16d")
+    b = launcher.make_batch(cfg, LM_BATCH, LM_PROMPT, torch.Generator(dev).manual_seed(1), dev)
+    with torch.inference_mode():
+        _, _, h = M.forward(params, cfg, b, return_hidden=True)
+        mtp = M.mtp_logits(params, cfg, h, b)
+    smoke.check(mtp.shape == (LM_BATCH, LM_PROMPT, cfg.vocab_size)
+                and bool(torch.isfinite(mtp).all()),
+                f"16d: mtp_logits on the hidden states {tuple(mtp.shape)}, every one finite")
+    del params, h, mtp
+    settle(torch, dev, reset_peak=True)
+    # one MLA layer at full width in float32: the absorbed decode against the expanded form
+    gen = torch.Generator(dev).manual_seed(3)
+    mp = mla_mod.init_mla(gen, cfg.d_model, cfg.mla, torch.float32, dev)
+    x = torch.randn((2, LM_PROMPT + LM_STEPS, cfg.d_model), generator=gen, device=dev)
+    with torch.inference_mode():
+        expanded = mla_mod.mla_full(mp, x, cfg.mla, rope_theta=cfg.rope_theta)
+        _, cache = mla_mod.mla_prefill(mp, x[:, :LM_PROMPT], cfg.mla, rope_theta=cfg.rope_theta,
+                                       cache_len=LM_PROMPT + LM_STEPS)
+        pairs = []
+        for s in range(LM_PROMPT, LM_PROMPT + LM_STEPS):
+            out, cache = mla_mod.mla_decode_step(mp, x[:, s:s + 1], cache, cfg.mla,
+                                                 rope_theta=cfg.rope_theta)
+            pairs.append((out[:, 0], expanded[:, s]))
+    worst = decode_vs_forward(pairs)
+    smoke.check(worst <= LM_DECODE_TOL,
+                f"16d: one MLA layer at full width in float32: mla_prefill + {LM_STEPS} absorbed "
+                f"mla_decode_steps match mla_full within atol = rtol = {LM_DECODE_TOL} (worst "
+                f"{worst:.3e}, max|out| {expanded.abs().max().item():.3e}; "
+                f"{peak_text(torch, dev)})")
+    del mp, x, expanded, cache, pairs
+    settle(torch, dev)
+
+    # -- 16e: the four SMOKE configs ----------------------------------------------
+    for arch in LM_NEW_SMOKE:
+        c = get_config(arch, smoke=True)
+        p = M.init_model(c, generator=torch.Generator(dev).manual_seed(0), device=dev)
+        b = launcher.make_batch(c, 2, 16, torch.Generator(dev).manual_seed(1), dev)
+        worst = decode_vs_forward(teacher_forced(torch, M, p, c, b, 4))
+        smoke.check(worst <= LM_DECODE_TOL,
+                    f"16e: {c.name}: prefill + 4 decode steps match forward within "
+                    f"{LM_DECODE_TOL} (worst {worst:.3e})")
+        if dev.type == "cuda":
+            smoke.check(no_host_sync(torch, M, p, c, b),
+                        f"16e: {c.name}: prefill and 2 decode steps make no synchronizing "
+                        "CUDA call (torch.cuda.set_sync_debug_mode)")
+    print(f"    phase 16: {time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+
+
+#: `rehearse_lm_moe`'s reduced widths: each full-width config with these fields
+REHEARSAL = {
+    "mixtral_8x7b": dict(d_model=256, n_heads=4, n_kv_heads=2, head_dim=64, d_ff=512,
+                         vocab_size=4096, swa_window=64),
+    "mamba2_130m": dict(d_model=128, vocab_size=4096),
+    "deepseek_v3_671b": dict(d_model=256, n_heads=4, n_kv_heads=4, head_dim=64, d_ff=128,
+                             d_ff_dense=512, vocab_size=4096),
+}
+REHEARSAL_PARTS = {
+    "mixtral_8x7b": dict(moe=dict(d_ff_expert=512)),
+    "mamba2_130m": dict(ssm=dict(d_state=32, head_dim=32)),
+    "deepseek_v3_671b": dict(mla=dict(n_heads=4, q_lora_rank=64, kv_lora_rank=32,
+                                      qk_nope_dim=32, qk_rope_dim=16, v_head_dim=32),
+                             moe=dict(n_experts=16, top_k=4, d_ff_expert=128,
+                                      d_ff_shared=128)),
+}
+
+
+def rehearse_lm_moe() -> int:
+    """Phase 16 on the CPU at REHEARSAL's widths (each arch's depth, heads
+    and patterns kept, its widths cut), for the figures a chip run is
+    predicted against and to try the phase's logic where there is no card:
+
+        PYTHONPATH=src python3 -c "import chip_smoke; chip_smoke.rehearse_lm_moe()"
+
+    Returns 1 if a check failed."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    saved = {}
+    for name, fields in REHEARSAL.items():
+        mod = importlib.import_module(f"repro_torch.configs.{name}")
+        saved[name] = mod.CONFIG
+        parts = {k: getattr(mod.CONFIG, k)._replace(**v)
+                 for k, v in REHEARSAL_PARTS[name].items()}
+        mod.CONFIG = dataclasses.replace(mod.CONFIG, **fields, **parts)
+    smoke = Smoke()
+    try:
+        phase_lm_moe(torch, smoke, torch.device("cpu"), "CPU rehearsal")
+    finally:
+        for name, cfg in saved.items():
+            importlib.import_module(f"repro_torch.configs.{name}").CONFIG = cfg
+    print(f"{len(smoke.failures)} check(s) failed", flush=True)
+    return 1 if smoke.failures else 0
+
+
 def lm_only(torch) -> int:
-    """`--lm`: phase 15 alone (the kernels built first), with its checks;
+    """`--lm`: phases 15 and 16 alone (the kernels built first), with their checks;
     prints no result line. Exits 1 if a check failed."""
     from repro_torch import kernels
     from repro_torch.core.svm import state as svm_state
@@ -2677,6 +3076,8 @@ def lm_only(torch) -> int:
     t0 = time.perf_counter()
     phase_lm(torch, smoke, kernels, svm_state, lambda launched: None,
              torch.device("cuda", 0), card)
+    torch.cuda.empty_cache()
+    phase_lm_moe(torch, smoke, torch.device("cuda", 0), card)
     print(f"total {time.perf_counter() - t0:.1f} s; {len(smoke.failures)} check(s) failed",
           flush=True)
     for f in smoke.failures:
@@ -2684,10 +3085,17 @@ def lm_only(torch) -> int:
     return 1 if smoke.failures else 0
 
 
-def lm_trace_only(torch) -> int:
-    """`--lm-trace`: where 15a's time goes (internlm2-1.8b at full width in
-    bf16, batch 4, prompt 64). Untraced, a prefill and decode steps (after
-    warm-up), host clock ending in a synchronisation; then one prefill and
+#: `--lm-trace ARCH`: the depth cuts of phase 16's full-width serving cells
+LM_TRACE_CUTS = {MOE_ARCH: dict(n_layers=MOE_LAYERS),
+                 MLA_ARCH: dict(n_layers=MLA_LAYERS, dense_prefix=1)}
+
+
+def lm_trace_only(torch, arch: str = LM_ARCH) -> int:
+    """`--lm-trace [ARCH]`: where a serving cell's time goes (internlm2-1.8b,
+    15a's, unless ARCH names another; mixtral-8x7b and deepseek-v3 at
+    phase 16's depth cuts), at full width in bf16, batch 4, prompt 64.
+    Untraced, a prefill and decode steps (after warm-up), host clock
+    ending in a synchronisation; then one prefill and
     LM_TRACE_STEPS decode steps under torch.profiler (CPU and CUDA
     activities), each split by `trace_split` (per prefill, per decode step):
     host time in launch calls and the rest, the device's busy time, its
@@ -2702,7 +3110,8 @@ def lm_trace_only(torch) -> int:
 
     print(f"card: {nvidia_smi()}", flush=True)
     dev = torch.device("cuda", 0)
-    cfg = get_config(LM_ARCH)
+    cfg = dataclasses.replace(get_config(arch), **LM_TRACE_CUTS.get(arch, {}))
+    print(f"  {cfg.name}: {cfg.n_layers} layers", flush=True)
     params = M.init_model(cfg, generator=torch.Generator(dev).manual_seed(0), device=dev)
     batch = make_batch(cfg, LM_BATCH, LM_PROMPT, torch.Generator(dev).manual_seed(1), dev)
     steps = LM_TRACE_STEPS
@@ -2849,8 +3258,12 @@ def main() -> int:
         return multihost_only(torch)
     if sys.argv[1:] == ["--lm"]:
         return lm_only(torch)
-    if sys.argv[1:] == ["--lm-trace"]:
-        return lm_trace_only(torch)
+    if sys.argv[1:2] == ["--lm-trace"] and len(sys.argv) <= 3:
+        from repro_torch.configs import ALIASES
+        if sys.argv[2:] and sys.argv[2] not in ALIASES:
+            print(f"chip_smoke: unknown arch {sys.argv[2]}", file=sys.stderr)
+            return 2
+        return lm_trace_only(torch, *sys.argv[2:])
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -3079,6 +3492,12 @@ def main() -> int:
     print("[15] the LM serving path: internlm2-1.8b at full width, and sven on its hidden "
           "states", flush=True)
     phase_lm(torch, smoke, kernels, svm_state, count, dev, card)
+    torch.cuda.empty_cache()
+
+    # -- 16. the MoE, SSM and MLA serving path ---------------------------------
+    print("[16] the MoE, SSM and MLA serving path: mixtral-8x7b and deepseek-v3 at full "
+          "width, mamba2-130m whole", flush=True)
+    phase_lm_moe(torch, smoke, dev, card)
 
     # -- summary ---------------------------------------------------------------
     for name, n_launch in path_launches.items():

@@ -1,8 +1,7 @@
 """Assigned-architecture registry, the port of `repro/configs/`: one module
 per arch exposing CONFIG (full width), SMOKE (reduced, CPU-runnable) and
 META (per-shape microbatching, long_500k applicability, notes), with torch
-dtypes. This slice runs the dense-attention archs; the MoE, SSM and MLA
-ones import, and `models.model.init_model` refuses them.
+dtypes.
 
 Shapes: every LM arch pairs with all four; decode/long run the decode
 step, train_4k the train step, prefill_32k the prefill step.

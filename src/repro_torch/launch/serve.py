@@ -1,23 +1,24 @@
 """Serving launcher: a batch of random prompts through prefill and greedy
 decode, with prefill time and decode tokens per second. The port of
-`repro/launch/serve.py`, with the same run and the same printed line.
+`repro/launch/serve.py`, with the same run, the same default arch
+(mixtral-8x7b) and the same printed line.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \\
         --batch 4 --prompt-len 64 --gen 32 --device cpu
-    python -m repro_torch.launch.serve --arch internlm2-1.8b --no-smoke
+    python -m repro_torch.launch.serve --arch mamba2-130m --no-smoke
 
 Runs the arch's SMOKE config unless `--no-smoke` asks for its full-width
 CONFIG (JAX's `--smoke` cannot be turned off), on the CUDA device unless
 `--device` names another. Weights are drawn from a generator seeded 0 and
-prompts from one seeded 1, both on the run's device. This slice serves the
-dense-attention archs, so the default arch is internlm2-1.8b (JAX's is
-mixtral-8x7b, whose MoE MLP is the next slice).
+prompts from one seeded 1, both on the run's device. `serve_config` runs
+the same on a config given as it is (a depth-cut one, say).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
+from typing import Optional
 
 import torch
 
@@ -41,7 +42,7 @@ class ServeResult:
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--arch", default="mixtral-8x7b")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction, default=True,
                     help="the arch's reduced SMOKE config (default); --no-smoke runs "
                          "its full-width CONFIG")
@@ -75,23 +76,24 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def serve(argv=None) -> ServeResult:
-    """Parse `argv`, serve one batch, print the launcher's line."""
-    args = _parser().parse_args(argv)
-    dev = resolve_device(args.device)
-    cfg = get_config(args.arch, smoke=args.smoke)
-    params = M.init_model(cfg, generator=torch.Generator(device=dev).manual_seed(0),
-                          device=dev)
-    max_len = args.prompt_len + args.gen + cfg.vision_tokens + 4
-    batch = make_batch(cfg, args.batch, args.prompt_len,
-                       torch.Generator(device=dev).manual_seed(1), dev)
+def serve_config(cfg: M.ModelConfig, *, batch: int, prompt_len: int, gen: int,
+                 device: torch.device, params: Optional[dict] = None) -> ServeResult:
+    """Serve one batch of `cfg` on `device` and print the launcher's line;
+    `params` are drawn from a generator seeded 0 when none are given."""
+    dev = device
+    if params is None:
+        params = M.init_model(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                              device=dev)
+    max_len = prompt_len + gen + cfg.vision_tokens + 4
+    prompts = make_batch(cfg, batch, prompt_len, torch.Generator(device=dev).manual_seed(1),
+                         dev)
 
     prefill = make_prefill_step(cfg, max_len=max_len)
     decode = make_decode_step(cfg)
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, caches = prefill(params, batch)
+    logits, caches = prefill(params, prompts)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     tok = torch.argmax(logits, dim=-1)
@@ -99,18 +101,26 @@ def serve(argv=None) -> ServeResult:
     toks = [tok]
     t0 = time.perf_counter()
     n = 0
-    for _ in range(args.gen):
+    for _ in range(gen):
         logits, caches = decode(params, tok, caches)
         tok = torch.argmax(logits, dim=-1)
         toks.append(tok)
-        n += args.batch
+        n += batch
     _sync(dev)
     t_decode = time.perf_counter() - t0
-    print(f"[serve] {cfg.name}: prefill {args.batch}x{args.prompt_len} in "
+    print(f"[serve] {cfg.name}: prefill {batch}x{prompt_len} in "
           f"{t_prefill * 1e3:.0f} ms; decode {n} tokens in {t_decode * 1e3:.0f} ms "
           f"({n / t_decode:.0f} tok/s)", flush=True)
     return ServeResult(tokens=torch.stack(toks, dim=1), prefill_s=t_prefill,
                        decode_s=t_decode, n_decoded=n)
+
+
+def serve(argv=None) -> ServeResult:
+    """Parse `argv`, serve one batch, print the launcher's line."""
+    args = _parser().parse_args(argv)
+    return serve_config(get_config(args.arch, smoke=args.smoke), batch=args.batch,
+                        prompt_len=args.prompt_len, gen=args.gen,
+                        device=resolve_device(args.device))
 
 
 def run(argv=None) -> float:

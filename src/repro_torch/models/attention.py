@@ -192,7 +192,8 @@ def decode_step(params: dict, x: torch.Tensor, cache: KVCache, *, n_heads: int,
     S_buf = cache.k.shape[1]
     pos = cache.pos
     dev = x.device
-    q, k, v = _roped_qkv(params, x, torch.tensor([pos], device=dev), head_dim, rope_theta)
+    positions = torch.arange(pos, pos + 1, device=dev)   # made on the device: no host copy
+    q, k, v = _roped_qkv(params, x, positions, head_dim, rope_theta)
 
     slot = min(pos, S_buf - 1) if window is None else pos % S_buf
     cache.k[:, slot:slot + 1] = k.to(cache.k.dtype)

@@ -1,19 +1,18 @@
-"""TransformerLM assembly: the port of `repro/models/model.py` for the
-dense-attention family (the `attn` mixer with `dense` MLPs), with the
-`tokens`, `codebooks` and `patches` front ends, the tied-embedding head,
-and the forward / prefill / decode entry points.
+"""TransformerLM assembly: the port of `repro/models/model.py`. Layer
+plans mix the `attn`, `mla` and `ssm` mixers with `dense`, `moe` and
+`none` MLPs; the `tokens`, `codebooks` and `patches` front ends, the
+tied-embedding head, DeepSeek-V3's depth-1 multi-token prediction
+(`mtp_logits`), and the forward / prefill / decode entry points.
 
 Layers run in a Python loop in JAX's order (the dense prefix, then period
 r, position j), so the parameters hold one dict a layer in
 `params["layers"]`, each with JAX's per-layer layout (`mixer_norm`,
 `mixer`, `mlp_norm`, `mlp`); JAX stacks the body across periods for its
 `lax.scan`, which `repro_torch.convert.model_params_from_jax` unstacks.
-The caches follow the same list (`caches["layers"]`). There is no jit,
-scan or remat: `remat`, `remat_policy`, `unroll_layers` and
-`rules_override` are kept so the configs match JAX's, and are unused.
-
-The `moe`, `mla` and `ssm` mixers and MLPs and `mtp_logits` raise
-`NotImplementedError`: they are the next slice of the port.
+The caches follow the same list (`caches["layers"]`): a `KVCache`,
+`MLACache` or `SSMCache` a layer. There is no jit, scan or remat: `remat`,
+`remat_policy`, `unroll_layers` and `rules_override` are kept so the
+configs match JAX's, and are unused.
 """
 from __future__ import annotations
 
@@ -26,16 +25,12 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.mla import MLAConfig
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.ssm import SSMConfig
-
-NEXT_SLICE = "ROADMAP.md Queue 1 item 7: the MoE, SSM, MLA and MTP serving path"
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"repro_torch.models: {what} is not ported yet; it comes "
-                              f"with the next slice ({NEXT_SLICE})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,32 +88,30 @@ class ModelConfig:
         return self.n_body // self.period
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    """Raise `NotImplementedError` for a config this slice cannot run: every
-    entry point calls it first, so the layers below see only the `attn`
-    mixer and `dense` or `none` MLPs."""
-    for i in range(cfg.n_layers):
-        mixer, mlp = cfg.layer_spec(i)
-        if mixer != "attn":
-            _not_ported(f"the {mixer!r} mixer ({cfg.name}, layer {i})")
-        if mlp not in ("dense", "none"):
-            _not_ported(f"the {mlp!r} MLP ({cfg.name}, layer {i})")
-    if cfg.mtp_depth:
-        _not_ported(f"multi-token prediction ({cfg.name})")
-
-
 # ------------------------------------------------------------------ init ---
 
-def _init_layer(generator, cfg: ModelConfig, mlp: str, device) -> dict:
+def _init_layer(generator, cfg: ModelConfig, mixer: str, mlp: str, device) -> dict:
     dt = cfg.param_dtype
     p: dict = {"mixer_norm": L.init_rms_norm(cfg.d_model, dt, device),
                "mlp_norm": L.init_rms_norm(cfg.d_model, dt, device)}
-    p["mixer"] = attn.init_attention(generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                                     cfg.head_dim, dt, device, cfg.qkv_bias)
+    if mixer == "attn":
+        p["mixer"] = attn.init_attention(generator, cfg.d_model, cfg.n_heads,
+                                         cfg.n_kv_heads, cfg.head_dim, dt, device,
+                                         cfg.qkv_bias)
+    elif mixer == "mla":
+        p["mixer"] = mla_mod.init_mla(generator, cfg.d_model, cfg.mla, dt, device)
+    elif mixer == "ssm":
+        p["mixer"] = ssm_mod.init_ssm(generator, cfg.d_model, cfg.ssm, dt, device)
+    else:
+        raise ValueError(mixer)
     if mlp == "dense":
         p["mlp"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff_dense or cfg.d_ff, dt, device)
-    else:   # "none": mixer only, no MLP
+    elif mlp == "moe":
+        p["mlp"] = moe_mod.init_moe(generator, cfg.d_model, cfg.moe, dt, device)
+    elif mlp == "none":   # pure-SSM blocks (mamba2): mixer only, no MLP
         p.pop("mlp_norm")
+    else:
+        raise ValueError(mlp)
     return p
 
 
@@ -126,9 +119,8 @@ def init_model(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
                device: DeviceLike = None) -> dict:
     """Random parameters of `cfg` on `device` (CUDA when none is named),
     drawn from `generator` (a generator on that device seeded 0 when none
-    is given): the embedding, the codebook embeddings, then each layer in
-    order."""
-    _check_ported(cfg)
+    is given): the embedding, the codebook embeddings, each layer in order,
+    then the MTP module when `cfg.mtp_depth` is set."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -141,25 +133,48 @@ def init_model(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
         params["codebook_embeds"] = [
             L.init_embedding(generator, cfg.vocab_size, cfg.d_model, dt, dev)
             for _ in range(1, cfg.n_codebooks)]
-    params["layers"] = [_init_layer(generator, cfg, cfg.layer_spec(i)[1], dev)
+    params["layers"] = [_init_layer(generator, cfg, *cfg.layer_spec(i), dev)
                         for i in range(cfg.n_layers)]
+    if cfg.mtp_depth:
+        d = cfg.d_model
+        params["mtp"] = {
+            "proj": L.normal(generator, (2 * d, d), dt, dev, (2 * d) ** -0.5),
+            "layer": _init_layer(generator, cfg, "attn", "dense", dev),
+            "norm": L.init_rms_norm(d, dt, dev),
+        }
     return params
 
 
 # --------------------------------------------------------------- forward ---
 
-def _apply_mlp(p, x, mlp: str):
-    """x plus the layer's dense MLP of norm(x); x itself for "none"."""
+def _apply_mixer(p, x, cfg: ModelConfig, mixer: str):
+    if mixer == "attn":
+        return attn.attend_full(p, x, n_heads=cfg.n_heads, head_dim=cfg.head_dim,
+                                rope_theta=cfg.rope_theta, window=cfg.swa_window,
+                                dense_max=cfg.attn_dense_max)
+    if mixer == "mla":
+        return mla_mod.mla_full(p, x, cfg.mla, rope_theta=cfg.rope_theta,
+                                dense_max=cfg.attn_dense_max)
+    if mixer == "ssm":
+        return ssm_mod.ssm_forward(p, x, cfg.d_model, cfg.ssm)
+    raise ValueError(mixer)
+
+
+def _apply_mlp(p, x, cfg: ModelConfig, mlp: str):
+    """(x plus the layer's MLP of norm(x), the MoE aux loss or 0.0); x itself
+    for "none"."""
     if mlp == "none":
-        return x
-    return x + L.apply_mlp(p["mlp"], L.rms_norm(x, p["mlp_norm"]["scale"]))
+        return x, 0.0
+    hn = L.rms_norm(x, p["mlp_norm"]["scale"])
+    if mlp == "dense":
+        return x + L.apply_mlp(p["mlp"], hn), 0.0
+    h, aux = moe_mod.apply_moe(p["mlp"], hn, cfg.moe)
+    return x + h, aux
 
 
-def _apply_layer(p, x, cfg: ModelConfig, mlp: str):
-    h = attn.attend_full(p["mixer"], L.rms_norm(x, p["mixer_norm"]["scale"]),
-                         n_heads=cfg.n_heads, head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
-                         window=cfg.swa_window, dense_max=cfg.attn_dense_max)
-    return _apply_mlp(p, x + h, mlp)
+def _apply_layer(p, x, cfg: ModelConfig, mixer: str, mlp: str):
+    h = _apply_mixer(p["mixer"], L.rms_norm(x, p["mixer_norm"]["scale"]), cfg, mixer)
+    return _apply_mlp(p, x + h, cfg, mlp)
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
@@ -183,13 +198,14 @@ def _final(params, cfg: ModelConfig, x):
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict, return_hidden: bool = False):
-    """Full-sequence forward -> (logits, aux_loss[, hidden]); `hidden` is the
-    final-normed residual stream (B, S, d)."""
-    _check_ported(cfg)
+    """Full-sequence forward -> (logits, aux_loss[, hidden]); `aux_loss` is
+    the sum of the MoE layers' load-balance losses (float32, 0 without
+    MoE), `hidden` the final-normed residual stream (B, S, d)."""
     x = _embed_inputs(params, cfg, batch)
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)  # dense MLPs: no aux loss
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params["layers"]):
-        x = _apply_layer(p, x, cfg, cfg.layer_spec(i)[1])
+        x, aux = _apply_layer(p, x, cfg, *cfg.layer_spec(i))
+        aux_total = aux_total + aux
     x = L.rms_norm(x, params["final_norm"]["scale"])
     logits = _head(params, cfg, x)
     if return_hidden:
@@ -207,54 +223,96 @@ def _head(params, cfg: ModelConfig, x):
 
 
 def mtp_logits(params: dict, cfg: ModelConfig, h: torch.Tensor, batch: dict):
-    """DeepSeek-V3 MTP depth-1: the next slice of the port."""
-    _not_ported("multi-token prediction (mtp_logits)")
+    """DeepSeek-V3 MTP depth-1: predict token t+2 from (h_t, emb(tok_{t+1}));
+    h is `forward`'s hidden state (B, S, d)."""
+    mtp = params["mtp"]
+    emb_next = L.embed_tokens(params["embed"], torch.roll(batch["tokens"], -1, dims=1))
+    z = torch.cat([L.rms_norm(h, mtp["norm"]["scale"]), emb_next], dim=-1)
+    z, _ = _apply_layer(mtp["layer"], z @ mtp["proj"], cfg, "attn", "dense")
+    return L.logits_from_embedding(params["embed"], z)
 
 
 # ------------------------------------------------------------- serve path ---
 
 def init_cache(params: dict, cfg: ModelConfig, batch_size: int, max_len: int) -> dict:
-    """Empty per-layer caches on the parameters' device (a KV buffer of
-    min(max_len, swa_window) positions a layer)."""
-    _check_ported(cfg)
+    """Empty per-layer caches on the parameters' device: a KV buffer of
+    min(max_len, swa_window) positions for `attn`, a latent buffer of
+    max_len positions for `mla`, the conv tail and a float32 state for
+    `ssm`."""
     dev = params["embed"]["table"].device
-    buf = min(max_len, cfg.swa_window) if cfg.swa_window else max_len
-    shape = (batch_size, buf, cfg.n_kv_heads, cfg.head_dim)
-    return {"layers": [attn.KVCache(k=torch.zeros(shape, dtype=cfg.dtype, device=dev),
-                                    v=torch.zeros(shape, dtype=cfg.dtype, device=dev), pos=0)
-                       for _ in range(cfg.n_layers)]}
+
+    def z(shape, dtype=cfg.dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def layer_cache(mixer):
+        if mixer == "attn":
+            buf = min(max_len, cfg.swa_window) if cfg.swa_window else max_len
+            shape = (batch_size, buf, cfg.n_kv_heads, cfg.head_dim)
+            return attn.KVCache(k=z(shape), v=z(shape), pos=0)
+        if mixer == "mla":
+            return mla_mod.MLACache(c_kv=z((batch_size, max_len, cfg.mla.kv_lora_rank)),
+                                    k_rope=z((batch_size, max_len, cfg.mla.qk_rope_dim)),
+                                    pos=0)
+        if mixer == "ssm":
+            _, H, conv_ch = ssm_mod._dims(cfg.d_model, cfg.ssm)
+            return ssm_mod.SSMCache(
+                conv=z((batch_size, cfg.ssm.d_conv - 1, conv_ch)),
+                h=z((batch_size, H, cfg.ssm.d_state, cfg.ssm.head_dim), torch.float32))
+        raise ValueError(mixer)
+
+    return {"layers": [layer_cache(cfg.layer_spec(i)[0]) for i in range(cfg.n_layers)]}
+
+
+def _mixer_step(p, x, cache, cfg: ModelConfig, mixer: str):
+    if mixer == "attn":
+        return attn.decode_step(p, x, cache, n_heads=cfg.n_heads, head_dim=cfg.head_dim,
+                                rope_theta=cfg.rope_theta, window=cfg.swa_window)
+    if mixer == "mla":
+        return mla_mod.mla_decode_step(p, x, cache, cfg.mla, rope_theta=cfg.rope_theta)
+    if mixer == "ssm":
+        return ssm_mod.ssm_decode_step(p, x, cache, cfg.d_model, cfg.ssm)
+    raise ValueError(mixer)
 
 
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, caches: dict):
     """One-token decode. tokens (B,) or (B, K) for codebooks -> logits, caches.
-    The caches' tensors are written in place."""
-    _check_ported(cfg)
+    The attention and latent caches' tensors are written in place."""
     if cfg.frontend == "codebooks":
         x = _embed_inputs(params, cfg, {"tokens": tokens[:, None, :]})
     else:  # "patches" decodes text tokens only (the image is prefill-time)
         x = L.embed_tokens(params["embed"], tokens[:, None])
     new = []
     for i, p in enumerate(params["layers"]):
-        h, c = attn.decode_step(p["mixer"], L.rms_norm(x, p["mixer_norm"]["scale"]),
-                                caches["layers"][i], n_heads=cfg.n_heads,
-                                head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
-                                window=cfg.swa_window)
-        x = _apply_mlp(p, x + h, cfg.layer_spec(i)[1])
+        mixer, mlp = cfg.layer_spec(i)
+        h, c = _mixer_step(p["mixer"], L.rms_norm(x, p["mixer_norm"]["scale"]),
+                           caches["layers"][i], cfg, mixer)
+        x, _ = _apply_mlp(p, x + h, cfg, mlp)
         new.append(c)
     return _final(params, cfg, x)[:, 0], {"layers": new}
 
 
-def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int):
-    """Prefill: the full forward, building each layer's cache on the way."""
-    _check_ported(cfg)
-    x = _embed_inputs(params, cfg, batch)
-    buf = min(max_len, cfg.swa_window) if cfg.swa_window else max_len
-    caches = []
-    for i, p in enumerate(params["layers"]):
-        h, c = attn.prefill(p["mixer"], L.rms_norm(x, p["mixer_norm"]["scale"]),
-                            n_heads=cfg.n_heads, head_dim=cfg.head_dim,
+def _mixer_prefill(p, x, cfg: ModelConfig, mixer: str, max_len: int):
+    if mixer == "attn":
+        buf = min(max_len, cfg.swa_window) if cfg.swa_window else max_len
+        return attn.prefill(p, x, n_heads=cfg.n_heads, head_dim=cfg.head_dim,
                             rope_theta=cfg.rope_theta, window=cfg.swa_window,
                             cache_len=buf, dense_max=cfg.attn_dense_max)
-        x = _apply_mlp(p, x + h, cfg.layer_spec(i)[1])
+    if mixer == "mla":
+        return mla_mod.mla_prefill(p, x, cfg.mla, rope_theta=cfg.rope_theta,
+                                   cache_len=max_len, dense_max=cfg.attn_dense_max)
+    if mixer == "ssm":
+        return ssm_mod.ssm_forward(p, x, cfg.d_model, cfg.ssm, return_cache=True)
+    raise ValueError(mixer)
+
+
+def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int):
+    """Prefill: the full forward, building each layer's cache on the way."""
+    x = _embed_inputs(params, cfg, batch)
+    caches = []
+    for i, p in enumerate(params["layers"]):
+        mixer, mlp = cfg.layer_spec(i)
+        h, c = _mixer_prefill(p["mixer"], L.rms_norm(x, p["mixer_norm"]["scale"]), cfg,
+                              mixer, max_len)
+        x, _ = _apply_mlp(p, x + h, cfg, mlp)
         caches.append(c)
     return _final(params, cfg, x), {"layers": caches}

@@ -1,9 +1,29 @@
-"""Mixture-of-Experts: the configuration type of `repro/models/moe.py`, so
-that every config imports. Its compute (router, capacity-bounded dispatch,
-expert FFNs) is the next slice of the port (ROADMAP.md Queue 1 item 7)."""
+"""Mixture-of-Experts: top-k router and capacity-bounded scatter dispatch.
+The port of `repro/models/moe.py`.
+
+Dispatch is scatter/gather-based (no (B,S,E,C) one-hot products): tokens
+are scatter-added into a (B, E, C, d) capacity buffer, the expert SwiGLUs
+run as one product batched over E, and the results gather back with their
+routing weights. A token's rank within its expert comes from a stable sort
+and the start of its run, O(B*S*K) memory; a one-hot cumsum would hold
+S*K*E integers (8.6 TB at deepseek-v3 prefill scale). A token ranked at or
+past the capacity C is dropped: it adds an exact zero to slot C-1 and
+takes no weight at the combine, as in JAX.
+
+Router: float32 softmax top-k, the chosen probabilities renormalized over
+the k experts; it returns the Switch-style load-balance aux loss beside
+the output. (DeepSeek-V3's sigmoid, bias-free router is approximated by
+this softmax router, as in JAX.)
+"""
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import apply_mlp, init_mlp, normal
 
 
 class MoEConfig(NamedTuple):
@@ -13,3 +33,89 @@ class MoEConfig(NamedTuple):
     n_shared: int = 0
     d_ff_shared: int = 0
     capacity_factor: float = 1.25
+
+
+def init_moe(generator: torch.Generator, d_model: int, cfg: MoEConfig,
+             dtype: torch.dtype, device: torch.device) -> dict:
+    E, f = cfg.n_experts, cfg.d_ff_expert
+    s_in, s_out = d_model ** -0.5, f ** -0.5
+    p = {
+        "router": normal(generator, (d_model, E), torch.float32, device, s_in),
+        "w_gate": normal(generator, (E, d_model, f), dtype, device, s_in),
+        "w_up": normal(generator, (E, d_model, f), dtype, device, s_in),
+        "w_down": normal(generator, (E, f, d_model), dtype, device, s_out),
+    }
+    if cfg.n_shared:
+        p["shared"] = init_mlp(generator, d_model, cfg.d_ff_shared * cfg.n_shared, dtype,
+                               device)
+    return p
+
+
+def _capacity(S: int, cfg: MoEConfig) -> int:
+    c = math.ceil(cfg.top_k * S * cfg.capacity_factor / cfg.n_experts)
+    return max(8, min(c, cfg.top_k * S))  # floor for tiny decode steps
+
+
+def route(params: dict, x: torch.Tensor, cfg: MoEConfig):
+    """The float32 router: (probs (B,S,E), top_p (B,S,K) renormalized,
+    top_e (B,S,K) the chosen experts)."""
+    probs = torch.softmax(x.to(torch.float32) @ params["router"], dim=-1)
+    top_p, top_e = torch.topk(probs, cfg.top_k, dim=-1)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    return probs, top_p, top_e
+
+
+def ranks(e_flat: torch.Tensor) -> torch.Tensor:
+    """Each (B, S*K) choice's position within its expert, in token order:
+    a stable sort by expert, then the distance to the start of its run."""
+    B, n = e_flat.shape
+    order = torch.argsort(e_flat, dim=1, stable=True)
+    sorted_e = torch.gather(e_flat, 1, order)
+    idx = torch.arange(n, device=e_flat.device).expand(B, n)
+    starts = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=e_flat.device),
+                        sorted_e[:, 1:] != sorted_e[:, :-1]], dim=1)
+    run_start = torch.cummax(torch.where(starts, idx, 0), dim=1).values
+    return torch.zeros_like(e_flat).scatter_(1, order, idx - run_start)
+
+
+def apply_moe(params: dict, x: torch.Tensor, cfg: MoEConfig):
+    """x (B, S, d) -> (out (B, S, d), aux_loss float32 scalar)."""
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    C = _capacity(S, cfg)
+
+    probs, top_p, top_e = route(params, x, cfg)
+    e_flat = top_e.reshape(B, S * K)
+    rank = ranks(e_flat)
+    keep = rank < C
+    r_clip = torch.clamp(rank, max=C - 1)
+
+    # dispatch: scatter-add the kept tokens into the capacity buffer, a
+    # choice's slot being e * C + r in each row's (E * C, d) view
+    slot = (e_flat * C + r_clip)[..., None].expand(B, S * K, d)
+    x_flat = x[:, :, None, :].expand(B, S, K, d).reshape(B, S * K, d)
+    buf = torch.zeros((B, E * C, d), dtype=x.dtype, device=x.device)
+    buf.scatter_add_(1, slot, x_flat * keep[..., None].to(x.dtype))
+    buf = buf.view(B, E, C, d)
+
+    # expert SwiGLU, batched over E
+    h = F.silu(torch.einsum("becd,edf->becf", buf, params["w_gate"]))
+    h = h * torch.einsum("becd,edf->becf", buf, params["w_up"])
+    out_buf = torch.einsum("becf,efd->becd", h, params["w_down"])
+
+    # combine: gather back with the routing weights of the kept choices
+    gathered = torch.gather(out_buf.reshape(B, E * C, d), 1, slot)  # (B,SK,d)
+    w_flat = (top_p.reshape(B, S * K) * keep).to(x.dtype)
+    y = (gathered * w_flat[..., None]).reshape(B, S, K, d).sum(dim=2)
+
+    if cfg.n_shared:
+        y = y + apply_mlp(params["shared"], x)
+
+    # load-balance aux (Switch/GShard style); the first choices counted by a
+    # scatter-add, since `F.one_hot` checks its input's range on the host
+    first = top_e[..., 0].reshape(-1)
+    frac_tokens = torch.zeros(E, dtype=torch.float32, device=x.device).scatter_add_(
+        0, first, torch.ones_like(first, dtype=torch.float32)) / first.numel()
+    frac_probs = probs.mean(dim=(0, 1))
+    aux = E * torch.sum(frac_tokens * frac_probs)
+    return y, aux

@@ -58,7 +58,7 @@ def make_prefill_step(cfg: M.ModelConfig, max_len: int):
 
 def make_decode_step(cfg: M.ModelConfig):
     """decode_step(params, tokens, caches) -> (logits, caches): one new token
-    against the KV caches, which it writes in place."""
+    against the caches; the KV and latent caches are written in place."""
 
     @torch.inference_mode()
     def decode_step(params, tokens, caches):

@@ -1,12 +1,15 @@
 """The port's LM (`repro_torch/models/model.py`, `repro_torch/configs/`,
-the LM half of `repro_torch/serve/engine.py`) against JAX's on the six
-dense-family SMOKE configs (float32), with JAX's weights carried across by
-`convert.model_params_from_jax`: forward logits and hidden states, prefill
-logits and caches, 4 teacher-forced decode steps, each within 1e-4 x
-max|logits|; greedy tokens equal to JAX's, where every step's top-2 logit
-gap exceeds twice that bound (so a near-tie fails loudly); the port's own
-prefill + decode against its forward at JAX's 2e-3; the MoE, SSM and MLA
-configs refused; every config field and every input spec equal to JAX's."""
+the LM half of `repro_torch/serve/engine.py`) against JAX's on all ten
+SMOKE configs (float32), with JAX's weights carried across by
+`convert.model_params_from_jax`: forward logits and hidden states, the
+MoE aux loss and every MoE layer's chosen experts (equal, asserted before
+any output is compared, so that a flipped choice fails as a flip), prefill
+logits and caches (KV, MLA latent, SSM conv tail and state), 4
+teacher-forced decode steps, each within 1e-4 x max|logits|; greedy
+tokens equal to JAX's, where every step's top-2 logit gap exceeds twice
+that bound (so a near-tie fails loudly); the port's own prefill + decode
+against its forward at JAX's 2e-3; deepseek-v3's `mtp_logits`; every
+config field and every input spec equal to JAX's."""
 import dataclasses
 
 import jax
@@ -17,17 +20,19 @@ import torch
 
 from repro import configs as JC
 from repro.models import model as JM
+from repro.models import moe as JMoE
 from repro.serve.engine import greedy_generate as j_greedy
 from repro.serve.engine import make_decode_step as j_decode_step
 from repro.serve.engine import make_prefill_step as j_prefill_step
 from repro_torch import configs as TC
 from repro_torch.convert import model_params_from_jax
 from repro_torch.models import model as TM
+from repro_torch.models import moe as TMoE
 from repro_torch.serve.engine import greedy_generate
 
-DENSE = ["internlm2_1_8b", "deepseek_7b", "phi3_medium_14b", "qwen2_5_14b",
-         "musicgen_large", "internvl2_26b"]
-NOT_PORTED = ["mamba2_130m", "jamba_v0_1_52b", "mixtral_8x7b", "deepseek_v3_671b"]
+ARCHS = ["internlm2_1_8b", "deepseek_7b", "phi3_medium_14b", "qwen2_5_14b",
+         "musicgen_large", "internvl2_26b", "mixtral_8x7b", "mamba2_130m",
+         "jamba_v0_1_52b", "deepseek_v3_671b"]
 B, S, STEPS = 2, 12, 4
 REL = 1e-4
 
@@ -54,20 +59,50 @@ def _t(batch):
     return {k: torch.tensor(v) for k, v in batch.items()}
 
 
+def _cache_fields(c):
+    """A layer's cache as {field: numpy array} plus its int pos (None for
+    an SSM cache, which has none)."""
+    arrays = {k: v for k, v in c._asdict().items() if k != "pos"}
+    pos = getattr(c, "pos", None)
+    return arrays, pos
+
+
 def _unstack_caches(jcaches, cfg):
     """JAX's caches ({"prefix": [...], "body": [stacked]}) in the port's
-    layer order: (k, v, pos) a layer."""
+    layer order: (fields, pos) a layer."""
     out = [None] * cfg.n_layers
     for i, c in enumerate(jcaches["prefix"]):
-        out[i] = (np.asarray(c.k), np.asarray(c.v), int(c.pos))
+        arrays, pos = _cache_fields(c)
+        out[i] = ({k: np.asarray(v) for k, v in arrays.items()},
+                  None if pos is None else int(pos))
     for j, c in enumerate(jcaches["body"]):
+        arrays, pos = _cache_fields(c)
         for r in range(cfg.n_periods):
             out[cfg.dense_prefix + r * cfg.period + j] = (
-                np.asarray(c.k)[r], np.asarray(c.v)[r], int(np.asarray(c.pos)[r]))
+                {k: np.asarray(v)[r] for k, v in arrays.items()},
+                None if pos is None else int(np.asarray(pos)[r]))
     return out
 
 
-@pytest.fixture(scope="module", params=DENSE)
+def _jax_choices(jparams, jcfg, batch):
+    """JAX's forward (layers unrolled and not rematerialized, so each MoE
+    layer runs on concrete arrays) and its MoE layers' top-k experts."""
+    seen = []
+    apply_moe = JMoE.apply_moe
+
+    def record(params, x, cfg):
+        probs = jax.nn.softmax(x.astype(jnp.float32) @ params["router"], axis=-1)
+        seen.append(np.asarray(jax.lax.top_k(probs, cfg.top_k)[1]))
+        return apply_moe(params, x, cfg)
+
+    eager = dataclasses.replace(jcfg, remat=False, unroll_layers=True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JMoE, "apply_moe", record)
+        out = JM.forward(jparams, eager, _j(batch), return_hidden=True)
+    return out, seen
+
+
+@pytest.fixture(scope="module", params=ARCHS)
 def case(request):
     """One JAX init a config and every JAX result the tests compare with."""
     arch = request.param
@@ -76,7 +111,9 @@ def case(request):
     tparams = model_params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
     batch, nxt = _inputs(jcfg, 1)
     max_len = S + STEPS + 4
-    logits, _, hidden = JM.forward(jparams, jcfg, _j(batch), return_hidden=True)
+    (logits, aux, hidden), choices = _jax_choices(jparams, jcfg, batch)
+    mtp = (np.asarray(JM.mtp_logits(jparams, jcfg, hidden, _j(batch)))
+           if jcfg.mtp_depth else None)
     pre_logits, caches = JM.prefill(jparams, jcfg, _j(batch), max_len=max_len)
     pre_caches = _unstack_caches(caches, jcfg)
     decode = jax.jit(j_decode_step(jcfg))
@@ -95,6 +132,7 @@ def case(request):
     return dict(
         arch=arch, jcfg=jcfg, cfg=tcfg, jparams=jparams, params=tparams, batch=batch,
         nxt=nxt, max_len=max_len, logits=np.asarray(logits), hidden=np.asarray(hidden),
+        aux=float(aux), choices=choices, mtp=mtp,
         scale=float(np.abs(np.asarray(logits)).max()), pre_logits=np.asarray(pre_logits),
         pre_caches=pre_caches,
         step_logits=step_logits, step_caches=step_caches, greedy_logits=greedy_logits)
@@ -111,19 +149,46 @@ def _close(got, want, bound, what):
 
 def _close_caches(tcaches, jcaches, bound, what):
     assert len(tcaches["layers"]) == len(jcaches)
-    for i, (tc, (k, v, pos)) in enumerate(zip(tcaches["layers"], jcaches)):
-        _close(tc.k, k, bound, f"{what} layer {i} k")
-        _close(tc.v, v, bound, f"{what} layer {i} v")
-        assert tc.pos == pos
+    for i, (tc, (arrays, pos)) in enumerate(zip(tcaches["layers"], jcaches)):
+        got, tpos = _cache_fields(tc)
+        assert got.keys() == arrays.keys(), (what, i)
+        for k, want in arrays.items():
+            _close(got[k], want, bound, f"{what} layer {i} {k}")
+        assert tpos == pos, (what, i, tpos, pos)
+
+
+def _port_forward(case):
+    """The port's forward, with each MoE layer's top-k experts."""
+    seen = []
+    route = TMoE.route
+
+    def record(params, x, cfg):
+        out = route(params, x, cfg)
+        seen.append(out[2].numpy())
+        return out
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TMoE, "route", record)
+        out = TM.forward(case["params"], case["cfg"], _t(case["batch"]), return_hidden=True)
+    return out, seen
 
 
 def test_forward_logits_and_hidden_match_jax(case):
-    logits, aux, hidden = TM.forward(case["params"], case["cfg"], _t(case["batch"]),
-                                     return_hidden=True)
-    assert logits.dtype == torch.float32 and float(aux) == 0.0
+    (logits, aux, hidden), choices = _port_forward(case)
+    n_moe = sum(case["cfg"].layer_spec(i)[1] == "moe" for i in range(case["cfg"].n_layers))
+    assert len(choices) == len(case["choices"]) == n_moe
+    for i, (got, want) in enumerate(zip(choices, case["choices"])):
+        assert np.array_equal(got, want), f"MoE layer {i}: the chosen experts differ"
+    assert logits.dtype == torch.float32 and aux.dtype == torch.float32
+    _close(aux, case["aux"], 1e-5 * max(abs(case["aux"]), 1.0), "aux")
+    if not n_moe:
+        assert float(aux) == 0.0
     bound = REL * case["scale"]
     _close(logits, case["logits"], bound, "logits")
     _close(hidden, case["hidden"], REL * np.abs(case["hidden"]).max(), "hidden")
+    if case["mtp"] is not None:
+        mtp = TM.mtp_logits(case["params"], case["cfg"], hidden, _t(case["batch"]))
+        _close(mtp, case["mtp"], REL * np.abs(case["mtp"]).max(), "mtp_logits")
 
 
 def test_prefill_and_teacher_forced_decode_match_jax(case):
@@ -160,15 +225,6 @@ def test_own_prefill_decode_matches_own_forward(case):
     _, caches = TM.prefill(params, cfg, pre, max_len=S + 4)
     step, _ = TM.decode_step(params, cfg, batch["tokens"][:, -1], caches)
     torch.testing.assert_close(step, full[:, -1], atol=2e-3, rtol=2e-3)
-
-
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_moe_ssm_mla_configs_raise(arch):
-    cfg = TC.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        TM.init_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        TM.mtp_logits({}, cfg, torch.zeros(1), {})
 
 
 def _same_field(jv, tv):

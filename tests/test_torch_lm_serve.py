@@ -1,5 +1,7 @@
 """The port's LM serving launcher (`repro_torch/launch/serve.py`) on the
-CPU, and the feature-selection flow of `examples/feature_selection_lm.py`
+CPU for seven archs (the dense family's front ends, mixtral, mamba2, jamba
+and deepseek-v3), its default arch (JAX's, mixtral-8x7b), and the
+feature-selection flow of `examples/feature_selection_lm.py`
 (a frozen LM's last-position hidden states as the design matrix of a
 sparse Elastic Net fit, p = d_model > n) at SMOKE width: the port's hidden
 states within 1e-4 x max|h| of JAX's on JAX's weights, and the port's
@@ -29,7 +31,9 @@ from repro_torch.models import model as M
 N_SEQ, SEQ, LAMBDA2 = 48, 32, 0.5
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "musicgen-large", "internvl2-26b"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "musicgen-large", "internvl2-26b",
+                                  "mixtral-8x7b", "mamba2-130m", "jamba-v0.1-52b",
+                                  "deepseek-v3-671b"])
 def test_launcher_runs_on_the_cpu(arch, capsys):
     argv = ["--arch", arch, "--batch", "2", "--prompt-len", "8", "--gen", "3",
             "--device", "cpu"]
@@ -43,6 +47,10 @@ def test_launcher_runs_on_the_cpu(arch, capsys):
     assert int(res.tokens.min()) >= 0 and int(res.tokens.max()) < cfg.vocab_size
     # the same seeds give the same tokens
     assert torch.equal(launcher.serve(argv).tokens, res.tokens)
+
+
+def test_launcher_default_arch_is_jax_s():
+    assert launcher._parser().parse_args([]).arch == "mixtral-8x7b"
 
 
 def test_launcher_smoke_flag():
