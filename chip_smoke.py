@@ -2493,31 +2493,6 @@ LM_OTHERS = ("deepseek-7b", "phi3-medium-14b", "qwen2.5-14b", "musicgen-large",
              "internvl2-26b")
 
 
-def map_params(tree, fn):
-    """The parameter tree with fn applied to every tensor."""
-    if isinstance(tree, dict):
-        return {k: map_params(v, fn) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [map_params(v, fn) for v in tree]
-    return fn(tree)
-
-
-def param_count(tree) -> int:
-    if isinstance(tree, dict):
-        return sum(param_count(v) for v in tree.values())
-    if isinstance(tree, list):
-        return sum(param_count(v) for v in tree)
-    return tree.numel()
-
-
-def param_bytes(tree) -> int:
-    if isinstance(tree, dict):
-        return sum(param_bytes(v) for v in tree.values())
-    if isinstance(tree, list):
-        return sum(param_bytes(v) for v in tree)
-    return tree.numel() * tree.element_size()
-
-
 def teacher_forced(torch, M, params, cfg, batch, steps):
     """[(decode logits, forward logits)] for the last `steps` text tokens of
     `batch`: a prefill of the rest, then a decode step a token, each beside
@@ -2543,6 +2518,70 @@ def decode_vs_forward(pairs) -> float:
     return max(((a - b).abs() - LM_DECODE_TOL * b.abs()).max().item() for a, b in pairs)
 
 
+def hidden_state_probe(torch, smoke, kernels, svm_state, count, params, cfg, dev, label,
+                       what, with_cd: bool = True) -> None:
+    """The feature-selection flow on `params`' hidden states (15d, 17f): X
+    = the last-position hidden states of FS_SEQS random sequences of
+    FS_LEN tokens, float64, standardized; y from FS_TRUE true units plus
+    noise; CD on the CPU at a quarter of lambda1_max, then `sven` on the
+    card at t = |beta_cd|_1 against the plain float64 backend and CD.
+    Without `with_cd`, t is half the true units' l1 norm and CD is not
+    run (on a trained model's hidden states it does not converge in its
+    2,000 sweeps)."""
+    from repro_torch.baselines import elastic_net_cd
+    from repro_torch.core.elastic_net import lambda1_max
+    from repro_torch.core.sven import SvenConfig, sven
+    from repro_torch.models import model as M
+
+    gen = torch.Generator(dev).manual_seed(2)
+    fs_toks = torch.randint(0, cfg.vocab_size, (FS_SEQS, FS_LEN), generator=gen, device=dev)
+    with torch.inference_mode():
+        _, _, h = M.forward(params, cfg, {"tokens": fs_toks}, return_hidden=True)
+    X = h[:, -1, :].to(torch.float64)
+    X = (X - X.mean(0)) / (X.std(0, correction=0) + 1e-9)
+    true_idx = torch.randperm(cfg.d_model, generator=gen, device=dev)[:FS_TRUE]
+    w = torch.randn(FS_TRUE, generator=gen, dtype=torch.float64, device=dev)
+    y = X[:, true_idx] @ w + 0.05 * torch.randn(FS_SEQS, generator=gen, dtype=torch.float64,
+                                                device=dev)
+    y = y - y.mean()
+    del h
+    if with_cd:
+        t0 = time.perf_counter()
+        cd = elastic_net_cd(X.cpu(), y.cpu(), 0.25 * float(lambda1_max(X, y)), FS_LAMBDA2)
+        cd_text = f"CD on the CPU {cd.sweeps} sweeps, {time.perf_counter() - t0:.2f} s"
+        beta_cd = cd.beta.to(dev)
+        t = float(beta_cd.abs().sum())
+    else:
+        cd_text, t = "no CD", 0.5 * float(w.abs().sum())
+    sol, secs, launched, syncs = run_path(torch, kernels, svm_state,
+                                          lambda: sven(X, y, t, FS_LAMBDA2))
+    dead = svm_state.cg_lanes.dead
+    count(launched)
+    ref, ref_s, _, _ = run_path(torch, kernels, svm_state,
+                                lambda: sven(X, y, t, FS_LAMBDA2, SvenConfig(backend="torch")))
+    picked = set(torch.nonzero(sol.beta.abs() > 1e-6).flatten().tolist())
+    hit = len(set(true_idx.tolist()) & picked)
+    print(f"[{label}] feature selection: X = last-position hidden states ({FS_SEQS}, "
+          f"{cfg.d_model}) of {what}, float64, standardized; {cd_text}; t {t:.4f}; sven: mode {sol.mode}, {sol.iters} Newton / "
+          f"{sol.cg_iters} CG + {dead} dead, {secs:.3f} s, {syncs} host syncs, launches "
+          f"{launched}; torch backend {ref_s:.3f} s; {len(picked)} selected, recovered "
+          f"{hit}/{FS_TRUE} true units", flush=True)
+    smoke.check(sol.mode == "primal", f"{label}: p = d_model > n takes the primal branch")
+    smoke.check(launched["hinge_xtv_cuda"] == launched["hinge_xd_cuda"]
+                == sol.cg_iters + dead > 0, f"{label}: one launch of each hinge pass per H v "
+                f"product: CG steps {sol.cg_iters} + dead steps {dead}")
+    scale = ref.beta.abs().max().item()
+    dev_b = max_dev(torch, sol.beta, ref.beta)
+    smoke.check(dev_b <= FS_TORCH_TOL * scale, f"{label}: max|beta - beta_torch| = {dev_b:.3e} "
+                f"<= {FS_TORCH_TOL} x max|beta| = {FS_TORCH_TOL * scale:.3e}")
+    if not with_cd:
+        return
+    scale = beta_cd.abs().max().item()
+    dev_cd = max_dev(torch, sol.beta, beta_cd)
+    smoke.check(dev_cd <= FS_CD_TOL * scale, f"{label}: max|beta - beta_cd| = {dev_cd:.3e} <= "
+                f"{FS_CD_TOL} x max|beta_cd| = {FS_CD_TOL * scale:.3e}")
+
+
 def phase_lm(torch, smoke, kernels, svm_state, count, dev, card: str) -> None:
     """Phase 15: the LM serving path (dense-attention family). 15a the
     launcher at internlm2-1.8b's full width in bf16, twice; 15b float32
@@ -2550,12 +2589,10 @@ def phase_lm(torch, smoke, kernels, svm_state, count, dev, card: str) -> None:
     15c the card against the CPU at 2 layers; 15d the feature-selection
     flow on the bf16 model's hidden states, solved by `sven` on the hinge
     kernels; 15e the five other dense-family SMOKE configs."""
-    from repro_torch.baselines import elastic_net_cd
     from repro_torch.configs import get_config
-    from repro_torch.core.elastic_net import lambda1_max
-    from repro_torch.core.sven import SvenConfig, sven
     from repro_torch.launch import serve as launcher
     from repro_torch.models import model as M
+    from repro_torch.utils import tree_map, tree_size
 
     t_phase = time.perf_counter()
     cfg = get_config(LM_ARCH)
@@ -2584,8 +2621,8 @@ def phase_lm(torch, smoke, kernels, svm_state, count, dev, card: str) -> None:
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32, param_dtype=torch.float32)
     cfg16 = dataclasses.replace(cfg, dtype=torch.bfloat16, param_dtype=torch.bfloat16)
     draw = M.init_model(cfg32, generator=torch.Generator(dev).manual_seed(0), device=dev)
-    p16 = map_params(draw, lambda t: t.to(torch.bfloat16))
-    n_params = param_count(p16)
+    p16 = tree_map(lambda t: t.to(torch.bfloat16), draw)
+    n_params = tree_size(p16)
     print(f"[15b] {LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {vocab}: "
           f"{n_params:,} parameters, {2 * n_params / 1e9:.2f} GB in bf16; float32 "
           f"(TF32 {torch.backends.cuda.matmul.allow_tf32}) and bf16 on the same weights",
@@ -2597,7 +2634,7 @@ def phase_lm(torch, smoke, kernels, svm_state, count, dev, card: str) -> None:
     with torch.inference_mode():
         l_draw = M.prefill(draw, cfg32, prompt, max_len=LM_PROMPT + 4)[0][:, -1]
     del draw
-    p32 = map_params(p16, lambda t: t.to(torch.float32))
+    p32 = tree_map(lambda t: t.to(torch.float32), p16)
     worst = decode_vs_forward(teacher_forced(torch, M, p32, cfg32, batch, LM_STEPS))
     smoke.check(worst <= LM_DECODE_TOL,
                 f"15b: float32 decode logits at {LM_STEPS} teacher-forced steps match "
@@ -2624,7 +2661,7 @@ def phase_lm(torch, smoke, kernels, svm_state, count, dev, card: str) -> None:
     with torch.inference_mode():
         on_card = M.forward(p2, cfg2, b2)[0].cpu()
         t0 = time.perf_counter()
-        on_cpu = M.forward(map_params(p2, lambda t: t.cpu()), cfg2,
+        on_cpu = M.forward(tree_map(lambda t: t.cpu(), p2), cfg2,
                            {"tokens": b2["tokens"].cpu()})[0]
         cpu_s = time.perf_counter() - t0
     scale = on_cpu.abs().max().item()
@@ -2639,49 +2676,9 @@ def phase_lm(torch, smoke, kernels, svm_state, count, dev, card: str) -> None:
     torch.cuda.empty_cache()
 
     # -- 15d: feature selection on the bf16 model's hidden states ------------------
-    gen = torch.Generator(dev).manual_seed(2)
-    fs_toks = torch.randint(0, vocab, (FS_SEQS, FS_LEN), generator=gen, device=dev)
-    with torch.inference_mode():
-        _, _, h = M.forward(p16, cfg16, {"tokens": fs_toks}, return_hidden=True)
-    X = h[:, -1, :].to(torch.float64)
-    X = (X - X.mean(0)) / (X.std(0, correction=0) + 1e-9)
-    true_idx = torch.randperm(cfg.d_model, generator=gen, device=dev)[:FS_TRUE]
-    w = torch.randn(FS_TRUE, generator=gen, dtype=torch.float64, device=dev)
-    y = X[:, true_idx] @ w + 0.05 * torch.randn(FS_SEQS, generator=gen, dtype=torch.float64,
-                                                device=dev)
-    y = y - y.mean()
-    del h, p16
-    t0 = time.perf_counter()
-    cd = elastic_net_cd(X.cpu(), y.cpu(), 0.25 * float(lambda1_max(X, y)), FS_LAMBDA2)
-    cd_s = time.perf_counter() - t0
-    beta_cd = cd.beta.to(dev)
-    t = float(beta_cd.abs().sum())
-    sol, secs, launched, syncs = run_path(torch, kernels, svm_state,
-                                          lambda: sven(X, y, t, FS_LAMBDA2))
-    dead = svm_state.cg_lanes.dead
-    count(launched)
-    ref, ref_s, _, _ = run_path(torch, kernels, svm_state,
-                                lambda: sven(X, y, t, FS_LAMBDA2, SvenConfig(backend="torch")))
-    picked = set(torch.nonzero(sol.beta.abs() > 1e-6).flatten().tolist())
-    hit = len(set(true_idx.tolist()) & picked)
-    print(f"[15d] feature selection: X = last-position hidden states ({FS_SEQS}, "
-          f"{cfg.d_model}) of the bf16 model, float64, standardized; CD on the CPU "
-          f"{cd.sweeps} sweeps, {cd_s:.2f} s; sven: mode {sol.mode}, {sol.iters} Newton / "
-          f"{sol.cg_iters} CG + {dead} dead, {secs:.3f} s, {syncs} host syncs, launches "
-          f"{launched}; torch backend {ref_s:.3f} s; {len(picked)} selected, recovered "
-          f"{hit}/{FS_TRUE} true units", flush=True)
-    smoke.check(sol.mode == "primal", "15d: p = d_model > n takes the primal branch")
-    smoke.check(launched["hinge_xtv_cuda"] == launched["hinge_xd_cuda"]
-                == sol.cg_iters + dead > 0, "15d: one launch of each hinge pass per H v "
-                f"product: CG steps {sol.cg_iters} + dead steps {dead}")
-    scale = ref.beta.abs().max().item()
-    dev_b = max_dev(torch, sol.beta, ref.beta)
-    smoke.check(dev_b <= FS_TORCH_TOL * scale, f"15d: max|beta - beta_torch| = {dev_b:.3e} "
-                f"<= {FS_TORCH_TOL} x max|beta| = {FS_TORCH_TOL * scale:.3e}")
-    scale = beta_cd.abs().max().item()
-    dev_cd = max_dev(torch, sol.beta, beta_cd)
-    smoke.check(dev_cd <= FS_CD_TOL * scale, f"15d: max|beta - beta_cd| = {dev_cd:.3e} <= "
-                f"{FS_CD_TOL} x max|beta_cd| = {FS_CD_TOL * scale:.3e}")
+    hidden_state_probe(torch, smoke, kernels, svm_state, count, p16, cfg16, dev, "15d",
+                       "the bf16 model")
+    del p16
     torch.cuda.empty_cache()
 
     # -- 15e: the other dense-family configs at SMOKE size -------------------------
@@ -2734,7 +2731,9 @@ def peak_text(torch, dev) -> str:
 def decode_bound(params, cfg, moe_mod) -> str:
     """The least time of a decode step: every expert runs on C slots (C >=
     1 at S = 1), so a step reads every weight but the MTP module's."""
-    nbytes = param_bytes(params) - param_bytes(params.get("mtp", {}))
+    from repro_torch.utils import tree_bytes
+
+    nbytes = tree_bytes(params) - tree_bytes(params.get("mtp", {}))
     return (f"A decode step runs every expert on C = {moe_mod._capacity(1, cfg.moe)} slots, "
             f"so it reads every weight but MTP's, {nbytes / 1e9:.3f} GB: bound "
             f"{nbytes / PEAK_BYTES_PER_S * 1e3:.3f} ms a step = "
@@ -2767,9 +2766,11 @@ def report_runs(torch, smoke, runs, vocab, dev, card, label) -> None:
 def card_vs_cpu(torch, smoke, M, params, cfg, tokens, label) -> None:
     """The forward of `tokens` on `params` and on a CPU copy of them:
     logits within LM_CPU_TOL x max|logits|."""
+    from repro_torch.utils import tree_map
+
     with torch.inference_mode():
         on_card = M.forward(params, cfg, {"tokens": tokens})[0].cpu()
-        cpu_params = map_params(params, lambda t: t.cpu())
+        cpu_params = tree_map(lambda t: t.cpu(), params)
         t0 = time.perf_counter()
         on_cpu = M.forward(cpu_params, cfg, {"tokens": tokens.cpu()})[0]
         secs = time.perf_counter() - t0
@@ -2837,6 +2838,7 @@ def phase_lm_moe(torch, smoke, dev, card: str) -> None:
     from repro_torch.models import mla as mla_mod
     from repro_torch.models import model as M
     from repro_torch.models import moe as moe_mod
+    from repro_torch.utils import tree_bytes, tree_map, tree_size
 
     t_phase = time.perf_counter()
 
@@ -2848,8 +2850,8 @@ def phase_lm_moe(torch, smoke, dev, card: str) -> None:
     print(f"[16a] {MOE_ARCH}: {cfg.n_layers} of {full.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads, SWA {cfg.swa_window}, "
           f"{cfg.moe.n_experts} experts of d_ff {cfg.moe.d_ff_expert} top-{cfg.moe.top_k}, vocab "
-          f"{cfg.vocab_size}: {param_count(params):,} parameters, "
-          f"{param_bytes(params) / 1e9:.3f} GB in bf16. {decode_bound(params, cfg, moe_mod)}",
+          f"{cfg.vocab_size}: {tree_size(params):,} parameters, "
+          f"{tree_bytes(params) / 1e9:.3f} GB in bf16. {decode_bound(params, cfg, moe_mod)}",
           flush=True)
     serve_twice(torch, smoke, launcher, cfg, params, dev, card, "16a")
     del params
@@ -2871,7 +2873,7 @@ def phase_lm_moe(torch, smoke, dev, card: str) -> None:
     settle(torch, dev, reset_peak=True)
     p32 = M.init_model(cfg32, generator=torch.Generator(dev).manual_seed(0), device=dev)
     print(f"[16b] {MOE_ARCH} in float32, 1 layer, capacity factor "
-          f"{cfg32.moe.capacity_factor} (C >= S): {4 * param_count(p32) / 1e9:.3f} GB", flush=True)
+          f"{cfg32.moe.capacity_factor} (C >= S): {4 * tree_size(p32) / 1e9:.3f} GB", flush=True)
     decode_check(torch, smoke, M, p32, cfg32, dev, "16b")
     chosen = []
     route = moe_mod.route
@@ -2893,10 +2895,10 @@ def phase_lm_moe(torch, smoke, dev, card: str) -> None:
     # bf16 against float32 on the same (bf16-rounded) weights, the router
     # float32 in both: printed, not gated, since a near-tie of the router
     # may choose another expert in bf16 and move that token by O(1)
-    p16 = map_params(p32, lambda t: t.to(torch.bfloat16))
+    p16 = tree_map(lambda t: t.to(torch.bfloat16), p32)
     for l32, l16 in zip(p32["layers"], p16["layers"]):
         l16["mlp"]["router"] = l32["mlp"]["router"]
-    widened = map_params(p16, lambda t: t.to(torch.float32))
+    widened = tree_map(lambda t: t.to(torch.float32), p16)
     cfg16 = dataclasses.replace(cfg32, dtype=torch.bfloat16, param_dtype=torch.bfloat16)
     prompt = {"tokens": lm_tokens(torch, cfg32, (LM_BATCH, LM_PROMPT), 1, dev)}
     chosen.clear()
@@ -2964,7 +2966,7 @@ def phase_lm_moe(torch, smoke, dev, card: str) -> None:
           f"{cfg.mla.n_heads} heads, ranks {cfg.mla.q_lora_rank} / {cfg.mla.kv_lora_rank}, "
           f"{cfg.moe.n_experts} experts of d_ff {cfg.moe.d_ff_expert} top-{cfg.moe.top_k} + "
           f"{cfg.moe.n_shared} shared, vocab {cfg.vocab_size}, MTP depth {cfg.mtp_depth}: "
-          f"{param_count(params):,} parameters, {param_bytes(params) / 1e9:.3f} GB in bf16. "
+          f"{tree_size(params):,} parameters, {tree_bytes(params) / 1e9:.3f} GB in bf16. "
           f"{decode_bound(params, cfg, moe_mod)}", flush=True)
     serve_twice(torch, smoke, launcher, cfg, params, dev, card, "16d")
     b = launcher.make_batch(cfg, LM_BATCH, LM_PROMPT, torch.Generator(dev).manual_seed(1), dev)
@@ -3082,6 +3084,424 @@ def lm_only(torch) -> int:
           flush=True)
     for f in smoke.failures:
         print(f"  FAILED {f}", flush=True)
+    return 1 if smoke.failures else 0
+
+
+#: phase 17: the LM training path
+TRAIN_ARCH, TRAIN_STEPS = "internlm2-1.8b", 20
+TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--log-every", "5"]
+TRAIN_CPU_LAYERS = 2          # 17b's depth cut
+TRAIN_CPU_SHAPE = (4, 64)     # 17b's batch and sequence
+TRAIN_LOSS_TOL = 1e-5         # relative: a step's loss and metrics, the card against the CPU
+TRAIN_GRAD_TOL = 1e-4         # x max|g|: 15c's and 16b's card-against-CPU bound
+TRAIN_OPT_TOL = 1e-6          # x max: AdamW on identical gradients, the card against the CPU
+TRAIN_RESTART_TOL = 1e-4      # JAX's restart-exactness bound (tests/test_fault_tolerance.py)
+TRAIN_FAULT_AT = 12           # 17c: 20 steps, a checkpoint every 10
+MOE_TRAIN_STEPS = 5           # 17d: mixtral-8x7b at full width, 1 layer
+SMOKE_TRAIN_SHAPE = (4, 32)   # 17e's batch and sequence
+
+
+def sync_recorder(torch):
+    """A `TorchDispatchMode` that records each aten op during which the CUDA
+    sync debug mode ("warn") warned, with whether autograd's backward ran
+    it (built here, since its base class needs torch)."""
+    import warnings
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Recorder(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.hits = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                out = func(*args, **(kwargs or {}))
+            if any("synchroniz" in str(w.message) for w in caught):
+                in_backward = torch._C._current_graph_task_id() != -1
+                self.hits.append((str(func), "backward" if in_backward else "forward"))
+            return out
+
+    return Recorder()
+
+
+def step_syncs(torch, fn):
+    """fn() under `torch.cuda.set_sync_debug_mode("warn")`: (its result, the
+    ops that synchronized outside autograd's backward, those inside it,
+    and the Python stacks of the sync warnings no op caught)."""
+    import traceback
+    import warnings
+
+    torch.cuda.synchronize()
+    rec = sync_recorder(torch)
+    stray = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            stray.append("".join(traceback.format_stack(limit=10)[:-1]))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")          # setting the mode warns of itself
+        torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            with rec:
+                out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    forward = [op for op, where in rec.hits if where == "forward"]
+    backward = [op for op, where in rec.hits if where == "backward"]
+    return out, forward, backward, stray
+
+
+def train_bound_ms(n_params: int, tokens: int, remat: bool) -> float:
+    """The least time of a training step: 6 N FLOPs a token (8 N when the
+    forward runs twice, under remat) at the card's bf16 peak."""
+    return (8 if remat else 6) * n_params * tokens / PEAK_FLOPS["bf16"] * 1e3
+
+
+def trained_run_text(torch, res, cfg, dev, n_tokens) -> str:
+    """A launcher run's median step against the bound, and peak memory."""
+    import statistics
+
+    from repro_torch.utils import tree_size
+
+    med = statistics.median(res.step_s) * 1e3
+    bound = train_bound_ms(tree_size(res.params), n_tokens, cfg.remat)
+    return (f"median step {med:.3f} ms (first {res.step_s[0] * 1e3:.3f} ms) = "
+            f"{n_tokens / med * 1e3:.1f} tokens/s; bound {bound:.3f} ms = "
+            f"{n_tokens / bound * 1e3:.1f} tokens/s ({8 if cfg.remat else 6} N FLOPs a "
+            f"token at {PEAK_FLOPS['bf16'] / 1e12:.0f} TFLOP/s), "
+            f"{bound / med:.4f} of it; {peak_text(torch, dev)}")
+
+
+def captured(fn):
+    """(fn(), what it printed), the printed lines echoed indented."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    text = buf.getvalue()
+    for line in text.strip().splitlines():
+        print(f"      {line}", flush=True)
+    return out, text
+
+
+def tree_dev(torch, got, want) -> float:
+    """max|got - want| over two trees of one structure (want's leaves on
+    the CPU) in units of max|want|."""
+    from repro_torch.utils import tree_leaves
+
+    pairs = list(zip(tree_leaves(got), tree_leaves(want)))
+    scale = max(w.abs().max().item() for _, w in pairs)
+    return max((g.cpu().double() - w.double()).abs().max().item() for g, w in pairs) / scale
+
+
+def phase_train(torch, smoke, kernels, svm_state, count, dev, card: str) -> None:
+    """Phase 17: the LM training path. 17a `launch.train` at internlm2-1.8b's
+    full width and depth in bf16 with remat, TRAIN_STEPS steps: a falling
+    loss, one step under the sync debug mode, one step traced; 17f the
+    feature-selection flow on its trained hidden states (the hinge
+    kernels); 17b its float32 model at 2 layers, one step's loss, metrics
+    and gradients and an AdamW update, the card against the CPU; 17c
+    mamba2-130m whole through the launcher: a fault at step 12 survived,
+    and a run stopped at step 10 resumed to the same loss; 17d
+    mixtral-8x7b at full width, 1 layer, MOE_TRAIN_STEPS steps; 17e one
+    float32 step of each SMOKE config, the card against the CPU. Runs on
+    the CPU too (`rehearse_train`)."""
+    import math
+    import statistics
+    import tempfile
+
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch, synthetic_numpy
+    from repro_torch.launch import train as launcher
+    from repro_torch.optim import adamw_init, constant_lr, warmup_cosine
+    from repro_torch.optim.adamw import adamw_update, clip_by_global_norm
+    from repro_torch.train.step import grads_and_metrics, make_train_step
+    from repro_torch.utils import tree_bytes, tree_leaves, tree_map, tree_size
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+
+    # -- 17a: internlm2-1.8b at full width and depth, bf16, remat -----------------
+    cfg = get_config(TRAIN_ARCH)
+    args = launcher._parser().parse_args(TRAIN_ARGV)
+    n_tokens = args.batch * args.seq
+    settle(torch, dev, reset_peak=True)
+    print(f"[17a] python -m repro_torch.launch.train {' '.join(TRAIN_ARGV)} (bf16, remat "
+          f"{cfg.remat_policy if cfg.remat else 'off'}; batch {args.batch}, seq {args.seq}, "
+          f"lr {args.lr} warmup_cosine)", flush=True)
+    res = launcher.train_config(cfg, args, dev)
+    n_params = tree_size(res.params)
+    text = trained_run_text(torch, res, cfg, dev, n_tokens)
+    first, last = statistics.mean(res.losses[:5]), statistics.mean(res.losses[-5:])
+    print(f"    {cfg.n_layers} layers, {n_params:,} parameters ({tree_bytes(res.params) / 1e9:.3f}"
+          f" GB); losses {[round(x, 4) for x in res.losses]}; {text}; {card}", flush=True)
+    smoke.check(len(res.losses) == TRAIN_STEPS and all(math.isfinite(x) for x in res.losses),
+                f"17a: {TRAIN_STEPS} losses, every one finite")
+    smoke.check(last < first, f"17a: the mean of the last 5 losses {last:.4f} < the first "
+                f"5's {first:.4f}")
+    step_fn = make_train_step(cfg, lr_schedule=warmup_cosine(args.lr, 10, TRAIN_STEPS))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq, global_batch=args.batch)
+    batch = synthetic_batch(dcfg, TRAIN_STEPS, device=dev)
+    params, opt = res.params, res.opt_state
+    del res
+    if on_card:
+        settle(torch, dev)
+        out, fwd, bwd, stray = step_syncs(torch, lambda: step_fn(params, opt, batch))
+        del out
+        settle(torch, dev)
+        from collections import Counter
+        in_autograd = [w for w in stray if f"torch{os.sep}autograd" in w]
+        ours = [w for w in stray if w not in in_autograd]
+        print(f"    one step under the sync debug mode: synchronizing ops outside backward "
+              f"{dict(Counter(fwd))}; inside PyTorch's backward (not gated) "
+              f"{dict(Counter(bwd))}; warnings no op caught: {len(in_autograd)} from "
+              f"autograd (not gated), {len(ours)} elsewhere", flush=True)
+        for stack in stray:
+            print("      a sync warning no op caught, at:\n" + stack, flush=True)
+        smoke.check(not fwd and not ours,
+                    "17a: a train step makes no synchronizing CUDA call from the port's own "
+                    "code (forward, loss, clip, schedule, AdamW)")
+        # one step traced: launches, device busy, idle share
+        from torch.profiler import ProfilerActivity, profile
+        out_dir = ROOT / "build" / "train-trace"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        path = out_dir / "step.json"
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        del out
+        prof.export_chrome_trace(str(path))
+        del prof
+        sp = trace_split(path, secs, 1)
+        path.unlink()
+        ops = ", ".join(f"{name} {k:.0f}" for name, k in list(sp["by_op"].items())[:12])
+        print(f"    one step traced: wall {sp['wall_us'] / 1e3:.3f} ms = launch calls "
+              f"{sp['launch_us'] / 1e3:.3f} ms ({sp['launch_calls']:.0f}) + reads "
+              f"{sp['read_us'] / 1e3:.3f} + other host {sp['other_host_us'] / 1e3:.3f}; "
+              f"device busy {sp['busy_us'] / 1e3:.3f} ms, idle share {sp['idle']:.3f}; "
+              f"{sp['launches']:.0f} device launches a step: {ops}; {card}", flush=True)
+        settle(torch, dev)
+
+    # -- 17f: feature selection on the trained model's hidden states ---------------
+    del opt
+    settle(torch, dev)
+    hidden_state_probe(torch, smoke, kernels, svm_state, count, params, cfg, dev, "17f",
+                       f"the model trained {TRAIN_STEPS} steps (17a)", with_cd=False)
+    del params, batch, step_fn
+    settle(torch, dev)
+
+    # -- 17b: the float32 model at 2 layers, the card against the CPU --------------
+    cfg32 = f32_of(torch, cfg, n_layers=TRAIN_CPU_LAYERS)
+    cpu_params = init_on_cpu(torch, cfg32)
+    on_dev = tree_map(lambda t: t.to(dev), cpu_params)
+    B, S = TRAIN_CPU_SHAPE
+    data = synthetic_numpy(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B), 0)
+    g_dev, m_dev = grads_and_metrics(on_dev, cfg32, {k: torch.from_numpy(v).to(dev)
+                                                     for k, v in data.items()})
+    t0 = time.perf_counter()
+    g_cpu, m_cpu = grads_and_metrics(cpu_params, cfg32, {k: torch.from_numpy(v)
+                                                         for k, v in data.items()})
+    cpu_s = time.perf_counter() - t0
+    loss_rel = max(abs(m_dev[k].item() - m_cpu[k].item()) / max(abs(m_cpu[k].item()), 1e-6)
+                   for k in m_cpu)
+    g_rel = tree_dev(torch, g_dev, g_cpu)
+    del g_dev
+    print(f"[17b] {TRAIN_ARCH} float32 at {TRAIN_CPU_LAYERS} layers, batch {B} x {S}: loss "
+          f"{m_cpu['loss'].item():.6f}; metrics, the card against the CPU, {loss_rel:.3e} "
+          f"relative; gradients {g_rel:.3e} x max|g| (CPU forward and backward {cpu_s:.2f} s)",
+          flush=True)
+    smoke.check(loss_rel <= TRAIN_LOSS_TOL, f"17b: loss and metrics on the card within "
+                f"{TRAIN_LOSS_TOL} relative of the CPU's ({loss_rel:.3e})")
+    smoke.check(g_rel <= TRAIN_GRAD_TOL, f"17b: every gradient on the card within "
+                f"{TRAIN_GRAD_TOL} x max|g| of the CPU's ({g_rel:.3e} x)")
+    # AdamW on the CPU's gradients, clipped on each side: the new parameters
+    # and moments (the update itself printed, in units of its own max)
+    lr = constant_lr(args.lr)
+    upd = {}
+    for where, params_w in (("card", on_dev), ("cpu", cpu_params)):
+        grads_w = tree_map(lambda g: g.to(params_w["embed"]["table"].device), g_cpu)
+        clipped, _ = clip_by_global_norm(grads_w, 1.0)
+        state = adamw_init(params_w)
+        new, st = adamw_update(clipped, state, params_w, lr=lr(state.count))
+        upd[where] = (new, st.m, st.v, tree_map(lambda a, b: a - b, new, params_w))
+    dev_opt = [tree_dev(torch, upd["card"][i], upd["cpu"][i]) for i in range(4)]
+    differ = sum(int((a.cpu() != b).sum()) for a, b in zip(tree_leaves(upd["card"][0]),
+                                                           tree_leaves(upd["cpu"][0])))
+    print(f"    AdamW on the CPU's gradients (lr {args.lr}), the card against the CPU: "
+          f"parameters {dev_opt[0]:.3e}, m {dev_opt[1]:.3e}, v {dev_opt[2]:.3e} x each's max; "
+          f"{differ:,} of {tree_size(cpu_params):,} parameters differ; the update "
+          f"{dev_opt[3]:.3e} x max|update| (not gated)", flush=True)
+    smoke.check(max(dev_opt[:3]) <= TRAIN_OPT_TOL, f"17b: AdamW's new parameters and moments "
+                f"on the card within {TRAIN_OPT_TOL} x of the CPU's ({max(dev_opt[:3]):.3e} x)")
+    del on_dev, cpu_params, g_cpu, upd
+    settle(torch, dev)
+
+    # -- 17c: mamba2-130m whole through the launcher: a fault, a restart -----------
+    base = ["--arch", SSM_ARCH, "--steps", str(TRAIN_STEPS), "--ckpt-every", "10",
+            "--log-every", "5"]
+    if not on_card:
+        base += ["--device", "cpu"]
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as tmp:
+        faulted = base + ["--ckpt-dir", os.path.join(tmp, "a"), "--inject-fault-at",
+                          str(TRAIN_FAULT_AT)]
+        print(f"[17c] python -m repro_torch.launch.train {' '.join(faulted)}", flush=True)
+        t0 = time.perf_counter()
+        res_a, out_a = captured(lambda: launcher.train(faulted))
+        a_s = time.perf_counter() - t0
+        text_a = trained_run_text(torch, res_a, get_config(SSM_ARCH), dev, n_tokens)
+        loss_a = res_a.loss
+        del res_a
+        cut = [a if a != str(TRAIN_STEPS) else "10" for a in base] + [
+            "--ckpt-dir", os.path.join(tmp, "b")]
+        print(f"    then {' '.join(cut)}, and again with --steps {TRAIN_STEPS}", flush=True)
+        _, out_b = captured(lambda: launcher.train(cut))
+        res_c, out_c = captured(lambda: launcher.train(base + ["--ckpt-dir",
+                                                               os.path.join(tmp, "b")]))
+    gap = abs(res_c.loss - loss_a)
+    print(f"    faulted run {a_s:.1f} s, {text_a}; resumed against faulted final loss "
+          f"|d| = {gap:.3e} (bitwise equal: {gap == 0}); {card}", flush=True)
+    smoke.check(f"[supervisor] step {TRAIN_FAULT_AT} failed (injected node failure); retry 1"
+                in out_a and f"[train] done at step {TRAIN_STEPS}," in out_a,
+                f"17c: the supervisor survived the fault at step {TRAIN_FAULT_AT} and the run "
+                f"reached step {TRAIN_STEPS}")
+    smoke.check("[train] done at step 10," in out_b and "[train] resumed from step 10" in out_c
+                and f"[train] done at step {TRAIN_STEPS}," in out_c,
+                "17c: a run stopped at step 10 resumed from its checkpoint")
+    smoke.check(gap < TRAIN_RESTART_TOL, f"17c: the resumed run's final loss within "
+                f"{TRAIN_RESTART_TOL} of the faulted run's ({gap:.3e})")
+    del res_c
+    settle(torch, dev, reset_peak=True)
+
+    # -- 17d: mixtral-8x7b at full width, 1 layer, bf16 -----------------------------
+    moe_cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=1)
+    moe_args = launcher._parser().parse_args(["--arch", MOE_ARCH, "--steps",
+                                              str(MOE_TRAIN_STEPS), "--log-every", "1"])
+    print(f"[17d] {MOE_ARCH} at full width, 1 layer, bf16, {MOE_TRAIN_STEPS} steps through "
+          "launch.train.train_config", flush=True)
+    res = launcher.train_config(moe_cfg, moe_args, dev)
+    aux = res.metrics["aux"].item()
+    text = trained_run_text(torch, res, moe_cfg, dev, n_tokens)
+    print(f"    {tree_size(res.params):,} parameters; losses "
+          f"{[round(x, 4) for x in res.losses]}, last aux {aux:.4f}; {text}; {card}", flush=True)
+    smoke.check(len(res.losses) == MOE_TRAIN_STEPS and all(math.isfinite(x) for x in res.losses)
+                and math.isfinite(aux), f"17d: {MOE_TRAIN_STEPS} losses and the aux loss finite")
+    del res
+    settle(torch, dev)
+
+    # -- 17e: every SMOKE config, one float32 step, the card against the CPU -------
+    B, S = SMOKE_TRAIN_SHAPE
+    worst_loss = worst_norm = 0.0
+    for arch in ARCHS:
+        c = get_config(arch, smoke=True)
+        s_txt = S - c.vision_tokens if c.frontend == "patches" else S
+        data = synthetic_numpy(DataConfig(
+            vocab_size=c.vocab_size, seq_len=s_txt, global_batch=B,
+            n_codebooks=c.n_codebooks if c.frontend == "codebooks" else 0,
+            vision_tokens=c.vision_tokens if c.frontend == "patches" else 0,
+            d_model=c.d_model), 0)
+        p_cpu = init_on_cpu(torch, c)
+        step = make_train_step(c, learning_rate=1e-3)
+        out = {}
+        for where in ("cpu", dev):
+            pw = tree_map(lambda t: t.to(where), p_cpu)
+            bw = {k: torch.from_numpy(v).to(where) for k, v in data.items()}
+            out["cpu" if where == "cpu" else "card"] = step(pw, adamw_init(pw), bw)[2]
+        rel = {k: abs(out["card"][k].item() - out["cpu"][k].item())
+               / max(abs(out["cpu"][k].item()), 1e-6) for k in ("loss", "grad_norm")}
+        worst_loss, worst_norm = max(worst_loss, rel["loss"]), max(worst_norm, rel["grad_norm"])
+        smoke.check(rel["loss"] <= TRAIN_LOSS_TOL and rel["grad_norm"] <= TRAIN_GRAD_TOL,
+                    f"17e: {c.name}: one step's loss ({rel['loss']:.2e}) within "
+                    f"{TRAIN_LOSS_TOL} and grad_norm ({rel['grad_norm']:.2e}) within "
+                    f"{TRAIN_GRAD_TOL} relative of the CPU's")
+    print(f"    17e worst: loss {worst_loss:.3e}, grad_norm {worst_norm:.3e} relative",
+          flush=True)
+    print(f"    phase 17: {time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+
+
+def init_on_cpu(torch, cfg):
+    """`cfg`'s parameters drawn on the CPU from a generator seeded 0."""
+    from repro_torch.models import model as M
+
+    return M.init_model(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+
+
+def train_only(torch) -> int:
+    """`--train`: phase 17 alone (the kernels built first), with its checks;
+    prints no result line. Exits 1 if a check failed."""
+    from repro_torch import kernels
+    from repro_torch.core.svm import state as svm_state
+    from repro_torch.kernels import _build
+
+    card = nvidia_smi()
+    print(f"card: {card}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    smoke = Smoke()
+    dev = torch.device("cuda", 0)
+    torch.empty(1, device=dev)       # the allocator's stats need the device set up
+    t0 = time.perf_counter()
+    phase_train(torch, smoke, kernels, svm_state, lambda launched: None, dev, card)
+    print(f"total {time.perf_counter() - t0:.1f} s; {len(smoke.failures)} check(s) failed",
+          flush=True)
+    for f in smoke.failures:
+        print(f"  FAILED {f}", flush=True)
+    return 1 if smoke.failures else 0
+
+
+#: `rehearse_train`'s reduced widths (each arch's depth and patterns kept)
+TRAIN_REHEARSAL = {
+    "internlm2_1_8b": dict(d_model=256, n_heads=4, n_kv_heads=2, head_dim=64, d_ff=512,
+                           vocab_size=4096),
+    **{k: v for k, v in REHEARSAL.items() if k != "deepseek_v3_671b"},
+}
+
+
+def rehearse_train() -> int:
+    """Phase 17 on the CPU at TRAIN_REHEARSAL's widths, for the figures a
+    chip run is predicted against and to try the phase's logic where there
+    is no card (the sync gate and the trace need one and are left out;
+    `torch.cuda.synchronize` is stubbed; the hinge launch count of 17f
+    fails there, since the CPU runs the plain passes):
+
+        PYTHONPATH=src python3 -c "import chip_smoke; chip_smoke.rehearse_train()"
+
+    Returns 1 if a check failed."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.svm import state as svm_state
+
+    sys.path.insert(0, str(ROOT / "src"))
+    saved = {}
+    for name, fields in TRAIN_REHEARSAL.items():
+        mod = importlib.import_module(f"repro_torch.configs.{name}")
+        saved[name] = mod.CONFIG
+        parts = {k: getattr(mod.CONFIG, k)._replace(**v)
+                 for k, v in REHEARSAL_PARTS.get(name, {}).items()}
+        mod.CONFIG = dataclasses.replace(mod.CONFIG, **fields, **parts)
+    smoke = Smoke()
+    sync = torch.cuda.synchronize
+    torch.cuda.synchronize = lambda *a, **k: None     # run_path's, for 17f
+    try:
+        phase_train(torch, smoke, kernels, svm_state, lambda launched: None,
+                    torch.device("cpu"), "CPU rehearsal")
+    finally:
+        torch.cuda.synchronize = sync
+        for name, cfg in saved.items():
+            importlib.import_module(f"repro_torch.configs.{name}").CONFIG = cfg
+    print(f"{len(smoke.failures)} check(s) failed", flush=True)
     return 1 if smoke.failures else 0
 
 
@@ -3258,6 +3678,8 @@ def main() -> int:
         return multihost_only(torch)
     if sys.argv[1:] == ["--lm"]:
         return lm_only(torch)
+    if sys.argv[1:] == ["--train"]:
+        return train_only(torch)
     if sys.argv[1:2] == ["--lm-trace"] and len(sys.argv) <= 3:
         from repro_torch.configs import ALIASES
         if sys.argv[2:] and sys.argv[2] not in ALIASES:
@@ -3498,6 +3920,13 @@ def main() -> int:
     print("[16] the MoE, SSM and MLA serving path: mixtral-8x7b and deepseek-v3 at full "
           "width, mamba2-130m whole", flush=True)
     phase_lm_moe(torch, smoke, dev, card)
+    torch.cuda.empty_cache()
+
+    # -- 17. the LM training path ----------------------------------------------
+    print("[17] the LM training path: internlm2-1.8b trained at full width and depth, "
+          "mamba2-130m through a fault and a restart, mixtral-8x7b's MoE at full width",
+          flush=True)
+    phase_train(torch, smoke, kernels, svm_state, count, dev, card)
 
     # -- summary ---------------------------------------------------------------
     for name, n_launch in path_launches.items():

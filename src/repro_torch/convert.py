@@ -18,6 +18,7 @@ from repro_torch.core.api import EnetCarry, PathConfig
 from repro_torch.core.sven import SvenConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import ModelConfig
+from repro_torch.utils import tree_map
 
 #: JAX SvenConfig.backend -> port backend
 _BACKEND = {"xla": "torch", "auto": "auto", "pallas": "auto", "tpu": "auto",
@@ -81,14 +82,6 @@ def carry_from_jax(beta, alpha, w, t, nu, *, device: DeviceLike = None,
                        for a in (beta, alpha, w, t, nu)))
 
 
-def _tree(node, fn):
-    if isinstance(node, dict):
-        return {k: _tree(v, fn) for k, v in node.items()}
-    if isinstance(node, list):
-        return [_tree(v, fn) for v in node]
-    return fn(node)
-
-
 def model_params_from_jax(params, cfg: ModelConfig, *, device: DeviceLike = None) -> dict:
     """The port's parameters from a JAX `init_model` tree of numpy arrays
     (`jax.tree.map(np.asarray, params)`), on `device` (CUDA when none is
@@ -105,14 +98,14 @@ def model_params_from_jax(params, cfg: ModelConfig, *, device: DeviceLike = None
     def cross(a):
         return torch.tensor(np.asarray(a), device=dev)
 
-    out = {k: _tree(v, cross) for k, v in params.items() if k not in ("prefix", "body")}
+    out = {k: tree_map(cross, v) for k, v in params.items() if k not in ("prefix", "body")}
     layers = [None] * cfg.n_layers
     for i, layer in enumerate(params["prefix"]):
-        layers[i] = _tree(layer, cross)
+        layers[i] = tree_map(cross, layer)
     for j, stacked in enumerate(params["body"]):
         for r in range(cfg.n_periods):
-            layers[cfg.dense_prefix + r * cfg.period + j] = _tree(
-                stacked, lambda a, r=r: cross(np.asarray(a)[r]))
+            layers[cfg.dense_prefix + r * cfg.period + j] = tree_map(
+                lambda a, r=r: cross(np.asarray(a)[r]), stacked)
     if any(layer is None for layer in layers):
         raise ValueError(f"model_params_from_jax: the tree does not hold the "
                          f"{cfg.n_layers} layers of {cfg.name}")

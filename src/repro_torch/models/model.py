@@ -10,9 +10,17 @@ r, position j), so the parameters hold one dict a layer in
 `mixer`, `mlp_norm`, `mlp`); JAX stacks the body across periods for its
 `lax.scan`, which `repro_torch.convert.model_params_from_jax` unstacks.
 The caches follow the same list (`caches["layers"]`): a `KVCache`,
-`MLACache` or `SSMCache` a layer. There is no jit, scan or remat: `remat`,
-`remat_policy`, `unroll_layers` and `rules_override` are kept so the
-configs match JAX's, and are unused.
+`MLACache` or `SSMCache` a layer. There is no jit or scan: `unroll_layers`
+and `rules_override` are kept so the configs match JAX's, and are unused.
+
+Remat: while autograd records (`torch.is_grad_enabled()`) and `cfg.remat`
+is set, `forward` runs each layer under `torch.utils.checkpoint` (not
+reentrant), so backward keeps each layer's input and recomputes its
+inside; `remat_policy="dots"` keeps the matmul outputs too (JAX's
+`checkpoint_dots`). JAX checkpoints each prefix layer and each scanned
+period; the port checkpoints each layer, which is the same math and
+differs only in memory. Serving runs under `torch.inference_mode()` and
+takes no checkpoint.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import math
 from typing import Any, Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
@@ -197,14 +206,37 @@ def _final(params, cfg: ModelConfig, x):
     return _head(params, cfg, L.rms_norm(x, params["final_norm"]["scale"]))
 
 
+#: the matmuls whose outputs `remat_policy="dots"` keeps
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpointed(cfg: ModelConfig, p, x, mixer: str, mlp: str):
+    """`_apply_layer` under a non-reentrant checkpoint. The forward draws
+    no random numbers, so no RNG state is kept for the recompute."""
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = lambda: ckpt.create_selective_checkpoint_contexts(_save_dots)
+    return ckpt.checkpoint(_apply_layer, p, x, cfg, mixer, mlp, use_reentrant=False,
+                           preserve_rng_state=False, **kw)
+
+
 def forward(params: dict, cfg: ModelConfig, batch: dict, return_hidden: bool = False):
     """Full-sequence forward -> (logits, aux_loss[, hidden]); `aux_loss` is
     the sum of the MoE layers' load-balance losses (float32, 0 without
     MoE), `hidden` the final-normed residual stream (B, S, d)."""
     x = _embed_inputs(params, cfg, batch)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i, p in enumerate(params["layers"]):
-        x, aux = _apply_layer(p, x, cfg, *cfg.layer_spec(i))
+        if remat:
+            x, aux = _checkpointed(cfg, p, x, *cfg.layer_spec(i))
+        else:
+            x, aux = _apply_layer(p, x, cfg, *cfg.layer_spec(i))
         aux_total = aux_total + aux
     x = L.rms_norm(x, params["final_norm"]["scale"])
     logits = _head(params, cfg, x)

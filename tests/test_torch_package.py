@@ -28,11 +28,14 @@ def test_import_leaves_jax_repro_and_triton_out():
             "repro_torch.serve, repro_torch.utils, repro_torch.launch.serve_en, "
             "repro_torch.dist, repro_torch.core.distributed, repro_torch.core.routing, "
             "repro_torch.baselines.shotgun, repro_torch.models, repro_torch.models.model, "
-            "repro_torch.configs, repro_torch.launch.serve\n"
+            "repro_torch.configs, repro_torch.launch.serve, repro_torch.optim, "
+            "repro_torch.optim.adamw, repro_torch.optim.adafactor, repro_torch.optim.schedules, "
+            "repro_torch.train, repro_torch.train.step, repro_torch.ckpt, "
+            "repro_torch.ckpt.checkpoint, repro_torch.data.pipeline, repro_torch.launch.train\n"
             "from repro_torch.configs import ARCHS, get_config\n"
             "[get_config(a) for a in ARCHS]\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro', 'triton'))\n"
+            "('jax', 'jaxlib', 'repro', 'triton', 'ml_dtypes'))\n"
             "print(bad)\n")
     env = dict(os.environ, PYTHONPATH=str(PKG.parent))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
@@ -51,7 +54,7 @@ def test_no_source_file_imports_jax_or_repro():
             else:
                 continue
             for name in names:
-                if name.split(".")[0] in ("jax", "jaxlib", "repro", "triton"):
+                if name.split(".")[0] in ("jax", "jaxlib", "repro", "triton", "ml_dtypes"):
                     offenders.append(f"{path.relative_to(PKG)}:{node.lineno} {name}")
     assert offenders == []
     assert len(list(PKG.rglob("*.py"))) >= 15
