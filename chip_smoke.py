@@ -42,7 +42,7 @@ port's main path through the entry points a user calls:
      GLA-BRA-180 shape (primal: one launch of each hinge pass per CG step),
      each against the same call on the plain float64 backend;
   8. a float32 problem at the default precision: the dual solve and
-     `enet_path` over the first 5 points of the 10-point lambda grid at the
+     `enet_path` over the first 3 points of the 10-point lambda grid at the
      YMSD shape, whose Grams run the kernel's
      float32 body, against the same calls on the port's plain float32
      backend ("torch") on the same tensors;
@@ -59,8 +59,8 @@ port's main path through the entry points a user calls:
      each case again at k = 1, bitwise the same;
  11. the lane-batched penalized stack (float64, default config), each
      fold or lane a lane of one Illinois root-find: (11a)
-     `ElasticNetCV(k=5, n_lambdas=10)` at the GLA-BRA-180 shape (primal
-     folds) and (11b) `cross_validate(k=5, n_lambdas=10)` at the YMSD
+     `ElasticNetCV(k=5, n_lambdas=5)` at the GLA-BRA-180 shape (primal
+     folds) and (11b) `cross_validate(k=5, n_lambdas=5)` at the YMSD
      shape (dual folds), each against the port's sequential
      `cross_validate_reference` on the same data (mse within 1e-10 x max,
      the same index_min, equal evaluations and kept columns per (lambda,
@@ -101,7 +101,7 @@ port's main path through the entry points a user calls:
      of `sven_batch` (an 8-lane 4 t x 2 lambda2 `en_grid` on the shared
      GLA-BRA X) and of `enet_batch` (`cv_folds` at YMSD, lambda1 = 0.1 x
      each fold's lambda1_max), each lane bitwise the one-device stack's,
-     (13d) the fold fan-out of `cross_validate(k=4, n_lambdas=10)` at YMSD
+     (13d) the fold fan-out of `cross_validate(k=4, n_lambdas=5)` at YMSD
      bitwise `mesh=None`, and k = 5 with mesh="auto" under the 2-rank
      context declined, (13e) `calibrate` (every field finite and
      positive), the router's decisions and prices at 13a-13c, each no
@@ -181,6 +181,26 @@ port's main path through the entry points a user calls:
      decode steps against forward at 2e-3, and a prefill and 2 decode steps
      with no synchronizing CUDA call. `--lm` runs phases 15 and 16
      alone. `rehearse_lm_moe()` runs phase 16 on the CPU at reduced widths.
+  17. the LM training path: internlm2-1.8b trained at full width and
+     depth through `launch.train`, its float32 model card against CPU,
+     mamba2-130m through a fault and a restart, mixtral-8x7b at 1 layer,
+     every SMOKE config (`phase_train`; `--train` runs it alone).
+  18. data-parallel training over 2 ranks on the one card (gloo, as phase
+     13): (18a) the sharded train step (parameters by `params_shardings`,
+     moments by `zero1_shardings`, `grad_shardings` the parameters'
+     records) at internlm2-1.8b's full width and depth, bf16, global batch
+     8 x 128, 2 steps: losses finite and equal on both ranks, the
+     parameters bitwise equal after the last step, each rank's m and v
+     half of one rank's, the first loss within 1e-3 of the one-rank
+     step's; (18b) float32 parity at 2 layers and for mixtral at 1 layer:
+     gradients within 1e-4 x max|g| of one rank's, chosen experts equal,
+     the ZeRO-1 update bitwise the replicated one; (18c)
+     `dist.launch(train.train, 2, ...)` on mamba2-130m through a fault,
+     its step-10 checkpoint resumed on one rank within 1e-4; (18d)
+     `pipeline_apply` on a 2-rank "pipe" mesh within 1e-6 of
+     `sequential_reference`, M + S - 1 ticks; (18e) `compress` on the card
+     against the CPU (`phase_dist`; `--dist` runs it alone,
+     `rehearse_dist()` on the CPU at reduced widths).
 
 The CG loop (`repro_torch.core.svm.state.cg_lanes`) reads its test once
 per block of k = `CG_READ_EVERY` steps and launches up to k - 1 dead steps
@@ -255,6 +275,10 @@ no result line.
 
 runs phases 15 and 16 alone (the kernels built first), with their checks,
 and prints no result line.
+
+    python3 chip_smoke.py --dist
+
+runs phase 18 alone, with its checks, and prints no result line.
 
     python3 chip_smoke.py --lm-trace [ARCH]
 
@@ -1099,9 +1123,10 @@ F32_BETA_REL = {"dual": 1e-5, "enet_path": 1e-2}
 #: |evaluations - plain's| / plain's allowed for that enet_path: 5.7 % with
 #: the previous body (130 against 123; per point up to 15 apart)
 F32_PATH_EVALS_REL = 0.25
-#: the points of phase 8b's float32 enet_path: the first 5 of the 10-point
-#: grid, which took 318-412 s of the script at full depth (run twice)
-F32_PATH_POINTS = 5
+#: the points of phase 8b's float32 enet_path: the first 3 of the 10-point
+#: grid (the full depth took 318-412 s of the script, run twice; 5 points
+#: about 50 s), for the script's time
+F32_PATH_POINTS = 3
 
 
 def phase_float32(torch, smoke, kernels, svm_state, dev) -> int:
@@ -1532,9 +1557,13 @@ def cv_checks(torch, smoke, label, res, secs, launched, syncs, steps, dead, ref,
                 f"CG step ({ref_steps})")
 
 
+#: phase 11's lambdas a path (cut from 10, for the script's time)
+CV_LAMBDAS = 5
+
+
 def phase_cv(torch, smoke, kernels, svm_state, count, dev) -> None:
     """Phase 11: the penalized stack on float64 data, default config. 11a
-    `ElasticNetCV(k=5, n_lambdas=10)` at the GLA-BRA-180 shape (primal
+    `ElasticNetCV(k=5, n_lambdas=CV_LAMBDAS)` at the GLA-BRA-180 shape (primal
     folds), 11b `cross_validate` at the YMSD shape (dual folds), each
     against the port's sequential `cross_validate_reference` on the card
     and its refit bitwise `enet`; 11c `enet_batch` on 5 stacked folds, cold
@@ -1548,7 +1577,7 @@ def phase_cv(torch, smoke, kernels, svm_state, count, dev) -> None:
     from repro_torch.core.svm.state import cg_lanes
     from repro_torch.data.synthetic import make_regression
 
-    k, L = 5, 10
+    k, L = 5, CV_LAMBDAS
     t_phase = time.perf_counter()
 
     def cv_case(label, X, y, fit, dual):
@@ -1961,7 +1990,7 @@ MULTI_WORLD = 2
 MULTI_TS = (0.25, 0.5, 0.75, 1.0)
 MULTI_L2S = (0.5, 1.0)
 MULTI_FOLDS = 4
-MULTI_LAMBDAS = 10
+MULTI_LAMBDAS = 5             # 13d (cut from 10, for the script's time)
 #: 13f: the shotgun baseline at its callers' problems (`benchmarks/common.py`:
 #: gla_bra_like and ymsd_like, `bench_pggn.py` / `bench_nggp.py`'s parallel),
 #: and ymsd_like with a full draw (parallel = p). The last field is the
@@ -3088,7 +3117,7 @@ def lm_only(torch) -> int:
 
 
 #: phase 17: the LM training path
-TRAIN_ARCH, TRAIN_STEPS = "internlm2-1.8b", 20
+TRAIN_ARCH, TRAIN_STEPS = "internlm2-1.8b", 10   # 17a (cut from 20, for the script's time)
 TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--log-every", "5"]
 TRAIN_CPU_LAYERS = 2          # 17b's depth cut
 TRAIN_CPU_SHAPE = (4, 64)     # 17b's batch and sequence
@@ -3096,7 +3125,9 @@ TRAIN_LOSS_TOL = 1e-5         # relative: a step's loss and metrics, the card ag
 TRAIN_GRAD_TOL = 1e-4         # x max|g|: 15c's and 16b's card-against-CPU bound
 TRAIN_OPT_TOL = 1e-6          # x max: AdamW on identical gradients, the card against the CPU
 TRAIN_RESTART_TOL = 1e-4      # JAX's restart-exactness bound (tests/test_fault_tolerance.py)
-TRAIN_FAULT_AT = 12           # 17c: 20 steps, a checkpoint every 10
+#: 17c: steps, a checkpoint every 5, the fault, and the stop resumed from
+#: (cut from 20 steps, a checkpoint every 10 and the fault at 12)
+SSM_TRAIN_STEPS, SSM_CKPT_EVERY, TRAIN_FAULT_AT, SSM_STOP = 12, 5, 8, 10
 MOE_TRAIN_STEPS = 5           # 17d: mixtral-8x7b at full width, 1 layer
 SMOKE_TRAIN_SHAPE = (4, 32)   # 17e's batch and sequence
 
@@ -3178,15 +3209,20 @@ def trained_run_text(torch, res, cfg, dev, n_tokens) -> str:
             f"{bound / med:.4f} of it; {peak_text(torch, dev)}")
 
 
-def captured(fn):
-    """(fn(), what it printed), the printed lines echoed indented."""
+def quiet(fn):
+    """(fn(), what it printed), printing nothing (a rank's output)."""
     import contextlib
     import io
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         out = fn()
-    text = buf.getvalue()
+    return out, buf.getvalue()
+
+
+def captured(fn):
+    """(fn(), what it printed), the printed lines echoed indented."""
+    out, text = quiet(fn)
     for line in text.strip().splitlines():
         print(f"      {line}", flush=True)
     return out, text
@@ -3209,7 +3245,7 @@ def phase_train(torch, smoke, kernels, svm_state, count, dev, card: str) -> None
     feature-selection flow on its trained hidden states (the hinge
     kernels); 17b its float32 model at 2 layers, one step's loss, metrics
     and gradients and an AdamW update, the card against the CPU; 17c
-    mamba2-130m whole through the launcher: a fault at step 12 survived,
+    mamba2-130m whole through the launcher: a fault at step 8 survived,
     and a run stopped at step 10 resumed to the same loss; 17d
     mixtral-8x7b at full width, 1 layer, MOE_TRAIN_STEPS steps; 17e one
     float32 step of each SMOKE config, the card against the CPU. Runs on
@@ -3348,8 +3384,8 @@ def phase_train(torch, smoke, kernels, svm_state, count, dev, card: str) -> None
     settle(torch, dev)
 
     # -- 17c: mamba2-130m whole through the launcher: a fault, a restart -----------
-    base = ["--arch", SSM_ARCH, "--steps", str(TRAIN_STEPS), "--ckpt-every", "10",
-            "--log-every", "5"]
+    base = ["--arch", SSM_ARCH, "--steps", str(SSM_TRAIN_STEPS), "--ckpt-every",
+            str(SSM_CKPT_EVERY), "--log-every", "5"]
     if not on_card:
         base += ["--device", "cpu"]
     with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as tmp:
@@ -3362,9 +3398,10 @@ def phase_train(torch, smoke, kernels, svm_state, count, dev, card: str) -> None
         text_a = trained_run_text(torch, res_a, get_config(SSM_ARCH), dev, n_tokens)
         loss_a = res_a.loss
         del res_a
-        cut = [a if a != str(TRAIN_STEPS) else "10" for a in base] + [
+        cut = [a if a != str(SSM_TRAIN_STEPS) else str(SSM_STOP) for a in base] + [
             "--ckpt-dir", os.path.join(tmp, "b")]
-        print(f"    then {' '.join(cut)}, and again with --steps {TRAIN_STEPS}", flush=True)
+        print(f"    then {' '.join(cut)}, and again with --steps {SSM_TRAIN_STEPS}",
+              flush=True)
         _, out_b = captured(lambda: launcher.train(cut))
         res_c, out_c = captured(lambda: launcher.train(base + ["--ckpt-dir",
                                                                os.path.join(tmp, "b")]))
@@ -3372,12 +3409,13 @@ def phase_train(torch, smoke, kernels, svm_state, count, dev, card: str) -> None
     print(f"    faulted run {a_s:.1f} s, {text_a}; resumed against faulted final loss "
           f"|d| = {gap:.3e} (bitwise equal: {gap == 0}); {card}", flush=True)
     smoke.check(f"[supervisor] step {TRAIN_FAULT_AT} failed (injected node failure); retry 1"
-                in out_a and f"[train] done at step {TRAIN_STEPS}," in out_a,
+                in out_a and f"[train] done at step {SSM_TRAIN_STEPS}," in out_a,
                 f"17c: the supervisor survived the fault at step {TRAIN_FAULT_AT} and the run "
-                f"reached step {TRAIN_STEPS}")
-    smoke.check("[train] done at step 10," in out_b and "[train] resumed from step 10" in out_c
-                and f"[train] done at step {TRAIN_STEPS}," in out_c,
-                "17c: a run stopped at step 10 resumed from its checkpoint")
+                f"reached step {SSM_TRAIN_STEPS}")
+    smoke.check(f"[train] done at step {SSM_STOP}," in out_b
+                and f"[train] resumed from step {SSM_STOP}" in out_c
+                and f"[train] done at step {SSM_TRAIN_STEPS}," in out_c,
+                f"17c: a run stopped at step {SSM_STOP} resumed from its checkpoint")
     smoke.check(gap < TRAIN_RESTART_TOL, f"17c: the resumed run's final loss within "
                 f"{TRAIN_RESTART_TOL} of the faulted run's ({gap:.3e})")
     del res_c
@@ -3582,6 +3620,539 @@ def lm_trace_only(torch, arch: str = LM_ARCH) -> int:
     return 0
 
 
+#: phase 18: data-parallel training over ranks, all on the one card (gloo)
+DIST_WORLD = 2
+DIST_STEPS = 2                # 18a: steps of the sharded step at full width and depth
+                              # (cut from 6 for the script's time: ~10 s a step)
+DIST_SHAPE = (8, 128)         # 18a: the global batch (4 rows a rank) and sequence
+DIST_LOSS_TOL = 1e-3          # relative: 18a's first loss against the one-rank step's
+DIST_B_SHAPE = (4, 64)        # 18b: the float32 parity cells' batch and sequence
+DIST_C_STEPS, DIST_C_FAULT, DIST_C_EVERY = 12, 8, 5   # 18c: the launcher on 2 ranks
+PIPE_SHAPE = (2048, 8, 512)   # 18d: d, microbatches M, rows a microbatch (float32)
+PIPE_TOL = 1e-6               # x max|out|: 18d against sequential_reference
+TOPK_FRAC = 0.01              # 18e
+
+
+def bit_sums(torch, tree):
+    """Per leaf, the sum of its bits and of their squares (int64): a
+    checksum two ranks' trees are compared by."""
+    from repro_torch.utils import tree_leaves
+
+    sums = []
+    for x in tree_leaves(tree):
+        b = x.contiguous().view(torch.int16 if x.element_size() == 2 else torch.int32)
+        b = b.to(torch.int32)
+        sums += [torch.sum(b, dtype=torch.int64), torch.sum(b * b, dtype=torch.int64)]
+    return torch.stack(sums)
+
+
+def dist_rank(mesh, cfg, cfg_b, cfg_moe, argv_c, ckpt_dir, pipe_shape):
+    """Phase 18's work on one rank of `mesh` (every rank runs it alike):
+    18a the sharded step at `cfg`'s full width, 18b float32 parity at
+    `cfg_b` and `cfg_moe`, 18c the launcher (`argv_c`, checkpoints in
+    `ckpt_dir`), 18d the pipeline; returns rank 0's results with what the
+    ranks must agree on gathered (CPU tensors)."""
+    import torch
+
+    from repro_torch import dist
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.dist import pipeline as pipe
+    from repro_torch.dist import shardings as dsh
+    from repro_torch.dist.zero import zero1_shardings
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.optim import adamw_init, warmup_cosine
+    from repro_torch.optim.adamw import AdamWState, adamw_update, clip_by_global_norm
+    from repro_torch.train.step import grads_and_metrics, make_train_step, zero1_update
+    from repro_torch.utils import tree_leaves, tree_map
+
+    dev = mesh.device
+    on_card = dev.type == "cuda"
+    lmesh = make_local_mesh()
+    out = {"size": mesh.size, "backend": mesh.backend, "device": str(dev)}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def per_rank(v):           # each rank's number, in rank order
+        return dist.gather(mesh, torch.tensor([float(v)], dtype=torch.float64,
+                                              device=dev)).tolist()
+
+    def reset_counts():
+        dist.all_reduce.calls = dist.all_reduce.bytes = 0
+        dist.all_reduce.seconds = 0.0
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(0)
+
+    def zero_blocks(records):
+        return tree_map(lambda r: torch.zeros(dsh.block_shape(r), dtype=torch.float32,
+                                              device=dev), records)
+
+    # -- 18a: the sharded step (dryrun.py:191-201's), run ------------------------
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    B, S = DIST_SHAPE
+    t0 = time.perf_counter()
+    params = M.init_model(cfg, generator=gen(), device=dev)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B)
+    with dist.mesh_context(lmesh, rules={**dist.DEFAULT_RULES, **cfg.rules_override}):
+        p_sh = dsh.params_shardings(params, cfg)
+        m_sh = zero1_shardings(p_sh, params)
+        count = torch.zeros((), dtype=torch.int32, device=dev)
+        opt = AdamWState(m=zero_blocks(m_sh), v=zero_blocks(m_sh), count=count)
+        o_sh = AdamWState(m=m_sh, v=m_sh, count=dsh.replicated(count))
+        b_sh = dsh.batch_shardings(synthetic_batch(dcfg, 0, device=dev))
+        step = make_train_step(cfg, lr_schedule=warmup_cosine(3e-4, 10, DIST_STEPS),
+                               grad_shardings=p_sh)
+        sync()
+        out["18a_init_s"] = time.perf_counter() - t0
+        steps = []
+        for i in range(DIST_STEPS):
+            batch = synthetic_batch(dcfg, i, device=dev)
+            sync()
+            dist.all_reduce(mesh, torch.zeros(1, device=dev))       # start together
+            reset_counts()
+            traced = i == DIST_STEPS - 1 and on_card and mesh.rank == 0
+            if traced:
+                from torch.profiler import ProfilerActivity, profile
+                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                prof.__enter__()
+            t0 = time.perf_counter()
+            params, opt, metrics = dsh.run_sharded(step, (p_sh, o_sh, b_sh), params, opt,
+                                                   batch)
+            loss = float(metrics["loss"])
+            sync()
+            secs = time.perf_counter() - t0
+            steps.append(dict(loss=loss, secs=secs, calls=dist.all_reduce.calls,
+                              bytes=dist.all_reduce.bytes, ar_s=dist.all_reduce.seconds))
+            if traced:
+                prof.__exit__(None, None, None)
+                path = ROOT / "build" / "dist-trace" / "step.json"
+                path.parent.mkdir(parents=True, exist_ok=True)
+                prof.export_chrome_trace(str(path))
+                del prof
+                out["18a_trace"] = trace_split(path, secs, 1)
+                path.unlink()
+        out["18a_steps"] = steps
+        out["18a_losses"] = dist.gather(mesh, torch.tensor(
+            [s["loss"] for s in steps], dtype=torch.float64, device=dev)[None]).tolist()
+        out["18a_sums"] = dist.gather(mesh, bit_sums(torch, params)[None]).tolist()
+        held = sum(x.numel() * x.element_size() for x in tree_leaves((opt.m, opt.v)))
+        full = 2 * 4 * sum(x.numel() for x in tree_leaves(params))
+        whole = 2 * 4 * sum(x.numel() for x, r in zip(tree_leaves(params), tree_leaves(m_sh))
+                            if not r.uses("data"))
+        out["18a_moments"] = dict(held=per_rank(held), full=full, replicated=whole,
+                                  stacked=sum(r.stack == "data" for r in tree_leaves(m_sh)),
+                                  leaves=len(tree_leaves(m_sh)))
+        out["18a_params"] = sum(x.numel() for x in tree_leaves(params))
+        # the gradient all-reduce alone: a tree of the gradients' shapes and dtypes
+        grads_like = tree_map(torch.zeros_like, params)
+        sync()
+        dist.all_reduce(mesh, torch.zeros(1, device=dev))
+        reset_counts()
+        t0 = time.perf_counter()
+        reduced = tree_map(lambda g: dist.all_reduce(mesh, g), grads_like)
+        sync()
+        out["18a_grad_ar"] = dict(secs=per_rank(time.perf_counter() - t0),
+                                  bytes=dist.all_reduce.bytes, calls=dist.all_reduce.calls)
+        del grads_like, reduced
+        out["18a_peak"] = per_rank(torch.cuda.max_memory_allocated(dev) if on_card else 0)
+    if mesh.rank == 0:         # shown even if a later part fails
+        print(f"    rank 0: 18a done: step s {[round(s['secs'], 3) for s in steps]}, losses "
+              f"{[round(s['loss'], 6) for s in steps]}, peak {out['18a_peak']}", flush=True)
+    del params, opt, metrics, step, p_sh, m_sh, o_sh
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # -- 18b: float32 parity, 2 ranks against one -----------------------------------
+    B2, S2 = DIST_B_SHAPE
+    for label, c in (("dense", cfg_b), ("moe", cfg_moe)):
+        params = M.init_model(c, generator=gen(), device=dev)
+        batch = synthetic_batch(DataConfig(vocab_size=c.vocab_size, seq_len=S2,
+                                           global_batch=B2), 0, device=dev)
+        seen, route = [], moe_mod.route
+
+        def record(p, x, cfg_, route=route, seen=seen):
+            res = route(p, x, cfg_)
+            seen.append(res[2].detach().clone())
+            return res
+
+        moe_mod.route = record
+        try:
+            g1, m1 = grads_and_metrics(params, c, batch)
+            n1 = len(seen)
+            with dist.mesh_context(lmesh, rules={**dist.DEFAULT_RULES, **c.rules_override}):
+                g2, m2 = grads_and_metrics(params, c, batch)
+        finally:
+            moe_mod.route = route
+        rows = B2 // mesh.size
+        n_moe = sum(c.layer_spec(i)[1] == "moe" for i in range(c.n_layers))
+        same = all(torch.equal(a[mesh.rank * rows:(mesh.rank + 1) * rows], b)
+                   for a, b in zip(seen[:n_moe], seen[n1:n1 + n_moe]))
+        scale = max(g.abs().max().item() for g in tree_leaves(g1))
+        g_dev = max(torch.sub(a, b).abs_().max().item() for a, b in zip(tree_leaves(g2),
+                                                                        tree_leaves(g1))) / scale
+        rel = {k: abs(m2[k].item() - m1[k].item()) / max(abs(m1[k].item()), 1e-6) for k in m1}
+        res = dict(g_dev=g_dev, rel=rel, loss=m1["loss"].item(), aux=m1["aux"].item(),
+                   choices_equal=per_rank(same), moe_layers=n_moe)
+        if label == "dense":
+            # ZeRO-1 on identical (all-reduced) gradients: bitwise the replicated update
+            with dist.mesh_context(lmesh, rules={**dist.DEFAULT_RULES, **c.rules_override}):
+                p_sh = dsh.params_shardings(params, c)
+                m_sh = zero1_shardings(p_sh, params)
+            clipped, _ = clip_by_global_norm(g2, 1.0)
+            rep_p, rep_o = adamw_update(clipped, adamw_init(params), params, lr=3e-4)
+            state = AdamWState(m=zero_blocks(m_sh), v=zero_blocks(m_sh),
+                               count=torch.zeros((), dtype=torch.int32, device=dev))
+            z_p, z_o = zero1_update(clipped, state, params, m_sh, 3e-4)
+            res["zero_params_equal"] = per_rank(all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(z_p), tree_leaves(rep_p))))
+            res["zero_moments_equal"] = per_rank(all(
+                torch.equal(a, b) for a, b in zip(tree_leaves((z_o.m, z_o.v)), tree_leaves(
+                    dsh.place((rep_o.m, rep_o.v), (m_sh, m_sh))))))
+            del rep_p, rep_o, z_p, z_o, state
+        out[f"18b_{label}"] = res
+        if mesh.rank == 0:
+            print(f"    rank 0: 18b {label} done: gradients {g_dev:.3e} x", flush=True)
+        del params, g1, g2, seen
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # -- 18c: the launcher on the ranks: a fault, checkpoints -----------------------
+    t0 = time.perf_counter()
+    res, text = quiet(lambda: launcher.train(mesh, argv_c + ["--ckpt-dir", ckpt_dir]))
+    out["18c"] = dict(losses=res.losses, step=res.step, text=text, step_s=res.step_s,
+                      secs=time.perf_counter() - t0,
+                      final=per_rank(res.loss))
+    del res
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # -- 18d: the pipeline on a ("pipe",) mesh of the ranks -------------------------
+    d, n_mb, bm = pipe_shape
+    g = gen()
+    w = {"w": torch.randn((mesh.size, d, d), generator=g, device=dev) * d ** -0.5,
+         "b": torch.randn((mesh.size, d), generator=g, device=dev) * 0.1}
+    x = torch.randn((n_mb, bm, d), generator=g, device=dev)
+
+    def stage(p, v):
+        return torch.tanh(v @ p["w"]) + p["b"]
+
+    pmesh = dist.data_mesh(axis_name="pipe")
+    pipe.pipeline_apply(pmesh, stage, w, x)               # warm-up
+    sync()
+    dist.all_reduce(mesh, torch.zeros(1, device=dev))
+    reset_counts()
+    t0 = time.perf_counter()
+    got = pipe.pipeline_apply(pmesh, stage, w, x)
+    sync()
+    secs = time.perf_counter() - t0
+    calls = dist.all_reduce.calls
+    t0 = time.perf_counter()
+    ref = pipe.sequential_reference(stage, w, x)
+    sync()
+    ref_s = time.perf_counter() - t0
+    # the reference a microbatch at a time runs the pipeline's GEMM shapes;
+    # on the whole (M * Bm, d) batch cuBLAS sums in another order
+    each = torch.cat([pipe.sequential_reference(stage, w, x[m:m + 1]) for m in range(n_mb)])
+    scale = each.abs().max().item()
+    out["18d"] = dict(dev=(got - each).abs().max().item() / scale,
+                      dev_whole=(got - ref).abs().max().item() / scale,
+                      secs=secs, calls=calls, ref_s=ref_s,
+                      shape=tuple(got.shape), stages=pmesh.shape["pipe"])
+    return out
+
+
+def phase_dist(torch, smoke, dev, card: str, cfgs=None, argv_c=None,
+               pipe_shape=PIPE_SHAPE) -> None:
+    """Phase 18: data-parallel training over DIST_WORLD ranks on this card
+    over gloo (`dist.launch`), as phase 13 runs them. 18a the sharded train
+    step of dryrun.py:191-201 (parameters by `params_shardings`, moments by
+    `zero1_shardings`, `grad_shardings = p_sh`) at internlm2-1.8b's full
+    width and depth, against the one-rank step's first loss; 18b float32
+    parity (2 layers; mixtral at 1 layer); 18c the launcher on the ranks
+    through a fault, its step-10 checkpoint resumed on one rank; 18d
+    `pipeline_apply`; 18e `compress` on the card against the CPU. `cfgs`
+    and `argv_c` replace the configs and the launcher's flags
+    (`rehearse_dist`)."""
+    import shutil
+    import statistics
+    import tempfile
+
+    from repro_torch import dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.dist import compress as C
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import model as M
+    from repro_torch.train.step import grads_and_metrics
+    from repro_torch.utils import tree_bytes, tree_size
+
+    import math
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    if cfgs is None:
+        cfg = get_config(TRAIN_ARCH)
+        cfgs = (cfg, f32_of(torch, cfg, n_layers=TRAIN_CPU_LAYERS),
+                ample_capacity(f32_of(torch, get_config(MOE_ARCH), n_layers=1)))
+    cfg, cfg_b, cfg_moe = cfgs
+    if argv_c is None:
+        argv_c = ["--arch", SSM_ARCH, "--steps", str(DIST_C_STEPS), "--ckpt-every",
+                  str(DIST_C_EVERY), "--log-every", "5"] + ([] if on_card else
+                                                            ["--device", "cpu"])
+    B, S = DIST_SHAPE
+
+    # the one-rank step's loss on 18a's weights and first batch, and its
+    # embedding gradient (18e); freed before the ranks start
+    settle(torch, dev, reset_peak=True)
+    t0 = time.perf_counter()
+    params = M.init_model(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    n_params, p_bytes = tree_size(params), tree_bytes(params)
+    batch = synthetic_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B),
+                            0, device=dev)
+    grads, metrics = grads_and_metrics(params, cfg, batch)
+    loss1 = metrics["loss"].item()
+    emb = grads["embed"]["table"].float()
+    one_s = time.perf_counter() - t0
+    print(f"[18] {DIST_WORLD} ranks on this card over gloo (`dist.launch`); the one-rank "
+          f"reference first: {cfg.name} ({cfg.n_layers} layers, {n_params:,} parameters, "
+          f"{p_bytes / 1e9:.3f} GB), loss {loss1:.6f} on the global batch {B} x {S} "
+          f"({one_s:.1f} s with init; {peak_text(torch, dev)})", flush=True)
+    del params, grads, metrics, batch
+    settle(torch, dev)
+    # each rank: parameters and gradients whole, its half of m and v (float32)
+    state = 2 * p_bytes + 4 * n_params
+    print(f"    reckoned a rank: parameters + gradients + half of m and v = "
+          f"{state / 1e9:.1f} GB, and {p_bytes / 1e9:.1f} GB of new parameters and "
+          f"{4 * n_params / 1e9:.1f} GB of new moment blocks while the update holds both: "
+          f"{(state + p_bytes + 4 * n_params) / 1e9:.1f} GB before activations, "
+          f"{2 * (state + p_bytes + 4 * n_params) / 1e9:.1f} GB for the two", flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-dist-") as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        res = dist.launch(dist_rank, DIST_WORLD,
+                          args=(cfg, cfg_b, cfg_moe, argv_c + ["--inject-fault-at",
+                                                               str(DIST_C_FAULT)],
+                                ckpt, pipe_shape),
+                          device=dev.type, timeout=1000, threads=0 if on_card else 2)
+        ranks_s = time.perf_counter() - t0
+        print(f"    ranks: {ranks_s:.1f} s from spawn to rank 0's result; backend "
+              f"{res['backend']}, device {res['device']}", flush=True)
+
+        # 18a
+        steps = res["18a_steps"]
+        losses = res["18a_losses"]
+        step_ms = [s["secs"] * 1e3 for s in steps]
+        med = statistics.median(step_ms[1:]) if len(step_ms) > 1 else step_ms[0]
+        mo = res["18a_moments"]
+        gar = res["18a_grad_ar"]
+        print(f"[18a] the sharded step at {cfg.name}'s full width and depth, bf16, remat "
+              f"{cfg.remat_policy if cfg.remat else 'off'}: global batch {B} x {S} "
+              f"({B // DIST_WORLD} rows a rank), lr 3e-4 warmup_cosine, {DIST_STEPS} steps; "
+              f"init {res['18a_init_s']:.1f} s", flush=True)
+        print(f"    losses rank 0 {[round(x, 6) for x in losses[0]]}, rank 1 "
+              f"{[round(x, 6) for x in losses[1]]}; one rank's first {loss1:.6f}", flush=True)
+        print(f"    step ms {[round(x, 1) for x in step_ms]} (median after the first "
+              f"{med:.1f}); all-reduces a step {[s['calls'] for s in steps]}, "
+              f"{steps[-1]['bytes'] / 1e9:.3f} GB, {[round(s['ar_s'], 3) for s in steps]} s "
+              f"in them (host clock); the gradient all-reduce alone "
+              f"{gar['bytes'] / 1e9:.3f} GB in {gar['calls']} calls, "
+              f"{[round(x, 3) for x in gar['secs']]} s ({gar['secs'][0] * 1e9 / gar['bytes']:.3f}"
+              f" ns a byte); {card}", flush=True)
+        print(f"    m and v: rank 0 holds {mo['held'][0] / 1e9:.3f} GB, rank 1 "
+              f"{mo['held'][1] / 1e9:.3f} GB of {mo['full'] / 1e9:.3f} GB "
+              f"({mo['replicated'] / 1e9:.6f} GB in leaves 2 divides no dim of); "
+              f"{mo['stacked']} of {mo['leaves']} moment records split on the stacked layer "
+              f"dim; peak {[round(x / 1e9, 2) for x in res['18a_peak']]} GB allocated a rank",
+              flush=True)
+        if "18a_trace" in res:
+            sp = res["18a_trace"]
+            print(f"    rank 0's last step traced: wall {sp['wall_us'] / 1e3:.1f} ms, "
+                  f"{sp['launches']:.0f} device launches, device busy "
+                  f"{sp['busy_us'] / 1e3:.1f} ms, idle share {sp['idle']:.3f}", flush=True)
+        smoke.check(all(math.isfinite(x) for x in losses[0]) and losses[0] == losses[1],
+                    f"18a: {DIST_STEPS} losses finite and the same on both ranks")
+        sums = res["18a_sums"]
+        smoke.check(sums[0] == sums[1], f"18a: after step {DIST_STEPS} the parameters on "
+                    f"both ranks are bitwise equal ({len(sums[0]) // 2} leaves' checksums)")
+        want = (mo["full"] - mo["replicated"]) / DIST_WORLD + mo["replicated"]
+        smoke.check(all(h == want for h in mo["held"]), f"18a: each rank holds "
+                    f"{want / 1e9:.3f} GB of m and v: half of one rank's "
+                    f"{mo['full'] / 1e9:.3f} GB but the leaves 2 divides no dim of")
+        rel = abs(losses[0][0] - loss1) / abs(loss1)
+        smoke.check(rel <= DIST_LOSS_TOL, f"18a: the first loss {losses[0][0]:.6f} within "
+                    f"{DIST_LOSS_TOL} relative of the one-rank step's {loss1:.6f} ({rel:.2e})")
+
+        # 18b
+        B2, S2 = DIST_B_SHAPE
+        for label, c in (("dense", cfg_b), ("moe", cfg_moe)):
+            r = res[f"18b_{label}"]
+            worst = max(r["rel"].values())
+            print(f"[18b] {c.name} float32, {c.n_layers} layer(s), batch {B2} x {S2}: 2 ranks "
+                  f"against one: gradients {r['g_dev']:.3e} x max|g|, metrics "
+                  f"{ {k: f'{v:.2e}' for k, v in r['rel'].items()} } relative (loss "
+                  f"{r['loss']:.6f}, aux {r['aux']:.6f})", flush=True)
+            smoke.check(r["g_dev"] <= TRAIN_GRAD_TOL and worst <= TRAIN_LOSS_TOL,
+                        f"18b {label}: the 2-rank gradients within {TRAIN_GRAD_TOL} x max|g| "
+                        f"({r['g_dev']:.2e}) and metrics within {TRAIN_LOSS_TOL} relative "
+                        f"({worst:.2e}) of one rank's")
+            if r["moe_layers"]:
+                smoke.check(all(r["choices_equal"]), f"18b {label}: each rank's chosen "
+                            f"experts equal one rank's on its rows ({r['choices_equal']})")
+            if label == "dense":
+                smoke.check(all(r["zero_params_equal"]) and all(r["zero_moments_equal"]),
+                            "18b: the ZeRO-1 update on identical gradients is bitwise the "
+                            "replicated update (parameters, and each rank's m and v blocks)")
+
+        # 18c, and the step-10 checkpoint resumed on one rank
+        rc = res["18c"]
+        print(f"[18c] dist.launch(train.train, {DIST_WORLD}, args=(argv,)), argv "
+              f"{' '.join(argv_c)} --inject-fault-at {DIST_C_FAULT}: {rc['secs']:.1f} s, "
+              f"median step {statistics.median(rc['step_s']) * 1e3:.1f} ms; rank 0 "
+              "printed:", flush=True)
+        for line in rc["text"].strip().splitlines():
+            print(f"      {line}", flush=True)
+        smoke.check(f"[supervisor] step {DIST_C_FAULT} failed (injected node failure); "
+                    "retry 1" in rc["text"] and f"[train] done at step {DIST_C_STEPS},"
+                    in rc["text"] and rc["final"][0] == rc["final"][1],
+                    f"18c: the supervisor's line, the run done at step {DIST_C_STEPS}, the "
+                    "same final loss on both ranks")
+        one = os.path.join(tmp, "one")
+        os.makedirs(one)
+        shutil.copytree(os.path.join(ckpt, "step_00000010"), os.path.join(one,
+                                                                          "step_00000010"))
+        r1, text1 = quiet(lambda: launcher.train(argv_c + ["--ckpt-dir", one]))
+        gaps = [abs(a - b) for a, b in zip(r1.losses, rc["losses"][-2:])]
+        print(f"    the step-10 checkpoint on one rank: losses {r1.losses} against the 2 "
+              f"ranks' {rc['losses'][-2:]}: |d| {[f'{g:.2e}' for g in gaps]} (the first on "
+              "the restored state; the second after an update from bf16 gradients summed "
+              "in another order, which AdamW's early steps turn into +-lr moves where a "
+              "gradient is near 0: printed, not gated)", flush=True)
+        smoke.check("[train] resumed from step 10" in text1 and len(gaps) == 2
+                    and gaps[0] < TRAIN_RESTART_TOL, f"18c: the 2-rank checkpoint at step "
+                    f"10 resumed on one rank: its loss there within {TRAIN_RESTART_TOL} of "
+                    "the 2 ranks'")
+        del r1
+
+    # 18d
+    rd = res["18d"]
+    d, n_mb, bm = pipe_shape
+    ticks = rd["calls"] - 1
+    print(f"[18d] pipeline_apply on a ('pipe',) mesh of {rd['stages']} ranks, tanh(x @ w) + b "
+          f"at d = {d}, M = {n_mb} microbatches of {bm} rows, float32: {rd['secs']:.4f} s, "
+          f"{ticks} ticks ({rd['secs'] / max(ticks, 1) * 1e3:.2f} ms a tick), bubble "
+          f"(S - 1) / (M + S - 1) = {(rd['stages'] - 1) / (n_mb + rd['stages'] - 1):.3f}; "
+          f"sequential_reference on one rank {rd['ref_s']:.4f} s; max|out - ref| = "
+          f"{rd['dev']:.3e} x max|out| against the reference a microbatch at a time, "
+          f"{rd['dev_whole']:.3e} x on the whole batch at once (not gated: other GEMM "
+          "shapes, another summation order)", flush=True)
+    smoke.check(rd["dev"] <= PIPE_TOL and ticks == n_mb + rd["stages"] - 1,
+                f"18d: within {PIPE_TOL} x max|out| of sequential_reference a microbatch at "
+                f"a time, M + S - 1 = {n_mb + rd['stages'] - 1} ticks ({ticks})")
+
+    # 18e: compress on the card against the CPU
+    g_dev = emb
+    g_cpu = emb.cpu()
+    bitwise = []
+    for name, x_dev, x_cpu in (("gradient", g_dev, g_cpu), ("gradient / 3", g_dev / 3,
+                                                             g_cpu / 3)):
+        w_dev = C.bf16_decompress(C.bf16_compress({"g": x_dev}), {"g": x_dev})["g"]
+        w_cpu = C.bf16_decompress(C.bf16_compress({"g": x_cpu}), {"g": x_cpu})["g"]
+        bitwise.append(torch.equal(w_dev.cpu(), w_cpu))
+    t0 = time.perf_counter()
+    v_d, i_d, r_d = C.topk_compress({"g": g_dev}, C.topk_init({"g": g_dev}), frac=TOPK_FRAC)
+    if on_card:
+        torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    v_c, i_c, r_c = C.topk_compress({"g": g_cpu}, C.topk_init({"g": g_cpu}), frac=TOPK_FRAC)
+    cpu_s = time.perf_counter() - t0
+    i_d, v_d, r_d = i_d["g"].cpu(), v_d["g"].cpu(), r_d["g"].cpu()
+    i_c, v_c, r_c = i_c["g"], v_c["g"], r_c["g"]
+    flat = g_cpu.reshape(-1)
+    only_d, only_c = i_d[~torch.isin(i_d, i_c)], i_c[~torch.isin(i_c, i_d)]
+    kth = v_c.abs().min()
+    ties = bool((flat[only_d].abs() == kth).all() and (flat[only_c].abs() == kth).all())
+    sd, od = torch.sort(i_d)
+    sc, oc = torch.sort(i_c)
+    same_pairs = torch.equal(sd, sc) and torch.equal(v_d[od], v_c[oc])
+    differ = (r_d != r_c).reshape(-1).nonzero().reshape(-1)
+    res_ok = bool(torch.isin(differ, torch.cat([only_d, only_c])).all())
+    print(f"[18e] compress on {cfg.name}'s embedding gradient ({flat.numel():,} entries, "
+          f"the one-rank step's, float32), the card against the CPU: bf16 round trip bitwise "
+          f"{bitwise} (the gradient, bf16-valued, and a third of it); top-k frac {TOPK_FRAC}: "
+          f"k = {i_c.numel():,}, card {card_s:.3f} s, CPU {cpu_s:.3f} s; (index, value) pairs "
+          f"equal {same_pairs}; {only_d.numel()} pairs only on the card and {only_c.numel()} "
+          f"only on the CPU, all at the k-th magnitude {kth.item():.6e} (ties): {ties}; "
+          f"residual entries apart {differ.numel()}", flush=True)
+    for idx in only_d[:8].tolist():
+        print(f"      card only: index {idx}, value {flat[idx].item():.6e}", flush=True)
+    for idx in only_c[:8].tolist():
+        print(f"      CPU only: index {idx}, value {flat[idx].item():.6e}", flush=True)
+    smoke.check(all(bitwise), "18e: the bf16 round trip on the card is bitwise the CPU's")
+    smoke.check(same_pairs or (ties and res_ok), "18e: the top-k (index, value) pairs and "
+                "the residual equal the CPU's, or differ only at ties")
+    del emb, g_dev, g_cpu, v_d, i_d, r_d, v_c, i_c, r_c, flat
+    settle(torch, dev)
+    print(f"    phase 18: {time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+
+
+def dist_only(torch) -> int:
+    """`--dist`: phase 18 alone, with its checks; prints no result line.
+    Exits 1 if a check failed."""
+    card = nvidia_smi()
+    print(f"card: {card}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smoke = Smoke()
+    dev = torch.device("cuda", 0)
+    torch.empty(1, device=dev)       # the allocator's stats need the device set up
+    t0 = time.perf_counter()
+    phase_dist(torch, smoke, dev, card)
+    print(f"total {time.perf_counter() - t0:.1f} s; {len(smoke.failures)} check(s) failed",
+          flush=True)
+    for f in smoke.failures:
+        print(f"  FAILED {f}", flush=True)
+    return 1 if smoke.failures else 0
+
+
+def rehearse_dist() -> int:
+    """Phase 18 on the CPU at TRAIN_REHEARSAL's widths (2 layers for 18a,
+    mamba2-130m's SMOKE config for 18c, d = 256 for 18d), to try the
+    phase's logic where there is no card:
+
+        PYTHONPATH=src python3 -c "import chip_smoke; chip_smoke.rehearse_dist()"
+
+    Returns 1 if a check failed."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+
+    small = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2,
+                                **TRAIN_REHEARSAL["internlm2_1_8b"])
+    moe = get_config(MOE_ARCH)
+    moe = dataclasses.replace(moe, n_layers=1, d_model=256, n_heads=4, n_kv_heads=2,
+                              head_dim=64, vocab_size=4096,
+                              moe=moe.moe._replace(d_ff_expert=512))
+    cfgs = (small, f32_of(torch, small), ample_capacity(f32_of(torch, moe)))
+    argv_c = ["--arch", SSM_ARCH, "--smoke", "--device", "cpu", "--batch", "4", "--seq", "64",
+              "--steps", str(DIST_C_STEPS), "--ckpt-every", str(DIST_C_EVERY),
+              "--log-every", "5"]
+    smoke = Smoke()
+    phase_dist(torch, smoke, torch.device("cpu"), "CPU rehearsal", cfgs=cfgs, argv_c=argv_c,
+               pipe_shape=(256, 8, 16))
+    print(f"{len(smoke.failures)} check(s) failed", flush=True)
+    return 1 if smoke.failures else 0
+
+
 def run_path(torch, kernels, svm_state, fn):
     """Run fn with every launch counter, the sync counter and the CG loop's
     counters (`cg_lanes.steps`, `.dead`) at 0; return (result, seconds,
@@ -3680,6 +4251,8 @@ def main() -> int:
         return lm_only(torch)
     if sys.argv[1:] == ["--train"]:
         return train_only(torch)
+    if sys.argv[1:] == ["--dist"]:
+        return dist_only(torch)
     if sys.argv[1:2] == ["--lm-trace"] and len(sys.argv) <= 3:
         from repro_torch.configs import ALIASES
         if sys.argv[2:] and sys.argv[2] not in ALIASES:
@@ -3927,6 +4500,13 @@ def main() -> int:
           "mamba2-130m through a fault and a restart, mixtral-8x7b's MoE at full width",
           flush=True)
     phase_train(torch, smoke, kernels, svm_state, count, dev, card)
+    torch.cuda.empty_cache()
+
+    # -- 18. data-parallel training over ranks ---------------------------------
+    print("[18] data-parallel training: internlm2-1.8b's sharded step at full width and "
+          "depth on 2 ranks, parity, the launcher across ranks, the pipeline, compression",
+          flush=True)
+    phase_dist(torch, smoke, dev, card)
 
     # -- summary ---------------------------------------------------------------
     for name, n_launch in path_launches.items():

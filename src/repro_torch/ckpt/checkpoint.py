@@ -14,9 +14,17 @@ a tree both packages hold moves between them bit for bit.
   * retention: `keep_last` + `keep_every`, and orphaned tmp directories
     swept, by `CheckpointManager`.
 
-On one card, `restore_checkpoint(..., device=)` takes the place of JAX's
-`shardings`: leaves land on the target tree's devices unless a device is
-named.
+Leaves land on the target tree's devices unless a device is named
+(`restore_checkpoint(..., device=)`).
+
+**Under a mesh** (an active `dist.mesh_context` of more than one rank),
+rank 0 writes JAX's global tree and every rank waits for it: a tree held
+in blocks (ZeRO-1's moments) is gathered first by its sharding records
+(`save_checkpoint(..., shardings=)`). Every rank restores the global tree
+and, given records (`restore_checkpoint(..., shardings=)`, JAX's
+argument), keeps its blocks. So a checkpoint written by 2 ranks restores
+on 1 rank or on 2: JAX's "elastic restore re-shards onto whatever mesh
+the relaunch built".
 """
 from __future__ import annotations
 
@@ -30,8 +38,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch import dist
 from repro_torch.device import DeviceLike
-from repro_torch.utils import tree_map_with_path, tree_paths
+from repro_torch.utils import tree_map, tree_map_with_path, tree_paths
 
 #: the logical dtypes a checkpoint may hold, by their numpy (and JAX) names
 _DTYPES = {"float64": torch.float64, "float32": torch.float32, "float16": torch.float16,
@@ -57,10 +66,43 @@ def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
     if dtype not in _DTYPES:
         raise ValueError(f"a checkpoint leaf of dtype {dtype!r}, which this package "
                          "does not hold")
-    return torch.from_numpy(np.ascontiguousarray(arr.astype(dtype)))
+    # ascontiguousarray makes a 0-d array 1-d: the shape is put back
+    return torch.from_numpy(np.ascontiguousarray(arr.astype(dtype)).reshape(arr.shape))
 
 
-def save_checkpoint(directory: str, step: int, tree: Any, *, extra: Optional[dict] = None):
+def _writer_mesh():
+    """The active context's mesh when it has more than one rank, else None."""
+    ctx = dist.current_context()
+    return ctx[0] if ctx is not None and ctx[0].size > 1 else None
+
+
+def _barrier(mesh) -> None:
+    """Every rank of `mesh` waits here for the others (an all-reduce)."""
+    dev = mesh.device if mesh.device is not None else torch.device("cpu")
+    dist.all_reduce(mesh, torch.zeros(1, device=dev))
+
+
+def save_checkpoint(directory: str, step: int, tree: Any, *, extra: Optional[dict] = None,
+                    shardings: Any = None):
+    """Write `tree` as the checkpoint of `step`; its path. Under a mesh of
+    more than one rank, every rank calls it: the blocks of a tree held by
+    `shardings` records are gathered, rank 0 writes, and every rank returns
+    once the step is published."""
+    if shardings is not None:
+        from repro_torch.dist.shardings import gather_tree
+        tree = gather_tree(tree, shardings)
+    mesh = _writer_mesh()
+    final = os.path.join(directory, f"step_{step:08d}")
+    if mesh is not None and mesh.rank != 0:
+        _barrier(mesh)
+        return final
+    path = _write(directory, step, tree, extra)
+    if mesh is not None:
+        _barrier(mesh)
+    return path
+
+
+def _write(directory: str, step: int, tree: Any, extra: Optional[dict]):
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + f".tmp-{os.getpid()}-{int(time.time() * 1e6) % 1_000_000}"
@@ -91,12 +133,23 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore_checkpoint(directory: str, target_tree: Any, *, step: Optional[int] = None,
-                       device: DeviceLike = None):
+                       device: DeviceLike = None, shardings: Any = None):
     """(a tree of target_tree's structure read from the checkpoint of
     `step` (the latest when None), its step, its extra dict). Each leaf
     has the dtype the checkpoint records and lands on `device`, or on the
-    device of the target's leaf at its place when none is named. Raises
-    IOError on a checksum mismatch and ValueError on a shape mismatch."""
+    device of the target's leaf at its place when none is named. With
+    `shardings` (a record tree like the target), each leaf is this rank's
+    block, and the target's leaves may be blocks too. Raises IOError on a
+    checksum mismatch and ValueError on a shape mismatch."""
+    if shardings is not None:
+        from repro_torch.dist.shardings import place
+        like = tree_map(lambda leaf, rec: leaf if rec is None else torch.empty(
+            rec.shape, dtype=leaf.dtype, device="meta"), target_tree, shardings)
+        tree, step, extra = restore_checkpoint(directory, like, step=step, device="cpu")
+        # each block copied apart, so the global leaf it was cut from is freed
+        return tree_map(lambda x, leaf: x.to(device if device is not None else leaf.device,
+                                             copy=True),
+                        place(tree, shardings), target_tree), step, extra
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -128,13 +181,17 @@ class CheckpointManager:
         self.keep_last = keep_last
         self.keep_every = keep_every
 
-    def save(self, step: int, tree: Any, extra: Optional[dict] = None):
-        path = save_checkpoint(self.directory, step, tree, extra=extra)
-        self._gc()
+    def save(self, step: int, tree: Any, extra: Optional[dict] = None, shardings: Any = None):
+        path = save_checkpoint(self.directory, step, tree, extra=extra, shardings=shardings)
+        mesh = _writer_mesh()
+        if mesh is None or mesh.rank == 0:
+            self._gc()
         return path
 
-    def restore(self, target_tree: Any, step: Optional[int] = None, device: DeviceLike = None):
-        return restore_checkpoint(self.directory, target_tree, step=step, device=device)
+    def restore(self, target_tree: Any, step: Optional[int] = None, device: DeviceLike = None,
+                shardings: Any = None):
+        return restore_checkpoint(self.directory, target_tree, step=step, device=device,
+                                  shardings=shardings)
 
     def latest_step(self) -> Optional[int]:
         return latest_step(self.directory)

@@ -1,18 +1,25 @@
-"""The port's device mesh: a process group, its ranks, and their collectives.
+"""The port's device mesh and logical-axis rules: a process group, its
+ranks, their collectives, and the rule table that maps logical axis names
+onto mesh axes.
 
-PyTorch counterpart of the part of `repro/dist/__init__.py` that the
-Elastic Net uses: `data_mesh`, `mesh_context`, `current_context` and the
-"batch" axis of `DEFAULT_RULES` / `resolve_spec`. The LM's rules
-(`constrain`, ZeRO, compression, pipeline) are not ported.
+PyTorch counterpart of `repro/dist/__init__.py`. Model code names logical
+axes only (the per-module `*_sharding()` specs); `DEFAULT_RULES`,
+overridable per config (`cfg.rules_override`) and per `mesh_context`, maps
+them onto mesh axes; `resolve_spec` drops a mesh axis that does not divide
+the dimension or that an earlier dimension of the spec already used. The
+resolvers of `dist.shardings` and `dist.zero` build on it.
 
 JAX is single-controller: one process calls a sharded function on global
 arrays over a `Mesh` of devices. torch is SPMD: every rank is a process,
 and every rank calls the same entry point with the same arguments. A
-`Mesh` here names a `torch.distributed` process group, its size, this
-process's rank in it and the rank's device. Functions that take a mesh
-keep their own block of the work and return the same replicated result on
-every rank. A mesh of one rank (no process group, or `data_mesh(1)`)
-issues no collective at all.
+`Mesh` here names its axes and their sizes, a `torch.distributed` process
+group, this process's rank in it and the rank's device. Functions that
+take a mesh keep their own block of the work and return the same
+replicated result on every rank. A mesh of one rank (no process group, or
+`data_mesh(1)`) issues no collective at all; a mesh of more ranks that no
+process group backs (the production 16 x 16, say) resolves specs only,
+and a collective on it raises. So `constrain` is the identity inside a
+context too: each rank already holds its own block.
 
 Every collective is an `all_reduce` (`all_reduce`, `gather`, `agree`): a
 gather is an all-reduce of a zero-filled buffer that holds this rank's
@@ -32,6 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import multiprocessing
 import os
 import shutil
@@ -45,9 +53,35 @@ from typing import Any, Callable, Optional
 
 import torch
 
-# Logical axis -> mesh axis (or None = replicated): the solver layer's one
-# rule, stacked problems and CV folds on their leading "batch" axis.
-DEFAULT_RULES: dict = {"batch": "data"}
+# Logical axis -> mesh axis (or None = replicated): JAX's table. One table
+# for the whole model zoo; per-arch deviations go through
+# cfg.rules_override. The solver layer uses "batch" alone (stacked
+# problems and CV folds on their leading axis).
+DEFAULT_RULES: dict = {
+    # activations
+    "batch": "data",          # global batch dim (DP)
+    "moe_batch": "data",      # MoE capacity buffer's batch dim (pre/post a2a)
+    "seq_kv": None,           # KV sequence dim; "model"/"data" for long-ctx cells
+    # shared activation/param feature axes
+    "embed": None,            # d_model: replicated unless fsdp widens it
+    "mlp": "model",           # dense FFN hidden (Megatron col->row TP)
+    "vocab": "model",         # logits / embedding-table vocab dim
+    "heads": "model",         # query heads (TP)
+    "kv_heads": "model",      # KV heads (GQA TP; skipped when it won't divide)
+    "ssm_inner": "model",     # mamba d_inner channels
+    "ssm_heads": "model",     # SSD state heads
+    "experts": "model",       # expert parallelism (mixtral overrides to TP)
+    "expert_ffn": None,       # per-expert FFN hidden (TP-within-expert if set)
+    "expert_fsdp": None,      # expert weight d_model dim (deepseek: "data")
+    "latent": None,           # MLA low-rank latent dims
+    # parameter-only pseudo-axis: when set, params_shardings/zero widen each
+    # weight's first unsharded divisible dim over this mesh axis (FSDP/ZeRO).
+    "fsdp": None,
+}
+
+#: the ROADMAP item that executes a mesh with a "model" axis, or parameters
+#: sharded over "data" (FSDP)
+MODEL_AXIS_ITEM = "ROADMAP Queue 1 item 7d"
 
 #: the device `launch` gave this rank (None outside a launched rank)
 _RANK_DEVICE: Optional[torch.device] = None
@@ -55,24 +89,47 @@ _RANK_DEVICE: Optional[torch.device] = None
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """A 1-D ("data",) mesh of `size` ranks: this process is `rank`, its
-    shards live on `device`, and `group` is the process group (None for
-    one rank). `backend` is the group's ("gloo" or "nccl")."""
+    """A mesh of `size` ranks with named `axes` of `sizes` (row-major over
+    the ranks; one "data" axis of `size` when `sizes` is not given): this
+    process is `rank`, its blocks live on `device`, and `group` is the
+    process group (None for one rank, and for a mesh that resolves specs
+    only). `backend` is the group's ("gloo" or "nccl")."""
 
     size: int = 1
     rank: int = 0
     device: Optional[torch.device] = None
     group: Any = None
     backend: Optional[str] = None
+    axes: tuple = ("data",)
+    sizes: Optional[tuple] = None
+
+    def __post_init__(self):
+        sizes = (self.size,) if self.sizes is None else tuple(int(s) for s in self.sizes)
+        if len(sizes) != len(self.axes) or len(set(self.axes)) != len(self.axes):
+            raise ValueError(f"Mesh: axes {self.axes} and sizes {sizes} do not pair up")
+        size = math.prod(sizes)
+        if self.sizes is not None and self.size == 1:
+            object.__setattr__(self, "size", size)
+        elif size != self.size:
+            raise ValueError(f"Mesh: sizes {sizes} make {size} ranks, not {self.size}")
+        object.__setattr__(self, "axes", tuple(self.axes))
+        object.__setattr__(self, "sizes", sizes)
 
     @property
     def shape(self) -> dict:
-        return {"data": self.size}
+        """Axis name -> size, as `jax.sharding.Mesh.shape`."""
+        return dict(zip(self.axes, self.sizes))
+
+    def coord(self, axis: str) -> int:
+        """This rank's index along `axis`."""
+        i = self.axes.index(axis)
+        return (self.rank // math.prod(self.sizes[i + 1:])) % self.sizes[i]
 
 
-def data_mesh(n_devices: Optional[int] = None) -> Mesh:
-    """The mesh of the initialized default process group, or else a mesh of
-    one rank; `n_devices=1` is always this rank alone.
+def data_mesh(n_devices: Optional[int] = None, axis_name: str = "data") -> Mesh:
+    """A 1-D (`axis_name`,) mesh: the mesh of the initialized default
+    process group, or else a mesh of one rank; `n_devices=1` is always this
+    rank alone.
 
     The solver layer's default placement: batch-axis fan-out of stacked
     problems (`core/batch.py`, `runtime/scheduler.py`), fold placement for
@@ -82,35 +139,37 @@ def data_mesh(n_devices: Optional[int] = None) -> Mesh:
     """
     import torch.distributed as tdist
 
+    axes = (axis_name,)
     if tdist.is_available() and tdist.is_initialized():
         world = tdist.get_world_size()
         if n_devices == 1:
-            return Mesh(device=_RANK_DEVICE)
+            return Mesh(device=_RANK_DEVICE, axes=axes)
         if n_devices not in (None, world):
             raise ValueError(f"data_mesh: n_devices={n_devices} but the process group "
                              f"has {world} ranks")
         return Mesh(size=world, rank=tdist.get_rank(), device=_RANK_DEVICE,
                     group=tdist.group.WORLD if world > 1 else None,
-                    backend=tdist.get_backend())
+                    backend=tdist.get_backend(), axes=axes)
     if n_devices not in (None, 1):
         raise ValueError(f"data_mesh: n_devices={n_devices} but no process group is "
                          "initialized (one rank; see dist.launch)")
-    return Mesh(device=_RANK_DEVICE)
+    return Mesh(device=_RANK_DEVICE, axes=axes)
 
 
 _state = threading.local()
 
 
-def _stack() -> list:
-    if not hasattr(_state, "stack"):
-        _state.stack = []
-    return _state.stack
+def _stack(name: str = "stack") -> list:
+    if not hasattr(_state, name):
+        setattr(_state, name, [])
+    return getattr(_state, name)
 
 
 @contextmanager
 def mesh_context(mesh: Mesh, rules: Optional[dict] = None):
     """Activate `mesh` and a rule table; contexts nest, the innermost wins.
-    `rules` entries take precedence over DEFAULT_RULES."""
+    `rules` entries take precedence over DEFAULT_RULES; a partial override
+    and a fully merged table both work."""
     merged = dict(DEFAULT_RULES)
     if rules:
         merged.update(rules)
@@ -127,20 +186,45 @@ def current_context() -> Optional[tuple]:
     return stack[-1] if stack else None
 
 
+def _axis_size(mesh: Mesh, axes) -> int:
+    if isinstance(axes, str):
+        axes = (axes,)
+    n = 1
+    for a in axes:
+        n *= mesh.shape[a]
+    return n
+
+
 def resolve_spec(names: tuple, shape: tuple, mesh: Mesh, rules: dict) -> tuple:
-    """Logical names (one per dim, None = unsharded) -> the mesh axis each
-    dim is split over, or None. Skips a mesh axis when it would not divide
-    the dimension or was already used by an earlier dimension."""
+    """Logical names (one per dim, None = unsharded) -> the mesh axis (or
+    tuple of axes) each dim is split over, or None: JAX's PartitionSpec
+    entries as a tuple. Skips a mesh axis when it would not divide the
+    dimension or was already used by an earlier dimension of this spec."""
     used: set = set()
     out = []
     for dim, name in zip(shape, names):
         axis = rules.get(name) if name is not None else None
-        if axis is None or axis not in mesh.shape or axis in used or dim % mesh.size:
+        if axis is None:
             out.append(None)
             continue
-        used.add(axis)
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
+        if (any(a not in mesh.shape for a in axes) or any(a in used for a in axes)
+                or dim % _axis_size(mesh, axes) != 0):
+            out.append(None)
+            continue
+        used.update(axes)
         out.append(axis)
     return tuple(out)
+
+
+def constrain(x: torch.Tensor, *names) -> torch.Tensor:
+    """JAX's sharding hint: `names` gives one logical axis name (or None)
+    per dim of x. Raises ValueError when their count is not x's rank, and
+    returns x itself, in a mesh_context or outside one: each rank of this
+    SPMD port already holds its own block."""
+    if len(names) != x.dim():
+        raise ValueError(f"constrain: {len(names)} names for rank-{x.dim()} array")
+    return x
 
 
 def local_block(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
@@ -149,24 +233,92 @@ def local_block(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     return x[mesh.rank * rows:(mesh.rank + 1) * rows]
 
 
+def executed_axis(mesh: Mesh) -> Optional[str]:
+    """The one axis of `mesh` with more than one rank that a step runs
+    over, or None on one rank. More than one such axis needs the "model"
+    axis executed, which is not ported: NotImplementedError."""
+    big = [a for a, n in mesh.shape.items() if n > 1]
+    if len(big) > 1:
+        raise NotImplementedError(f"a mesh of shape {mesh.shape} splits more than one axis; "
+                                  f"executing the \"model\" axis is {MODEL_AXIS_ITEM}")
+    return big[0] if big else None
+
+
+@contextmanager
+def data_parallel(mesh: Optional[Mesh]):
+    """Within it, the batch a step computes on is this rank's block of a
+    global batch whose rows are split over `mesh` (None: not split), so
+    what the model sums over the global batch (the MoE's load-balance
+    fractions) sums over the ranks (`data_parallel_mesh`)."""
+    _stack("split").append(mesh)
+    try:
+        yield mesh
+    finally:
+        _stack("split").pop()
+
+
+def snapshot() -> tuple:
+    """The active mesh contexts and data-parallel meshes, to re-enter on
+    another thread (`entered`): these stacks are per thread, and autograd
+    runs a CUDA backward, a checkpointed layer's recompute included, on a
+    thread of its own."""
+    return list(_stack()), list(_stack("split"))
+
+
+@contextmanager
+def entered(snap: tuple):
+    """Within it, this thread's contexts are those of `snapshot()`."""
+    saved = list(_stack()), list(_stack("split"))
+    _stack()[:], _stack("split")[:] = snap
+    try:
+        yield
+    finally:
+        _stack()[:], _stack("split")[:] = saved
+
+
+def data_parallel_mesh() -> Optional[Mesh]:
+    """The mesh of the innermost `data_parallel` with more than one rank,
+    or None."""
+    stack = _stack("split")
+    mesh = stack[-1] if stack else None
+    return mesh if mesh is not None and mesh.size > 1 else None
+
+
 # -- collectives: every one an all_reduce ------------------------------------
 
 def all_reduce(mesh: Mesh, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
     """x summed (or maxed) over the ranks, the same bits on every rank; x
-    itself on a mesh of one rank. `all_reduce.calls` counts the collectives
-    issued (a plain integer; callers reset it)."""
+    itself on a mesh of one rank. Raises on a mesh that no process group
+    backs. `all_reduce.calls`, `.bytes` and `.seconds` count the
+    collectives issued (`all_reduce_`'s too), their operands' bytes and
+    the host seconds spent in them (plain numbers; callers reset them)."""
     if mesh.size == 1:
         return x
+    return all_reduce_(mesh, x.clone(), op)
+
+
+def all_reduce_(mesh: Mesh, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    """`all_reduce` in place: x itself, overwritten with the result (for a
+    tensor the caller owns, such as a rank's own gradients)."""
+    if mesh.size == 1:
+        return x
+    if mesh.group is None:
+        raise RuntimeError(f"all_reduce: no process group backs this mesh of shape "
+                           f"{mesh.shape}; it resolves specs only")
     import torch.distributed as tdist
 
-    out = x.clone()
-    tdist.all_reduce(out, op=tdist.ReduceOp.MAX if op == "max" else tdist.ReduceOp.SUM,
+    t0 = time.perf_counter()
+    tdist.all_reduce(x, op=tdist.ReduceOp.MAX if op == "max" else tdist.ReduceOp.SUM,
                      group=mesh.group)
     all_reduce.calls += 1
-    return out
+    all_reduce.bytes += x.numel() * x.element_size()
+    all_reduce.seconds += time.perf_counter() - t0
+    return x
 
 
 all_reduce.calls = 0
+all_reduce.bytes = 0
+all_reduce.seconds = 0.0
 
 
 def gather(mesh: Mesh, x_loc: torch.Tensor) -> torch.Tensor:
@@ -187,6 +339,27 @@ def agree(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     if mesh.size == 1:
         return x
     return all_reduce(mesh, x if mesh.rank == 0 else torch.zeros_like(x))
+
+
+class _SumOverRanks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.size = mesh.size
+        return all_reduce(mesh, x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.size, None
+
+
+def sum_over_ranks(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """x summed over the ranks, differentiably. Every rank's loss holds the
+    sum whole and the step averages the ranks' gradients, so backward hands
+    each rank W times the gradient it sees: the average is then the
+    gradient of the sum through every rank's own term."""
+    if mesh.size == 1:
+        return x
+    return _SumOverRanks.apply(x, mesh)
 
 
 # -- the rank launcher --------------------------------------------------------

@@ -1,0 +1,317 @@
+"""Tree -> sharding records through the logical rule table: the port of
+`repro/dist/shardings.py`, and the placement that JAX's `jit` does with
+`in_shardings`.
+
+`params_shardings` walks a parameter tree (tensors, on the "meta" device
+too: only shapes are read) and recognizes the module sub-dicts by their
+key signatures (attention / MLA / MoE / dense MLP / SSM / embedding /
+norm), applying each module's own `*_sharding()` logical spec. Unknown
+leaves fall back to replicated; the `fsdp` rule (when set) then widens
+every weight's first unsharded divisible dim (FSDP without per-arch spec
+tables). Each leaf gets a `Sharding` record: its mesh, one entry per dim
+(a mesh axis, a tuple of axes, or None) and the leaf's global shape.
+
+**Stacked layers.** JAX stacks the body's layers across periods for its
+`lax.scan` and resolves each stacked leaf (periods, ...) whole, so a
+widening may land on the stacked dim: on a 16 x 16 mesh every body leaf
+of qwen2.5-14b takes `fsdp` there, whole layers a block. The
+port holds one dict a layer; given the config, a body layer's record
+carries the stacked dim's entry apart (`stack`), with the layer's index
+in its stack and the stack's size, so the port's tree gives, leaf for
+leaf, the layout JAX gives (`convert.model_params_from_jax` unstacks the
+same way). A rank holds a stacked leaf whole when its block of the stack
+holds the layer, and nothing of it otherwise.
+
+All resolvers require an active `dist.mesh_context`; the mesh and rule
+table come from it, never from arguments. `place` keeps each rank's block
+of a tree by its records, `gather_tree` rebuilds the global tree on every
+rank, and `run_sharded` is `jax.jit(step_fn, in_shardings=...)` for a
+train step: each rank keeps its blocks, and the step runs on them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch.dist import (Mesh, MODEL_AXIS_ITEM, _axis_size, all_reduce, current_context,
+                              resolve_spec)
+from repro_torch.dist.zero import _widen_spec
+from repro_torch.utils import tree_leaves, tree_map
+
+# cache NamedTuple field signatures -> per-field logical specs
+_CACHE_SPECS = {
+    ("k", "v", "pos"): {                      # attention KVCache
+        "k": ("batch", "seq_kv", "kv_heads", None),
+        "v": ("batch", "seq_kv", "kv_heads", None),
+        "pos": ()},
+    ("c_kv", "k_rope", "pos"): {              # MLACache (latent + rope keys)
+        "c_kv": ("batch", "seq_kv", None),
+        "k_rope": ("batch", "seq_kv", None),
+        "pos": ()},
+    ("conv", "h"): {                          # SSMCache
+        "conv": ("batch", None, "ssm_inner"),
+        "h": ("batch", "ssm_heads", None, None)},
+}
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Sharding:
+    """How a leaf lies on `mesh`: `spec` holds one entry per dim of the
+    leaf (a mesh axis, a tuple of axes, or None), `shape` is the global
+    leaf's. A body layer's record also holds the entry JAX gives the
+    stacked dim (`stack`), the layer's index in its stack and the stack's
+    size (None off the stack)."""
+
+    mesh: Mesh
+    spec: tuple
+    shape: tuple = ()
+    stack: Any = None
+    stack_index: Optional[int] = None
+    stack_size: Optional[int] = None
+
+    def uses(self, axis: str) -> bool:
+        """Whether any dim, the stacked one included, is split over `axis`."""
+        entries = self.spec + ((self.stack,) if self.stack_size is not None else ())
+        return any(e == axis or (isinstance(e, tuple) and axis in e) for e in entries)
+
+
+def _require_ctx():
+    ctx = current_context()
+    if ctx is None:
+        raise RuntimeError("dist.shardings resolvers require an active "
+                           "dist.mesh_context(mesh, rules=...)")
+    return ctx
+
+
+def _module_specs(d: dict):
+    """Match a params sub-dict to its module's logical sharding spec."""
+    from repro_torch.models.attention import attention_sharding
+    from repro_torch.models.layers import mlp_sharding
+    from repro_torch.models.mla import mla_sharding
+    from repro_torch.models.moe import MoEConfig, moe_sharding
+    from repro_torch.models.ssm import ssm_sharding
+
+    keys = set(d)
+    if {"w_dq", "w_uq", "w_dkv", "w_kr", "w_uk", "w_uv", "wo"} <= keys:
+        return mla_sharding(None)
+    if {"wq", "wk", "wv", "wo"} <= keys:
+        return attention_sharding(qkv_bias="bq" in keys)
+    if {"router", "w_gate", "w_up", "w_down"} <= keys:
+        return moe_sharding(MoEConfig(n_shared=int("shared" in keys)))
+    if {"w_gate", "w_up", "w_down"} <= keys:
+        return mlp_sharding()
+    if {"w_in", "conv_w", "a_log"} <= keys:
+        return ssm_sharding(None)
+    if keys == {"table"}:
+        return {"table": ("vocab", "embed")}
+    if keys == {"scale"}:
+        return {"scale": (None,)}
+    return None
+
+
+def _align(names, ndim: int) -> tuple:
+    """Pad a logical spec to `ndim` dims (stacked leaves get leading Nones);
+    a spec that cannot match the rank resolves fully replicated."""
+    names = tuple(names) if names is not None else ()
+    if len(names) > ndim:
+        return (None,) * ndim
+    return (None,) * (ndim - len(names)) + names
+
+
+def _shape(leaf) -> tuple:
+    return tuple(leaf.shape) if hasattr(leaf, "shape") else ()
+
+
+def _leaf_sharding(leaf, names, mesh, rules, fsdp=None, stack=None) -> Sharding:
+    """The leaf's record; `stack` = (index, size) resolves it as JAX
+    resolves its stacked leaf, the stack's dim first."""
+    shape = _shape(leaf)
+    full = shape if stack is None else (stack[1],) + shape
+    spec = resolve_spec(_align(names, len(full)), full, mesh, rules)
+    if fsdp is not None and fsdp in mesh.shape:
+        spec = _widen_spec(spec, full, fsdp, mesh)
+    if stack is None:
+        return Sharding(mesh, tuple(spec), shape)
+    return Sharding(mesh, tuple(spec[1:]), shape, stack=spec[0], stack_index=stack[0],
+                    stack_size=stack[1])
+
+
+def _walk(node, spec, leaf_fn):
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        sub = spec if isinstance(spec, dict) else (_module_specs(node) or {})
+        return {k: _walk(v, sub.get(k), leaf_fn) for k, v in node.items()}
+    if hasattr(node, "_fields"):              # NamedTuple (cache containers)
+        sub = _CACHE_SPECS.get(node._fields, spec if isinstance(spec, dict) else {})
+        return type(node)(*(_walk(getattr(node, f), sub.get(f), leaf_fn)
+                            for f in node._fields))
+    if isinstance(node, (list, tuple)):
+        return type(node)(_walk(v, spec, leaf_fn) for v in node)
+    return leaf_fn(node, spec if isinstance(spec, (tuple, list)) else None)
+
+
+def _walk_layers(tree, cfg, leaf_fn):
+    """`_walk` over a tree of the port's layout; given `cfg`, each body
+    layer of `tree["layers"]` resolves as its period stack in JAX's tree
+    (`leaf_fn(leaf, names, stack)`)."""
+    if cfg is None or not isinstance(tree, dict) or "layers" not in tree:
+        return _walk(tree, None, lambda leaf, names: leaf_fn(leaf, names, None))
+    out = {k: _walk(v, None, lambda leaf, names: leaf_fn(leaf, names, None))
+           for k, v in tree.items() if k != "layers"}
+    layers = []
+    for i, layer in enumerate(tree["layers"]):
+        stack = None
+        if i >= cfg.dense_prefix:
+            stack = ((i - cfg.dense_prefix) // cfg.period, cfg.n_periods)
+        layers.append(_walk(layer, None, lambda leaf, names, s=stack: leaf_fn(leaf, names, s)))
+    out["layers"] = layers
+    return {k: out[k] for k in tree}
+
+
+def params_shardings(params, cfg=None):
+    """Parameter tree -> Sharding tree. With the model's `cfg`, a body
+    layer's leaves resolve as JAX's stacked leaves (`Sharding.stack`)."""
+    mesh, rules = _require_ctx()
+    fsdp = rules.get("fsdp")
+    return _walk_layers(params, cfg, lambda leaf, names, stack: _leaf_sharding(
+        leaf, names, mesh, rules, fsdp=fsdp, stack=stack))
+
+
+def batch_shardings(batch):
+    """Model-input tree -> records: dim 0 is the global batch ("batch"
+    rule, normally the data axis), everything else replicated."""
+    mesh, rules = _require_ctx()
+
+    def leaf(x):
+        names = ("batch",) + (None,) * (max(x.dim(), 1) - 1)
+        return _leaf_sharding(x, names[:x.dim()], mesh, rules)
+
+    return tree_map(leaf, batch)
+
+
+def cache_shardings(caches, cfg=None):
+    """Decode-cache tree -> records via the cache-container signatures
+    (KVCache / MLACache / SSMCache); with `cfg`, body caches align as
+    JAX's stacked ones. A cache's `pos` (a Python int) gets spec ()."""
+    mesh, rules = _require_ctx()
+    return _walk_layers(caches, cfg, lambda leaf, names, stack: _leaf_sharding(
+        leaf, names, mesh, rules, stack=stack if hasattr(leaf, "shape") else None))
+
+
+def replicated(x):
+    """Fully replicated records on the active mesh, matching x."""
+    mesh, _ = _require_ctx()
+    return tree_map(lambda leaf: Sharding(mesh, (), _shape(leaf)), x)
+
+
+# -- placement ------------------------------------------------------------------
+
+def _coord(mesh: Mesh, entry) -> int:
+    """This rank's block index along a spec entry (an axis or a tuple of
+    axes, row-major)."""
+    c = 0
+    for a in (entry,) if isinstance(entry, str) else entry:
+        c = c * mesh.shape[a] + mesh.coord(a)
+    return c
+
+
+def _owns(rec: Sharding) -> bool:
+    """Whether this rank's block of the stack holds the record's layer."""
+    if rec.stack is None or rec.stack_size is None:
+        return True
+    per = rec.stack_size // _axis_size(rec.mesh, rec.stack)
+    return _coord(rec.mesh, rec.stack) == rec.stack_index // per
+
+
+def block(x: torch.Tensor, rec: Sharding) -> torch.Tensor:
+    """This rank's block of the global leaf x (a view): each split dim
+    narrowed to the rank's slot, and no rows of a stacked leaf whose layer
+    lies in another rank's block of the stack."""
+    if not _owns(rec):
+        return x[:0]
+    for d, entry in enumerate(rec.spec):
+        if entry is not None:
+            n = x.shape[d] // _axis_size(rec.mesh, entry)
+            x = x.narrow(d, _coord(rec.mesh, entry) * n, n)
+    return x
+
+
+def block_shape(rec: Sharding) -> tuple:
+    if not _owns(rec):
+        return (0,) + tuple(rec.shape[1:])
+    spec = tuple(rec.spec) + (None,) * (len(rec.shape) - len(rec.spec))
+    return tuple(n // _axis_size(rec.mesh, e) if e is not None else n
+                 for n, e in zip(rec.shape, spec))
+
+
+def place(tree, shardings):
+    """Each rank's blocks of `tree` by its records (`jax.device_put`): a
+    leaf of its record's global shape is cut to the rank's block, a leaf
+    already of the block's shape is kept. A None record (or tree of
+    records) keeps the leaves as they are."""
+    if shardings is None:
+        return tree
+
+    def put(x, rec):
+        if rec is None or not isinstance(x, torch.Tensor):
+            return x
+        if tuple(x.shape) == tuple(rec.shape):
+            return block(x, rec)
+        if tuple(x.shape) == block_shape(rec):
+            return x
+        raise ValueError(f"place: a leaf of shape {tuple(x.shape)} is neither the record's "
+                         f"global shape {rec.shape} nor its block {block_shape(rec)}")
+
+    return tree_map(put, tree, shardings)
+
+
+def gather_leaf(x: torch.Tensor, rec: Sharding) -> torch.Tensor:
+    """The global leaf from each rank's block x: an all-reduce of a
+    zero-filled leaf holding this rank's block, exact (the other ranks add
+    zeros; -0.0 becomes +0.0). x itself when no dim is split."""
+    split = [a for a, n in rec.mesh.shape.items() if n > 1 and rec.uses(a)]
+    if not split:
+        return x
+    full = x.new_zeros(rec.shape)
+    if x.numel():
+        block(full, rec).copy_(x)
+    return all_reduce(rec.mesh, full)
+
+
+def gather_tree(tree, shardings):
+    """The global tree on every rank from its blocks (`gather_leaf`)."""
+    if shardings is None:
+        return tree
+    return tree_map(lambda x, rec: x if rec is None or not isinstance(x, torch.Tensor)
+                    else gather_leaf(x, rec), tree, shardings)
+
+
+def check_executable(shardings, what: str) -> None:
+    """Raise NotImplementedError when a record splits a leaf over an axis
+    of more than one rank: parameters sharded over "data" (FSDP) or a
+    "model" axis are resolved, not executed, yet."""
+    for rec in tree_leaves(shardings):
+        if rec is None:
+            continue
+        for axis, n in rec.mesh.shape.items():
+            if n > 1 and rec.uses(axis):
+                raise NotImplementedError(
+                    f"{what}: a record splits a leaf over {axis!r} ({n} ranks; spec "
+                    f"{rec.spec}, stack {rec.stack}); executing parameters sharded over "
+                    f"\"data\" (FSDP) or a \"model\" axis is {MODEL_AXIS_ITEM}")
+
+
+def run_sharded(step_fn: Callable, in_shardings: tuple, params, opt_state, batch):
+    """`jax.jit(step_fn, in_shardings=(p_sh, o_sh, b_sh))(params, opt_state,
+    batch)` for a step of `train.step.make_train_step`: each rank keeps its
+    blocks of the parameters and the optimizer state by their records
+    (global operands are cut, blocks kept) and the step runs on them,
+    returning the parameters replicated and the moments as blocks. The
+    batch crosses whole: the step keeps each microbatch's block of it by
+    `b_sh`, as JAX splits the global batch into microbatches first."""
+    p_sh, o_sh, b_sh = in_shardings
+    return step_fn(place(params, p_sh), place(opt_state, o_sh), batch,
+                   shardings=(p_sh, o_sh, b_sh))

@@ -11,9 +11,20 @@ Runs on the CUDA device unless `--device` names another, and raises
 where there is none. `--smoke` (off by default, as in JAX's train
 launcher) runs the arch's reduced SMOKE config. Parameters are drawn from
 a generator seeded 0 on the run's device, and batches come from
-`data.pipeline.SyntheticStream` (seed 0). There is no mesh: sharding comes
-with the LM's `dist/`. `train_config` runs the same loop on a config
-given as it is (a depth-cut one, say).
+`data.pipeline.SyntheticStream` (seed 0). `train_config` runs the same
+loop on a config given as it is (a depth-cut one, say).
+
+The loop runs inside `dist.mesh_context(make_local_mesh(), rules=
+{**DEFAULT_RULES, **cfg.rules_override})`, as JAX's: the mesh is the
+default process group's, one rank when none is initialized. So
+
+    dist.launch(train.train, W, args=(argv,))
+
+trains on W ranks with no flag: each rank draws the same global batch,
+computes on its block of the rows, and the gradients are all-reduced
+(`train/step.py`); parameters and moments stay replicated, as under JAX's
+`jit` with no shardings, and the loss read is the global loss, so every
+rank prints and checks the same number. Rank 0 writes the checkpoints.
 
 Fault-tolerance model (exercised on one host):
   * every step is a pure function of (params, opt_state, step_index) and the
@@ -36,10 +47,12 @@ from typing import Optional
 
 import torch
 
+from repro_torch import dist
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig, SyntheticStream
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import model as M
 from repro_torch.optim import adamw_init, warmup_cosine
 from repro_torch.optim.adamw import AdamWState
@@ -92,7 +105,13 @@ def build_state(cfg: M.ModelConfig, generator: Optional[torch.Generator] = None,
 def train_config(cfg: M.ModelConfig, args: argparse.Namespace,
                  device: torch.device) -> TrainResult:
     """The launcher's loop on `cfg` with the parsed flags `args` (see
-    `_parser`) on `device`; prints JAX's lines."""
+    `_parser`) on `device`, under the local mesh; prints JAX's lines."""
+    mesh = make_local_mesh()
+    with dist.mesh_context(mesh, rules={**dist.DEFAULT_RULES, **cfg.rules_override}):
+        return _loop(cfg, args, device)
+
+
+def _loop(cfg: M.ModelConfig, args: argparse.Namespace, device: torch.device) -> TrainResult:
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                       global_batch=args.batch,
                       n_codebooks=cfg.n_codebooks if cfg.frontend == "codebooks" else 0,
@@ -159,9 +178,14 @@ def train_config(cfg: M.ModelConfig, args: argparse.Namespace,
                        opt_state=opt_state, metrics=metrics)
 
 
-def train(argv=None) -> TrainResult:
-    """Parse `argv` and train the arch it names."""
-    args = _parser().parse_args(argv)
+def train(*args) -> TrainResult:
+    """Parse argv and train the arch it names: `train(argv)` in one
+    process, `train(mesh, argv)` as `dist.launch(train, W, args=(argv,))`
+    calls it on each rank (the mesh is the default process group's either
+    way)."""
+    if args and isinstance(args[0], dist.Mesh):
+        args = args[1:]
+    args = _parser().parse_args(*args[:1])
     device = resolve_device(args.device)
     return train_config(get_config(args.arch, smoke=args.smoke), args, device)
 

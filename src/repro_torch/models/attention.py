@@ -42,6 +42,19 @@ def init_attention(generator: torch.Generator, d_model: int, n_heads: int,
     return p
 
 
+def attention_sharding(qkv_bias: bool = False) -> dict:
+    """The layer's logical parameter specs (`dist.shardings`)."""
+    s = {
+        "wq": ("embed", "heads", None),
+        "wk": ("embed", "kv_heads", None),
+        "wv": ("embed", "kv_heads", None),
+        "wo": ("heads", None, "embed"),
+    }
+    if qkv_bias:
+        s.update({"bq": ("heads", None), "bk": ("kv_heads", None), "bv": ("kv_heads", None)})
+    return s
+
+
 def _project_qkv(params: dict, x: torch.Tensor):
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"])

@@ -65,6 +65,11 @@ def init_mlp(generator: torch.Generator, d_model: int, d_ff: int, dtype: torch.d
     }
 
 
+def mlp_sharding() -> dict:
+    """The SwiGLU MLP's logical parameter specs (`dist.shardings`)."""
+    return {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"), "w_down": ("mlp", "embed")}
+
+
 def apply_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: silu(x W_g) * (x W_u) W_d."""
     h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])

@@ -55,6 +55,21 @@ def init_mla(generator: torch.Generator, d_model: int, cfg: MLAConfig, dtype: to
     }
 
 
+def mla_sharding(cfg: MLAConfig) -> dict:
+    """The layer's logical parameter specs (`dist.shardings`)."""
+    return {
+        "w_dq": ("embed", None),
+        "q_norm": {"scale": (None,)},
+        "w_uq": ("latent", "heads", None),
+        "w_dkv": ("embed", None),
+        "kv_norm": {"scale": (None,)},
+        "w_kr": ("embed", None),
+        "w_uk": ("latent", "heads", None),
+        "w_uv": ("latent", "heads", None),
+        "wo": ("heads", None, "embed"),
+    }
+
+
 def _queries(params, x, cfg: MLAConfig, cos, sin):
     cq = rms_norm(x @ params["w_dq"], params["q_norm"]["scale"])
     q = torch.einsum("bsr,rhk->bshk", cq, params["w_uq"])

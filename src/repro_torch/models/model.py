@@ -10,8 +10,11 @@ r, position j), so the parameters hold one dict a layer in
 `mixer`, `mlp_norm`, `mlp`); JAX stacks the body across periods for its
 `lax.scan`, which `repro_torch.convert.model_params_from_jax` unstacks.
 The caches follow the same list (`caches["layers"]`): a `KVCache`,
-`MLACache` or `SSMCache` a layer. There is no jit or scan: `unroll_layers`
-and `rules_override` are kept so the configs match JAX's, and are unused.
+`MLACache` or `SSMCache` a layer. There is no jit or scan:
+`unroll_layers` is kept so the configs match JAX's, and is unused.
+`rules_override` feeds the rule table of `dist` (the train launcher's
+`mesh_context`, `dist.shardings`); `dist.shardings` resolves a body layer
+as its period stack in JAX's tree.
 
 Remat: while autograd records (`torch.is_grad_enabled()`) and `cfg.remat`
 is set, `forward` runs each layer under `torch.utils.checkpoint` (not
@@ -24,6 +27,7 @@ takes no checkpoint.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Optional
@@ -31,6 +35,7 @@ from typing import Any, Optional
 import torch
 from torch.utils import checkpoint as ckpt
 
+from repro_torch import dist
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
@@ -215,14 +220,29 @@ def _save_dots(ctx, op, *args, **kwargs):
             else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+@contextlib.contextmanager
+def _both(first, second):
+    with first, second:
+        yield
+
+
 def _checkpointed(cfg: ModelConfig, p, x, mixer: str, mlp: str):
     """`_apply_layer` under a non-reentrant checkpoint. The forward draws
-    no random numbers, so no RNG state is kept for the recompute."""
-    kw = {}
-    if cfg.remat_policy == "dots":
-        kw["context_fn"] = lambda: ckpt.create_selective_checkpoint_contexts(_save_dots)
+    no random numbers, so no RNG state is kept for the recompute. The
+    recompute re-enters this thread's `dist` contexts (a CUDA backward runs
+    it on autograd's thread, where the MoE would not see its data-parallel
+    mesh)."""
+    snap = dist.snapshot()
+
+    def contexts():
+        if cfg.remat_policy == "dots":
+            fwd, rec = ckpt.create_selective_checkpoint_contexts(_save_dots)
+        else:
+            fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
+        return fwd, _both(rec, dist.entered(snap))
+
     return ckpt.checkpoint(_apply_layer, p, x, cfg, mixer, mlp, use_reentrant=False,
-                           preserve_rng_state=False, **kw)
+                           preserve_rng_state=False, context_fn=contexts)
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict, return_hidden: bool = False):

@@ -10,6 +10,10 @@ S*K*E integers (8.6 TB at deepseek-v3 prefill scale). A token ranked at or
 past the capacity C is dropped: it adds an exact zero to slot C-1 and
 takes no weight at the combine, as in JAX.
 
+Under a data mesh (`dist.data_parallel`) the load-balance fractions are
+means over the global batch, summed over the ranks; capacity and drops
+are per batch row, so they do not depend on the split.
+
 Router: float32 softmax top-k, the chosen probabilities renormalized over
 the k experts; it returns the Switch-style load-balance aux loss beside
 the output. (DeepSeek-V3's sigmoid, bias-free router is approximated by
@@ -23,6 +27,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import dist
 from repro_torch.models.layers import apply_mlp, init_mlp, normal
 
 
@@ -49,6 +54,20 @@ def init_moe(generator: torch.Generator, d_model: int, cfg: MoEConfig,
         p["shared"] = init_mlp(generator, d_model, cfg.d_ff_shared * cfg.n_shared, dtype,
                                device)
     return p
+
+
+def moe_sharding(cfg: MoEConfig) -> dict:
+    """The layer's logical parameter specs (`dist.shardings`)."""
+    s = {
+        "router": ("embed", None),
+        "w_gate": ("experts", "expert_fsdp", "expert_ffn"),
+        "w_up": ("experts", "expert_fsdp", "expert_ffn"),
+        "w_down": ("experts", "expert_ffn", "expert_fsdp"),
+    }
+    if cfg.n_shared:
+        s["shared"] = {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+                       "w_down": ("mlp", "embed")}
+    return s
 
 
 def _capacity(S: int, cfg: MoEConfig) -> int:
@@ -112,10 +131,20 @@ def apply_moe(params: dict, x: torch.Tensor, cfg: MoEConfig):
         y = y + apply_mlp(params["shared"], x)
 
     # load-balance aux (Switch/GShard style); the first choices counted by a
-    # scatter-add, since `F.one_hot` checks its input's range on the host
+    # scatter-add, since `F.one_hot` checks its input's range on the host.
+    # Both fractions are over the global batch: with its rows split over
+    # ranks (`dist.data_parallel`), the counts and the probabilities are
+    # summed over them, the latter differentiably
     first = top_e[..., 0].reshape(-1)
-    frac_tokens = torch.zeros(E, dtype=torch.float32, device=x.device).scatter_add_(
-        0, first, torch.ones_like(first, dtype=torch.float32)) / first.numel()
-    frac_probs = probs.mean(dim=(0, 1))
+    counts = torch.zeros(E, dtype=torch.float32, device=x.device).scatter_add_(
+        0, first, torch.ones_like(first, dtype=torch.float32))
+    mesh = dist.data_parallel_mesh()
+    if mesh is None:
+        frac_tokens = counts / first.numel()
+        frac_probs = probs.mean(dim=(0, 1))
+    else:
+        n = first.numel() * mesh.size
+        frac_tokens = dist.all_reduce(mesh, counts) / n
+        frac_probs = dist.sum_over_ranks(mesh, probs.sum(dim=(0, 1))) / n
     aux = E * torch.sum(frac_tokens * frac_probs)
     return y, aux

@@ -58,6 +58,20 @@ def init_ssm(generator: torch.Generator, d_model: int, cfg: SSMConfig, dtype: to
     }
 
 
+def ssm_sharding(cfg: SSMConfig) -> dict:
+    """The layer's logical parameter specs (`dist.shardings`)."""
+    return {
+        "w_in": ("embed", "ssm_inner"),
+        "conv_w": (None, "ssm_inner"),
+        "conv_b": ("ssm_inner",),
+        "dt_bias": (None,),
+        "a_log": (None,),
+        "d_skip": (None,),
+        "norm": {"scale": ("ssm_inner",)},
+        "w_out": ("ssm_inner", "embed"),
+    }
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """log(1 + exp(x)) as JAX computes it (`logaddexp(x, 0)`):
     max(x, 0) + log1p(exp(-|x|)), at every x. torch's `F.softplus` returns

@@ -1,0 +1,174 @@
+"""Rank functions of the LM's multi-rank CPU tests
+(tests/test_torch_lm_dist_train.py), run by `repro_torch.dist.launch`.
+
+Each spawned rank imports this module by name, so it imports torch, numpy
+and the port only (no JAX). The test hands each rank JAX's weights and
+batches as numpy arrays; every rank runs the same calls, and rank 0's
+results (with what every rank must agree on, gathered) go back to the
+test, which holds them to JAX's one-device step on the whole batch.
+"""
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch import dist
+from repro_torch.ckpt import checkpoint as TC
+from repro_torch.configs import get_config
+from repro_torch.convert import model_params_from_jax
+from repro_torch.dist import pipeline as TPipe
+from repro_torch.dist import shardings as dsh
+from repro_torch.dist.zero import zero1_shardings
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models import moe as TMoE
+from repro_torch.optim.adamw import AdamWState, adamw_init, clip_by_global_norm
+from repro_torch.train import step as TS
+from repro_torch.utils import tree_leaves, tree_map
+
+#: JAX's pipeline test problem (tests/test_distributed.py): d, M, Bm, seed
+PIPE = (16, 6, 3, 0)
+
+
+def _t(batch):
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+
+
+def _choices(fn):
+    """fn() with each call of the MoE router's top-k experts recorded."""
+    seen, route = [], TMoE.route
+
+    def record(params, x, cfg):
+        out = route(params, x, cfg)
+        seen.append(out[2].detach().clone())
+        return out
+
+    TMoE.route = record
+    try:
+        return fn(), seen
+    finally:
+        TMoE.route = route
+
+
+def _checksum(mesh, tree) -> list:
+    """Each rank's per-leaf (sum, sum of squares) of the leaves' bits, in
+    rank order: equal rows are equal trees but for a collision."""
+    sums = []
+    for x in tree_leaves(tree):
+        bits = x.contiguous().view(torch.int16 if x.element_size() == 2 else torch.int32)
+        b = bits.to(torch.int64)
+        sums += [b.sum(), (b * b).sum()]
+    mine = torch.stack(sums).to(torch.float64)[None]
+    return dist.gather(mesh, mine).tolist()
+
+
+def data_parallel_grads(mesh, cases):
+    """For each (arch, numpy params, numpy batch, microbatches) of `cases`:
+    the step's clipped gradients, norm and metrics under the local mesh (2
+    ranks split the batch, or compute it whole where 2 does not divide it),
+    each MoE layer's chosen experts (of the first microbatch) gathered over
+    the ranks in row order, and every rank's metrics (they must agree)."""
+    out = {}
+    for key, (arch, jparams, batch, microbatches) in cases.items():
+        cfg = get_config(arch, smoke=True)
+        params = model_params_from_jax(jparams, cfg, device="cpu")
+        with dist.mesh_context(make_local_mesh(), rules=cfg.rules_override):
+            (grads, metrics), seen = _choices(
+                lambda: TS.grads_and_metrics(params, cfg, _t(batch), microbatches))
+            split = TS._split_of(dsh.batch_shardings(_t(batch))) is not None
+        clipped, norm = clip_by_global_norm(grads, 1.0)
+        n_moe = sum(cfg.layer_spec(i)[1] == "moe" for i in range(cfg.n_layers))
+        choices = [dist.gather(mesh, c) if split else c for c in seen[:n_moe]]
+        per_rank = dist.gather(mesh, torch.stack(
+            [metrics[k] for k in sorted(metrics)])[None].to(torch.float64))
+        out[key] = dict(grads=clipped, norm=norm, metrics=metrics, choices=choices,
+                        split=split, per_rank=per_rank)
+    return out
+
+
+def zero1_and_checkpoint(mesh, arch, jparams, batches, ckpt_dir):
+    """Two steps of `arch` (its SMOKE config in bfloat16) with ZeRO-1
+    moments (`run_sharded`) against two replicated steps on the same ranks;
+    a checkpoint of the ZeRO-1 state at step 2, written by both ranks and
+    restored on both; a parameter record split over "data" refused."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.bfloat16,
+                              param_dtype=torch.bfloat16)
+    params = tree_map(lambda a: a.to(torch.bfloat16),
+                      model_params_from_jax(jparams, cfg, device="cpu"))
+    step = TS.make_train_step(cfg, learning_rate=1e-3)
+    out = {}
+    with dist.mesh_context(make_local_mesh(), rules=cfg.rules_override):
+        p_sh = dsh.params_shardings(params, cfg)
+        m_sh = zero1_shardings(p_sh, params)
+        opt = adamw_init(params)
+        o_sh = AdamWState(m=m_sh, v=m_sh, count=dsh.replicated(opt.count))
+        b_sh = dsh.batch_shardings(_t(batches[0]))
+        sharded = TS.make_train_step(cfg, learning_rate=1e-3, grad_shardings=p_sh)
+        rep_p, rep_o = params, opt
+        z_p, z_o = params, opt
+        for b in batches:
+            rep_p, rep_o, rep_m = step(rep_p, rep_o, _t(b))
+            z_p, z_o, z_m = dsh.run_sharded(sharded, (p_sh, o_sh, b_sh), z_p, z_o, _t(b))
+        out["params_equal"] = all(torch.equal(a, b) for a, b in zip(tree_leaves(z_p),
+                                                                    tree_leaves(rep_p)))
+        out["moments_equal"] = all(
+            torch.equal(a, b) for a, b in zip(tree_leaves((z_o.m, z_o.v)),
+                                              tree_leaves(dsh.place((rep_o.m, rep_o.v),
+                                                                    (m_sh, m_sh)))))
+        out["metrics"] = (rep_m, z_m)
+        out["moment_bytes"] = (sum(x.numel() for x in tree_leaves(z_o.m)),
+                               sum(x.numel() for x in tree_leaves(rep_o.m)))
+        out["checksums"] = _checksum(mesh, z_p)
+        out["stacked_moments"] = sum(r.stack == "data" for r in tree_leaves(m_sh))
+
+        # the checkpoint: gathered and written by rank 0, restored on each rank
+        TC.save_checkpoint(ckpt_dir, 2, (z_p, z_o), extra={"arch": arch},
+                           shardings=(p_sh, o_sh))
+        (r_p, r_o), step_no, _ = TC.restore_checkpoint(ckpt_dir, (z_p, z_o),
+                                                       shardings=(p_sh, o_sh))
+        out["restored_blocks_equal"] = step_no == 2 and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves((r_p, r_o)),
+                                              tree_leaves((z_p, z_o))))
+        out["global"] = (rep_p, rep_o)
+
+        # FSDP: a parameter record over "data" is resolved, not executed
+        with dist.mesh_context(make_local_mesh(), rules={**cfg.rules_override,
+                                                         "fsdp": "data"}):
+            fsdp = dsh.params_shardings(params, cfg)
+        try:
+            dsh.run_sharded(sharded, (fsdp, None, b_sh), params, opt, _t(batches[0]))
+            out["fsdp"] = "ran"
+        except NotImplementedError as e:
+            out["fsdp"] = str(e)
+    return out
+
+
+def pipe_stage(p, x):
+    """JAX's test stage (tests/test_distributed.py): tanh(x @ w) + b."""
+    return torch.tanh(x @ p["w"]) + p["b"]
+
+
+def pipeline(mesh, params, x):
+    """`pipeline_apply` on a ("pipe",) mesh of every rank, beside
+    `sequential_reference` on this rank, and the all-reduces it made."""
+    pmesh = dist.data_mesh(axis_name="pipe")
+    params, x = tree_map(torch.from_numpy, params), torch.from_numpy(x)
+    dist.all_reduce.calls = 0
+    got = TPipe.pipeline_apply(pmesh, pipe_stage, params, x)
+    return dict(out=got, calls=dist.all_reduce.calls,
+                ref=TPipe.sequential_reference(pipe_stage, params, x))
+
+
+def pipeline_problem(n_stages):
+    """JAX's problem at `n_stages` stages, float64 numpy: (params, x)."""
+    d, n_mb, bm, seed = PIPE
+    rng = np.random.default_rng(seed)
+    params = {"w": rng.standard_normal((n_stages, d, d)) * 0.3,
+              "b": rng.standard_normal((n_stages, d)) * 0.1}
+    return params, rng.standard_normal((n_mb, bm, d))
+
+
+def all_cases(mesh, cases, zero_args, pipe_args):
+    """The 2-rank module of tests/test_torch_lm_dist_train.py in one launch."""
+    return {"dp": data_parallel_grads(mesh, cases),
+            "zero": zero1_and_checkpoint(mesh, *zero_args),
+            "pipe2": pipeline(mesh, *pipe_args)}

@@ -31,7 +31,9 @@ def test_import_leaves_jax_repro_and_triton_out():
             "repro_torch.configs, repro_torch.launch.serve, repro_torch.optim, "
             "repro_torch.optim.adamw, repro_torch.optim.adafactor, repro_torch.optim.schedules, "
             "repro_torch.train, repro_torch.train.step, repro_torch.ckpt, "
-            "repro_torch.ckpt.checkpoint, repro_torch.data.pipeline, repro_torch.launch.train\n"
+            "repro_torch.ckpt.checkpoint, repro_torch.data.pipeline, repro_torch.launch.train, "
+            "repro_torch.dist.shardings, repro_torch.dist.zero, repro_torch.dist.compress, "
+            "repro_torch.dist.pipeline, repro_torch.launch.mesh\n"
             "from repro_torch.configs import ARCHS, get_config\n"
             "[get_config(a) for a in ARCHS]\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
