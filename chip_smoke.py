@@ -59,8 +59,8 @@ port's main path through the entry points a user calls:
      each case again at k = 1, bitwise the same;
  11. the lane-batched penalized stack (float64, default config), each
      fold or lane a lane of one Illinois root-find: (11a)
-     `ElasticNetCV(k=5, n_lambdas=5)` at the GLA-BRA-180 shape (primal
-     folds) and (11b) `cross_validate(k=5, n_lambdas=5)` at the YMSD
+     `ElasticNetCV(k=5, n_lambdas=3)` at the GLA-BRA-180 shape (primal
+     folds) and (11b) `cross_validate(k=5, n_lambdas=3)` at the YMSD
      shape (dual folds), each against the port's sequential
      `cross_validate_reference` on the same data (mse within 1e-10 x max,
      the same index_min, equal evaluations and kept columns per (lambda,
@@ -101,7 +101,7 @@ port's main path through the entry points a user calls:
      of `sven_batch` (an 8-lane 4 t x 2 lambda2 `en_grid` on the shared
      GLA-BRA X) and of `enet_batch` (`cv_folds` at YMSD, lambda1 = 0.1 x
      each fold's lambda1_max), each lane bitwise the one-device stack's,
-     (13d) the fold fan-out of `cross_validate(k=4, n_lambdas=5)` at YMSD
+     (13d) the fold fan-out of `cross_validate(k=4, n_lambdas=3)` at YMSD
      bitwise `mesh=None`, and k = 5 with mesh="auto" under the 2-rank
      context declined, (13e) `calibrate` (every field finite and
      positive), the router's decisions and prices at 13a-13c, each no
@@ -196,11 +196,24 @@ port's main path through the entry points a user calls:
      gradients within 1e-4 x max|g| of one rank's, chosen experts equal,
      the ZeRO-1 update bitwise the replicated one; (18c)
      `dist.launch(train.train, 2, ...)` on mamba2-130m through a fault,
-     its step-10 checkpoint resumed on one rank within 1e-4; (18d)
+     its step-10 checkpoint resumed on one rank (its first loss within
+     1e-4) and on the same 2 ranks (both losses within 1e-4); (18d)
      `pipeline_apply` on a 2-rank "pipe" mesh within 1e-6 of
      `sequential_reference`, M + S - 1 ticks; (18e) `compress` on the card
-     against the CPU (`phase_dist`; `--dist` runs it alone,
-     `rehearse_dist()` on the CPU at reduced widths).
+     against the CPU (`phase_dist`; `--dist` runs it with phase 19,
+     `rehearse_dist()` on the CPU at reduced widths);
+  19. the sharded step with FSDP and the "model" axis executed, on gloo
+     ranks on the one card (`phase_tp`; `--tp` runs it alone,
+     `rehearse_tp()` on the CPU): (19a) internlm2-1.8b whole on a (data 1,
+     model 2) mesh in 2 microbatches, 2 steps, in phase 18's ranks; (19b)
+     the same on (2, 1) under `{"fsdp": "data"}`, 2 steps, there too;
+     (19c) mixtral-8x7b at full width, 2 of 32 layers, on (2, 2) under its
+     rules, 1 step, in 4 ranks of its own: each first loss within 1e-3
+     relative of a one-process loss on the same weights and batch (19c: a
+     forward once the ranks have exited), a model group's losses equal,
+     the leaves no record splits over an axis bitwise equal across its
+     views after the update, a rank holding its blocks only, 19a's "model"
+     all-reduces a step the design's count (`tp_expected_calls`).
 
 The CG loop (`repro_torch.core.svm.state.cg_lanes`) reads its test once
 per block of k = `CG_READ_EVERY` steps and launches up to k - 1 dead steps
@@ -1557,8 +1570,8 @@ def cv_checks(torch, smoke, label, res, secs, launched, syncs, steps, dead, ref,
                 f"CG step ({ref_steps})")
 
 
-#: phase 11's lambdas a path (cut from 10, for the script's time)
-CV_LAMBDAS = 5
+#: phase 11's lambdas a path (cut from 10 to 5, then to 3, for the script's time)
+CV_LAMBDAS = 3
 
 
 def phase_cv(torch, smoke, kernels, svm_state, count, dev) -> None:
@@ -1990,7 +2003,7 @@ MULTI_WORLD = 2
 MULTI_TS = (0.25, 0.5, 0.75, 1.0)
 MULTI_L2S = (0.5, 1.0)
 MULTI_FOLDS = 4
-MULTI_LAMBDAS = 5             # 13d (cut from 10, for the script's time)
+MULTI_LAMBDAS = 3             # 13d (cut from 10 to 5, then to 3, for the script's time)
 #: 13f: the shotgun baseline at its callers' problems (`benchmarks/common.py`:
 #: gla_bra_like and ymsd_like, `bench_pggn.py` / `bench_nggp.py`'s parallel),
 #: and ymsd_like with a full draw (parallel = p). The last field is the
@@ -3632,6 +3645,14 @@ PIPE_SHAPE = (2048, 8, 512)   # 18d: d, microbatches M, rows a microbatch (float
 PIPE_TOL = 1e-6               # x max|out|: 18d against sequential_reference
 TOPK_FRAC = 0.01              # 18e
 
+#: phase 19: the sharded step with FSDP and the "model" axis executed, on
+#: gloo ranks on the one card. 19a and 19b run in phase 18's 2 ranks;
+#: 19c in 4 ranks of its own. Each: (data, model), microbatches, steps
+TP_A = ((1, 2), 2, 2)         # 19a: internlm2-1.8b whole, tensor parallel
+TP_B = ((2, 1), 1, 2)         # 19b: internlm2-1.8b whole, FSDP (rules {"fsdp": "data"})
+TP_C = ((2, 2), 1, 1)         # 19c: mixtral-8x7b's full width, both axes
+TP_C_LAYERS = 2               # 19c's depth cut (32 layers: 93 GB in bf16)
+
 
 def bit_sums(torch, tree):
     """Per leaf, the sum of its bits and of their squares (int64): a
@@ -3646,12 +3667,16 @@ def bit_sums(torch, tree):
     return torch.stack(sums)
 
 
-def dist_rank(mesh, cfg, cfg_b, cfg_moe, argv_c, ckpt_dir, pipe_shape):
+def dist_rank(mesh, cfg, cfg_b, cfg_moe, argv_c, ckpt_dir, pipe_shape, tp_subs=()):
     """Phase 18's work on one rank of `mesh` (every rank runs it alike):
     18a the sharded step at `cfg`'s full width, 18b float32 parity at
     `cfg_b` and `cfg_moe`, 18c the launcher (`argv_c`, checkpoints in
-    `ckpt_dir`), 18d the pipeline; returns rank 0's results with what the
+    `ckpt_dir`) and its step-10 checkpoint resumed on these ranks, 18d the
+    pipeline; then phase 19's sub-phases `tp_subs` ((label, `tp_rank`'s
+    arguments)) on the same ranks; returns rank 0's results with what the
     ranks must agree on gathered (CPU tensors)."""
+    import shutil
+
     import torch
 
     from repro_torch import dist
@@ -3681,9 +3706,7 @@ def dist_rank(mesh, cfg, cfg_b, cfg_moe, argv_c, ckpt_dir, pipe_shape):
         return dist.gather(mesh, torch.tensor([float(v)], dtype=torch.float64,
                                               device=dev)).tolist()
 
-    def reset_counts():
-        dist.all_reduce.calls = dist.all_reduce.bytes = 0
-        dist.all_reduce.seconds = 0.0
+    reset_counts = dist.reset_counts
 
     def gen():
         return torch.Generator(device=dev).manual_seed(0)
@@ -3728,7 +3751,9 @@ def dist_rank(mesh, cfg, cfg_b, cfg_moe, argv_c, ckpt_dir, pipe_shape):
             sync()
             secs = time.perf_counter() - t0
             steps.append(dict(loss=loss, secs=secs, calls=dist.all_reduce.calls,
-                              bytes=dist.all_reduce.bytes, ar_s=dist.all_reduce.seconds))
+                              bytes=dist.all_reduce.bytes, ar_s=dist.all_reduce.seconds,
+                              bc_calls=dist.broadcast.calls, bc_bytes=dist.broadcast.bytes,
+                              bc_s=dist.broadcast.seconds))
             if traced:
                 prof.__exit__(None, None, None)
                 path = ROOT / "build" / "dist-trace" / "step.json"
@@ -3829,6 +3854,18 @@ def dist_rank(mesh, cfg, cfg_b, cfg_moe, argv_c, ckpt_dir, pipe_shape):
                       secs=time.perf_counter() - t0,
                       final=per_rank(res.loss))
     del res
+    # the step-10 checkpoint resumed on the same ranks that wrote it
+    again = ckpt_dir + "-again"
+    if mesh.rank == 0:
+        os.makedirs(again)
+        shutil.copytree(os.path.join(ckpt_dir, "step_00000010"),
+                        os.path.join(again, "step_00000010"))
+    dist.all_reduce(mesh, torch.zeros(1, device=dev))
+    i = argv_c.index("--inject-fault-at")
+    argv_r = argv_c[:i] + argv_c[i + 2:]
+    res, text = quiet(lambda: launcher.train(mesh, argv_r + ["--ckpt-dir", again]))
+    out["18c_again"] = dict(losses=res.losses, text=text, final=per_rank(res.loss))
+    del res
     if on_card:
         torch.cuda.empty_cache()
 
@@ -3864,11 +3901,15 @@ def dist_rank(mesh, cfg, cfg_b, cfg_moe, argv_c, ckpt_dir, pipe_shape):
                       dev_whole=(got - ref).abs().max().item() / scale,
                       secs=secs, calls=calls, ref_s=ref_s,
                       shape=tuple(got.shape), stages=pmesh.shape["pipe"])
+    del w, x, got, ref, each
+    if on_card:
+        torch.cuda.empty_cache()
+    out.update(tp_ranks(mesh, tp_subs))
     return out
 
 
 def phase_dist(torch, smoke, dev, card: str, cfgs=None, argv_c=None,
-               pipe_shape=PIPE_SHAPE) -> None:
+               pipe_shape=PIPE_SHAPE, cfg_c=None) -> None:
     """Phase 18: data-parallel training over DIST_WORLD ranks on this card
     over gloo (`dist.launch`), as phase 13 runs them. 18a the sharded train
     step of dryrun.py:191-201 (parameters by `params_shardings`, moments by
@@ -3876,9 +3917,10 @@ def phase_dist(torch, smoke, dev, card: str, cfgs=None, argv_c=None,
     width and depth, against the one-rank step's first loss; 18b float32
     parity (2 layers; mixtral at 1 layer); 18c the launcher on the ranks
     through a fault, its step-10 checkpoint resumed on one rank; 18d
-    `pipeline_apply`; 18e `compress` on the card against the CPU. `cfgs`
-    and `argv_c` replace the configs and the launcher's flags
-    (`rehearse_dist`)."""
+    `pipeline_apply`; 18e `compress` on the card against the CPU. Then
+    phase 19 (`phase_tp`): 19a and 19b in the same ranks, 19c in 4 of its
+    own. `cfgs`, `argv_c` and `cfg_c` replace the configs and the
+    launcher's flags (`rehearse_dist`)."""
     import shutil
     import statistics
     import tempfile
@@ -3940,7 +3982,7 @@ def phase_dist(torch, smoke, dev, card: str, cfgs=None, argv_c=None,
         res = dist.launch(dist_rank, DIST_WORLD,
                           args=(cfg, cfg_b, cfg_moe, argv_c + ["--inject-fault-at",
                                                                str(DIST_C_FAULT)],
-                                ckpt, pipe_shape),
+                                ckpt, pipe_shape, tp_subs(cfg)),
                           device=dev.type, timeout=1000, threads=0 if on_card else 2)
         ranks_s = time.perf_counter() - t0
         print(f"    ranks: {ranks_s:.1f} s from spawn to rank 0's result; backend "
@@ -3962,7 +4004,10 @@ def phase_dist(torch, smoke, dev, card: str, cfgs=None, argv_c=None,
         print(f"    step ms {[round(x, 1) for x in step_ms]} (median after the first "
               f"{med:.1f}); all-reduces a step {[s['calls'] for s in steps]}, "
               f"{steps[-1]['bytes'] / 1e9:.3f} GB, {[round(s['ar_s'], 3) for s in steps]} s "
-              f"in them (host clock); the gradient all-reduce alone "
+              f"in them (host clock); broadcasts a step {[s['bc_calls'] for s in steps]} (the "
+              f"ZeRO-1 gather of the stacked leaves from their owners), "
+              f"{steps[-1]['bc_bytes'] / 1e9:.3f} GB, {[round(s['bc_s'], 3) for s in steps]} s; "
+              f"the gradient all-reduce alone "
               f"{gar['bytes'] / 1e9:.3f} GB in {gar['calls']} calls, "
               f"{[round(x, 3) for x in gar['secs']]} s ({gar['secs'][0] * 1e9 / gar['bytes']:.3f}"
               f" ns a byte); {card}", flush=True)
@@ -4040,6 +4085,14 @@ def phase_dist(torch, smoke, dev, card: str, cfgs=None, argv_c=None,
                     f"10 resumed on one rank: its loss there within {TRAIN_RESTART_TOL} of "
                     "the 2 ranks'")
         del r1
+        ra = res["18c_again"]
+        gaps2 = [abs(a - b) for a, b in zip(ra["losses"], rc["losses"][-2:])]
+        print(f"    the step-10 checkpoint on the same {DIST_WORLD} ranks that wrote it: losses "
+              f"{ra['losses']}: |d| {[f'{g:.2e}' for g in gaps2]}", flush=True)
+        smoke.check("[train] resumed from step 10" in ra["text"] and len(gaps2) == 2
+                    and max(gaps2) < TRAIN_RESTART_TOL and ra["final"][0] == ra["final"][1],
+                    f"18c: the 2-rank checkpoint at step 10 resumed on the same 2 ranks: both "
+                    f"losses within {TRAIN_RESTART_TOL} of the faulted run's, the ranks equal")
 
     # 18d
     rd = res["18d"]
@@ -4102,11 +4155,14 @@ def phase_dist(torch, smoke, dev, card: str, cfgs=None, argv_c=None,
     del emb, g_dev, g_cpu, v_d, i_d, r_d, v_c, i_c, r_c, flat
     settle(torch, dev)
     print(f"    phase 18: {time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+    print("[19] the sharded step with FSDP and the \"model\" axis executed: internlm2-1.8b "
+          "whole on (1, 2) and (2, 1), mixtral-8x7b's full width on (2, 2)", flush=True)
+    phase_tp(torch, smoke, dev, card, res, loss1, cfg_c)
 
 
 def dist_only(torch) -> int:
-    """`--dist`: phase 18 alone, with its checks; prints no result line.
-    Exits 1 if a check failed."""
+    """`--dist`: phases 18 and 19 alone, with their checks; prints no
+    result line. Exits 1 if a check failed."""
     card = nvidia_smi()
     print(f"card: {card}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4148,9 +4204,321 @@ def rehearse_dist() -> int:
               "--log-every", "5"]
     smoke = Smoke()
     phase_dist(torch, smoke, torch.device("cpu"), "CPU rehearsal", cfgs=cfgs, argv_c=argv_c,
-               pipe_shape=(256, 8, 16))
+               pipe_shape=(256, 8, 16), cfg_c=_rehearsal_moe(get_config))
     print(f"{len(smoke.failures)} check(s) failed", flush=True)
     return 1 if smoke.failures else 0
+
+
+def _rehearsal_moe(get_config):
+    """19c's config cut for the CPU: mixtral-8x7b's rules and layout at
+    d_model 256, 2 layers, experts of d_ff 512, vocab 4096."""
+    moe = get_config(MOE_ARCH)
+    return dataclasses.replace(moe, n_layers=TP_C_LAYERS, d_model=256, n_heads=4,
+                               n_kv_heads=2, head_dim=64, vocab_size=4096,
+                               moe=moe.moe._replace(d_ff_expert=512))
+
+
+def tp_only(torch, dev=None, cfg=None, cfg_c=None, card=None) -> int:
+    """`--tp`: phase 19 alone (19a and 19b in 2 ranks of their own), with its
+    checks; prints no result line. Exits 1 if a check failed. `dev`, `cfg`,
+    `cfg_c` and `card` replace the card and the configs (`rehearse_tp`)."""
+    from repro_torch import dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.models import model as M
+    from repro_torch.train.step import grads_and_metrics
+
+    if dev is None:
+        card = nvidia_smi()
+        print(f"card: {card}", flush=True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+        torch.empty(1, device=dev)
+    cfg = get_config(TRAIN_ARCH) if cfg is None else cfg
+    smoke = Smoke()
+    t0 = time.perf_counter()
+    B, S = DIST_SHAPE
+    params = M.init_model(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    batch = synthetic_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B),
+                            0, device=dev)
+    loss1 = grads_and_metrics(params, cfg, batch)[1]["loss"].item()
+    del params, batch
+    settle(torch, dev)
+    res = dist.launch(tp_ranks, DIST_WORLD, args=(tp_subs(cfg),), device=dev.type,
+                      timeout=900, threads=0 if dev.type == "cuda" else 2)
+    print("[19] the sharded step with FSDP and the \"model\" axis executed", flush=True)
+    phase_tp(torch, smoke, dev, card, res, loss1, cfg_c)
+    print(f"total {time.perf_counter() - t0:.1f} s; {len(smoke.failures)} check(s) failed",
+          flush=True)
+    for f in smoke.failures:
+        print(f"  FAILED {f}", flush=True)
+    return 1 if smoke.failures else 0
+
+
+def rehearse_tp() -> int:
+    """Phase 19 alone on the CPU (`tp_only`) at TRAIN_REHEARSAL's widths for
+    internlm2-1.8b (2 layers) and `_rehearsal_moe` for 19c:
+
+        PYTHONPATH=src python3 -c "import chip_smoke; chip_smoke.rehearse_tp()"
+
+    Returns 1 if a check failed."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+
+    small = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2,
+                                **TRAIN_REHEARSAL["internlm2_1_8b"])
+    return tp_only(torch, torch.device("cpu"), small, _rehearsal_moe(get_config),
+                   "CPU rehearsal")
+
+
+def tp_rank(mesh, cfg, shape, steps, microbatches, model_axis, rules, trace):
+    """One sub-phase of phase 19 on one rank of `mesh`: `steps` sharded
+    train steps (`run_sharded`: parameters by `params_shardings`, ZeRO-1
+    moments, `grad_shardings` = the parameters' records) of `cfg` at the
+    global batch `shape` on make_local_mesh(`model_axis`) under `cfg`'s
+    rules and `rules`, each rank holding its blocks only. Returns each
+    step's seconds, loss and collective counts (rank 0's), every rank's
+    losses, per split axis A the checksums over A's view of the leaves no
+    record splits over A (the rows must be equal), the bytes each rank
+    holds, its peak, and (`trace`) rank 0's last step traced."""
+    import torch
+
+    from repro_torch import dist
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.dist import shardings as dsh
+    from repro_torch.dist.zero import zero1_shardings
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import warmup_cosine
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.train.step import make_train_step
+    from repro_torch.utils import tree_leaves, tree_map
+
+    dev = mesh.device
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def per_rank(v):
+        return dist.gather(mesh, torch.tensor([float(v)], dtype=torch.float64,
+                                              device=dev)).tolist()
+
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    lmesh = make_local_mesh(model_axis)
+    B, S = shape
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B)
+    t0 = time.perf_counter()
+    with dist.mesh_context(lmesh, rules={**dist.DEFAULT_RULES, **cfg.rules_override, **rules}):
+        params = M.init_model(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                              device=dev)
+        p_sh = dsh.params_shardings(params, cfg)
+        m_sh = zero1_shardings(p_sh, params)
+        n_params = sum(x.numel() for x in tree_leaves(params))
+        params = dsh.place(params, p_sh)          # this rank's blocks; the whole freed
+        if on_card:
+            torch.cuda.empty_cache()
+        count = torch.zeros((), dtype=torch.int32, device=dev)
+        opt = AdamWState(m=tree_map(lambda r: torch.zeros(dsh.block_shape(r), device=dev),
+                                    m_sh),
+                         v=tree_map(lambda r: torch.zeros(dsh.block_shape(r), device=dev),
+                                    m_sh), count=count)
+        o_sh = AdamWState(m=m_sh, v=m_sh, count=dsh.replicated(count))
+        b_sh = dsh.batch_shardings(synthetic_batch(dcfg, 0, device=dev))
+        step = make_train_step(cfg, microbatches=microbatches,
+                               lr_schedule=warmup_cosine(3e-4, 10, steps), grad_shardings=p_sh)
+        sync()
+        out = dict(init_s=time.perf_counter() - t0, shape=lmesh.shape, params=n_params,
+                   n_layers=cfg.n_layers)
+        records = []
+        for i in range(steps):
+            batch = synthetic_batch(dcfg, i, device=dev)
+            sync()
+            dist.all_reduce(mesh, torch.zeros(1, device=dev))        # start together
+            dist.reset_counts()
+            traced = trace and i == steps - 1 and on_card and mesh.rank == 0
+            if traced:
+                from torch.profiler import ProfilerActivity, profile
+                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                prof.__enter__()
+            t0 = time.perf_counter()
+            params, opt, metrics = dsh.run_sharded(step, (p_sh, o_sh, b_sh), params, opt,
+                                                   batch, donate=True)
+            loss = float(metrics["loss"])
+            sync()
+            secs = time.perf_counter() - t0
+            records.append(dict(
+                loss=loss, secs=secs, calls=dist.all_reduce.calls, bytes=dist.all_reduce.bytes,
+                ar_s=dist.all_reduce.seconds, by_axis=dict(dist.all_reduce.by_axis),
+                bc_calls=dist.broadcast.calls, bc_bytes=dist.broadcast.bytes,
+                bc_s=dist.broadcast.seconds))
+            if traced:
+                prof.__exit__(None, None, None)
+                path = ROOT / "build" / "tp-trace" / "step.json"
+                path.parent.mkdir(parents=True, exist_ok=True)
+                prof.export_chrome_trace(str(path))
+                del prof
+                out["trace"] = trace_split(path, secs, 1)
+                path.unlink()
+        out["steps"] = records
+        out["losses"] = dist.gather(mesh, torch.tensor(
+            [r["loss"] for r in records], dtype=torch.float64, device=dev)[None]).tolist()
+        same = {}
+        for axis in dist.split_axes(lmesh):
+            trees = ((params, p_sh), (opt.m, m_sh), (opt.v, m_sh))
+            leaves = [x for tree, recs in trees for x, r in zip(tree_leaves(tree),
+                                                                tree_leaves(recs))
+                      if axis not in r.split_axes()]
+            if leaves:          # under FSDP every leaf may split over "data"
+                same[axis] = (len(leaves), dist.gather(lmesh.view(axis),
+                                                       bit_sums(torch, leaves)[None]).tolist())
+        out["same"] = same
+        out["param_bytes"] = per_rank(sum(x.numel() * x.element_size()
+                                          for x in tree_leaves(params)))
+        out["moment_bytes"] = per_rank(sum(x.numel() * x.element_size()
+                                           for x in tree_leaves((opt.m, opt.v))))
+        out["peak"] = per_rank(torch.cuda.max_memory_allocated(dev) if on_card else 0)
+    del params, opt, metrics, step
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_ranks(mesh, subs) -> dict:
+    """`tp_rank` for each (label, arguments) of `subs`, on these ranks."""
+    out = {}
+    for label, args in subs:
+        out[label] = tp_rank(mesh, *args)
+        if mesh.rank == 0:     # shown even if a later part fails
+            r = out[label]
+            print(f"    rank 0: {label} done: step s {[round(x['secs'], 3) for x in r['steps']]}, "
+                  f"losses {r['losses'][0]}, peak {r['peak']}", flush=True)
+    return out
+
+
+def tp_subs(cfg, shape=None) -> list:
+    """19a and 19b's (label, `tp_rank` arguments) for `cfg`."""
+    shape = DIST_SHAPE if shape is None else shape
+    subs = []
+    for label, ((_, model), mb, steps), rules in (("19a", TP_A, {}),
+                                                  ("19b", TP_B, {"fsdp": "data"})):
+        subs.append((label, (cfg, shape, steps, mb, model, rules, True)))
+    return subs
+
+
+def tp_expected_calls(n_layers: int, microbatches: int) -> int:
+    """The "model" all-reduces of one step of a dense attention config
+    whose heads, MLP and vocabulary all split (19a), by design: a layer 2
+    in the forward (after `wo`, after `w_down`), 2 in the backward (the
+    inputs of the column-split products), and 1 in the checkpointed
+    recompute (which stops once the last saved tensor, `w_down`'s input, is
+    rebuilt, before the MLP's all-reduce); a microbatch's embedding 1, loss
+    3 (the maximum, the exp-sum, the gold logit) and head backward 1; and 1
+    for the clip's norm."""
+    return microbatches * (5 * n_layers + 5) + 1
+
+
+def phase_tp(torch, smoke, dev, card: str, res: dict, loss1: float, cfg_c=None,
+             shape=None) -> None:
+    """Phase 19's output and checks: 19a and 19b from `res` (phase 18's
+    ranks' results, or a launch of their own) against the one-rank loss
+    `loss1` on the same weights and batch, then 19c, mixtral-8x7b at full
+    width (`cfg_c`: TP_C_LAYERS layers by default) on TP_C's mesh of 4
+    ranks, against a one-process forward once the ranks have exited."""
+    import statistics
+
+    from repro_torch import dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.models import model as M
+    from repro_torch.train.step import lm_loss
+
+    import math
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    shape = DIST_SHAPE if shape is None else shape
+    B, S = shape
+    if cfg_c is None:
+        cfg_c = dataclasses.replace(get_config(MOE_ARCH), n_layers=TP_C_LAYERS)
+    (data_c, model_c), mb_c, steps_c = TP_C
+    subs_c = [("19c", (cfg_c, shape, steps_c, mb_c, model_c, {}, True))]
+    t0 = time.perf_counter()
+    res_c = dist.launch(tp_ranks, data_c * model_c, args=(subs_c,), device=dev.type,
+                        timeout=900, threads=0 if on_card else 1)["19c"]
+    ranks_s = time.perf_counter() - t0
+    # 19c's one-process reference: the same weights' loss on the same batch
+    settle(torch, dev, reset_peak=True)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        params = M.init_model(cfg_c, generator=torch.Generator(device=dev).manual_seed(0),
+                              device=dev)
+        batch = synthetic_batch(DataConfig(vocab_size=cfg_c.vocab_size, seq_len=S,
+                                           global_batch=B), 0, device=dev)
+        loss_c = float(lm_loss(params, cfg_c, batch)[0])
+    ref_s = time.perf_counter() - t0
+    ref_peak = peak_text(torch, dev)
+    del params, batch
+    settle(torch, dev)
+
+    cases = (("19a", res["19a"], TP_A, loss1, "internlm2-1.8b whole, tensor parallel"),
+             ("19b", res["19b"], TP_B, loss1, "internlm2-1.8b whole, FSDP (rules "
+                                              "{'fsdp': 'data'})"),
+             ("19c", res_c, TP_C, loss_c, f"{cfg_c.name} at full width, {cfg_c.n_layers} of "
+                                          f"32 layers, its rules {cfg_c.rules_override}"))
+    for label, r, ((data, model), mb, steps), ref, what in cases:
+        st = r["steps"]
+        losses = r["losses"]
+        print(f"[{label}] {what}: mesh (data {data}, model {model}) of {data * model} gloo ranks "
+              f"on this card, {r['params']:,} parameters, bf16, remat, global batch {B} x {S}, "
+              f"{mb} microbatch(es), {steps} step(s); init {r['init_s']:.1f} s", flush=True)
+        print(f"    step s {[round(x['secs'], 3) for x in st]} (cold first"
+              f"{', warm ' + str(round(statistics.median(x['secs'] for x in st[1:]), 3)) if len(st) > 1 else ''}); "
+              f"all_reduce a step: calls {[x['calls'] for x in st]} "
+              f"({st[-1]['by_axis']}), bytes {[x['bytes'] for x in st]}, seconds "
+              f"{[round(x['ar_s'], 3) for x in st]}; broadcast calls "
+              f"{[x['bc_calls'] for x in st]}, bytes {[x['bc_bytes'] for x in st]}, seconds "
+              f"{[round(x['bc_s'], 3) for x in st]} (host clock); {card}", flush=True)
+        if "trace" in r:
+            sp = r["trace"]
+            print(f"    rank 0's last step traced: wall {sp['wall_us'] / 1e3:.1f} ms, "
+                  f"{sp['launches']:.0f} device launches, device busy "
+                  f"{sp['busy_us'] / 1e3:.1f} ms, idle share {sp['idle']:.3f}", flush=True)
+        print(f"    held a rank: parameters {[round(x / 1e9, 3) for x in r['param_bytes']]} GB, "
+              f"moments {[round(x / 1e9, 3) for x in r['moment_bytes']]} GB; peak "
+              f"{[round(x / 1e9, 2) for x in r['peak']]} GB allocated a rank", flush=True)
+        print(f"    losses by rank {losses}; the one-process loss on the same weights and batch "
+              f"{ref:.6f}", flush=True)
+        for axis, (n, sums) in r["same"].items():
+            smoke.check(all(x == sums[0] for x in sums), f"{label}: after the update the "
+                        f"{n} leaves no record splits over {axis!r} (parameters and moments) "
+                        f"are bitwise equal across each {axis!r} view ({len(sums)} ranks)")
+        groups = [[losses[d * model + m] for m in range(model)] for d in range(data)]
+        smoke.check(all(math.isfinite(x) for row in losses for x in row)
+                    and all(g[0] == x for g in groups for x in g),
+                    f"{label}: the losses finite, the ranks of each model group equal")
+        rel = abs(losses[0][0] - ref) / abs(ref)
+        smoke.check(rel <= DIST_LOSS_TOL, f"{label}: the first loss {losses[0][0]:.6f} within "
+                    f"{DIST_LOSS_TOL} relative of the one-process loss {ref:.6f} ({rel:.2e})")
+        held = sum(r["param_bytes"]) / len(r["param_bytes"])
+        smoke.check(held < 2 * r["params"] * 0.75, f"{label}: a rank holds its blocks: "
+                    f"{held / 1e9:.3f} GB of the {2 * r['params'] / 1e9:.3f} GB of bf16 "
+                    "parameters")
+    want = tp_expected_calls(res["19a"]["n_layers"], TP_A[1])
+    got = res["19a"]["steps"][-1]["by_axis"].get("model", 0)
+    print(f"    19a: \"model\" all-reduces a step {got}; the design's count "
+          f"{want} = microbatches x (5 a layer + 5) + 1 (`tp_expected_calls`)", flush=True)
+    smoke.check(got == want, f"19a: the \"model\" all-reduces a step ({got}) are the design's "
+                f"count ({want})")
+    print(f"    phase 19: 19c ranks {ranks_s:.1f} s from spawn to rank 0's result; its "
+          f"one-process forward {ref_s:.1f} s ({ref_peak}); phase {time.perf_counter() - t_phase:.1f} s "
+          f"after phase 18's ranks; {card}", flush=True)
 
 
 def run_path(torch, kernels, svm_state, fn):
@@ -4253,6 +4621,8 @@ def main() -> int:
         return train_only(torch)
     if sys.argv[1:] == ["--dist"]:
         return dist_only(torch)
+    if sys.argv[1:] == ["--tp"]:
+        return tp_only(torch)
     if sys.argv[1:2] == ["--lm-trace"] and len(sys.argv) <= 3:
         from repro_torch.configs import ALIASES
         if sys.argv[2:] and sys.argv[2] not in ALIASES:
@@ -4502,10 +4872,10 @@ def main() -> int:
     phase_train(torch, smoke, kernels, svm_state, count, dev, card)
     torch.cuda.empty_cache()
 
-    # -- 18. data-parallel training over ranks ---------------------------------
+    # -- 18-19. training over ranks --------------------------------------------
     print("[18] data-parallel training: internlm2-1.8b's sharded step at full width and "
-          "depth on 2 ranks, parity, the launcher across ranks, the pipeline, compression",
-          flush=True)
+          "depth on 2 ranks, parity, the launcher across ranks, the pipeline, compression; "
+          "then [19] FSDP and the \"model\" axis", flush=True)
     phase_dist(torch, smoke, dev, card)
 
     # -- summary ---------------------------------------------------------------

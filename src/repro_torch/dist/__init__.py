@@ -21,13 +21,22 @@ process group backs (the production 16 x 16, say) resolves specs only,
 and a collective on it raises. So `constrain` is the identity inside a
 context too: each rank already holds its own block.
 
-Every collective is an `all_reduce` (`all_reduce`, `gather`, `agree`): a
-gather is an all-reduce of a zero-filled buffer that holds this rank's
-block (exact: the other ranks add zeros), and a reduce-scatter is an
-all-reduce from which each rank takes its slice. gloo takes CUDA tensors
-for `all_reduce` and `broadcast` only, so one code path serves gloo and
-NCCL alike. Every process group is made with a timeout (`launch`), so a
-rank that leaves a loop apart from the others fails instead of hanging.
+**Axis views.** A mesh of several axes (`launch.mesh.make_local_mesh`,
+`with_views`) holds one process group for each slice of ranks along an
+axis: `mesh.view(axis)` is the 1-D mesh of the ranks that share every
+other coordinate with this one. The collectives of a step run on views:
+gradients and metrics over the "data" view, the tensor-parallel
+operators (`dist.tp`) over the "model" view, the FSDP layer gather
+(`dist.fsdp`) over the "data" view.
+
+Every collective is an `all_reduce` (`all_reduce`, `gather`, `agree`) or
+a `broadcast`: a gather is an all-reduce of a zero-filled buffer that
+holds this rank's block (exact: the other ranks add zeros), and a
+reduce-scatter is an all-reduce from which each rank takes its slice.
+gloo takes CUDA tensors for `all_reduce` and `broadcast` only, so one
+code path serves gloo and NCCL alike. Every process group is made with a
+timeout (`launch`), so a rank that leaves a loop apart from the others
+fails instead of hanging.
 
 `launch` is the counterpart of JAX's forced host devices: it spawns W rank
 processes, meets them at a `file://` rendezvous and returns rank 0's
@@ -79,12 +88,14 @@ DEFAULT_RULES: dict = {
     "fsdp": None,
 }
 
-#: the ROADMAP item that executes a mesh with a "model" axis, or parameters
-#: sharded over "data" (FSDP)
-MODEL_AXIS_ITEM = "ROADMAP Queue 1 item 7d"
+#: the ROADMAP item that executes the SSM's channels (`ssm_inner`,
+#: `ssm_heads`) split over a "model" axis
+MODEL_AXIS_ITEM = "ROADMAP Queue 1 item 2a"
 
 #: the device `launch` gave this rank (None outside a launched rank)
 _RANK_DEVICE: Optional[torch.device] = None
+#: the collective timeout of the groups `with_views` makes (`launch` sets it)
+_GROUP_TIMEOUT: Optional[datetime.timedelta] = None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -102,6 +113,8 @@ class Mesh:
     backend: Optional[str] = None
     axes: tuple = ("data",)
     sizes: Optional[tuple] = None
+    #: axis -> the process group of this rank's slice along it (`with_views`)
+    groups: Optional[dict] = None
 
     def __post_init__(self):
         sizes = (self.size,) if self.sizes is None else tuple(int(s) for s in self.sizes)
@@ -124,6 +137,57 @@ class Mesh:
         """This rank's index along `axis`."""
         i = self.axes.index(axis)
         return (self.rank // math.prod(self.sizes[i + 1:])) % self.sizes[i]
+
+    def view(self, axis: str) -> "Mesh":
+        """The 1-D (`axis`,) mesh of the ranks that share every other
+        coordinate with this one, this rank at its coordinate along `axis`:
+        the mesh itself when `axis` spans every rank, one rank when it has
+        size 1, else the slice's group of `with_views` (none on a mesh that
+        resolves specs only, whose collectives raise)."""
+        n = self.shape[axis]
+        if self.axes == (axis,):
+            return self
+        if n == 1:
+            return Mesh(device=self.device, axes=(axis,))
+        group = self.group if n == self.size else (self.groups or {}).get(axis)
+        return Mesh(size=n, rank=self.coord(axis), device=self.device, group=group,
+                    backend=self.backend, axes=(axis,))
+
+
+#: (ranks, axes, sizes) of a mesh -> {axis: this rank's slice group}
+_VIEW_GROUPS: dict = {}
+
+
+def with_views(mesh: Mesh) -> Mesh:
+    """`mesh` with a process group for each slice of ranks along each axis
+    of more than one rank that does not span the whole mesh
+    (`torch.distributed.new_group`, called by every rank for every slice
+    in the same order). The groups are made once a process for a mesh
+    shape. A mesh of one rank, or one that no process group backs, is
+    returned as it is."""
+    if mesh.group is None or mesh.size == 1:
+        return mesh
+    import torch.distributed as tdist
+
+    key = (mesh.size, mesh.axes, mesh.sizes)
+    if key not in _VIEW_GROUPS:
+        groups = {}
+        ranks = torch.arange(mesh.size).reshape(mesh.sizes)
+        for i, (axis, n) in enumerate(zip(mesh.axes, mesh.sizes)):
+            if n in (1, mesh.size):
+                continue
+            slices = ranks.movedim(i, -1).reshape(-1, n).tolist()
+            for members in slices:
+                g = tdist.new_group(members, timeout=_GROUP_TIMEOUT)
+                if mesh.rank in members:
+                    groups[axis] = g
+        _VIEW_GROUPS[key] = groups
+    return dataclasses.replace(mesh, groups=_VIEW_GROUPS[key])
+
+
+def split_axes(mesh: Mesh) -> tuple:
+    """The axes of `mesh` with more than one rank, in its order."""
+    return tuple(a for a, n in mesh.shape.items() if n > 1)
 
 
 def data_mesh(n_devices: Optional[int] = None, axis_name: str = "data") -> Mesh:
@@ -233,23 +297,14 @@ def local_block(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     return x[mesh.rank * rows:(mesh.rank + 1) * rows]
 
 
-def executed_axis(mesh: Mesh) -> Optional[str]:
-    """The one axis of `mesh` with more than one rank that a step runs
-    over, or None on one rank. More than one such axis needs the "model"
-    axis executed, which is not ported: NotImplementedError."""
-    big = [a for a, n in mesh.shape.items() if n > 1]
-    if len(big) > 1:
-        raise NotImplementedError(f"a mesh of shape {mesh.shape} splits more than one axis; "
-                                  f"executing the \"model\" axis is {MODEL_AXIS_ITEM}")
-    return big[0] if big else None
-
-
 @contextmanager
 def data_parallel(mesh: Optional[Mesh]):
     """Within it, the batch a step computes on is this rank's block of a
-    global batch whose rows are split over `mesh` (None: not split), so
-    what the model sums over the global batch (the MoE's load-balance
-    fractions) sums over the ranks (`data_parallel_mesh`)."""
+    global batch whose rows are split over `mesh`, the "data" view of the
+    step's mesh (None: not split), so what the model sums over the global
+    batch (the MoE's load-balance fractions) sums over those ranks
+    (`data_parallel_mesh`), and not over "model" ranks that hold the same
+    rows."""
     _stack("split").append(mesh)
     try:
         yield mesh
@@ -291,7 +346,8 @@ def all_reduce(mesh: Mesh, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
     itself on a mesh of one rank. Raises on a mesh that no process group
     backs. `all_reduce.calls`, `.bytes` and `.seconds` count the
     collectives issued (`all_reduce_`'s too), their operands' bytes and
-    the host seconds spent in them (plain numbers; callers reset them)."""
+    the host seconds spent in them, and `.by_axis` the calls by the mesh's
+    axes ("model" for the model view; plain numbers, `reset_counts`)."""
     if mesh.size == 1:
         return x
     return all_reduce_(mesh, x.clone(), op)
@@ -310,15 +366,45 @@ def all_reduce_(mesh: Mesh, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
     t0 = time.perf_counter()
     tdist.all_reduce(x, op=tdist.ReduceOp.MAX if op == "max" else tdist.ReduceOp.SUM,
                      group=mesh.group)
-    all_reduce.calls += 1
-    all_reduce.bytes += x.numel() * x.element_size()
-    all_reduce.seconds += time.perf_counter() - t0
+    _count(all_reduce, mesh, x, t0)
     return x
 
 
-all_reduce.calls = 0
-all_reduce.bytes = 0
-all_reduce.seconds = 0.0
+def _count(fn, mesh: Mesh, x: torch.Tensor, t0: float) -> None:
+    fn.calls += 1
+    fn.bytes += x.numel() * x.element_size()
+    fn.seconds += time.perf_counter() - t0
+    key = "+".join(mesh.axes)
+    fn.by_axis[key] = fn.by_axis.get(key, 0) + 1
+
+
+def reset_counts() -> None:
+    """Every collective's counters to 0."""
+    for fn in (all_reduce, broadcast):
+        fn.calls = fn.bytes = 0
+        fn.seconds = 0.0
+        fn.by_axis = {}
+
+
+def broadcast(mesh: Mesh, x: torch.Tensor, src: int) -> torch.Tensor:
+    """x overwritten in place with the x of the rank at index `src` of
+    `mesh` (the FSDP layer gather's move of a whole layer from its owner);
+    x itself on one rank. `broadcast.calls`, `.bytes`, `.seconds` and
+    `.by_axis` (calls by the mesh's axes) count as `all_reduce`'s do."""
+    if mesh.size == 1:
+        return x
+    if mesh.group is None:
+        raise RuntimeError(f"broadcast: no process group backs this mesh of shape "
+                           f"{mesh.shape}; it resolves specs only")
+    import torch.distributed as tdist
+
+    t0 = time.perf_counter()
+    tdist.broadcast(x, src=tdist.get_global_rank(mesh.group, src), group=mesh.group)
+    _count(broadcast, mesh, x, t0)
+    return x
+
+
+reset_counts()
 
 
 def gather(mesh: Mesh, x_loc: torch.Tensor) -> torch.Tensor:
@@ -353,10 +439,11 @@ class _SumOverRanks(torch.autograd.Function):
 
 
 def sum_over_ranks(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
-    """x summed over the ranks, differentiably. Every rank's loss holds the
-    sum whole and the step averages the ranks' gradients, so backward hands
-    each rank W times the gradient it sees: the average is then the
-    gradient of the sum through every rank's own term."""
+    """x summed over the ranks of `mesh` (the step's "data" view),
+    differentiably. Every rank's loss holds the sum whole and the step
+    averages the ranks' gradients over that view, so backward hands each
+    rank W times the gradient it sees (W the view's size): the average is
+    then the gradient of the sum through every rank's own term."""
     if mesh.size == 1:
         return x
     return _SumOverRanks.apply(x, mesh)
@@ -382,7 +469,7 @@ def _rank_main(fn, args, rank: int, world: int, init: str, backend: str, device:
                collective_timeout: float, out_dir: str, threads: int) -> None:
     """One rank: join the group, run fn(mesh, *args), rank 0 saves the
     result; any failure is written beside it and exits non-zero."""
-    global _RANK_DEVICE
+    global _RANK_DEVICE, _GROUP_TIMEOUT
     import torch.distributed as tdist
 
     try:
@@ -392,8 +479,9 @@ def _rank_main(fn, args, rank: int, world: int, init: str, backend: str, device:
         elif threads:
             torch.set_num_threads(threads)
         _RANK_DEVICE = dev
+        _GROUP_TIMEOUT = datetime.timedelta(seconds=collective_timeout)
         tdist.init_process_group(backend, init_method=init, world_size=world, rank=rank,
-                                 timeout=datetime.timedelta(seconds=collective_timeout))
+                                 timeout=_GROUP_TIMEOUT)
         out = fn(data_mesh(), *args)
         if rank == 0:
             torch.save(_to_cpu(out), os.path.join(out_dir, "result.pt"))

@@ -45,7 +45,7 @@ def pipeline_apply(mesh: dist.Mesh, stage_fn, params, x, *, axis: str = "pipe"):
     each, and one more for the outputs.
     """
     n_stages = mesh.shape[axis]
-    if dist.executed_axis(mesh) not in (axis, None):
+    if any(a != axis for a in dist.split_axes(mesh)):
         raise ValueError(f"pipeline_apply: the mesh {mesh.shape} splits another axis "
                          f"than {axis!r}")
     n_mb = x.shape[0]

@@ -24,9 +24,14 @@ holds the layer, and nothing of it otherwise.
 
 All resolvers require an active `dist.mesh_context`; the mesh and rule
 table come from it, never from arguments. `place` keeps each rank's block
-of a tree by its records, `gather_tree` rebuilds the global tree on every
-rank, and `run_sharded` is `jax.jit(step_fn, in_shardings=...)` for a
-train step: each rank keeps its blocks, and the step runs on them.
+of a tree by its records, `reblock` cuts a block by one record to the
+block of a record that splits more, `gather_leaf` / `gather_tree` rebuild
+a leaf over the axes one record splits and another does not (over each
+split axis's view only: on a (2, 2) mesh a leaf split over "model" alone
+is gathered over its "model" view, not summed once per data replica),
+and `run_sharded` is `jax.jit(step_fn, in_shardings=...)` for a train
+step: each rank keeps its blocks, the step runs on them, and the
+parameters and moments come back in their records' layout.
 """
 from __future__ import annotations
 
@@ -35,8 +40,8 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch.dist import (Mesh, MODEL_AXIS_ITEM, _axis_size, all_reduce, current_context,
-                              resolve_spec)
+from repro_torch.dist import (Mesh, MODEL_AXIS_ITEM, _axis_size, all_reduce_, broadcast,
+                              current_context, resolve_spec)
 from repro_torch.dist.zero import _widen_spec
 from repro_torch.utils import tree_leaves, tree_map
 
@@ -75,6 +80,31 @@ class Sharding:
         """Whether any dim, the stacked one included, is split over `axis`."""
         entries = self.spec + ((self.stack,) if self.stack_size is not None else ())
         return any(e == axis or (isinstance(e, tuple) and axis in e) for e in entries)
+
+    def split_axes(self) -> tuple:
+        """The axes of more than one rank that a dim (the stacked one
+        included) is split over, in the mesh's order."""
+        return tuple(a for a, n in self.mesh.shape.items() if n > 1 and self.uses(a))
+
+    def only(self, axes) -> "Sharding":
+        """This record with the entries over axes outside `axes` dropped
+        (the stack's too): the layout once those axes are gathered."""
+        keep = set(axes)
+
+        def entry(e):
+            if e is None:
+                return None
+            inside = {e} if isinstance(e, str) else set(e)
+            if inside <= keep:
+                return e
+            if inside & keep:
+                raise ValueError(f"a spec entry {e} splits a dim over axes in and out of "
+                                 f"{sorted(keep)}")
+            return None
+
+        return dataclasses.replace(self, spec=tuple(entry(e) for e in self.spec),
+                                   stack=entry(self.stack) if self.stack_size is not None
+                                   else self.stack)
 
 
 def _require_ctx():
@@ -226,32 +256,65 @@ def _owns(rec: Sharding) -> bool:
     return _coord(rec.mesh, rec.stack) == rec.stack_index // per
 
 
-def block(x: torch.Tensor, rec: Sharding) -> torch.Tensor:
-    """This rank's block of the global leaf x (a view): each split dim
-    narrowed to the rank's slot, and no rows of a stacked leaf whose layer
-    lies in another rank's block of the stack."""
-    if not _owns(rec):
-        return x[:0]
-    for d, entry in enumerate(rec.spec):
+def _split(mesh: Mesh, entry) -> bool:
+    return entry is not None and _axis_size(mesh, entry) > 1
+
+
+def _narrow(x: torch.Tensor, have: Optional[Sharding], want: Sharding) -> torch.Tensor:
+    """x, a block by `have` (the global leaf when None), narrowed to its
+    block by `want` (a view), which splits every dim `have` splits alike."""
+    h_stack = have.stack if have is not None else None
+    if _split(want.mesh, h_stack) and h_stack != want.stack:
+        raise ValueError(f"a block by {have.spec} / stack {h_stack} is not cut from one by "
+                         f"{want.spec} / stack {want.stack}")
+    if h_stack != want.stack and not _owns(want):
+        x = x[:0]
+    for d, entry in enumerate(want.spec):
+        h = have.spec[d] if have is not None and d < len(have.spec) else None
+        if h == entry:
+            continue
+        if _split(want.mesh, h):
+            raise ValueError(f"a block by {have.spec} is not cut from one by {want.spec}")
         if entry is not None:
-            n = x.shape[d] // _axis_size(rec.mesh, entry)
-            x = x.narrow(d, _coord(rec.mesh, entry) * n, n)
+            n = x.shape[d] // _axis_size(want.mesh, entry)
+            x = x.narrow(d, _coord(want.mesh, entry) * n, n)
     return x
 
 
+def block(x: torch.Tensor, rec: Sharding) -> torch.Tensor:
+    """This rank's block of the global leaf x (a view): each split dim
+    narrowed to the rank's slot, and no rows of a stacked leaf whose layer
+    lies in another rank's block of the stack (its other dims narrowed
+    alike)."""
+    return _narrow(x, None, rec)
+
+
+def reblock(tree, have, want):
+    """Each leaf of `tree`, a block by its record in `have` (global leaves
+    when `have` is None: `place`), cut to its block by `want`, whose records
+    split every dim `have`'s split alike and may split more (a parameter's
+    block to its ZeRO-1 moments' block)."""
+    if have is None:
+        return place(tree, want)
+    if want is None:
+        return tree
+    return tree_map(lambda x, h, w: x if w is None or not isinstance(x, torch.Tensor)
+                    else _narrow(x, h, w), tree, have, want)
+
+
 def block_shape(rec: Sharding) -> tuple:
-    if not _owns(rec):
-        return (0,) + tuple(rec.shape[1:])
     spec = tuple(rec.spec) + (None,) * (len(rec.shape) - len(rec.spec))
-    return tuple(n // _axis_size(rec.mesh, e) if e is not None else n
-                 for n, e in zip(rec.shape, spec))
+    shape = tuple(n // _axis_size(rec.mesh, e) if e is not None else n
+                  for n, e in zip(rec.shape, spec))
+    return shape if _owns(rec) else (0,) + shape[1:]
 
 
 def place(tree, shardings):
     """Each rank's blocks of `tree` by its records (`jax.device_put`): a
-    leaf of its record's global shape is cut to the rank's block, a leaf
-    already of the block's shape is kept. A None record (or tree of
-    records) keeps the leaves as they are."""
+    leaf of its record's global shape is cut to the rank's block (a copy of
+    its own, so the global leaf can be freed), a leaf already of the
+    block's shape is kept. A None record (or tree of records) keeps the
+    leaves as they are."""
     if shardings is None:
         return tree
 
@@ -259,7 +322,8 @@ def place(tree, shardings):
         if rec is None or not isinstance(x, torch.Tensor):
             return x
         if tuple(x.shape) == tuple(rec.shape):
-            return block(x, rec)
+            b = block(x, rec)
+            return b if b.numel() == x.numel() else b.clone(memory_format=torch.contiguous_format)
         if tuple(x.shape) == block_shape(rec):
             return x
         raise ValueError(f"place: a leaf of shape {tuple(x.shape)} is neither the record's "
@@ -268,17 +332,33 @@ def place(tree, shardings):
     return tree_map(put, tree, shardings)
 
 
-def gather_leaf(x: torch.Tensor, rec: Sharding) -> torch.Tensor:
-    """The global leaf from each rank's block x: an all-reduce of a
-    zero-filled leaf holding this rank's block, exact (the other ranks add
-    zeros; -0.0 becomes +0.0). x itself when no dim is split."""
-    split = [a for a, n in rec.mesh.shape.items() if n > 1 and rec.uses(a)]
-    if not split:
+def gather_leaf(x: torch.Tensor, rec: Sharding, to: Optional[Sharding] = None) -> torch.Tensor:
+    """The block by `to` (the global leaf when None) from each rank's block
+    x by `rec`, gathered over each axis `rec` splits and `to` does not, on
+    that axis's view only. A stacked leaf gathered over its stack's axis
+    alone is broadcast from the rank that owns the layer; otherwise each
+    axis is an all-reduce of a zero-filled buffer holding this rank's
+    block, exact (the other ranks add zeros; -0.0 becomes +0.0). x itself
+    when there is nothing to gather."""
+    to = rec.only(()) if to is None else to
+    axes = [a for a in rec.split_axes() if a not in to.split_axes()]
+    if not axes:
         return x
-    full = x.new_zeros(rec.shape)
+    if axes == [rec.stack]:
+        view = rec.mesh.view(rec.stack)
+        owner = rec.stack_index // (rec.stack_size // view.size)
+        if _owns(rec):
+            if tuple(x.shape) != block_shape(to):
+                raise ValueError(f"gather_leaf: the owner's block {tuple(x.shape)} is not "
+                                 f"the block {block_shape(to)} it is gathered to")
+            return broadcast(view, x.contiguous(), owner)
+        return broadcast(view, x.new_empty(block_shape(to)), owner)
+    full = x.new_zeros(block_shape(to))
     if x.numel():
-        block(full, rec).copy_(x)
-    return all_reduce(rec.mesh, full)
+        _narrow(full, to, rec).copy_(x)
+    for a in axes:
+        full = all_reduce_(rec.mesh.view(a), full)
+    return full
 
 
 def gather_tree(tree, shardings):
@@ -289,29 +369,44 @@ def gather_tree(tree, shardings):
                     else gather_leaf(x, rec), tree, shardings)
 
 
+def _ssm_split(node) -> bool:
+    """Whether a record tree holds an SSM mixer's records (by the keys of
+    its parameter dict) that split a leaf over "model"."""
+    if isinstance(node, dict):
+        if {"w_in", "conv_w", "a_log"} <= set(node):
+            return any(r is not None and "model" in r.split_axes()
+                       for r in tree_leaves(node))
+        return any(_ssm_split(v) for v in node.values())
+    if isinstance(node, (list, tuple)) and not isinstance(node, Sharding):
+        return any(_ssm_split(v) for v in node)
+    return False
+
+
 def check_executable(shardings, what: str) -> None:
-    """Raise NotImplementedError when a record splits a leaf over an axis
-    of more than one rank: parameters sharded over "data" (FSDP) or a
-    "model" axis are resolved, not executed, yet."""
-    for rec in tree_leaves(shardings):
-        if rec is None:
-            continue
-        for axis, n in rec.mesh.shape.items():
-            if n > 1 and rec.uses(axis):
-                raise NotImplementedError(
-                    f"{what}: a record splits a leaf over {axis!r} ({n} ranks; spec "
-                    f"{rec.spec}, stack {rec.stack}); executing parameters sharded over "
-                    f"\"data\" (FSDP) or a \"model\" axis is {MODEL_AXIS_ITEM}")
+    """Raise NotImplementedError when a record splits an SSM mixer's leaf
+    (`ssm_inner`, `ssm_heads`) over a "model" axis of more than one rank:
+    `w_in`'s output packs z, x, B, C and dt, so a split of it does not
+    follow the parts. Every other split, over "data" (FSDP) and over
+    "model" (tensor parallelism), runs."""
+    if _ssm_split(shardings):
+        raise NotImplementedError(
+            f"{what}: a record splits the SSM's channels (ssm_inner / ssm_heads) over "
+            f"\"model\"; executing the SSM on a \"model\" axis is {MODEL_AXIS_ITEM}")
 
 
-def run_sharded(step_fn: Callable, in_shardings: tuple, params, opt_state, batch):
+def run_sharded(step_fn: Callable, in_shardings: tuple, params, opt_state, batch,
+                donate: bool = False):
     """`jax.jit(step_fn, in_shardings=(p_sh, o_sh, b_sh))(params, opt_state,
     batch)` for a step of `train.step.make_train_step`: each rank keeps its
     blocks of the parameters and the optimizer state by their records
     (global operands are cut, blocks kept) and the step runs on them,
-    returning the parameters replicated and the moments as blocks. The
-    batch crosses whole: the step keeps each microbatch's block of it by
-    `b_sh`, as JAX splits the global batch into microbatches first."""
+    returning the parameters and the moments in their records' layout: a
+    rank under FSDP or tensor parallelism keeps only its blocks between
+    steps, as JAX's donated operands do. The batch crosses whole: the step
+    keeps each microbatch's block of it by `b_sh`, as JAX splits the
+    global batch into microbatches first. `donate` is JAX's
+    `donate_argnums=(0, 1)` (`launch/dryrun.py`): the step may overwrite
+    the blocks it is handed, which the caller must not use again."""
     p_sh, o_sh, b_sh = in_shardings
     return step_fn(place(params, p_sh), place(opt_state, o_sh), batch,
-                   shardings=(p_sh, o_sh, b_sh))
+                   shardings=(p_sh, o_sh, b_sh), donate=donate)

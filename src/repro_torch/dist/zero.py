@@ -46,7 +46,11 @@ def zero1_shardings(param_shardings, param_shapes, axis: str = "data"):
     widened over `axis` (ZeRO-1). The trees must match (`param_shapes`'
     leaves are anything with a `.shape`); meshes without `axis` pass
     through. A stacked leaf's record is widened over its stacked shape
-    (the stack's dim first), as JAX widens the stacked leaf."""
+    (the stack's dim first), as JAX widens the stacked leaf. A record that
+    already splits a dim over `axis` (an FSDP leaf) is kept: its moments
+    are its parameter blocks. A record split over "model" is widened on
+    another dim, so each rank's moment block is a part of its parameter
+    block."""
 
     def widen(sh, leaf):
         if axis not in sh.mesh.shape:

@@ -25,19 +25,22 @@ def make_production_mesh(*, multi_pod: bool = False) -> dist.Mesh:
         raise ValueError(f"make_production_mesh: a mesh of shape {sizes} needs "
                          f"{math.prod(sizes)} ranks, and this process group has "
                          f"{mesh.size}")
-    return dataclasses.replace(mesh, axes=axes, sizes=sizes)
+    return dist.with_views(dataclasses.replace(mesh, axes=axes, sizes=sizes))
 
 
 def make_local_mesh(model_axis: int = 1) -> dist.Mesh:
     """Whatever this host has, as a (data, model) mesh of (n // model_axis,
-    model_axis) ranks — used by tests, examples and the train launcher
-    (usually one rank)."""
+    model_axis) ranks, with a process group for each slice along each axis
+    (`dist.with_views`: on 4 ranks `make_local_mesh(2)` is (2, 2), its
+    "data" views {0, 2} and {1, 3}, its "model" views {0, 1} and {2, 3}) —
+    used by tests, examples and the train launcher (usually one rank).
+    Every rank must call it alike."""
     mesh = dist.data_mesh()
     if mesh.size % model_axis:
         raise ValueError(f"make_local_mesh: model_axis {model_axis} does not divide "
                          f"{mesh.size} ranks")
-    return dataclasses.replace(mesh, axes=("data", "model"),
-                               sizes=(mesh.size // model_axis, model_axis))
+    return dist.with_views(dataclasses.replace(mesh, axes=("data", "model"),
+                                               sizes=(mesh.size // model_axis, model_axis)))
 
 
 def mesh_chip_count(mesh) -> int:

@@ -8,13 +8,21 @@ P V). The chunked path is JAX's double `lax.scan` as two Python loops.
 The cache's `pos` is a Python int: the number of tokens already written,
 which JAX carries as an int32 scalar array. `decode_step` writes the new
 key and value into the cache's tensors in place, where JAX returns new
-arrays."""
+arrays.
+
+`attend_full` under a "model" axis (`rec`, the layer's records) runs on
+this rank's query heads: its blocks of `wq`, `wk`, `wv`, their biases and
+`wo`, the partial outputs summed over the model view after `wo`. Where
+the axis does not divide the KV heads, they stay replicated while the
+query heads split, and the rank projects the KV heads its own query heads
+map to (`_local_kv`), not the first ones."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.dist import tp
 from repro_torch.models.layers import apply_rope, normal, rope_freqs
 
 
@@ -155,18 +163,45 @@ def _roped_qkv(params, x, positions, head_dim, rope_theta):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
+def _local_kv(params: dict, rec, view, n_heads: int) -> dict:
+    """The layer's weights for this rank's query heads when `heads` is
+    split over `view` and `kv_heads` is not: the replicated KV weights
+    (and biases) indexed by the KV head of each local query head, so the
+    rank's K and V come out already repeated. Their gradients are partial
+    (this rank's heads only), so they are summed over the view."""
+    if tp.model_view(tp.records(rec, "wk"), 1) is not None:
+        return params
+    h_loc, n_kv = params["wq"].shape[1], params["wk"].shape[1]
+    ids = (view.rank * h_loc + torch.arange(h_loc, device=params["wk"].device)) // (
+        n_heads // n_kv)
+    out = dict(params)
+    for name, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
+        if name in params:
+            out[name] = torch.index_select(tp.copy_to(view, params[name]), dim, ids)
+    return out
+
+
 def attend_full(params: dict, x: torch.Tensor, *, n_heads: int, head_dim: int,
                 rope_theta: float, window: Optional[int] = None,
                 positions: Optional[torch.Tensor] = None,
-                dense_max: int = CHUNKED_THRESHOLD) -> torch.Tensor:
-    """Training / prefill self-attention over the whole sequence (causal)."""
+                dense_max: int = CHUNKED_THRESHOLD, rec=None) -> torch.Tensor:
+    """Training / prefill self-attention over the whole sequence (causal);
+    with `heads` split over "model", on this rank's heads (module doc)."""
     S = x.shape[1]
     if positions is None:
         positions = torch.arange(S, device=x.device)
+    view = tp.model_view(tp.records(rec, "wq"), 1)
+    if view is not None:
+        x = tp.copy_to(view, x)
+        params = _local_kv(params, rec, view, n_heads)
+        n_heads = params["wq"].shape[1]
+    elif tp.model_view(tp.records(rec, "wk"), 1) is not None:
+        raise ValueError("attend_full: the KV heads are split over \"model\" and the query "
+                         "heads are not")
     q, k, v = _roped_qkv(params, x, positions, head_dim, rope_theta)
     out = _self_attention(q, _repeat_kv(k, n_heads), _repeat_kv(v, n_heads), positions,
                           head_dim=head_dim, window=window, dense_max=dense_max)
-    return torch.einsum("bqhd,hdm->bqm", out, params["wo"])
+    return tp.reduce_from(view, torch.einsum("bqhd,hdm->bqm", out, params["wo"]))
 
 
 def prefill(params: dict, x: torch.Tensor, *, n_heads: int, head_dim: int,

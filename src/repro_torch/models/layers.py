@@ -2,11 +2,20 @@
 `repro/models/layers.py`, in its plain-function style: params are nested
 dicts of tensors, `init_*` builds them from an explicit `torch.Generator`,
 `apply_*` consumes them. JAX's sharding hints are identities on one card
-and are left out."""
+and are left out.
+
+Under a "model" axis (`dist.tp`), the functions that take `rec` (the
+module's records, `dist.shardings`) run on this rank's block of each split
+weight: the MLP column-split in `w_gate` / `w_up` and row-split in
+`w_down`, the tied table split over the vocabulary (a masked lookup, a
+head that returns this rank's block of the logits). `rec=None` is the
+whole module on one rank."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.dist import tp
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -70,10 +79,14 @@ def mlp_sharding() -> dict:
     return {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"), "w_down": ("mlp", "embed")}
 
 
-def apply_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: silu(x W_g) * (x W_u) W_d."""
+def apply_mlp(params: dict, x: torch.Tensor, rec=None) -> torch.Tensor:
+    """SwiGLU: silu(x W_g) * (x W_u) W_d; with `mlp` split over "model",
+    this rank's columns of W_g and W_u and rows of W_d, and the partial
+    outputs summed over the model view."""
+    view = tp.model_view(tp.records(rec, "w_gate"), 1)
+    x = tp.copy_to(view, x)
     h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
-    return h @ params["w_down"]
+    return tp.reduce_from(view, h @ params["w_down"])
 
 
 # ------------------------------------------------------------ embeddings ---
@@ -83,10 +96,16 @@ def init_embedding(generator: torch.Generator, vocab: int, d_model: int,
     return {"table": normal(generator, (vocab, d_model), dtype, device, d_model ** -0.5)}
 
 
-def embed_tokens(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, params["table"])
+def embed_tokens(params: dict, tokens: torch.Tensor, rec=None) -> torch.Tensor:
+    """The table's rows of `tokens`; with `vocab` split over "model", a
+    masked lookup in this rank's rows summed over the model view."""
+    return tp.embed_lookup(params["table"], tokens,
+                           tp.model_view(tp.records(rec, "table"), 0))
 
 
-def logits_from_embedding(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Tied output head: x (..., d) @ table^T -> (..., vocab), float32 logits."""
-    return x.to(torch.float32) @ params["table"].to(torch.float32).T
+def logits_from_embedding(params: dict, x: torch.Tensor, rec=None) -> torch.Tensor:
+    """Tied output head: x (..., d) @ table^T -> (..., vocab), float32
+    logits; with `vocab` split over "model", this rank's block of the
+    vocabulary (..., vocab / M)."""
+    view = tp.model_view(tp.records(rec, "table"), 0)
+    return tp.copy_to(view, x.to(torch.float32)) @ params["table"].to(torch.float32).T

@@ -11,6 +11,13 @@ The cache's `pos` is a Python int, as in `attention.KVCache`, and
 `mla_decode_step` writes the new latent into the cache's tensors in place.
 A position at or past the cache's length writes its last slot, as JAX's
 `dynamic_update_slice` clamps it.
+
+`mla_full` under a "model" axis (`rec`, the layer's records) runs on this
+rank's heads: its blocks of `w_uq`, `w_uk`, `w_uv` and `wo`, the partial
+outputs summed over the model view after `wo`. The latent projections
+(`w_dq`, `w_dkv`, `w_kr` and their norms) stay replicated; their outputs
+enter the head-split products through `tp.copy_to`, so their gradients
+are whole on every rank.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.dist import tp
 from repro_torch.models.attention import sdpa_chunked
 from repro_torch.models.layers import apply_rope, init_rms_norm, normal, rms_norm, rope_freqs
 
@@ -70,8 +78,8 @@ def mla_sharding(cfg: MLAConfig) -> dict:
     }
 
 
-def _queries(params, x, cfg: MLAConfig, cos, sin):
-    cq = rms_norm(x @ params["w_dq"], params["q_norm"]["scale"])
+def _queries(params, x, cfg: MLAConfig, cos, sin, view=None):
+    cq = tp.copy_to(view, rms_norm(x @ params["w_dq"], params["q_norm"]["scale"]))
     q = torch.einsum("bsr,rhk->bshk", cq, params["w_uq"])
     q_nope, q_rope = q[..., : cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
     return q_nope, apply_rope(q_rope, cos, sin)
@@ -84,16 +92,18 @@ def _latents(params, x, cos, sin):
 
 
 def mla_full(params: dict, x: torch.Tensor, cfg: MLAConfig, *, rope_theta: float,
-             dense_max: int = 2048) -> torch.Tensor:
+             dense_max: int = 2048, rec=None) -> torch.Tensor:
     """Expanded-form causal attention (forward / prefill). The rope part is
     folded into an effective head dim so the shared chunked-SDPA core
-    applies: q_eff = [q_nope ; q_rope], k_eff = [k_nope ; k_rope broadcast]."""
+    applies: q_eff = [q_nope ; q_rope], k_eff = [k_nope ; k_rope broadcast].
+    With `heads` split over "model", on this rank's heads (module doc)."""
     B, S, _ = x.shape
-    H = cfg.n_heads
+    view = tp.model_view(tp.records(rec, "w_uq"), 1)
+    H = params["w_uq"].shape[1]
     pos = torch.arange(S, device=x.device)
     cos, sin = rope_freqs(cfg.qk_rope_dim, rope_theta, pos)
-    q_nope, q_rope = _queries(params, x, cfg, cos, sin)
-    c_kv, k_rope = _latents(params, x, cos, sin)
+    q_nope, q_rope = _queries(params, x, cfg, cos, sin, view)
+    c_kv, k_rope = (tp.copy_to(view, t) for t in _latents(params, x, cos, sin))
     k_nope = torch.einsum("bsr,rhk->bshk", c_kv, params["w_uk"])
     v = torch.einsum("bsr,rhk->bshk", c_kv, params["w_uv"])
 
@@ -109,7 +119,7 @@ def mla_full(params: dict, x: torch.Tensor, cfg: MLAConfig, *, rope_theta: float
         scores = scores.masked_fill(~mask, -1e30)
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-    return torch.einsum("bqhd,hdm->bqm", out, params["wo"])
+    return tp.reduce_from(view, torch.einsum("bqhd,hdm->bqm", out, params["wo"]))
 
 
 def mla_prefill(params: dict, x: torch.Tensor, cfg: MLAConfig, *, rope_theta: float,

@@ -24,6 +24,15 @@ inside; `remat_policy="dots"` keeps the matmul outputs too (JAX's
 period; the port checkpoints each layer, which is the same math and
 differs only in memory. Serving runs under `torch.inference_mode()` and
 takes no checkpoint.
+
+Sharded (`records`, the step's parameter records, `dist.shardings`): the
+parameters are this rank's blocks. Each layer gathers the blocks that
+FSDP split over "data" (`dist.fsdp.gather`) inside its checkpointed
+function, so remat recomputes the gather and only the blocks outlive the
+layer; the leaves outside the layers are gathered once a forward. The
+modules then run on their "model" blocks (`dist.tp`), and the head
+returns this rank's block of the vocabulary for every front end (the
+codebooks front end one block a codebook's table).
 """
 from __future__ import annotations
 
@@ -37,6 +46,9 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch import dist
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist import fsdp
+from repro_torch.dist import shardings as dsh
+from repro_torch.dist import tp
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import mla as mla_mod
@@ -161,47 +173,55 @@ def init_model(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
 
 # --------------------------------------------------------------- forward ---
 
-def _apply_mixer(p, x, cfg: ModelConfig, mixer: str):
+def _apply_mixer(p, x, cfg: ModelConfig, mixer: str, rec=None):
     if mixer == "attn":
         return attn.attend_full(p, x, n_heads=cfg.n_heads, head_dim=cfg.head_dim,
                                 rope_theta=cfg.rope_theta, window=cfg.swa_window,
-                                dense_max=cfg.attn_dense_max)
+                                dense_max=cfg.attn_dense_max, rec=rec)
     if mixer == "mla":
         return mla_mod.mla_full(p, x, cfg.mla, rope_theta=cfg.rope_theta,
-                                dense_max=cfg.attn_dense_max)
+                                dense_max=cfg.attn_dense_max, rec=rec)
     if mixer == "ssm":
+        if rec is not None:
+            dsh.check_executable(rec, "the SSM mixer")
         return ssm_mod.ssm_forward(p, x, cfg.d_model, cfg.ssm)
     raise ValueError(mixer)
 
 
-def _apply_mlp(p, x, cfg: ModelConfig, mlp: str):
+def _apply_mlp(p, x, cfg: ModelConfig, mlp: str, rec=None):
     """(x plus the layer's MLP of norm(x), the MoE aux loss or 0.0); x itself
     for "none"."""
     if mlp == "none":
         return x, 0.0
     hn = L.rms_norm(x, p["mlp_norm"]["scale"])
     if mlp == "dense":
-        return x + L.apply_mlp(p["mlp"], hn), 0.0
-    h, aux = moe_mod.apply_moe(p["mlp"], hn, cfg.moe)
+        return x + L.apply_mlp(p["mlp"], hn, tp.records(rec, "mlp")), 0.0
+    h, aux = moe_mod.apply_moe(p["mlp"], hn, cfg.moe, tp.records(rec, "mlp"))
     return x + h, aux
 
 
-def _apply_layer(p, x, cfg: ModelConfig, mixer: str, mlp: str):
-    h = _apply_mixer(p["mixer"], L.rms_norm(x, p["mixer_norm"]["scale"]), cfg, mixer)
-    return _apply_mlp(p, x + h, cfg, mlp)
+def _apply_layer(p, x, cfg: ModelConfig, mixer: str, mlp: str, rec=None):
+    """One layer; with its records, on this rank's blocks, the FSDP blocks
+    gathered first."""
+    p = fsdp.gather(p, rec)
+    h = _apply_mixer(p["mixer"], L.rms_norm(x, p["mixer_norm"]["scale"]), cfg, mixer,
+                     tp.records(rec, "mixer"))
+    return _apply_mlp(p, x + h, cfg, mlp, rec)
 
 
-def _embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+def _embed_inputs(params, cfg: ModelConfig, batch: dict, rec=None) -> torch.Tensor:
+    emb = tp.records(rec, "embed")
     if cfg.frontend == "tokens":
-        return L.embed_tokens(params["embed"], batch["tokens"])
+        return L.embed_tokens(params["embed"], batch["tokens"], emb)
     if cfg.frontend == "codebooks":
         toks = batch["tokens"]                    # (B, S, K)
-        x = L.embed_tokens(params["embed"], toks[..., 0])
+        x = L.embed_tokens(params["embed"], toks[..., 0], emb)
         for c in range(1, cfg.n_codebooks):
-            x = x + L.embed_tokens(params["codebook_embeds"][c - 1], toks[..., c])
+            x = x + L.embed_tokens(params["codebook_embeds"][c - 1], toks[..., c],
+                                   rec["codebook_embeds"][c - 1] if rec else None)
         return x
     if cfg.frontend == "patches":
-        x_txt = L.embed_tokens(params["embed"], batch["tokens"])   # (B, S_txt, d)
+        x_txt = L.embed_tokens(params["embed"], batch["tokens"], emb)   # (B, S_txt, d)
         x_img = batch["patch_embeds"].to(x_txt.dtype)              # (B, P, d)
         return torch.cat([x_img, x_txt], dim=1)
     raise ValueError(cfg.frontend)
@@ -226,12 +246,12 @@ def _both(first, second):
         yield
 
 
-def _checkpointed(cfg: ModelConfig, p, x, mixer: str, mlp: str):
+def _checkpointed(cfg: ModelConfig, p, x, mixer: str, mlp: str, rec=None):
     """`_apply_layer` under a non-reentrant checkpoint. The forward draws
     no random numbers, so no RNG state is kept for the recompute. The
     recompute re-enters this thread's `dist` contexts (a CUDA backward runs
     it on autograd's thread, where the MoE would not see its data-parallel
-    mesh)."""
+    mesh), and gathers the layer's FSDP blocks again."""
     snap = dist.snapshot()
 
     def contexts():
@@ -241,47 +261,70 @@ def _checkpointed(cfg: ModelConfig, p, x, mixer: str, mlp: str):
             fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
         return fwd, _both(rec, dist.entered(snap))
 
-    return ckpt.checkpoint(_apply_layer, p, x, cfg, mixer, mlp, use_reentrant=False,
+    return ckpt.checkpoint(_apply_layer, p, x, cfg, mixer, mlp, rec, use_reentrant=False,
                            preserve_rng_state=False, context_fn=contexts)
 
 
-def forward(params: dict, cfg: ModelConfig, batch: dict, return_hidden: bool = False):
+def _outer(params: dict, records, keys) -> dict:
+    """params with the FSDP blocks of its entries `keys` gathered (the
+    leaves outside the layers; `records` None: params itself)."""
+    if records is None:
+        return params
+    return dict(params, **fsdp.gather({k: params[k] for k in keys if k in params},
+                                      {k: records[k] for k in keys if k in params}))
+
+
+def forward(params: dict, cfg: ModelConfig, batch: dict, return_hidden: bool = False,
+            records=None):
     """Full-sequence forward -> (logits, aux_loss[, hidden]); `aux_loss` is
     the sum of the MoE layers' load-balance losses (float32, 0 without
-    MoE), `hidden` the final-normed residual stream (B, S, d)."""
-    x = _embed_inputs(params, cfg, batch)
+    MoE), `hidden` the final-normed residual stream (B, S, d). With
+    `records` (a record tree like params, whose leaves are then this
+    rank's blocks), sharded as the module says: the logits are this rank's
+    block of the vocabulary when `vocab` is split over "model"."""
+    outer = _outer(params, records, ("embed", "codebook_embeds", "final_norm"))
+    x = _embed_inputs(outer, cfg, batch, records)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for i, p in enumerate(params["layers"]):
+        rec = records["layers"][i] if records is not None else None
         if remat:
-            x, aux = _checkpointed(cfg, p, x, *cfg.layer_spec(i))
+            x, aux = _checkpointed(cfg, p, x, *cfg.layer_spec(i), rec)
         else:
-            x, aux = _apply_layer(p, x, cfg, *cfg.layer_spec(i))
+            x, aux = _apply_layer(p, x, cfg, *cfg.layer_spec(i), rec)
         aux_total = aux_total + aux
-    x = L.rms_norm(x, params["final_norm"]["scale"])
-    logits = _head(params, cfg, x)
+    x = L.rms_norm(x, outer["final_norm"]["scale"])
+    logits = _head(outer, cfg, x, records)
     if return_hidden:
         return logits, aux_total, x
     return logits, aux_total
 
 
-def _head(params, cfg: ModelConfig, x):
+def _head(params, cfg: ModelConfig, x, records=None):
+    emb = tp.records(records, "embed")
     if cfg.frontend == "codebooks":
-        tables = [params["embed"]["table"]] + [
-            e["table"] for e in params.get("codebook_embeds", [])]
-        xf = x.to(torch.float32)
-        return torch.stack([xf @ t.to(torch.float32).T for t in tables], dim=2)  # (B,S,K,V)
-    return L.logits_from_embedding(params["embed"], x)
+        tables = [params["embed"]] + list(params.get("codebook_embeds", []))
+        recs = [emb] + (list(records.get("codebook_embeds", [])) if records else
+                        [None] * (len(tables) - 1))
+        return torch.stack([L.logits_from_embedding(t, x, r) for t, r in zip(tables, recs)],
+                           dim=2)  # (B,S,K,V)
+    return L.logits_from_embedding(params["embed"], x, emb)
 
 
-def mtp_logits(params: dict, cfg: ModelConfig, h: torch.Tensor, batch: dict):
+def mtp_logits(params: dict, cfg: ModelConfig, h: torch.Tensor, batch: dict,
+               records=None):
     """DeepSeek-V3 MTP depth-1: predict token t+2 from (h_t, emb(tok_{t+1}));
-    h is `forward`'s hidden state (B, S, d)."""
-    mtp = params["mtp"]
-    emb_next = L.embed_tokens(params["embed"], torch.roll(batch["tokens"], -1, dims=1))
+    h is `forward`'s hidden state (B, S, d). With `records`, sharded as
+    `forward` is."""
+    emb = tp.records(records, "embed")
+    m_rec = tp.records(records, "mtp")
+    outer = _outer(params, records, ("embed",))
+    mtp = dict(params["mtp"], **_outer(params["mtp"], m_rec, ("proj", "norm")))
+    emb_next = L.embed_tokens(outer["embed"], torch.roll(batch["tokens"], -1, dims=1), emb)
     z = torch.cat([L.rms_norm(h, mtp["norm"]["scale"]), emb_next], dim=-1)
-    z, _ = _apply_layer(mtp["layer"], z @ mtp["proj"], cfg, "attn", "dense")
-    return L.logits_from_embedding(params["embed"], z)
+    z, _ = _apply_layer(mtp["layer"], z @ mtp["proj"], cfg, "attn", "dense",
+                        tp.records(m_rec, "layer"))
+    return L.logits_from_embedding(outer["embed"], z, emb)
 
 
 # ------------------------------------------------------------- serve path ---

@@ -11,8 +11,19 @@ past the capacity C is dropped: it adds an exact zero to slot C-1 and
 takes no weight at the combine, as in JAX.
 
 Under a data mesh (`dist.data_parallel`) the load-balance fractions are
-means over the global batch, summed over the ranks; capacity and drops
-are per batch row, so they do not depend on the split.
+means over the global batch, summed over the data ranks; capacity and
+drops are per batch row, so they do not depend on the split.
+
+Under a "model" axis (`rec`, the layer's records; `dist.tp`) the tokens
+are the same on every rank of the model view, so routing, capacity and
+`keep` are computed whole on every rank, and no all-to-all is needed.
+With `experts` split, each rank runs its experts' slots of the capacity
+buffer; with `expert_ffn` split (mixtral's rules), each rank runs its
+columns of every expert's W_g and W_u and rows of W_d. Either way each
+rank's output is a partial sum, and one all-reduce over the model view
+follows. The dispatched tokens and the combine weights enter through
+`tp.copy_to`, so the router's and the input's gradients are whole on
+every rank. The shared expert is a dense MLP (`layers.apply_mlp`).
 
 Router: float32 softmax top-k, the chosen probabilities renormalized over
 the k experts; it returns the Switch-style load-balance aux loss beside
@@ -28,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import dist
+from repro_torch.dist import tp
 from repro_torch.models.layers import apply_mlp, init_mlp, normal
 
 
@@ -97,11 +109,16 @@ def ranks(e_flat: torch.Tensor) -> torch.Tensor:
     return torch.zeros_like(e_flat).scatter_(1, order, idx - run_start)
 
 
-def apply_moe(params: dict, x: torch.Tensor, cfg: MoEConfig):
-    """x (B, S, d) -> (out (B, S, d), aux_loss float32 scalar)."""
+def apply_moe(params: dict, x: torch.Tensor, cfg: MoEConfig, rec=None):
+    """x (B, S, d) -> (out (B, S, d), aux_loss float32 scalar); with
+    `experts` or `expert_ffn` split over "model", on this rank's block
+    (module doc)."""
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     C = _capacity(S, cfg)
+    w_rec = tp.records(rec, "w_gate")
+    e_view = tp.model_view(w_rec, 0)
+    view = e_view or tp.model_view(w_rec, 2)
 
     probs, top_p, top_e = route(params, x, cfg)
     e_flat = top_e.reshape(B, S * K)
@@ -112,23 +129,31 @@ def apply_moe(params: dict, x: torch.Tensor, cfg: MoEConfig):
     # dispatch: scatter-add the kept tokens into the capacity buffer, a
     # choice's slot being e * C + r in each row's (E * C, d) view
     slot = (e_flat * C + r_clip)[..., None].expand(B, S * K, d)
-    x_flat = x[:, :, None, :].expand(B, S, K, d).reshape(B, S * K, d)
+    xd = tp.copy_to(view, x)
+    x_flat = xd[:, :, None, :].expand(B, S, K, d).reshape(B, S * K, d)
     buf = torch.zeros((B, E * C, d), dtype=x.dtype, device=x.device)
     buf.scatter_add_(1, slot, x_flat * keep[..., None].to(x.dtype))
     buf = buf.view(B, E, C, d)
+    e_loc = params["w_gate"].shape[0]
+    e0 = e_view.rank * e_loc if e_view is not None else 0
+    if e_view is not None:
+        buf = buf[:, e0:e0 + e_loc]
 
-    # expert SwiGLU, batched over E
+    # expert SwiGLU, batched over this rank's experts
     h = F.silu(torch.einsum("becd,edf->becf", buf, params["w_gate"]))
     h = h * torch.einsum("becd,edf->becf", buf, params["w_up"])
     out_buf = torch.einsum("becf,efd->becd", h, params["w_down"])
+    if e_view is not None:      # the other ranks' experts add nothing here
+        out_buf = F.pad(out_buf, (0, 0, 0, 0, e0, E - e0 - e_loc))
 
     # combine: gather back with the routing weights of the kept choices
     gathered = torch.gather(out_buf.reshape(B, E * C, d), 1, slot)  # (B,SK,d)
-    w_flat = (top_p.reshape(B, S * K) * keep).to(x.dtype)
+    w_flat = tp.copy_to(view, (top_p.reshape(B, S * K) * keep).to(x.dtype))
     y = (gathered * w_flat[..., None]).reshape(B, S, K, d).sum(dim=2)
+    y = tp.reduce_from(view, y)
 
     if cfg.n_shared:
-        y = y + apply_mlp(params["shared"], x)
+        y = y + apply_mlp(params["shared"], x, tp.records(rec, "shared"))
 
     # load-balance aux (Switch/GShard style); the first choices counted by a
     # scatter-add, since `F.one_hot` checks its input's range on the host.

@@ -12,6 +12,7 @@ from typing import Any, NamedTuple, Union
 
 import torch
 
+from repro_torch import dist
 from repro_torch.utils import tree_leaves, tree_map, tree_unflatten
 
 
@@ -31,16 +32,38 @@ def adamw_init(params: Any) -> AdamWState:
                       count=torch.zeros((), dtype=torch.int32, device=dev))
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in float32, on the device."""
-    sums = [torch.sum(torch.square(x.to(torch.float32))) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+def global_norm(tree: Any, records: Any = None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in float32, on the device.
+
+    With `records` (a record tree like `tree`, `dist.shardings`), each leaf
+    is this rank's block and each global element counts once: the leaves
+    are grouped by the axes their records split them over, each group's
+    squares are summed and then summed over the view of each of its axes,
+    and a replicated leaf is counted once, not once a rank. The same norm
+    comes out on every rank."""
+    if records is None:
+        sums = [torch.sum(torch.square(x.to(torch.float32))) for x in tree_leaves(tree)]
+        return torch.sqrt(torch.sum(torch.stack(sums)))
+    groups: dict = {}
+    for x, rec in zip(tree_leaves(tree), tree_leaves(records)):
+        axes, mesh = rec.split_axes(), rec.mesh
+        groups.setdefault(axes, (mesh, []))[1].append(
+            torch.sum(torch.square(x.to(torch.float32))))
+    parts = []
+    for axes in sorted(groups):
+        mesh, sums = groups[axes]
+        part = torch.sum(torch.stack(sums))
+        for a in axes:
+            part = dist.all_reduce(mesh.view(a), part)
+        parts.append(part)
+    return torch.sqrt(torch.sum(torch.stack(parts)))
 
 
-def clip_by_global_norm(grads: Any, max_norm: float) -> tuple[Any, torch.Tensor]:
+def clip_by_global_norm(grads: Any, max_norm: float,
+                        records: Any = None) -> tuple[Any, torch.Tensor]:
     """(grads scaled by min(1, max_norm / norm), norm); the scale is cast to
-    each gradient's dtype, as JAX's is."""
-    norm = global_norm(grads)
+    each gradient's dtype, as JAX's is. `records`: as `global_norm`'s."""
+    norm = global_norm(grads, records)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 
@@ -56,19 +79,29 @@ def adamw_update(
     b2: float = 0.95,
     eps: float = 1e-8,
     weight_decay: float = 0.1,
+    donate: bool = False,
 ) -> tuple[Any, AdamWState]:
+    """(new params, new state). With `donate` (JAX's `donate_argnums` of
+    the sharded step), m, v and the parameters are overwritten in place and
+    returned, the same bits in the same order of operations: the caller's
+    operands are then the results, and the update holds no second copy of
+    the moments."""
     count = state.count + 1
     c1 = 1.0 - b1 ** count.to(torch.float32)
     c2 = 1.0 - b2 ** count.to(torch.float32)
 
     def upd(g, m, v, p):
         g32 = g.to(torch.float32)
-        m_new = b1 * m + (1 - b1) * g32
-        v_new = b2 * v + (1 - b2) * g32 * g32
+        if donate:
+            m_new = m.mul_(b1).add_((1 - b1) * g32)
+            v_new = v.mul_(b2).add_((1 - b2) * g32 * g32)
+        else:
+            m_new = b1 * m + (1 - b1) * g32
+            v_new = b2 * v + (1 - b2) * g32 * g32
         step = (m_new / c1) / (torch.sqrt(v_new / c2) + eps)
         p32 = p.to(torch.float32)
-        p_new = p32 - lr * (step + weight_decay * p32)
-        return p_new.to(p.dtype), m_new, v_new
+        p_new = (p32 - lr * (step + weight_decay * p32)).to(p.dtype)
+        return (p.copy_(p_new) if donate else p_new), m_new, v_new
 
     out = [upd(g, m, v, p) for g, m, v, p in zip(
         tree_leaves(grads), tree_leaves(state.m), tree_leaves(state.v), tree_leaves(params))]

@@ -130,15 +130,29 @@ def zero1_and_checkpoint(mesh, arch, jparams, batches, ckpt_dir):
                                               tree_leaves((z_p, z_o))))
         out["global"] = (rep_p, rep_o)
 
-        # FSDP: a parameter record over "data" is resolved, not executed
+        # FSDP: the parameters' records over "data", executed: the same two
+        # steps, each rank holding its blocks of the parameters and moments
         with dist.mesh_context(make_local_mesh(), rules={**cfg.rules_override,
                                                          "fsdp": "data"}):
-            fsdp = dsh.params_shardings(params, cfg)
-        try:
-            dsh.run_sharded(sharded, (fsdp, None, b_sh), params, opt, _t(batches[0]))
-            out["fsdp"] = "ran"
-        except NotImplementedError as e:
-            out["fsdp"] = str(e)
+            f_sh = dsh.params_shardings(params, cfg)
+            fm_sh = zero1_shardings(f_sh, params)
+            fo_sh = AdamWState(m=fm_sh, v=fm_sh, count=dsh.replicated(opt.count))
+            f_step = TS.make_train_step(cfg, learning_rate=1e-3, grad_shardings=f_sh)
+            f_p, f_o = params, opt
+            for b in batches:
+                f_p, f_o, f_m = dsh.run_sharded(f_step, (f_sh, fo_sh, b_sh), f_p, f_o, _t(b))
+            whole = dsh.gather_tree((f_p, f_o.m, f_o.v), (f_sh, fm_sh, fm_sh))
+        want = (rep_p, rep_o.m, rep_o.v)
+        out["fsdp"] = dict(
+            split=sum("data" in r.split_axes() for r in tree_leaves(f_sh)),
+            leaves=len(tree_leaves(f_sh)),
+            held=sum(x.numel() for x in tree_leaves(f_p)),
+            total=sum(x.numel() for x in tree_leaves(rep_p)),
+            equal=[torch.equal(a, b) for a, b in zip(tree_leaves(whole), tree_leaves(want))],
+            dev=max(float((a.float() - b.float()).abs().max()) / max(
+                float(b.float().abs().max()), 1e-30) for a, b in zip(tree_leaves(whole),
+                                                                    tree_leaves(want))),
+            metrics=(rep_m, f_m))
     return out
 
 
@@ -172,3 +186,127 @@ def all_cases(mesh, cases, zero_args, pipe_args):
     return {"dp": data_parallel_grads(mesh, cases),
             "zero": zero1_and_checkpoint(mesh, *zero_args),
             "pipe2": pipeline(mesh, *pipe_args)}
+
+
+# -- tensor parallelism and FSDP (tests/test_torch_lm_tp_fsdp.py) -------------
+
+def _not_model_split_sums(view, tree, records) -> list:
+    """Each rank of `view` (a "model" view) its checksums of the leaves
+    that no record splits over "model" (norms, the router, FSDP blocks), in
+    rank order: the rows must be equal."""
+    leaves = [x for x, r in zip(tree_leaves(tree), tree_leaves(records))
+              if "model" not in r.split_axes()]
+    return _checksum(view, leaves)
+
+
+def _layer_model_calls(params, cfg, records) -> int:
+    """The "model" all-reduces of the first layer's forward (no gradient)."""
+    from repro_torch.models import model as TM
+
+    x = torch.zeros((1, 4, cfg.d_model), dtype=cfg.dtype)
+    dist.reset_counts()
+    with torch.no_grad():
+        TM._apply_layer(params["layers"][0], x, cfg, *cfg.layer_spec(0), records["layers"][0])
+    return dist.all_reduce.by_axis.get("model", 0)
+
+
+def sharded_case(mesh, arch, jparams, batch, microbatches, model_axis, fsdp):
+    """One config's step on make_local_mesh(model_axis) under its rules
+    (with `fsdp` on "data" when asked), each rank on its blocks: the
+    clipped gradients gathered whole, the norm and metrics, each MoE
+    layer's chosen experts (the first microbatch's) gathered over the data
+    view in row order, every rank's metrics; then a whole step
+    (`run_sharded`, ZeRO-1 moments) and the checksums over each model view
+    of the leaves no record splits over "model"; the first layer's "model"
+    all-reduces in a forward and its `wq` block shape. A config whose SSM
+    the "model" axis splits returns the NotImplementedError's message."""
+    cfg = get_config(arch, smoke=True)
+    rules = dict(cfg.rules_override, **({"fsdp": "data"} if fsdp else {}))
+    lmesh = make_local_mesh(model_axis)
+    params = model_params_from_jax(jparams, cfg, device="cpu")
+    tb = _t(batch)
+    with dist.mesh_context(lmesh, rules=rules):
+        p_sh = dsh.params_shardings(params, cfg)
+        b_sh = dsh.batch_shardings(tb)
+        m_sh = zero1_shardings(p_sh, params)
+        o_sh = AdamWState(m=m_sh, v=m_sh, count=dsh.replicated(torch.zeros((), dtype=torch.int32)))
+        opt = dsh.place(adamw_init(params), o_sh)
+        handed, update = {}, TS.zero1_update
+
+        def capture(grads, *args):      # the clipped gradients the update is handed
+            handed["grads"] = grads
+            return update(grads, *args)
+
+        TS.zero1_update = capture
+        try:
+            step = TS.make_train_step(cfg, microbatches=microbatches, learning_rate=1e-3,
+                                      grad_shardings=p_sh)
+            (new_p, new_o, metrics), seen = _choices(
+                lambda: dsh.run_sharded(step, (p_sh, o_sh, b_sh), params, opt, tb))
+        except NotImplementedError as e:
+            return dict(refused=str(e))
+        finally:
+            TS.zero1_update = update
+        norm = metrics.pop("grad_norm")
+        full = dsh.gather_tree(handed["grads"], p_sh)
+        blocks = dsh.place(params, p_sh)
+        dview = lmesh.view("data")
+        n_moe = sum(cfg.layer_spec(i)[1] == "moe" for i in range(cfg.n_layers))
+        split = TS._split_of(b_sh) is not None
+        choices = [dist.gather(dview, c) if split else c for c in seen[:n_moe]]
+        per_rank = dist.gather(mesh, torch.stack(
+            [metrics[k] for k in sorted(metrics)])[None].to(torch.float64))
+        same = _not_model_split_sums(lmesh.view("model"), (new_p, new_o.m, new_o.v),
+                                     (p_sh, m_sh, m_sh))
+        out = dict(grads=full, norm=norm, metrics=metrics, choices=choices, split=split,
+                   per_rank=per_rank, model_sums=same, shape=lmesh.shape,
+                   layer_calls=_layer_model_calls(blocks, cfg, p_sh))
+        mixer = blocks["layers"][0]["mixer"]
+        if "wq" in mixer:
+            out["wq_block"] = tuple(mixer["wq"].shape)
+        out["held"] = sum(x.numel() for x in tree_leaves(new_p))
+    return out
+
+
+def sharded_cases(mesh, runs, ckpt=None):
+    """`sharded_case` for each (key, (arch, jparams, batch, microbatches,
+    model_axis, fsdp)) of `runs`; with `ckpt` (arch, jparams, batch,
+    directory), a TP + FSDP state of one step on make_local_mesh(2) saved
+    and restored on these ranks (`tp_fsdp_checkpoint`)."""
+    out = {key: sharded_case(mesh, *args) for key, args in runs.items()}
+    if ckpt is not None:
+        out["ckpt"] = tp_fsdp_checkpoint(mesh, *ckpt)
+    return out
+
+
+def tp_fsdp_checkpoint(mesh, arch, jparams, batch, ckpt_dir):
+    """One step of `arch` on make_local_mesh(2) with `fsdp` on "data" and
+    ZeRO-1 moments, its state checkpointed (gathered by the corrected
+    `gather_leaf`, written by rank 0) and restored into the same blocks;
+    returns the global state (gathered) and whether the blocks came back
+    bit for bit."""
+    cfg = get_config(arch, smoke=True)
+    params = model_params_from_jax(jparams, cfg, device="cpu")
+    with dist.mesh_context(make_local_mesh(2), rules={**cfg.rules_override, "fsdp": "data"}):
+        p_sh = dsh.params_shardings(params, cfg)
+        m_sh = zero1_shardings(p_sh, params)
+        opt = adamw_init(params)
+        o_sh = AdamWState(m=m_sh, v=m_sh, count=dsh.replicated(opt.count))
+        b_sh = dsh.batch_shardings(_t(batch))
+        step = TS.make_train_step(cfg, learning_rate=1e-3, grad_shardings=p_sh)
+        z_p, z_o, _ = dsh.run_sharded(step, (p_sh, o_sh, b_sh), params, opt, _t(batch))
+        # the same step with its operands donated (overwritten in place)
+        d_p, d_o = tree_map(torch.clone, (dsh.place(params, p_sh), dsh.place(opt, o_sh)))
+        d_p, d_o, _ = dsh.run_sharded(step, (p_sh, o_sh, b_sh), d_p, d_o, _t(batch),
+                                      donate=True)
+        donated_equal = all(torch.equal(a, b) for a, b in zip(tree_leaves((d_p, d_o)),
+                                                               tree_leaves((z_p, z_o))))
+        TC.save_checkpoint(ckpt_dir, 1, (z_p, z_o), extra={"arch": arch},
+                           shardings=(p_sh, o_sh))
+        (r_p, r_o), step_no, _ = TC.restore_checkpoint(ckpt_dir, (z_p, z_o),
+                                                       shardings=(p_sh, o_sh))
+        equal = step_no == 1 and all(torch.equal(a, b) for a, b in zip(
+            tree_leaves((r_p, r_o)), tree_leaves((z_p, z_o))))
+        split = sum(len(r.split_axes()) == 2 for r in tree_leaves(p_sh))
+        return dict(restored_blocks_equal=equal, both_axes=split, donated_equal=donated_equal,
+                    global_state=dsh.gather_tree((z_p, z_o), (p_sh, o_sh)))

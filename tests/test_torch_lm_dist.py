@@ -233,25 +233,39 @@ def test_spec_only_meshes_and_two_split_axes_are_refused():
     spec_only = dist.Mesh(axes=("data", "model"), sizes=(16, 16))
     with pytest.raises(RuntimeError, match="resolves specs only"):
         dist.all_reduce(spec_only, torch.ones(2))
-    with pytest.raises(NotImplementedError, match="item 7d"):
-        dist.executed_axis(spec_only)
-    assert dist.executed_axis(dist.Mesh(axes=("data", "model"), sizes=(2, 1))) == "data"
+    with pytest.raises(RuntimeError, match="resolves specs only"):
+        dist.all_reduce(spec_only.view("model"), torch.ones(2))
+    # two split axes are executed now; their views are each axis's slice
+    assert dist.split_axes(spec_only) == ("data", "model")
+    assert dist.split_axes(dist.Mesh(axes=("data", "model"), sizes=(2, 1))) == ("data",)
+    four = dist.Mesh(rank=3, axes=("data", "model"), sizes=(2, 2))
+    assert (four.view("data").size, four.view("data").rank) == (2, 1)
+    assert (four.view("model").size, four.view("model").rank) == (2, 1)
     assert spec_only.coord("model") == 0 and dist.Mesh(
         rank=5, axes=("data", "model"), sizes=(2, 4)).coord("model") == 1
     with pytest.raises(ValueError, match="pair up"):
         dist.Mesh(axes=("data",), sizes=(2, 2))
-    # a parameter record over "data" is resolved, and refused in a step
+    # a parameter record over "data" (FSDP) runs its collectives: on a mesh
+    # no process group backs, the step raises instead of computing it whole
     cfg = TC.get_config("internlm2_1_8b", smoke=True)
     params = TM.init_model(cfg, device="cpu")
     two = dist.Mesh(size=2)
     with dist.mesh_context(two, rules={"fsdp": "data"}):
         p_sh = dsh.params_shardings(params, cfg)
-    step = TS.make_train_step(cfg)
-    with pytest.raises(NotImplementedError, match="FSDP"):
+    step = TS.make_train_step(cfg, grad_shardings=p_sh)
+    with pytest.raises(RuntimeError, match="resolves specs only"):
         step(params, None, {"tokens": torch.zeros((2, 8), dtype=torch.int64)},
              shardings=(p_sh, None, None))
-    with pytest.raises(NotImplementedError, match="grad_shardings"):
-        TS.make_train_step(cfg, grad_shardings=p_sh)
+    # the SSM's channels over "model" are refused, naming their ROADMAP item
+    ssm = TC.get_config("mamba2_130m", smoke=True)
+    s_params = TM.init_model(ssm, device="cpu")
+    with dist.mesh_context(dist.Mesh(axes=("data", "model"), sizes=(1, 2))):
+        s_sh = dsh.params_shardings(s_params, ssm)
+    with pytest.raises(NotImplementedError, match=dist.MODEL_AXIS_ITEM):
+        TS.make_train_step(ssm, grad_shardings=s_sh)
+    with pytest.raises(NotImplementedError, match="ssm_inner"):
+        TS.make_train_step(ssm)(s_params, None, {"tokens": torch.zeros((2, 8), dtype=torch.int64)},
+                                shardings=(s_sh, None, None))
 
 
 def _tree(seed, shapes=((40, 25), (1000,), (3, 7, 11))):

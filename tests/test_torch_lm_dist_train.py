@@ -12,14 +12,15 @@ the launcher across ranks) on 2 and 4 gloo ranks on the CPU
   ranks' metrics equal;
 - ZeRO-1 (`run_sharded` with moments by `zero1_shardings`) bitwise the
   replicated 2-rank update over two bf16 steps, each rank holding its
-  block of m and v; a parameter record over "data" refused;
+  block of m and v; the same two steps with the parameters' records over
+  "data" (FSDP: each rank its half of the layers) bitwise it too;
 - the ZeRO-1 state checkpointed by 2 ranks, restored on 2 (the same
   blocks), on 1 rank, and by JAX's `restore_checkpoint`, bit for bit;
 - `pipeline_apply` on 2 and 4 ranks against the port's and JAX's
   `sequential_reference` (1e-10, float64), M + S - 1 hand-offs;
 - `dist.launch(train.train, 2, ...)`: a fault survived, checkpoints
-  written once, and the step-10 checkpoint resumed on one rank within
-  1e-4 of the 2-rank run's losses.
+  written once, and the step-10 checkpoint resumed on one rank and on the
+  same 2 ranks, each within 1e-4 of the 2-rank run's losses.
 """
 import os
 import shutil
@@ -121,7 +122,16 @@ def test_zero1_is_bitwise_the_replicated_update(ranks):
     held, total = z["moment_bytes"]
     assert held == want and 2 * held == total, (held, want, total)
     assert z["stacked_moments"] > 0
-    assert "FSDP" in z["fsdp"] and "item 7d" in z["fsdp"]
+    # FSDP ran: the records split the layers over "data", a rank held half
+    # of them, and the two steps' parameters, moments and metrics are the
+    # replicated update's
+    f = z["fsdp"]
+    assert f["split"] >= f["leaves"] - 2 and f["held"] < f["total"], f
+    assert all(f["equal"]), (f["dev"], f["equal"])
+    rep_m, f_m = f["metrics"]
+    assert all(torch.equal(rep_m[k], f_m[k]) for k in rep_m if k != "grad_norm")
+    assert abs(float(rep_m["grad_norm"]) - float(f_m["grad_norm"])) <= 1e-6 * float(
+        rep_m["grad_norm"])
 
 
 def _bits(leaf):
@@ -194,3 +204,12 @@ def test_launcher_on_two_ranks_survives_a_fault_and_resumes_on_one(tmp_path, cap
     assert len(resumed.losses) == 2
     gaps = [abs(a - b) for a, b in zip(resumed.losses, res.losses[-2:])]
     assert max(gaps) < 1e-4, (resumed.losses, res.losses[-2:])
+    # and on the same 2 ranks that wrote it
+    two = str(tmp_path / "two")
+    os.makedirs(two)
+    shutil.copytree(os.path.join(ckpt, "step_00000010"), os.path.join(two, "step_00000010"))
+    again = dist.launch(launcher.train, 2, args=(BASE + ["--ckpt-dir", two, "--steps", "12"],),
+                        device="cpu", threads=1, timeout=300)
+    assert capfd.readouterr().out.count("[train] resumed from step 10") == 2
+    gaps = [abs(a - b) for a, b in zip(again.losses, res.losses[-2:])]
+    assert len(again.losses) == 2 and max(gaps) < 1e-4, (again.losses, res.losses[-2:])
