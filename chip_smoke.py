@@ -59,8 +59,8 @@ port's main path through the entry points a user calls:
      each case again at k = 1, bitwise the same;
  11. the lane-batched penalized stack (float64, default config), each
      fold or lane a lane of one Illinois root-find: (11a)
-     `ElasticNetCV(k=5, n_lambdas=3)` at the GLA-BRA-180 shape (primal
-     folds) and (11b) `cross_validate(k=5, n_lambdas=3)` at the YMSD
+     `ElasticNetCV(k=5, n_lambdas=2)` at the GLA-BRA-180 shape (primal
+     folds) and (11b) `cross_validate(k=5, n_lambdas=2)` at the YMSD
      shape (dual folds), each against the port's sequential
      `cross_validate_reference` on the same data (mse within 1e-10 x max,
      the same index_min, equal evaluations and kept columns per (lambda,
@@ -101,7 +101,7 @@ port's main path through the entry points a user calls:
      of `sven_batch` (an 8-lane 4 t x 2 lambda2 `en_grid` on the shared
      GLA-BRA X) and of `enet_batch` (`cv_folds` at YMSD, lambda1 = 0.1 x
      each fold's lambda1_max), each lane bitwise the one-device stack's,
-     (13d) the fold fan-out of `cross_validate(k=4, n_lambdas=3)` at YMSD
+     (13d) the fold fan-out of `cross_validate(k=4, n_lambdas=2)` at YMSD
      bitwise `mesh=None`, and k = 5 with mesh="auto" under the 2-rank
      context declined, (13e) `calibrate` (every field finite and
      positive), the router's decisions and prices at 13a-13c, each no
@@ -126,7 +126,9 @@ port's main path through the entry points a user calls:
      requeued, fault p99 <= 3 x no-fault p99 (JAX's gate), the surviving
      worker on a CUDA device with the hinge kernels launched there, and
      the fault wave's first 8 betas within 1e-6 of a direct `sven` (printed
-     beside JAX's 1e-10); it prints each wave's seconds and p50 / p99, the
+     beside JAX's 1e-10, and beside `sven` on the padded problem
+     warm-started from the shared spill tier's entry at each request's
+     point); it prints each wave's seconds and p50 / p99, the
      seconds from spawn to ready, a batch's pipe transport and a request's
      fingerprint; (14b) `python -m repro_torch.runtime.loadgen --hosts 2
      --kill-host 0 --waves 2` as a subprocess on the card, which must exit
@@ -214,6 +216,30 @@ port's main path through the entry points a user calls:
      the leaves no record splits over an axis bitwise equal across its
      views after the update, a rank holding its blocks only, 19a's "model"
      all-reduces a step the design's count (`tp_expected_calls`).
+  20. the prefill and decode steps on (data, model) meshes in the dry
+     run's serving layouts (`launch/dryrun.py::_rules_for`), gloo ranks on
+     the one card (`phase_serve_tp`; `--serve-tp` runs it alone,
+     `rehearse_serve_tp()` on the CPU): (20a) internlm2-1.8b whole on (1, 2)
+     under the default rules, prefill 4 x 64 and 32 greedy decode steps;
+     (20b) on (2, 2), prefill 4 x 3,072 in prefill_32k's layout, then 4
+     decode steps in decode_32k's (a cache of 4,096 positions split by
+     sequence over "model", flash decoding, FSDP over "data"); (20c)
+     mamba2-130m whole in float32 on (1, 2), the SSM split over "model": a
+     sharded train step, then prefill 4 x 64 and 8 decode steps; (20d)
+     jamba-v0.1-52b at full width, a train step at 2 layers and serving at
+     4 (3 SSM layers and the attention one, dense and MoE MLPs) on (1, 2);
+     (20e) mixtral-8x7b at full width, 2 layers, on (2, 2) in long_500k's
+     layout, batch 1, prompt 8,192, its 4,096-slot ring buffer split over
+     "data" and wrapping, 16 decode steps. Each against one process on the
+     same weights and prompt once the ranks have exited, teacher-forced on
+     the ranks' tokens: the prefill's and the first decode step's logits
+     (20c: 8 steps, 20e: 16) within 2e-2 x max|logits| in bf16 and 1e-4 x
+     in float32, tokens in the vocabulary and the same on every rank, the
+     train steps' first loss within 1e-3 relative; 20a's "model"
+     all-reduces a decode step the design's count (2 a layer + the
+     embedding lookup's + the head's gather). Prints prefill ms, decode
+     tok/s, a step's collectives by axis, a traced step's launches and
+     idle share, and each rank's bytes and peak.
 
 The CG loop (`repro_torch.core.svm.state.cg_lanes`) reads its test once
 per block of k = `CG_READ_EVERY` steps and launches up to k - 1 dead steps
@@ -293,6 +319,10 @@ and prints no result line.
 
 runs phase 18 alone, with its checks, and prints no result line.
 
+    python3 chip_smoke.py --serve-tp
+
+runs phase 20 alone, with its checks, and prints no result line.
+
     python3 chip_smoke.py --lm-trace [ARCH]
 
 shows where 15a's time goes (or, given ARCH, that arch's: mixtral-8x7b and
@@ -313,6 +343,7 @@ times that commit's passes.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -1570,8 +1601,8 @@ def cv_checks(torch, smoke, label, res, secs, launched, syncs, steps, dead, ref,
                 f"CG step ({ref_steps})")
 
 
-#: phase 11's lambdas a path (cut from 10 to 5, then to 3, for the script's time)
-CV_LAMBDAS = 3
+#: phase 11's lambdas a path (cut from 10 to 5, to 3, then to 2, for the script's time)
+CV_LAMBDAS = 2
 
 
 def phase_cv(torch, smoke, kernels, svm_state, count, dev) -> None:
@@ -2003,7 +2034,7 @@ MULTI_WORLD = 2
 MULTI_TS = (0.25, 0.5, 0.75, 1.0)
 MULTI_L2S = (0.5, 1.0)
 MULTI_FOLDS = 4
-MULTI_LAMBDAS = 3             # 13d (cut from 10 to 5, then to 3, for the script's time)
+MULTI_LAMBDAS = 2             # 13d (cut from 10 to 5, to 3, then to 2, for the script's time)
 #: 13f: the shotgun baseline at its callers' problems (`benchmarks/common.py`:
 #: gla_bra_like and ymsd_like, `bench_pggn.py` / `bench_nggp.py`'s parallel),
 #: and ymsd_like with a full draw (parallel = p). The last field is the
@@ -2371,6 +2402,7 @@ def phase_multihost(torch, smoke, count, dev, shape=GLA_BRA, cli=True) -> None:
     and a spill directory, float64, default config, at `shape`; (14b) the
     loadgen's `--hosts 2 --kill-host 0` CLI as a subprocess (when `cli`)."""
     import os
+    import shutil
     import tempfile
 
     import numpy as np
@@ -2378,6 +2410,7 @@ def phase_multihost(torch, smoke, count, dev, shape=GLA_BRA, cli=True) -> None:
     from repro_torch.core import routing, sven
     from repro_torch.runtime import (LoadSpec, MultiHostCoordinator, fingerprint_problem,
                                      make_workload, run_open_loop)
+    from repro_torch.runtime.cache import CONSTRAINED, PersistentCacheTier
 
     t_phase = time.perf_counter()
     workload = make_workload(LoadSpec(shapes=(shape,), n_datasets=1, n_requests=MH_REQUESTS,
@@ -2390,7 +2423,7 @@ def phase_multihost(torch, smoke, count, dev, shape=GLA_BRA, cli=True) -> None:
           f"requests on one {shape[0]} x {shape[1]} data set, host 0 killed at request "
           f"{kill_at} of the third", flush=True)
     waves, lost = [], 0
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, tempfile.TemporaryDirectory() as snap:
         t0 = time.perf_counter()
         coord = MultiHostCoordinator(n_hosts=MH_HOSTS, max_batch=MH_MAX_BATCH, cache_dir=tmp,
                                      device=dev)
@@ -2400,6 +2433,11 @@ def phase_multihost(torch, smoke, count, dev, shape=GLA_BRA, cli=True) -> None:
                 out = run_open_loop(coord, workload)
                 lost += len(set(out["ids"]) - set(out["results"]))
                 waves.append((name, out["wall_seconds"], out, list(out["results"].values())))
+            # the shared spill tier as the fault wave finds it: every worker
+            # writes each point it solves through to it (the last writer's
+            # entry at a point stays)
+            for f in Path(tmp).glob("*.npz"):
+                shutil.copy2(f, snap)
             # the fault wave: flush at half, so host 0 holds in-flight work,
             # SIGKILL it, submit the rest; detection, requeue and re-solve
             # all land inside the measured window
@@ -2420,6 +2458,9 @@ def phase_multihost(torch, smoke, count, dev, shape=GLA_BRA, cli=True) -> None:
             acct = coord.accounting()
         finally:
             stats = coord.shutdown()
+        spilled = PersistentCacheTier(snap)
+        entries = [spilled.lookup(fingerprint_problem(item.X, item.y), CONSTRAINED, item.lam,
+                                  item.lambda2) for item in workload[:MH_DIRECT]]
     for name, wall, summ, res in waves:
         statuses = sorted({r.status for r in res})
         print(f"    {name}: {wall:.3f} s, p50 {summ['p50_latency_s']:.3f} s, p99 "
@@ -2451,20 +2492,42 @@ def phase_multihost(torch, smoke, count, dev, shape=GLA_BRA, cli=True) -> None:
     smoke.check(len(stats) == MH_HOSTS - 1, f"14a: {len(stats)} worker(s) reported final "
                 f"stats, the {MH_HOSTS - 1} survivor(s)")
     spill = sum(s["spill_hits"] for s in stats)
-    # the fault wave's first results against direct solves of the unpadded problems
-    dev_max = rel_max = 0.0
-    for item, rid in list(zip(workload, ids))[:MH_DIRECT]:
+    # the fault wave's first results against direct solves of the unpadded
+    # problems (cold), and of the padded ones warm-started from the spill
+    # tier's entry at the request's point. That entry is not always the
+    # surviving worker's warm start (its memory tier holds its own solves,
+    # 8 points a problem, the nearest taken), so the warm comparison is
+    # printed, not gated (ROADMAP Queue 3 item 1a)
+    dev_max = rel_max = warm_max = 0.0
+    n_warm = 0
+    for k, (item, rid) in enumerate(list(zip(workload, ids))[:MH_DIRECT]):
         r = results[rid]
         if r.status != "ok":
             continue
-        direct = sven(torch.as_tensor(item.X, device=dev), torch.as_tensor(item.y, device=dev),
-                      item.lam, item.lambda2).beta.cpu().numpy()
+        X, y = torch.as_tensor(item.X, device=dev), torch.as_tensor(item.y, device=dev)
+        direct = sven(X, y, item.lam, item.lambda2).beta.cpu().numpy()
         d = float(np.abs(r.beta - direct).max())
         dev_max = max(dev_max, d)
         rel_max = max(rel_max, d / max(float(np.abs(direct).max()), 1e-300))
+        entry = entries[k]
+        if entry is None:
+            continue
+        (bn, bp), (n, p) = r.bucket, X.shape
+        Xp = torch.zeros((bn, bp), dtype=X.dtype, device=dev)
+        Xp[:n, :p] = X
+        yp = torch.zeros((bn,), dtype=y.dtype, device=dev)
+        yp[:n] = y
+        warm = sven(Xp, yp, item.lam, item.lambda2,
+                    warm_alpha=torch.as_tensor(entry.alpha, device=dev),
+                    warm_w=torch.as_tensor(entry.w, device=dev)).beta[:p].cpu().numpy()
+        warm_max = max(warm_max, float(np.abs(r.beta - warm).max()))
+        n_warm += 1
     print(f"    the fault wave's first {MH_DIRECT} against a direct sven: max|beta - direct| "
           f"{dev_max:.3e} ({rel_max:.3e} x max|beta|): <= {MH_TOL:g} "
-          f"{dev_max <= MH_TOL}, <= JAX's {MH_JAX_TOL:g} {dev_max <= MH_JAX_TOL}", flush=True)
+          f"{dev_max <= MH_TOL}, <= JAX's {MH_JAX_TOL:g} {dev_max <= MH_JAX_TOL}; against "
+          f"sven on the padded problem warm-started from the spill tier's entry at the "
+          f"request's point ({n_warm} of {MH_DIRECT} found): {warm_max:.3e}, <= JAX's "
+          f"{MH_JAX_TOL:g} {warm_max <= MH_JAX_TOL}", flush=True)
     smoke.check(dev_max <= MH_TOL, f"14a: max|beta - direct sven| = {dev_max:.3e} <= {MH_TOL:g}")
     # the host work apart: a batch through the pipe, a request's fingerprint
     items = [{"req_id": k, "X": it.X, "y": it.y, "form": it.form, "lam": it.lam,
@@ -4357,7 +4420,8 @@ def tp_rank(mesh, cfg, shape, steps, microbatches, model_axis, rules, trace):
                 loss=loss, secs=secs, calls=dist.all_reduce.calls, bytes=dist.all_reduce.bytes,
                 ar_s=dist.all_reduce.seconds, by_axis=dict(dist.all_reduce.by_axis),
                 bc_calls=dist.broadcast.calls, bc_bytes=dist.broadcast.bytes,
-                bc_s=dist.broadcast.seconds))
+                bc_s=dist.broadcast.seconds, ag_calls=dist.all_gather.calls,
+                ag_bytes=dist.all_gather.bytes))
             if traced:
                 prof.__exit__(None, None, None)
                 path = ROOT / "build" / "tp-trace" / "step.json"
@@ -4521,6 +4585,497 @@ def phase_tp(torch, smoke, dev, card: str, res: dict, loss1: float, cfg_c=None,
           f"after phase 18's ranks; {card}", flush=True)
 
 
+#: phase 20: prefill and decode steps on (data, model) meshes in the dry
+#: run's serving layouts (`launch/dryrun.py::_rules_for`), gloo ranks on the
+#: one card. A serving sub-phase: (data, model), (prefill layout, decode
+#: layout), (batch, prompt), max_len, decode steps, decode steps whose
+#: logits are held to one process
+SERVE_TP_A = ((1, 2), ("default", "default"), (LM_BATCH, LM_PROMPT), LM_PROMPT + LM_GEN,
+              LM_GEN, 1)
+SERVE_TP_B = ((2, 2), ("prefill_32k", "decode_32k"), (4, 3072), 4096, 4, 1)
+SERVE_TP_C = ((1, 2), ("default", "default"), (LM_BATCH, LM_PROMPT), LM_PROMPT + 8, 8, 8)
+SERVE_TP_D = ((1, 2), ("default", "default"), (LM_BATCH, LM_PROMPT), LM_PROMPT + 4, 4, 1)
+SERVE_TP_E = ((2, 2), ("long_500k", "long_500k"), (1, 8192), 8192 + 16, 16, 16)
+HYBRID_ARCH = "jamba-v0.1-52b"
+HYBRID_SERVE_LAYERS, HYBRID_TRAIN_LAYERS = 4, 2   # 20d: 3 SSM layers + the attention one
+SERVE_TP_E_LAYERS = 2                             # 20e: mixtral-8x7b's depth cut
+
+
+def serve_tp_rank(mesh, cfg, model_axis, layouts, shape, max_len, steps, keep, trace):
+    """One serving sub-phase of phase 20 on one rank of `mesh`: `cfg`'s
+    weights (seed 0, each rank its blocks by `params_shardings`) on
+    make_local_mesh(`model_axis`), a prefill (`run_prefill`) of the seeded
+    prompt `shape` in the layout `layouts[0]` ("default": the config's
+    rules; else the dry run's `_rules_for`), then `steps` greedy decode
+    steps (`run_decode`) in `layouts[1]` (the weights placed anew when the
+    layouts differ). Returns the prefill's seconds and logits, each decode
+    step's seconds and collective counts (rank 0's), the first `keep` decode
+    steps' logits, the tokens, every rank's token checksums, the bytes each
+    rank holds and its peak, and (`trace`) rank 0's second decode step
+    traced."""
+    import torch
+
+    from repro_torch import dist
+    from repro_torch.dist import shardings as dsh
+    from repro_torch.launch.dryrun import _rules_for
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+    from repro_torch.utils import tree_leaves
+
+    dev = mesh.device
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def together():
+        sync()
+        dist.all_reduce(mesh, torch.zeros(1, device=dev))
+
+    def per_rank(v):
+        return dist.gather(mesh, torch.tensor([float(v)], dtype=torch.float64,
+                                              device=dev)).tolist()
+
+    def rules(layout):
+        if layout == "default":
+            return {**dist.DEFAULT_RULES, **cfg.rules_override}
+        return _rules_for(cfg, layout)
+
+    def blocks():
+        params = M.init_model(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                              device=dev)
+        p_sh = dsh.params_shardings(params, cfg)
+        held = dsh.place(params, p_sh)
+        del params
+        if on_card:
+            torch.cuda.empty_cache()
+        return held, p_sh
+
+    def counts(secs):
+        return dict(secs=secs, calls=dist.all_reduce.calls, bytes=dist.all_reduce.bytes,
+                    ar_s=dist.all_reduce.seconds, by_axis=dict(dist.all_reduce.by_axis),
+                    bc_calls=dist.broadcast.calls, bc_bytes=dist.broadcast.bytes,
+                    bc_s=dist.broadcast.seconds, bc_by_axis=dict(dist.broadcast.by_axis),
+                    ag_calls=dist.all_gather.calls, ag_bytes=dist.all_gather.bytes,
+                    ag_s=dist.all_gather.seconds)
+
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    lmesh = make_local_mesh(model_axis)
+    B = shape[0]
+    batch = {"tokens": lm_tokens(torch, cfg, shape, 1, dev)}
+    prefill, decode = make_prefill_step(cfg, max_len), make_decode_step(cfg)
+    with routed(torch) as seen:
+        t0 = time.perf_counter()
+        with dist.mesh_context(lmesh, rules=rules(layouts[0])):
+            params, p_sh = blocks()
+            b_sh = dsh.batch_shardings(batch)
+            out = dict(init_s=time.perf_counter() - t0, shape=lmesh.shape, n_layers=cfg.n_layers,
+                       param_bytes=per_rank(sum(x.numel() * x.element_size()
+                                                for x in tree_leaves(params))))
+            together()
+            dist.reset_counts()
+            seen[:] = [[]]
+            t0 = time.perf_counter()
+            logits, caches = dsh.run_prefill(prefill, (p_sh, b_sh), params, batch)
+            sync()
+            out["prefill"] = counts(time.perf_counter() - t0)
+            out["prefill_logits"] = logits.float().cpu()
+        with dist.mesh_context(lmesh, rules=rules(layouts[1])):
+            if layouts[1] != layouts[0]:
+                del params
+                params, p_sh = blocks()
+            c_sh = M.cache_records(cfg, B, max_len)
+            caches = dsh.place(caches, c_sh)
+            tok = torch.argmax(logits, dim=-1)
+            tok_sh = dsh.batch_shardings(tok)
+            toks, records, kept = [tok], [], []
+            for i in range(steps):
+                together()
+                dist.reset_counts()
+                traced = trace and on_card and mesh.rank == 0 and i == min(1, steps - 1)
+                if traced:
+                    from torch.profiler import ProfilerActivity, profile
+                    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                    prof.__enter__()
+                seen.append([])
+                t0 = time.perf_counter()
+                logits, caches = dsh.run_decode(decode, (p_sh, tok_sh, c_sh), params, tok, caches)
+                tok = torch.argmax(logits, dim=-1)
+                sync()
+                secs = time.perf_counter() - t0
+                records.append(counts(secs))
+                if traced:
+                    prof.__exit__(None, None, None)
+                    path = ROOT / "build" / "serve-tp-trace" / "step.json"
+                    path.parent.mkdir(parents=True, exist_ok=True)
+                    prof.export_chrome_trace(str(path))
+                    del prof
+                    out["trace"] = trace_split(path, secs, 1)
+                    path.unlink()
+                if i < keep:
+                    kept.append(logits.float().cpu())
+                toks.append(tok)
+            tokens = torch.stack(toks, dim=1)
+            out.update(steps=records, decode_logits=kept, tokens=tokens.cpu(),
+                       token_sums=dist.gather(mesh, bit_sums(torch, [tokens.to(torch.int32)])[None]
+                                              ).tolist(),
+                       cache_bytes=per_rank(sum(x.numel() * x.element_size()
+                                                for x in tree_leaves(caches)
+                                                if isinstance(x, torch.Tensor))),
+                       peak=per_rank(torch.cuda.max_memory_allocated(dev) if on_card else 0))
+        del params, caches, logits
+    out["choices"] = [[c.cpu() for c in step] for step in seen]
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def routed(torch):
+    """Within it, each MoE layer's chosen experts (top-k indices, on the
+    device) are appended to the last list of the yielded list of steps."""
+    from repro_torch.models import moe as moe_mod
+
+    steps, route = [[]], moe_mod.route
+
+    def record(params, x, cfg):
+        out = route(params, x, cfg)
+        steps[-1].append(out[2])
+        return out
+
+    moe_mod.route = record
+    try:
+        yield steps
+    finally:
+        moe_mod.route = route
+
+
+def serve_tp_ranks(mesh, subs) -> dict:
+    """Phase 20's sub-phases on these ranks: each (label, kind, arguments),
+    kind "serve" (`serve_tp_rank`) or "train" (`tp_rank`), each starting
+    from the memory the one before it freed (reference cycles collected)."""
+    import gc
+
+    import torch
+
+    out = {}
+    for label, kind, args in subs:
+        gc.collect()
+        if mesh.device.type == "cuda":
+            torch.cuda.empty_cache()
+        out[label] = (serve_tp_rank if kind == "serve" else tp_rank)(mesh, *args)
+        if mesh.rank == 0:      # shown even if a later part fails
+            r = out[label]
+            secs = [round(x["secs"], 3) for x in r["steps"]]
+            print(f"    rank 0: {label} done: step s {secs}, peak {r['peak']}", flush=True)
+    return out
+
+
+def serve_tp_reference(torch, cfg, shape, max_len, tokens, choices, n_steps, dev) -> dict:
+    """One process on the same weights and prompt, teacher-forced on the
+    ranks' `tokens` and on their MoE `choices` (per step, per MoE layer,
+    the top-k experts the ranks chose): the prefill's logits and `n_steps`
+    decode steps' ("logits"). A choice the ranks made otherwise than this
+    process would is counted ("apart", tokens a step) and measured: how far
+    below this process's own k-th probability the weakest expert it is
+    handed lies, relative to it ("shortfall", the largest; 0 when every
+    choice is its own). So bf16 rounding that tips a near tie of the
+    router apart, a discrete change, is told from the split's arithmetic.
+    "planted": the shortfall the same reading gives a wrong router planted
+    beside it, one that hands every token its (k+1)-th expert in place of
+    its k-th, so the gate is seen to tell such a router from near ties."""
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+
+    route = moe_mod.route
+    step, calls, apart, worst, planted = [0], [0], [], [0.0], [0.0]
+
+    def shortfall(probs, kth, chosen):
+        picked = torch.gather(probs, -1, chosen)
+        return float(((kth - picked.min(dim=-1).values) / kth).clamp(min=0).max()), picked
+
+    def replay(p, x, c):
+        probs, _, own = route(p, x, c)
+        forced = choices[step[0]][calls[0]].to(probs.device)
+        calls[0] += 1
+        top = torch.topk(probs, c.top_k + 1, dim=-1).indices
+        kth = torch.gather(probs, -1, top[..., c.top_k - 1:c.top_k])[..., 0]
+        short, picked = shortfall(probs, kth, forced)
+        worst[0] = max(worst[0], short)
+        wrong = torch.cat([top[..., :c.top_k - 1], top[..., c.top_k:]], dim=-1)
+        planted[0] = max(planted[0], shortfall(probs, kth, wrong)[0])
+        differ = (torch.sort(own, dim=-1).values != torch.sort(forced, dim=-1).values).any(-1)
+        apart[-1] += int(differ.sum())
+        return probs, picked / torch.clamp(picked.sum(-1, keepdim=True), min=1e-9), forced
+
+    params = M.init_model(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    moe_mod.route = replay
+    try:
+        apart.append(0)
+        logits, caches = make_prefill_step(cfg, max_len)(
+            params, {"tokens": lm_tokens(torch, cfg, shape, 1, dev)})
+        out = [logits.float().cpu()]
+        decode = make_decode_step(cfg)
+        for s in range(n_steps):
+            step[0], calls[0] = s + 1, 0
+            apart.append(0)
+            logits, caches = decode(params, tokens[:, s].to(dev), caches)
+            out.append(logits.float().cpu())
+    finally:
+        moe_mod.route = route
+    del params, caches
+    settle(torch, dev)
+    return dict(logits=out, apart=apart, shortfall=worst[0], planted=planted[0])
+
+
+#: a MoE choice the ranks make otherwise than one process must be a near tie
+#: there: the weakest expert handed to it within this share of its own k-th
+#: probability (bf16 rounding of the router's input moves them about 1 %)
+SERVE_TP_TIE = 0.1
+
+
+def serve_tp_cfgs(get_config):
+    """Phase 20's configs: internlm2-1.8b, mamba2-130m (float32) and
+    jamba-v0.1-52b at HYBRID_SERVE_LAYERS / HYBRID_TRAIN_LAYERS layers, whole
+    width; mixtral-8x7b at SERVE_TP_E_LAYERS."""
+    import torch
+
+    hybrid = get_config(HYBRID_ARCH)
+    return dict(a=get_config(LM_ARCH), b=get_config(LM_ARCH),
+                c=f32_of(torch, get_config(SSM_ARCH)),
+                d=dataclasses.replace(hybrid, n_layers=HYBRID_SERVE_LAYERS),
+                d_train=dataclasses.replace(hybrid, n_layers=HYBRID_TRAIN_LAYERS),
+                e=dataclasses.replace(get_config(MOE_ARCH), n_layers=SERVE_TP_E_LAYERS))
+
+
+def phase_serve_tp(torch, smoke, dev, card: str, cfgs=None, subs=None) -> None:
+    """Phase 20: the prefill and decode steps on (data, model) meshes of
+    gloo ranks on the one card, each against one process on the same
+    weights and prompt once the ranks have exited (`serve_tp_cfgs`'s
+    configs and SERVE_TP_*'s shapes; `cfgs` and `subs` replace them for
+    the CPU rehearsal): 20a internlm2-1.8b whole on (1, 2); 20b on (2, 2)
+    in prefill_32k's then decode_32k's layout; 20c mamba2-130m whole in
+    float32 on (1, 2), a train step and then serving; 20d jamba-v0.1-52b
+    at full width (a train step at 2 layers, serving at 4) on (1, 2); 20e
+    mixtral-8x7b at full width, 2 layers, on (2, 2) in long_500k's layout
+    at batch 1, its ring buffer split over "data" and wrapping."""
+    import math
+    import statistics
+
+    from repro_torch import dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.models import model as M
+    from repro_torch.train.step import lm_loss
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    cfgs = serve_tp_cfgs(get_config) if cfgs is None else cfgs
+    subs = dict(a=SERVE_TP_A, b=SERVE_TP_B, c=SERVE_TP_C, d=SERVE_TP_D, e=SERVE_TP_E) \
+        if subs is None else subs
+
+    def serve(key):
+        (_, model), layouts, shape, max_len, steps, keep = subs[key]
+        return ("serve", (cfgs[key], model, layouts, shape, max_len, steps, keep, True))
+
+    def train(key):
+        return ("train", (cfgs[key], DIST_SHAPE if on_card else DIST_B_SHAPE, 1, 1, 2, {},
+                          False))
+
+    two = [("20a", *serve("a")), ("20c/train", *train("c")), ("20c", *serve("c")),
+           ("20d", *serve("d")), ("20d/train", *train("d_train"))]
+    four = [("20b", *serve("b")), ("20e", *serve("e"))]
+    threads = 0 if on_card else 1
+    t0 = time.perf_counter()
+    res = dist.launch(serve_tp_ranks, 2, args=(two,), device=dev.type, timeout=900,
+                      threads=threads)
+    two_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res.update(dist.launch(serve_tp_ranks, 4, args=(four,), device=dev.type, timeout=900,
+                           threads=threads))
+    four_s = time.perf_counter() - t0
+
+    # the one-process references, once the ranks have exited
+    settle(torch, dev, reset_peak=True)
+    t0 = time.perf_counter()
+    refs, losses = {}, {}
+    for key in "abcde":
+        r = res[f"20{key}"]
+        _, _, shape, max_len, _, keep = subs[key]
+        refs[key] = serve_tp_reference(torch, cfgs[key], shape, max_len, r["tokens"],
+                                       r["choices"], keep, dev)
+    for key in ("c", "d_train"):
+        cfg = cfgs[key]
+        B, S = DIST_SHAPE if on_card else DIST_B_SHAPE
+        with torch.no_grad():
+            params = M.init_model(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                                  device=dev)
+            batch = synthetic_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                               global_batch=B), 0, device=dev)
+            losses[key] = float(lm_loss(params, cfg, batch)[0])
+        del params, batch
+        settle(torch, dev)
+    ref_s = time.perf_counter() - t0
+    ref_peak = peak_text(torch, dev)
+
+    what = {"a": f"{cfgs['a'].name} whole, the default rules",
+            "b": f"{cfgs['b'].name} whole, prefill_32k's layout then "
+                 "decode_32k's (flash decoding, FSDP over \"data\")",
+            "c": f"{cfgs['c'].name} whole, float32, the SSM split over \"model\"",
+            "d": f"{cfgs['d'].name} at full width, {cfgs['d'].n_layers} layers (3 SSM + "
+                 "attention, dense and MoE MLPs), its rules",
+            "e": f"{cfgs['e'].name} at full width, {cfgs['e'].n_layers} layers, long_500k's "
+                 "layout (the ring buffer's sequence over \"data\")"}
+    for key in "abcde":
+        label = f"20{key}"
+        r, ref = res[label], refs[key]
+        (data, model), layouts, (B, S), max_len, steps, keep = subs[key]
+        cfg = cfgs[key]
+        st = r["steps"]
+        warm = [x["secs"] for x in st[1:]] or [st[0]["secs"]]
+        step_s = statistics.median(warm)
+        print(f"[{label}] {what[key]}: mesh (data {data}, model {model}) of {data * model} gloo "
+              f"ranks on this card, {cfg.dtype}, batch {B}, prompt {S}, max_len {max_len}, "
+              f"{steps} decode steps; init {r['init_s']:.1f} s", flush=True)
+        pre = r["prefill"]
+        print(f"    prefill {pre['secs'] * 1e3:.1f} ms (all_reduce calls {pre['calls']}, "
+              f"{pre['bytes']} bytes, {pre['ar_s']:.3f} s; broadcast calls {pre['bc_calls']}, "
+              f"{pre['bc_bytes']} bytes, {pre['bc_s']:.3f} s); decode step s "
+              f"{[round(x['secs'], 4) for x in st]}, median warm {step_s * 1e3:.1f} ms = "
+              f"{B / step_s:.1f} tok/s at batch {B}; {card}", flush=True)
+        last = st[-1]
+        print(f"    a decode step's collectives: all_reduce calls {last['calls']} "
+              f"{last['by_axis']}, {last['bytes']} bytes, {last['ar_s']:.3f} s; broadcast "
+              f"calls {last['bc_calls']} {last['bc_by_axis']}, {last['bc_bytes']} bytes, "
+              f"{last['bc_s']:.3f} s; all_gather calls {last['ag_calls']}, {last['ag_bytes']} "
+              f"bytes sent a rank, {last['ag_s']:.3f} s (host clock)", flush=True)
+        if "trace" in r:
+            sp = r["trace"]
+            print(f"    rank 0's decode step traced: wall {sp['wall_us'] / 1e3:.1f} ms, "
+                  f"{sp['launches']:.0f} device launches, device busy "
+                  f"{sp['busy_us'] / 1e3:.1f} ms, idle share {sp['idle']:.3f}", flush=True)
+        print(f"    held a rank: parameters {[round(x / 1e9, 3) for x in r['param_bytes']]} GB, "
+              f"caches {[round(x / 1e9, 4) for x in r['cache_bytes']]} GB; peak "
+              f"{[round(x / 1e9, 2) for x in r['peak']]} GB allocated a rank", flush=True)
+        toks = r["tokens"]
+        sums = r["token_sums"]
+        smoke.check(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size
+                    and toks.shape == (B, steps + 1) and all(x == sums[0] for x in sums),
+                    f"{label}: tokens {tuple(toks.shape)} in [0, {cfg.vocab_size}), the same "
+                    f"on all {len(sums)} ranks")
+        tol = LM_CPU_TOL if cfg.dtype == torch.float32 else LM_BF16_TOL
+        got = [r["prefill_logits"]] + list(r["decode_logits"])
+        want = ref["logits"]
+        agree = [int((torch.argmax(w, dim=-1) == toks[:, s]).sum()) for s, w in enumerate(want)]
+        if cfg.moe is not None:
+            print(f"    tokens whose experts the ranks chose otherwise than one process, a "
+                  f"step: {ref['apart']} (one process replays the ranks' choices); the weakest "
+                  f"expert handed to it at most {ref['shortfall']:.3e} below its own k-th "
+                  f"probability, relative (a router planted to hand the (k+1)-th: "
+                  f"{ref['planted']:.3e})", flush=True)
+            smoke.check(ref["shortfall"] <= SERVE_TP_TIE, f"{label}: every MoE choice the ranks "
+                        f"made otherwise is a near tie in one process (shortfall "
+                        f"{ref['shortfall']:.3e} <= {SERVE_TP_TIE})")
+            smoke.check(ref["planted"] > SERVE_TP_TIE, f"{label}: a router planted to hand "
+                        f"the (k+1)-th expert for the k-th fails the same gate (shortfall "
+                        f"{ref['planted']:.3e} > {SERVE_TP_TIE})")
+        for s, (g, w) in enumerate(zip(got, want)):
+            scale = w.abs().max().item()
+            d = (g - w).abs().max().item()
+            name = "prefill" if s == 0 else f"decode step {s}"
+            smoke.check(math.isfinite(d) and d <= tol * scale,
+                        f"{label}: {name} logits within {tol} x max|logits| of one process "
+                        f"({d / scale:.3e})")
+        print(f"    tokens the one process picks alike, a step of {B}: {agree}", flush=True)
+        if key == "a":
+            want = 2 * cfg.n_layers + 2
+            got_calls = last["by_axis"].get("model", 0)
+            print(f"    20a: \"model\" all-reduces a decode step {got_calls}; the design's "
+                  f"{want} = 2 a layer (after `wo`, after `w_down`) + the embedding lookup's "
+                  "+ the head's gather", flush=True)
+            smoke.check(got_calls == want, f"20a: the \"model\" all-reduces a decode step "
+                        f"({got_calls}) are the design's count ({want})")
+    for key, label in (("c", "20c/train"), ("d_train", "20d/train")):
+        r = res[label]
+        loss0, ref = r["losses"][0][0], losses[key]
+        rel = abs(loss0 - ref) / abs(ref)
+        print(f"[{label}] {cfgs[key].name}, {cfgs[key].n_layers} layers, one sharded train "
+              f"step on (1, 2): step s {[round(x['secs'], 3) for x in r['steps']]}, "
+              f"\"model\" all-reduces {r['steps'][0]['by_axis']} ({r['steps'][0]['bytes']} "
+              f"bytes), all-gathers {r['steps'][0]['ag_calls']} ({r['steps'][0]['ag_bytes']} "
+              f"bytes sent a rank), peak "
+              f"{[round(x / 1e9, 2) for x in r['peak']]} GB a rank; losses by rank "
+              f"{r['losses']}, one process {ref:.6f}", flush=True)
+        smoke.check(rel <= DIST_LOSS_TOL, f"{label}: the first loss {loss0:.6f} within "
+                    f"{DIST_LOSS_TOL} relative of the one-process loss ({rel:.2e})")
+    print(f"    phase 20: 2 ranks {two_s:.1f} s, 4 ranks {four_s:.1f} s from spawn to rank 0's "
+          f"result; one-process references {ref_s:.1f} s ({ref_peak}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+
+
+def serve_tp_only(torch, dev=None, cfgs=None, subs=None, card=None) -> int:
+    """`--serve-tp`: phase 20 alone, with its checks; prints no result line.
+    Exits 1 if a check failed. `dev`, `cfgs`, `subs` and `card` replace the
+    card, the configs and the shapes (`rehearse_serve_tp`)."""
+    if dev is None:
+        card = nvidia_smi()
+        print(f"card: {card}", flush=True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+        torch.empty(1, device=dev)
+    smoke = Smoke()
+    t0 = time.perf_counter()
+    print("[20] prefill and decode on (data, model) meshes in the dry run's serving layouts",
+          flush=True)
+    phase_serve_tp(torch, smoke, dev, card, cfgs, subs)
+    print(f"total {time.perf_counter() - t0:.1f} s; {len(smoke.failures)} check(s) failed",
+          flush=True)
+    for f in smoke.failures:
+        print(f"  FAILED {f}", flush=True)
+    return 1 if smoke.failures else 0
+
+
+def rehearse_serve_tp() -> int:
+    """Phase 20 on the CPU at reduced widths (internlm2-1.8b at
+    TRAIN_REHEARSAL's, 2 layers; mamba2-130m at REHEARSAL's; jamba at
+    d_model 256; `_rehearsal_moe` with a 128-position window), to try the
+    phase's logic where there is no card:
+
+        PYTHONPATH=src python3 -c "import chip_smoke; chip_smoke.rehearse_serve_tp()"
+
+    Returns 1 if a check failed."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+
+    small = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2,
+                                **TRAIN_REHEARSAL["internlm2_1_8b"])
+    ssm = get_config(SSM_ARCH)
+    ssm = f32_of(torch, ssm, n_layers=2, **REHEARSAL["mamba2_130m"],
+                 ssm=ssm.ssm._replace(**REHEARSAL_PARTS["mamba2_130m"]["ssm"]))
+    hybrid = get_config(HYBRID_ARCH)
+    hybrid = dataclasses.replace(hybrid, d_model=256, n_heads=4, n_kv_heads=2, head_dim=64,
+                                 d_ff=512, vocab_size=4096,
+                                 moe=hybrid.moe._replace(d_ff_expert=512))
+    moe = dataclasses.replace(_rehearsal_moe(get_config), swa_window=128)
+    cfgs = dict(a=small, b=small, c=ssm,
+                d=dataclasses.replace(hybrid, n_layers=HYBRID_SERVE_LAYERS),
+                d_train=dataclasses.replace(hybrid, n_layers=HYBRID_TRAIN_LAYERS), e=moe)
+    subs = dict(a=((1, 2), ("default", "default"), (4, 16), 24, 8, 1),
+                b=((2, 2), ("prefill_32k", "decode_32k"), (4, 96), 128, 4, 1),
+                c=((1, 2), ("default", "default"), (4, 64), 72, 8, 8),
+                d=((1, 2), ("default", "default"), (4, 16), 20, 4, 1),
+                e=((2, 2), ("long_500k", "long_500k"), (1, 256), 272, 16, 16))
+    return serve_tp_only(torch, torch.device("cpu"), cfgs, subs, "CPU rehearsal")
+
+
 def run_path(torch, kernels, svm_state, fn):
     """Run fn with every launch counter, the sync counter and the CG loop's
     counters (`cg_lanes.steps`, `.dead`) at 0; return (result, seconds,
@@ -4623,6 +5178,8 @@ def main() -> int:
         return dist_only(torch)
     if sys.argv[1:] == ["--tp"]:
         return tp_only(torch)
+    if sys.argv[1:] == ["--serve-tp"]:
+        return serve_tp_only(torch)
     if sys.argv[1:2] == ["--lm-trace"] and len(sys.argv) <= 3:
         from repro_torch.configs import ALIASES
         if sys.argv[2:] and sys.argv[2] not in ALIASES:
@@ -4877,6 +5434,13 @@ def main() -> int:
           "depth on 2 ranks, parity, the launcher across ranks, the pipeline, compression; "
           "then [19] FSDP and the \"model\" axis", flush=True)
     phase_dist(torch, smoke, dev, card)
+    torch.cuda.empty_cache()
+
+    # -- 20. prefill and decode on meshes --------------------------------------
+    print("[20] prefill and decode on (data, model) meshes in the dry run's serving layouts: "
+          "internlm2-1.8b whole, mamba2-130m whole, jamba-v0.1-52b and mixtral-8x7b at full "
+          "width", flush=True)
+    phase_serve_tp(torch, smoke, dev, card)
 
     # -- summary ---------------------------------------------------------------
     for name, n_launch in path_launches.items():

@@ -111,3 +111,44 @@ def model_params_from_jax(params, cfg: ModelConfig, *, device: DeviceLike = None
                          f"{cfg.n_layers} layers of {cfg.name}")
     out["layers"] = layers
     return out
+
+
+def caches_from_jax(caches, cfg: ModelConfig, *, device: DeviceLike = None) -> dict:
+    """The port's decode caches from a JAX cache tree of numpy arrays
+    (`jax.tree.map(np.asarray, caches)` of `init_cache` / `prefill`), on
+    `device` (CUDA when none is named).
+
+    JAX holds {"prefix": [cache a layer], "body": [cache a period
+    position, stacked over periods]}, each a `KVCache`, `MLACache` or
+    `SSMCache`; the port holds {"layers": [cache a layer]} of its own
+    containers of the same fields, a cache's `pos` a Python int. The
+    containers are matched by their fields, so nothing of `repro` is
+    imported."""
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.mla import MLACache
+    from repro_torch.models.ssm import SSMCache
+
+    dev = resolve_device(device)
+    kinds = {c._fields: c for c in (KVCache, MLACache, SSMCache)}
+
+    def cross(cache, r=None):
+        kind = kinds.get(tuple(cache._fields))
+        if kind is None:
+            raise ValueError(f"caches_from_jax: no port cache has the fields {cache._fields}")
+        fields = {}
+        for name in kind._fields:
+            a = np.asarray(getattr(cache, name))
+            a = a if r is None else a[r]
+            fields[name] = int(a) if name == "pos" else torch.tensor(a, device=dev)
+        return kind(**fields)
+
+    layers = [None] * cfg.n_layers
+    for i, cache in enumerate(caches["prefix"]):
+        layers[i] = cross(cache)
+    for j, stacked in enumerate(caches["body"]):
+        for r in range(cfg.n_periods):
+            layers[cfg.dense_prefix + r * cfg.period + j] = cross(stacked, r)
+    if any(c is None for c in layers):
+        raise ValueError(f"caches_from_jax: the tree does not hold the {cfg.n_layers} "
+                         f"layers' caches of {cfg.name}")
+    return {"layers": layers}

@@ -88,10 +88,6 @@ DEFAULT_RULES: dict = {
     "fsdp": None,
 }
 
-#: the ROADMAP item that executes the SSM's channels (`ssm_inner`,
-#: `ssm_heads`) split over a "model" axis
-MODEL_AXIS_ITEM = "ROADMAP Queue 1 item 2a"
-
 #: the device `launch` gave this rank (None outside a launched rank)
 _RANK_DEVICE: Optional[torch.device] = None
 #: the collective timeout of the groups `with_views` makes (`launch` sets it)
@@ -339,7 +335,7 @@ def data_parallel_mesh() -> Optional[Mesh]:
     return mesh if mesh is not None and mesh.size > 1 else None
 
 
-# -- collectives: every one an all_reduce ------------------------------------
+# -- collectives ---------------------------------------------------------------
 
 def all_reduce(mesh: Mesh, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
     """x summed (or maxed) over the ranks, the same bits on every rank; x
@@ -380,7 +376,7 @@ def _count(fn, mesh: Mesh, x: torch.Tensor, t0: float) -> None:
 
 def reset_counts() -> None:
     """Every collective's counters to 0."""
-    for fn in (all_reduce, broadcast):
+    for fn in (all_reduce, broadcast, all_gather):
         fn.calls = fn.bytes = 0
         fn.seconds = 0.0
         fn.by_axis = {}
@@ -402,6 +398,25 @@ def broadcast(mesh: Mesh, x: torch.Tensor, src: int) -> torch.Tensor:
     tdist.broadcast(x, src=tdist.get_global_rank(mesh.group, src), group=mesh.group)
     _count(broadcast, mesh, x, t0)
     return x
+
+
+def all_gather(mesh: Mesh, x: torch.Tensor) -> list:
+    """Every rank's x (all of one shape), in the mesh's rank order; [x] on
+    one rank. `all_gather.calls`, `.bytes` (this rank's operand, the block
+    it sends), `.seconds` and `.by_axis` count as `all_reduce`'s do."""
+    if mesh.size == 1:
+        return [x]
+    if mesh.group is None:
+        raise RuntimeError(f"all_gather: no process group backs this mesh of shape "
+                           f"{mesh.shape}; it resolves specs only")
+    import torch.distributed as tdist
+
+    t0 = time.perf_counter()
+    x = x.contiguous()
+    out = [torch.empty_like(x) for _ in range(mesh.size)]
+    tdist.all_gather(out, x, group=mesh.group)
+    _count(all_gather, mesh, x, t0)
+    return out
 
 
 reset_counts()

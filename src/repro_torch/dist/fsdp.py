@@ -18,7 +18,9 @@ the sum over the data ranks, and the step divides it by their number, as
 it divides the all-reduced gradients of the replicated leaves.
 
 `models/model.py` calls it inside each checkpointed layer, so remat
-recomputes the gather and only the blocks outlive a layer.
+recomputes the gather and only the blocks outlive a layer; its prefill
+and decode steps call it a layer at a time under `torch.inference_mode()`
+(no checkpoint, no backward), decode_32k's layout among them.
 """
 from __future__ import annotations
 

@@ -29,9 +29,14 @@ block of a record that splits more, `gather_leaf` / `gather_tree` rebuild
 a leaf over the axes one record splits and another does not (over each
 split axis's view only: on a (2, 2) mesh a leaf split over "model" alone
 is gathered over its "model" view, not summed once per data replica),
-and `run_sharded` is `jax.jit(step_fn, in_shardings=...)` for a train
+`run_sharded` is `jax.jit(step_fn, in_shardings=...)` for a train
 step: each rank keeps its blocks, the step runs on them, and the
-parameters and moments come back in their records' layout.
+parameters and moments come back in their records' layout. `run_prefill`
+and `run_decode` are the dry run's two serving kinds
+(`launch/dryrun.py`: `in_shardings=(p_sh, b_sh)`, and `(p_sh, tok_sh,
+c_sh)` with the caches donated): the parameters, the batch rows and the
+caches kept as each rank's blocks, the caches returned in their records'
+layout, the last logits whole on every rank.
 """
 from __future__ import annotations
 
@@ -40,10 +45,10 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch.dist import (Mesh, MODEL_AXIS_ITEM, _axis_size, all_reduce_, broadcast,
-                              current_context, resolve_spec)
+from repro_torch.dist import (Mesh, _axis_size, all_reduce_, broadcast, current_context,
+                              resolve_spec)
 from repro_torch.dist.zero import _widen_spec
-from repro_torch.utils import tree_leaves, tree_map
+from repro_torch.utils import tree_map
 
 # cache NamedTuple field signatures -> per-field logical specs
 _CACHE_SPECS = {
@@ -186,8 +191,11 @@ def _walk(node, spec, leaf_fn):
 def _walk_layers(tree, cfg, leaf_fn):
     """`_walk` over a tree of the port's layout; given `cfg`, each body
     layer of `tree["layers"]` resolves as its period stack in JAX's tree
-    (`leaf_fn(leaf, names, stack)`)."""
-    if cfg is None or not isinstance(tree, dict) or "layers" not in tree:
+    (`leaf_fn(leaf, names, stack)`). A depth cut whose body is not a whole
+    number of periods has no stacked tree in JAX; its layers resolve one
+    by one."""
+    if (cfg is None or not isinstance(tree, dict) or "layers" not in tree
+            or cfg.n_body % cfg.period):
         return _walk(tree, None, lambda leaf, names: leaf_fn(leaf, names, None))
     out = {k: _walk(v, None, lambda leaf, names: leaf_fn(leaf, names, None))
            for k, v in tree.items() if k != "layers"}
@@ -369,31 +377,6 @@ def gather_tree(tree, shardings):
                     else gather_leaf(x, rec), tree, shardings)
 
 
-def _ssm_split(node) -> bool:
-    """Whether a record tree holds an SSM mixer's records (by the keys of
-    its parameter dict) that split a leaf over "model"."""
-    if isinstance(node, dict):
-        if {"w_in", "conv_w", "a_log"} <= set(node):
-            return any(r is not None and "model" in r.split_axes()
-                       for r in tree_leaves(node))
-        return any(_ssm_split(v) for v in node.values())
-    if isinstance(node, (list, tuple)) and not isinstance(node, Sharding):
-        return any(_ssm_split(v) for v in node)
-    return False
-
-
-def check_executable(shardings, what: str) -> None:
-    """Raise NotImplementedError when a record splits an SSM mixer's leaf
-    (`ssm_inner`, `ssm_heads`) over a "model" axis of more than one rank:
-    `w_in`'s output packs z, x, B, C and dt, so a split of it does not
-    follow the parts. Every other split, over "data" (FSDP) and over
-    "model" (tensor parallelism), runs."""
-    if _ssm_split(shardings):
-        raise NotImplementedError(
-            f"{what}: a record splits the SSM's channels (ssm_inner / ssm_heads) over "
-            f"\"model\"; executing the SSM on a \"model\" axis is {MODEL_AXIS_ITEM}")
-
-
 def run_sharded(step_fn: Callable, in_shardings: tuple, params, opt_state, batch,
                 donate: bool = False):
     """`jax.jit(step_fn, in_shardings=(p_sh, o_sh, b_sh))(params, opt_state,
@@ -410,3 +393,65 @@ def run_sharded(step_fn: Callable, in_shardings: tuple, params, opt_state, batch
     p_sh, o_sh, b_sh = in_shardings
     return step_fn(place(params, p_sh), place(opt_state, o_sh), batch,
                    shardings=(p_sh, o_sh, b_sh), donate=donate)
+
+
+def cut_whole(x: torch.Tensor, rec: Optional[Sharding]) -> torch.Tensor:
+    """x, which holds this rank's block of some dims and others whole (the
+    global leaf's size), with each whole dim that `rec` splits narrowed to
+    the rank's block (a view); x itself under a None record."""
+    if rec is None:
+        return x
+    for d, entry in enumerate(rec.spec):
+        if _split(rec.mesh, entry) and x.shape[d] == rec.shape[d]:
+            n = x.shape[d] // _axis_size(rec.mesh, entry)
+            x = x.narrow(d, _coord(rec.mesh, entry) * n, n)
+    return x
+
+
+def dim_view(rec: Optional[Sharding], dim: int) -> Optional[Mesh]:
+    """The view of the one mesh axis of more than one rank that `rec`
+    splits `dim` over, or None (a tuple of axes raises)."""
+    entry = rec.spec[dim] if rec is not None and dim < len(rec.spec) else None
+    if not _split(rec.mesh if rec is not None else None, entry):
+        return None
+    if not isinstance(entry, str):
+        raise NotImplementedError(f"a dim split over the axes {entry} at once")
+    return rec.mesh.view(entry)
+
+
+def _rows(x: torch.Tensor, rec: Optional[Sharding]) -> torch.Tensor:
+    """The global rows of x, this rank's block of rows by `rec` (a batch
+    leaf's record; its other dims whole), on every rank; x when `rec` is
+    None."""
+    if rec is None:
+        return x
+    lead = Sharding(rec.mesh, rec.spec[:1], tuple(rec.shape[:1]) + tuple(x.shape[1:]))
+    return gather_leaf(x, lead)
+
+
+def run_prefill(step_fn: Callable, in_shardings: tuple, params, batch):
+    """`jax.jit(prefill_step, in_shardings=(p_sh, b_sh))(params, batch)` for
+    a step of `serve.engine.make_prefill_step`: each rank keeps its blocks
+    of the parameters (global leaves are cut, blocks kept) and its rows of
+    the batch, and the step runs on them. Returns (the last position's
+    logits, whole: every row and the whole vocabulary, on every rank; the
+    caches as this rank's blocks by `cache_shardings`). `in_shardings`
+    None runs the step on the whole tensors."""
+    p_sh, b_sh = in_shardings or (None, None)
+    logits, caches = step_fn(place(params, p_sh), place(batch, b_sh), shardings=in_shardings)
+    return _rows(logits, None if b_sh is None else b_sh["tokens"]), caches
+
+
+def run_decode(step_fn: Callable, in_shardings: tuple, params, tokens, caches):
+    """`jax.jit(decode_step, in_shardings=(p_sh, tok_sh, c_sh),
+    donate_argnums=(2,))(params, tokens, caches)` for a step of
+    `serve.engine.make_decode_step`: the parameters and the caches as
+    this rank's blocks (global leaves cut, blocks kept), the tokens its
+    rows. The caches are donated: the step writes the KV and latent blocks
+    in place and returns the new caches in their records' layout. Returns
+    (logits whole on every rank, caches); `in_shardings` None runs the step
+    on the whole tensors."""
+    p_sh, tok_sh, c_sh = in_shardings or (None, None, None)
+    logits, caches = step_fn(place(params, p_sh), place(tokens, tok_sh), place(caches, c_sh),
+                             shardings=in_shardings)
+    return _rows(logits, tok_sh), caches

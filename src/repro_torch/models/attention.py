@@ -15,13 +15,24 @@ this rank's query heads: its blocks of `wq`, `wk`, `wv`, their biases and
 `wo`, the partial outputs summed over the model view after `wo`. Where
 the axis does not divide the KV heads, they stay replicated while the
 query heads split, and the rank projects the KV heads its own query heads
-map to (`_local_kv`), not the first ones."""
+map to (`_local_kv`), not the first ones.
+
+`prefill` and `decode_step` take the layer's records and its cache's
+(`cache_rec`, a KVCache of records), in each of the dry run's serving
+layouts (`launch/dryrun.py::_rules_for`): the cache split on `kv_heads`
+(the default rules), or on its sequence over "model" (prefill_32k,
+decode_32k) or "data" (long_500k) with the KV heads whole. The prefill
+computes the rank's KV heads over the whole sequence and keeps its block
+of the cache; a decode step writes the new token's slot on the rank whose
+block holds it, and attends over a split sequence by `tp.attend_split`
+(flash decoding)."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.dist import shardings as dsh
 from repro_torch.dist import tp
 from repro_torch.models.layers import apply_rope, normal, rope_freqs
 
@@ -61,6 +72,12 @@ def attention_sharding(qkv_bias: bool = False) -> dict:
     if qkv_bias:
         s.update({"bq": ("heads", None), "bk": ("kv_heads", None), "bv": ("kv_heads", None)})
     return s
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor, view=None) -> torch.Tensor:
+    """The heads' outputs (B,S,H,dh) through `wo` (H,dh,d); the heads this
+    rank's, the partial outputs summed over `view` (`tp.reduce_product`)."""
+    return tp.reduce_product(view, out.flatten(-2), wo.flatten(0, 1))
 
 
 def _project_qkv(params: dict, x: torch.Tensor):
@@ -201,21 +218,48 @@ def attend_full(params: dict, x: torch.Tensor, *, n_heads: int, head_dim: int,
     q, k, v = _roped_qkv(params, x, positions, head_dim, rope_theta)
     out = _self_attention(q, _repeat_kv(k, n_heads), _repeat_kv(v, n_heads), positions,
                           head_dim=head_dim, window=window, dense_max=dense_max)
-    return tp.reduce_from(view, torch.einsum("bqhd,hdm->bqm", out, params["wo"]))
+    return _out_proj(out, params["wo"], view)
+
+
+def _serve_qkv(params, x, positions, rec, n_heads: int, head_dim: int, rope_theta: float):
+    """Roped q for this rank's query heads and k, v for the KV heads its
+    records give it (its block where `kv_heads` splits over "model", else
+    all of them), the heads' model view, and the index of each local query
+    head's KV head in k (None: k repeats as `_repeat_kv` does)."""
+    view = tp.model_view(tp.records(rec, "wq"), 1)
+    kv_split = tp.model_view(tp.records(rec, "wk"), 1) is not None
+    if kv_split and view is None:
+        raise ValueError("attention: the KV heads are split over \"model\" and the query "
+                         "heads are not")
+    q, k, v = _roped_qkv(params, x, positions, head_dim, rope_theta)
+    ids = None
+    if view is not None and not kv_split:
+        h_loc = params["wq"].shape[1]
+        ids = (view.rank * h_loc + torch.arange(h_loc, device=x.device)) // (
+            n_heads // params["wk"].shape[1])
+    return q, k, v, view, ids
+
+
+def _for_heads(k: torch.Tensor, ids, n_heads: int) -> torch.Tensor:
+    """k (B,S,kv,dh) as the KV head of each of the `n_heads` query heads."""
+    return _repeat_kv(k, n_heads) if ids is None else torch.index_select(k, 2, ids)
 
 
 def prefill(params: dict, x: torch.Tensor, *, n_heads: int, head_dim: int,
             rope_theta: float, window: Optional[int] = None,
             cache_len: Optional[int] = None,
-            dense_max: int = CHUNKED_THRESHOLD) -> tuple[torch.Tensor, KVCache]:
+            dense_max: int = CHUNKED_THRESHOLD, rec=None,
+            cache_rec=None) -> tuple[torch.Tensor, KVCache]:
     """Full-sequence attention that also returns the KV cache (a rolling
-    buffer of size `window` when SWA is active)."""
+    buffer of size `window` when SWA is active). With records, on this
+    rank's query heads, the cache cut to the rank's block (module doc)."""
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
-    q, k, v = _roped_qkv(params, x, positions, head_dim, rope_theta)
-    out = _self_attention(q, _repeat_kv(k, n_heads), _repeat_kv(v, n_heads), positions,
+    q, k, v, view, ids = _serve_qkv(params, x, positions, rec, n_heads, head_dim, rope_theta)
+    h = q.shape[2]
+    out = _self_attention(q, _for_heads(k, ids, h), _for_heads(v, ids, h), positions,
                           head_dim=head_dim, window=window, dense_max=dense_max)
-    out = torch.einsum("bqhd,hdm->bqm", out, params["wo"])
+    out = _out_proj(out, params["wo"], view)
 
     buf = cache_len if cache_len is not None else S
     if window is not None:
@@ -228,30 +272,43 @@ def prefill(params: dict, x: torch.Tensor, *, n_heads: int, head_dim: int,
         shift = S % buf
         k_buf = torch.roll(k[:, S - buf:], shift, dims=1)
         v_buf = torch.roll(v[:, S - buf:], shift, dims=1)
+    if cache_rec is not None:
+        k_buf = dsh.cut_whole(k_buf, cache_rec.k).clone()
+        v_buf = dsh.cut_whole(v_buf, cache_rec.v).clone()
     return out, KVCache(k=k_buf, v=v_buf, pos=S)
 
 
 def decode_step(params: dict, x: torch.Tensor, cache: KVCache, *, n_heads: int,
                 head_dim: int, rope_theta: float,
-                window: Optional[int] = None) -> tuple[torch.Tensor, KVCache]:
+                window: Optional[int] = None, rec=None,
+                cache_rec=None) -> tuple[torch.Tensor, KVCache]:
     """One-token decode: x (B, 1, d) against the cache. Without a window the
     slot is min(pos, S_buf - 1), so a full cache overwrites its last slot
-    (JAX's behaviour, kept)."""
-    S_buf = cache.k.shape[1]
+    (JAX's behaviour, kept). With records (module doc), the cache is this
+    rank's block: the rank whose block of the sequence holds the slot
+    writes it, and the softmax runs over the split sequence."""
+    seq = dsh.dim_view(cache_rec.k, 1) if cache_rec is not None else None
+    n_loc = cache.k.shape[1]
+    S_buf = n_loc * (seq.size if seq is not None else 1)
+    start = seq.rank * n_loc if seq is not None else 0
     pos = cache.pos
     dev = x.device
     positions = torch.arange(pos, pos + 1, device=dev)   # made on the device: no host copy
-    q, k, v = _roped_qkv(params, x, positions, head_dim, rope_theta)
+    q, k, v, view, ids = _serve_qkv(params, x, positions, rec, n_heads, head_dim, rope_theta)
 
-    slot = min(pos, S_buf - 1) if window is None else pos % S_buf
-    cache.k[:, slot:slot + 1] = k.to(cache.k.dtype)
-    cache.v[:, slot:slot + 1] = v.to(cache.v.dtype)
+    slot = (min(pos, S_buf - 1) if window is None else pos % S_buf) - start
+    if 0 <= slot < n_loc:
+        cache.k[:, slot:slot + 1] = k.to(cache.k.dtype)
+        cache.v[:, slot:slot + 1] = v.to(cache.v.dtype)
 
     if window is not None and pos >= S_buf:     # a full rolling buffer: every slot
-        valid = torch.ones(S_buf, dtype=torch.bool, device=dev)
+        valid = torch.ones(n_loc, dtype=torch.bool, device=dev)
     else:
-        valid = torch.arange(S_buf, device=dev) <= pos
-    out = _sdpa(q, _repeat_kv(cache.k, n_heads), _repeat_kv(cache.v, n_heads),
-                valid[None, None, None, :], head_dim)
-    out = torch.einsum("bqhd,hdm->bqm", out, params["wo"])
+        valid = start + torch.arange(n_loc, device=dev) <= pos
+    h = q.shape[2]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, _for_heads(cache.k, ids, h)).to(
+        torch.float32) * (head_dim ** -0.5)
+    scores = scores.masked_fill(~valid[None, None, None, :], -1e30)
+    out = tp.attend_split(scores, _for_heads(cache.v, ids, h), seq)
+    out = _out_proj(out, params["wo"], view)
     return out, KVCache(k=cache.k, v=cache.v, pos=pos + 1)

@@ -86,7 +86,7 @@ def apply_mlp(params: dict, x: torch.Tensor, rec=None) -> torch.Tensor:
     view = tp.model_view(tp.records(rec, "w_gate"), 1)
     x = tp.copy_to(view, x)
     h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
-    return tp.reduce_from(view, h @ params["w_down"])
+    return tp.reduce_product(view, h, params["w_down"])
 
 
 # ------------------------------------------------------------ embeddings ---

@@ -18,6 +18,13 @@ outputs summed over the model view after `wo`. The latent projections
 (`w_dq`, `w_dkv`, `w_kr` and their norms) stay replicated; their outputs
 enter the head-split products through `tp.copy_to`, so their gradients
 are whole on every rank.
+
+`mla_prefill` and `mla_decode_step` take the layer's records and its
+cache's (`cache_rec`, an MLACache of records): the heads split as in
+`mla_full`, the latent cache whole under the default rules and split on
+its sequence in the dry run's serving layouts, where the rank whose block
+holds the new slot writes it and the absorbed decode attends over the
+split sequence by `tp.attend_split` (flash decoding in latent space).
 """
 from __future__ import annotations
 
@@ -25,8 +32,9 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.dist import shardings as dsh
 from repro_torch.dist import tp
-from repro_torch.models.attention import sdpa_chunked
+from repro_torch.models.attention import _out_proj, sdpa_chunked
 from repro_torch.models.layers import apply_rope, init_rms_norm, normal, rms_norm, rope_freqs
 
 
@@ -119,47 +127,58 @@ def mla_full(params: dict, x: torch.Tensor, cfg: MLAConfig, *, rope_theta: float
         scores = scores.masked_fill(~mask, -1e30)
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-    return tp.reduce_from(view, torch.einsum("bqhd,hdm->bqm", out, params["wo"]))
+    return _out_proj(out, params["wo"], view)
 
 
 def mla_prefill(params: dict, x: torch.Tensor, cfg: MLAConfig, *, rope_theta: float,
-                cache_len: int, dense_max: int = 2048) -> tuple[torch.Tensor, MLACache]:
+                cache_len: int, dense_max: int = 2048, rec=None,
+                cache_rec=None) -> tuple[torch.Tensor, MLACache]:
     """`mla_full` and the latent cache: (c_kv, k_rope) of the S positions,
-    zero-padded to `cache_len`."""
+    zero-padded to `cache_len`; with records, on this rank's heads and the
+    cache cut to its block."""
     S = x.shape[1]
-    out = mla_full(params, x, cfg, rope_theta=rope_theta, dense_max=dense_max)
+    out = mla_full(params, x, cfg, rope_theta=rope_theta, dense_max=dense_max, rec=rec)
     cos, sin = rope_freqs(cfg.qk_rope_dim, rope_theta, torch.arange(S, device=x.device))
     c_kv, k_rope = _latents(params, x, cos, sin)
     pad = cache_len - S
     c_kv = torch.nn.functional.pad(c_kv, (0, 0, 0, pad))
     k_rope = torch.nn.functional.pad(k_rope, (0, 0, 0, pad))
+    if cache_rec is not None:
+        c_kv = dsh.cut_whole(c_kv, cache_rec.c_kv).clone()
+        k_rope = dsh.cut_whole(k_rope, cache_rec.k_rope).clone()
     return out, MLACache(c_kv=c_kv, k_rope=k_rope, pos=S)
 
 
 def mla_decode_step(params: dict, x: torch.Tensor, cache: MLACache, cfg: MLAConfig,
-                    *, rope_theta: float) -> tuple[torch.Tensor, MLACache]:
-    """Absorbed-form one-token decode, x (B,1,d), against the latent cache."""
+                    *, rope_theta: float, rec=None,
+                    cache_rec=None) -> tuple[torch.Tensor, MLACache]:
+    """Absorbed-form one-token decode, x (B,1,d), against the latent cache;
+    with records, on this rank's heads against its block of the cache."""
+    seq = dsh.dim_view(cache_rec.c_kv, 1) if cache_rec is not None else None
+    view = tp.model_view(tp.records(rec, "w_uq"), 1)
     pos = cache.pos
-    n_slots = cache.c_kv.shape[1]
+    n_loc = cache.c_kv.shape[1]
+    start = seq.rank * n_loc if seq is not None else 0
+    n_slots = n_loc * (seq.size if seq is not None else 1)
     dev = x.device
     positions = torch.arange(pos, pos + 1, device=dev)   # made on the device: no host copy
     cos, sin = rope_freqs(cfg.qk_rope_dim, rope_theta, positions)
     q_nope, q_rope = _queries(params, x, cfg, cos, sin)       # (B,1,H,*)
     c_new, kr_new = _latents(params, x, cos, sin)             # (B,1,r), (B,1,dr)
-    slot = min(pos, n_slots - 1)
-    cache.c_kv[:, slot:slot + 1] = c_new.to(cache.c_kv.dtype)
-    cache.k_rope[:, slot:slot + 1] = kr_new.to(cache.k_rope.dtype)
+    slot = min(pos, n_slots - 1) - start
+    if 0 <= slot < n_loc:
+        cache.c_kv[:, slot:slot + 1] = c_new.to(cache.c_kv.dtype)
+        cache.k_rope[:, slot:slot + 1] = kr_new.to(cache.k_rope.dtype)
 
     # absorb W_uk into q: q_abs (B,1,H,r) = q_nope @ W_uk^T per head
     q_abs = torch.einsum("bqhd,rhd->bqhr", q_nope, params["w_uk"])
     scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
     scores = (torch.einsum("bqhr,bkr->bhqk", q_abs, cache.c_kv)
               + torch.einsum("bqhd,bkd->bhqk", q_rope, cache.k_rope)).to(torch.float32) * scale
-    valid = torch.arange(n_slots, device=dev) <= pos
+    valid = start + torch.arange(n_loc, device=dev) <= pos
     scores = scores.masked_fill(~valid[None, None, None, :], -1e30)
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
     # attend in latent space, then absorb W_uv on the way out
-    lat = torch.einsum("bhqk,bkr->bqhr", probs, cache.c_kv)
+    lat = tp.attend_split(scores, cache.c_kv.to(x.dtype), seq)
     out = torch.einsum("bqhr,rhd->bqhd", lat, params["w_uv"])
-    return (torch.einsum("bqhd,hdm->bqm", out, params["wo"]),
+    return (_out_proj(out, params["wo"], view),
             MLACache(c_kv=cache.c_kv, k_rope=cache.k_rope, pos=pos + 1))

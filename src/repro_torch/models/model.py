@@ -33,6 +33,14 @@ layer; the leaves outside the layers are gathered once a forward. The
 modules then run on their "model" blocks (`dist.tp`), and the head
 returns this rank's block of the vocabulary for every front end (the
 codebooks front end one block a codebook's table).
+
+The serving entry points take the same records and the caches' own
+(`cache_records`, `dist.shardings.cache_shardings` of `init_cache`'s tree):
+each layer gathers its FSDP blocks under `torch.inference_mode()` (no
+checkpoint, no backward), the mixers keep and write their blocks of the
+caches, and the logits come back whole over the vocabulary for this
+rank's rows (gathered over the vocab split). `init_cache` with records
+allocates this rank's blocks.
 """
 from __future__ import annotations
 
@@ -57,6 +65,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.mla import MLAConfig
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.ssm import SSMConfig
+from repro_torch.utils import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,9 +191,7 @@ def _apply_mixer(p, x, cfg: ModelConfig, mixer: str, rec=None):
         return mla_mod.mla_full(p, x, cfg.mla, rope_theta=cfg.rope_theta,
                                 dense_max=cfg.attn_dense_max, rec=rec)
     if mixer == "ssm":
-        if rec is not None:
-            dsh.check_executable(rec, "the SSM mixer")
-        return ssm_mod.ssm_forward(p, x, cfg.d_model, cfg.ssm)
+        return ssm_mod.ssm_forward(p, x, cfg.d_model, cfg.ssm, rec=rec)
     raise ValueError(mixer)
 
 
@@ -225,10 +232,6 @@ def _embed_inputs(params, cfg: ModelConfig, batch: dict, rec=None) -> torch.Tens
         x_img = batch["patch_embeds"].to(x_txt.dtype)              # (B, P, d)
         return torch.cat([x_img, x_txt], dim=1)
     raise ValueError(cfg.frontend)
-
-
-def _final(params, cfg: ModelConfig, x):
-    return _head(params, cfg, L.rms_norm(x, params["final_norm"]["scale"]))
 
 
 #: the matmuls whose outputs `remat_policy="dots"` keeps
@@ -300,15 +303,20 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, return_hidden: bool = F
     return logits, aux_total
 
 
-def _head(params, cfg: ModelConfig, x, records=None):
+def _head(params, cfg: ModelConfig, x, records=None, whole: bool = False):
+    """The tied head's logits of x: this rank's block of the vocabulary
+    under a vocab split, or (`whole`) each table's block gathered."""
+    def logits(table, rec):
+        out = L.logits_from_embedding(table, x, rec)
+        return tp.gather_last(tp.model_view(tp.records(rec, "table"), 0), out) if whole else out
+
     emb = tp.records(records, "embed")
     if cfg.frontend == "codebooks":
         tables = [params["embed"]] + list(params.get("codebook_embeds", []))
         recs = [emb] + (list(records.get("codebook_embeds", [])) if records else
                         [None] * (len(tables) - 1))
-        return torch.stack([L.logits_from_embedding(t, x, r) for t, r in zip(tables, recs)],
-                           dim=2)  # (B,S,K,V)
-    return L.logits_from_embedding(params["embed"], x, emb)
+        return torch.stack([logits(t, r) for t, r in zip(tables, recs)], dim=2)  # (B,S,K,V)
+    return logits(params["embed"], emb)
 
 
 def mtp_logits(params: dict, cfg: ModelConfig, h: torch.Tensor, batch: dict,
@@ -329,12 +337,15 @@ def mtp_logits(params: dict, cfg: ModelConfig, h: torch.Tensor, batch: dict,
 
 # ------------------------------------------------------------- serve path ---
 
-def init_cache(params: dict, cfg: ModelConfig, batch_size: int, max_len: int) -> dict:
-    """Empty per-layer caches on the parameters' device: a KV buffer of
+def init_cache(params: Optional[dict], cfg: ModelConfig, batch_size: int, max_len: int,
+               records=None, device: DeviceLike = None) -> dict:
+    """Empty per-layer caches on the parameters' device (or `device`; the
+    "meta" device gives the shapes only): a KV buffer of
     min(max_len, swa_window) positions for `attn`, a latent buffer of
     max_len positions for `mla`, the conv tail and a float32 state for
-    `ssm`."""
-    dev = params["embed"]["table"].device
+    `ssm`. With `records` (`cache_shardings` of the whole tree), this
+    rank's blocks of them."""
+    dev = params["embed"]["table"].device if device is None else resolve_device(device)
 
     def z(shape, dtype=cfg.dtype):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -355,59 +366,102 @@ def init_cache(params: dict, cfg: ModelConfig, batch_size: int, max_len: int) ->
                 h=z((batch_size, H, cfg.ssm.d_state, cfg.ssm.head_dim), torch.float32))
         raise ValueError(mixer)
 
+    if records is not None:
+        shapes = init_cache(None, cfg, batch_size, max_len, device="meta")
+        return tree_map(lambda x, r: torch.zeros(dsh.block_shape(r), dtype=x.dtype, device=dev)
+                        if isinstance(x, torch.Tensor) else x, shapes, records)
     return {"layers": [layer_cache(cfg.layer_spec(i)[0]) for i in range(cfg.n_layers)]}
 
 
-def _mixer_step(p, x, cache, cfg: ModelConfig, mixer: str):
+def cache_records(cfg: ModelConfig, batch_size: int, max_len: int):
+    """The caches' records (`dist.shardings.cache_shardings`) in the active
+    mesh context. Resolved per layer: a cache leaf takes no FSDP widening,
+    so its stacked dim is never split and JAX's stacked records give the
+    same blocks."""
+    return dsh.cache_shardings(init_cache(None, cfg, batch_size, max_len, device="meta"))
+
+
+def _layer_recs(records, cache_records, i):
+    rec = records["layers"][i] if records is not None else None
+    return rec, (cache_records["layers"][i] if cache_records is not None else None)
+
+
+def _mixer_step(p, x, cache, cfg: ModelConfig, mixer: str, rec=None, cache_rec=None):
     if mixer == "attn":
         return attn.decode_step(p, x, cache, n_heads=cfg.n_heads, head_dim=cfg.head_dim,
-                                rope_theta=cfg.rope_theta, window=cfg.swa_window)
+                                rope_theta=cfg.rope_theta, window=cfg.swa_window, rec=rec,
+                                cache_rec=cache_rec)
     if mixer == "mla":
-        return mla_mod.mla_decode_step(p, x, cache, cfg.mla, rope_theta=cfg.rope_theta)
+        return mla_mod.mla_decode_step(p, x, cache, cfg.mla, rope_theta=cfg.rope_theta,
+                                       rec=rec, cache_rec=cache_rec)
     if mixer == "ssm":
-        return ssm_mod.ssm_decode_step(p, x, cache, cfg.d_model, cfg.ssm)
+        return ssm_mod.ssm_decode_step(p, x, cache, cfg.d_model, cfg.ssm, rec=rec,
+                                       cache_rec=cache_rec)
     raise ValueError(mixer)
 
 
-def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, caches: dict):
+_OUTER = ("embed", "codebook_embeds", "final_norm")
+
+
+def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, caches: dict,
+                records=None, cache_records=None):
     """One-token decode. tokens (B,) or (B, K) for codebooks -> logits, caches.
-    The attention and latent caches' tensors are written in place."""
+    The attention and latent caches' tensors are written in place. With
+    `records` and `cache_records`, on this rank's blocks (module doc)."""
+    outer = _outer(params, records, _OUTER)
     if cfg.frontend == "codebooks":
-        x = _embed_inputs(params, cfg, {"tokens": tokens[:, None, :]})
+        x = _embed_inputs(outer, cfg, {"tokens": tokens[:, None, :]}, records)
     else:  # "patches" decodes text tokens only (the image is prefill-time)
-        x = L.embed_tokens(params["embed"], tokens[:, None])
+        x = L.embed_tokens(outer["embed"], tokens[:, None], tp.records(records, "embed"))
     new = []
     for i, p in enumerate(params["layers"]):
         mixer, mlp = cfg.layer_spec(i)
+        rec, c_rec = _layer_recs(records, cache_records, i)
+        p = fsdp.gather(p, rec)
         h, c = _mixer_step(p["mixer"], L.rms_norm(x, p["mixer_norm"]["scale"]),
-                           caches["layers"][i], cfg, mixer)
-        x, _ = _apply_mlp(p, x + h, cfg, mlp)
+                           caches["layers"][i], cfg, mixer, tp.records(rec, "mixer"), c_rec)
+        x, _ = _apply_mlp(p, x + h, cfg, mlp, rec)
         new.append(c)
-    return _final(params, cfg, x)[:, 0], {"layers": new}
+    x = L.rms_norm(x, outer["final_norm"]["scale"])
+    return _head(outer, cfg, x, records, whole=True)[:, 0], {"layers": new}
 
 
-def _mixer_prefill(p, x, cfg: ModelConfig, mixer: str, max_len: int):
+def _mixer_prefill(p, x, cfg: ModelConfig, mixer: str, max_len: int, rec=None,
+                   cache_rec=None):
     if mixer == "attn":
         buf = min(max_len, cfg.swa_window) if cfg.swa_window else max_len
         return attn.prefill(p, x, n_heads=cfg.n_heads, head_dim=cfg.head_dim,
                             rope_theta=cfg.rope_theta, window=cfg.swa_window,
-                            cache_len=buf, dense_max=cfg.attn_dense_max)
+                            cache_len=buf, dense_max=cfg.attn_dense_max, rec=rec,
+                            cache_rec=cache_rec)
     if mixer == "mla":
         return mla_mod.mla_prefill(p, x, cfg.mla, rope_theta=cfg.rope_theta,
-                                   cache_len=max_len, dense_max=cfg.attn_dense_max)
+                                   cache_len=max_len, dense_max=cfg.attn_dense_max, rec=rec,
+                                   cache_rec=cache_rec)
     if mixer == "ssm":
-        return ssm_mod.ssm_forward(p, x, cfg.d_model, cfg.ssm, return_cache=True)
+        return ssm_mod.ssm_forward(p, x, cfg.d_model, cfg.ssm, return_cache=True, rec=rec,
+                                   cache_rec=cache_rec)
     raise ValueError(mixer)
 
 
-def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int):
-    """Prefill: the full forward, building each layer's cache on the way."""
-    x = _embed_inputs(params, cfg, batch)
+def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int, records=None,
+            cache_records=None, last_only: bool = False):
+    """Prefill: the full forward, building each layer's cache on the way.
+    With `records` and `cache_records`, on this rank's blocks (module doc).
+    `last_only` applies the head to the last position alone ((B, 1, ...)
+    logits)."""
+    outer = _outer(params, records, _OUTER)
+    x = _embed_inputs(outer, cfg, batch, records)
     caches = []
     for i, p in enumerate(params["layers"]):
         mixer, mlp = cfg.layer_spec(i)
+        rec, c_rec = _layer_recs(records, cache_records, i)
+        p = fsdp.gather(p, rec)
         h, c = _mixer_prefill(p["mixer"], L.rms_norm(x, p["mixer_norm"]["scale"]), cfg,
-                              mixer, max_len)
-        x, _ = _apply_mlp(p, x + h, cfg, mlp)
+                              mixer, max_len, tp.records(rec, "mixer"), c_rec)
+        x, _ = _apply_mlp(p, x + h, cfg, mlp, rec)
         caches.append(c)
-    return _final(params, cfg, x), {"layers": caches}
+    if last_only:
+        x = x[:, -1:]
+    x = L.rms_norm(x, outer["final_norm"]["scale"])
+    return _head(outer, cfg, x, records, whole=True), {"layers": caches}

@@ -20,10 +20,13 @@ are the same on every rank of the model view, so routing, capacity and
 With `experts` split, each rank runs its experts' slots of the capacity
 buffer; with `expert_ffn` split (mixtral's rules), each rank runs its
 columns of every expert's W_g and W_u and rows of W_d. Either way each
-rank's output is a partial sum, and one all-reduce over the model view
-follows. The dispatched tokens and the combine weights enter through
-`tp.copy_to`, so the router's and the input's gradients are whole on
-every rank. The shared expert is a dense MLP (`layers.apply_mlp`).
+rank's output is a partial sum, and one all-reduce of y over the model
+view follows: for bf16 the experts' outputs come out of their GEMMs in
+float32 (`tp.wide_matmul`), the partial y is combined and summed in
+float32 and rounded once. The dispatched tokens and the combine weights
+enter through `tp.copy_to`, so the router's and the input's gradients
+are whole on every rank. The shared expert is a dense MLP
+(`layers.apply_mlp`).
 
 Router: float32 softmax top-k, the chosen probabilities renormalized over
 the k experts; it returns the Switch-style load-balance aux loss beside
@@ -142,15 +145,19 @@ def apply_moe(params: dict, x: torch.Tensor, cfg: MoEConfig, rec=None):
     # expert SwiGLU, batched over this rank's experts
     h = F.silu(torch.einsum("becd,edf->becf", buf, params["w_gate"]))
     h = h * torch.einsum("becd,edf->becf", buf, params["w_up"])
-    out_buf = torch.einsum("becf,efd->becd", h, params["w_down"])
-    if e_view is not None:      # the other ranks' experts add nothing here
-        out_buf = F.pad(out_buf, (0, 0, 0, 0, e0, E - e0 - e_loc))
+    if view is None:
+        out_buf = torch.einsum("becf,efd->becd", h, params["w_down"])
+    else:                       # this rank's partial outputs, float32 for bf16
+        out_buf = tp.wide_matmul(h.transpose(0, 1).reshape(e_loc, B * C, h.shape[-1]),
+                                 params["w_down"]).view(e_loc, B, C, d).transpose(0, 1)
+        if e_view is not None:  # the other ranks' experts add nothing here
+            out_buf = F.pad(out_buf, (0, 0, 0, 0, e0, E - e0 - e_loc))
 
     # combine: gather back with the routing weights of the kept choices
     gathered = torch.gather(out_buf.reshape(B, E * C, d), 1, slot)  # (B,SK,d)
-    w_flat = tp.copy_to(view, (top_p.reshape(B, S * K) * keep).to(x.dtype))
+    w_flat = tp.copy_to(view, (top_p.reshape(B, S * K) * keep).to(out_buf.dtype))
     y = (gathered * w_flat[..., None]).reshape(B, S, K, d).sum(dim=2)
-    y = tp.reduce_from(view, y)
+    y = tp.reduce_from(view, y).to(x.dtype)
 
     if cfg.n_shared:
         y = y + apply_mlp(params["shared"], x, tp.records(rec, "shared"))

@@ -9,15 +9,33 @@ realizes in the SSD form). State math is float32 throughout. JAX's
 `lax.scan` over chunks is a Python loop carrying h. `ssm_decode_step`
 returns a new cache (the state is O(1) in the sequence), where the
 attention caches are written in place.
+
+Under a "model" axis (`rec`, the layer's records; `cache_rec`, its cache's)
+the rank runs its heads. JAX's records split `w_in`'s output dim, `conv_w`,
+`conv_b` and the conv cache into contiguous blocks, which do not follow
+the parts they pack (z, x, B, C, dt), so those leaves are made whole by
+one packed gather a layer (`tp.gather_packed`), and the rank takes its
+heads' z and x channels and dt, and B and C whole. `w_out`'s rows, the
+norm's scale and the state `h` follow the heads (d_inner = H x head_dim):
+the norm's statistic is all-reduced over the view (`tp.rms_norm_split`),
+and `w_out`'s partial outputs are summed after it (`tp.reduce_product`). The
+replicated per-head leaves (`dt_bias`, `a_log`, `d_skip`) enter through
+`tp.copy_to` before the rank takes its heads, and so does the input, so
+every gradient is whole: B and C feed only the rank's heads, and their
+partial gradients sum over the view. The conv cache's new tail is
+computed whole (its pre-conv channels are one product) and cut back to
+the rank's block.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import init_rms_norm, normal, rms_norm
+from repro_torch.dist import shardings as dsh
+from repro_torch.dist import tp
+from repro_torch.models.layers import init_rms_norm, normal
 
 
 class SSMConfig(NamedTuple):
@@ -79,15 +97,6 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def _split_in_proj(params, x, d_model, cfg: SSMConfig):
-    d_inner, H, conv_ch = _dims(d_model, cfg)
-    zxbcdt = x @ params["w_in"]
-    z = zxbcdt[..., :d_inner]
-    xbc = zxbcdt[..., d_inner: d_inner + conv_ch]
-    dt = zxbcdt[..., d_inner + conv_ch:]
-    return z, xbc, dt
-
-
 def _causal_conv(params, xbc, cfg: SSMConfig):
     """Depthwise causal conv over (B,S,C) with kernel (d_conv, C)."""
     dc, S = cfg.d_conv, xbc.shape[1]
@@ -140,16 +149,18 @@ def _ssd_scan(xh, a, dtv, Bm, Cm, cfg: SSMConfig):
     return torch.cat(ys, dim=1), h
 
 
-def _heads(xbc_c, d_inner, H, cfg: SSMConfig):
+def _heads(xbc_c, d_inner, H, cfg: SSMConfig, heads: slice):
     """The conv output split into x (..., d_inner) and B, C repeated over
-    each group's heads (..., H, d_state)."""
+    each group's heads, of which `heads` are kept (..., len(heads),
+    d_state); x is those heads' d_inner channels."""
     gds = cfg.n_groups * cfg.d_state
     lead = xbc_c.shape[:-1]
     rep = H // cfg.n_groups
     Bm = xbc_c[..., d_inner: d_inner + gds].reshape(*lead, cfg.n_groups, cfg.d_state)
     Cm = xbc_c[..., d_inner + gds:].reshape(*lead, cfg.n_groups, cfg.d_state)
-    return (xbc_c[..., :d_inner], torch.repeat_interleave(Bm, rep, dim=-2),
-            torch.repeat_interleave(Cm, rep, dim=-2))
+    Bm = torch.repeat_interleave(Bm, rep, dim=-2)[..., heads, :]
+    Cm = torch.repeat_interleave(Cm, rep, dim=-2)[..., heads, :]
+    return xbc_c[..., :d_inner], Bm, Cm
 
 
 def _dt(params, dt):
@@ -159,48 +170,136 @@ def _dt(params, dt):
     return dtv, -torch.exp(params["a_log"].to(f32))
 
 
-def _out(params, y, z, x_dtype):
-    """The gated, normed output projection of y (B,S,d_inner) float32."""
-    y = rms_norm(y.to(x_dtype) * F.silu(z), params["norm"]["scale"])
-    return y @ params["w_out"]
+def _out(params, y, z, x_dtype, view=None):
+    """The gated, normed output projection of y (B,S,d_inner) float32 (this
+    rank's channels under `view`, the partial outputs summed over it)."""
+    y = tp.rms_norm_split(y.to(x_dtype) * F.silu(z), params["norm"]["scale"], view)
+    return tp.reduce_product(view, y, params["w_out"])
+
+
+class _Split(NamedTuple):
+    """A layer's leaves for this rank's heads (`_local`)."""
+    view: object          # the "model" view the heads split over
+    heads: slice          # this rank's heads
+    chans: slice          # their d_inner channels
+    params: dict          # w_in / conv_w / conv_b whole, the per-head leaves local
+    conv: Optional[torch.Tensor]   # the conv cache whole (decode)
+
+
+def _local(params, rec, d_model, cfg: SSMConfig, conv=None, conv_rec=None) -> _Split:
+    """Gather the packed leaves (`w_in`, `conv_w`, `conv_b` and the conv
+    cache, each whole where its record splits it over "model") in one
+    all-gather, and take this rank's heads of `dt_bias`, `a_log` and
+    `d_skip` (through `tp.copy_to`). The heads split as `w_out`'s rows;
+    raises NotImplementedError where the view does not divide the heads."""
+    d_inner, H, _ = _dims(d_model, cfg)
+    items = [(params["w_in"], tp.records(rec, "w_in"), 1),
+             (params["conv_w"], tp.records(rec, "conv_w"), 1),
+             (params["conv_b"], tp.records(rec, "conv_b"), 0)]
+    if conv is not None:
+        items.append((conv, conv_rec, 2))
+    views = [tp.model_view(r, d) for _, r, d in items]
+    split = [i for i, v in enumerate(views) if v is not None]
+    whole = [t for t, _, _ in items]
+    if split:
+        got = tp.gather_packed(views[split[0]], [items[i][0] for i in split],
+                               [items[i][2] for i in split])
+        for i, g in zip(split, got):
+            whole[i] = g
+    out = dict(params, w_in=whole[0], conv_w=whole[1], conv_b=whole[2])
+    view = tp.model_view(tp.records(rec, "w_out"), 0)
+    if view is None:
+        return _Split(None, slice(0, H), slice(0, d_inner), out,
+                      whole[3] if conv is not None else None)
+    if H % view.size:
+        raise NotImplementedError(f"the SSM's {H} heads do not split over {view.size} "
+                                  "\"model\" ranks, and its channels do")
+    hl = H // view.size
+    heads = slice(view.rank * hl, (view.rank + 1) * hl)
+    chans = slice(heads.start * cfg.head_dim, heads.stop * cfg.head_dim)
+    for name in ("dt_bias", "a_log", "d_skip"):
+        out[name] = tp.copy_to(view, params[name])[heads]
+    return _Split(view, heads, chans, out, whole[3] if conv is not None else None)
+
+
+def _cols(w, parts):
+    """The columns `parts` (slices of the last dim) of w, side by side: a
+    view of w when each part starts where the one before it stops (all of
+    w when the heads are whole), else a copy."""
+    if all(p.start == q.stop for q, p in zip(parts, parts[1:])):
+        return w[..., parts[0].start: parts[-1].stop]
+    return torch.cat([w[..., p] for p in parts], dim=-1)
 
 
 def ssm_forward(params: dict, x: torch.Tensor, d_model: int, cfg: SSMConfig,
-                return_cache: bool = False):
+                return_cache: bool = False, rec=None, cache_rec=None):
     """Full-sequence Mamba-2 block (forward / prefill); with `return_cache`
     also the decode cache: the last d_conv - 1 pre-conv inputs (zero-padded
-    in front when S is shorter) and the final state."""
+    in front when S is shorter) and the final state. With `rec`, on this
+    rank's heads (module doc), the cache cut to its blocks by
+    `cache_rec`."""
     Bsz, S, _ = x.shape
     d_inner, H, conv_ch = _dims(d_model, cfg)
-    z, xbc, dt = _split_in_proj(params, x, d_model, cfg)
-    xc, Bm, Cm = _heads(_causal_conv(params, xbc, cfg), d_inner, H, cfg)
-    dtv, A = _dt(params, dt)
-    xh = xc.reshape(Bsz, S, H, cfg.head_dim)
+    gds = cfg.n_groups * cfg.d_state
+    sp = _local(params, rec, d_model, cfg)
+    p, view, c, h = sp.params, sp.view, sp.chans, sp.heads
+    hl, cl = h.stop - h.start, c.stop - c.start
+    bc = slice(2 * d_inner, 2 * d_inner + 2 * gds)
+    dt_cols = slice(d_inner + conv_ch + h.start, d_inner + conv_ch + h.stop)
+    w = _cols(p["w_in"], [c, slice(d_inner + c.start, d_inner + c.stop), bc, dt_cols])
+    zxbcdt = tp.copy_to(view, x) @ w
+    z, xbc, dt = zxbcdt[..., :cl], zxbcdt[..., cl: 2 * cl + 2 * gds], zxbcdt[..., -hl:]
+    mine = [c, slice(d_inner, conv_ch)]
+    conv_p = {"conv_w": _cols(p["conv_w"], mine), "conv_b": _cols(p["conv_b"], mine)}
+    xc, Bm, Cm = _heads(_causal_conv(conv_p, xbc, cfg), cl, H, cfg, h)
+    dtv, A = _dt(p, dt)
+    xh = xc.reshape(Bsz, S, hl, cfg.head_dim)
     y, h_final = _ssd_scan(xh, dtv * A, dtv, Bm, Cm, cfg)
-    y = y + params["d_skip"].to(torch.float32)[None, None, :, None] * xh.to(torch.float32)
-    out = _out(params, y.reshape(Bsz, S, d_inner), z, x.dtype)
+    y = y + p["d_skip"].to(torch.float32)[None, None, :, None] * xh.to(torch.float32)
+    out = _out(p, y.reshape(Bsz, S, cl), z, x.dtype, view)
     if not return_cache:
         return out
     tail = cfg.d_conv - 1
-    conv_tail = xbc[:, S - tail:, :].clone() if S >= tail else F.pad(xbc, (0, 0, tail - S, 0))
-    return out, SSMCache(conv=conv_tail, h=h_final)
+    if cl < d_inner:            # the tail's pre-conv channels, whole
+        xbc = x[:, max(S - tail, 0):] @ p["w_in"][:, d_inner: d_inner + conv_ch]
+    n = xbc.shape[1]
+    conv_tail = xbc[:, n - tail:, :].clone() if n >= tail else F.pad(xbc, (0, 0, tail - n, 0))
+    if view is not None and cache_rec is not None and tp.model_view(cache_rec.h, 1) is None:
+        raise NotImplementedError("the SSM's heads split over \"model\" and its state's "
+                                  "record does not split them")
+    return out, SSMCache(conv=dsh.cut_whole(conv_tail, _field(cache_rec, "conv")), h=h_final)
+
+
+def _field(cache_rec, name):
+    return None if cache_rec is None else getattr(cache_rec, name)
 
 
 def ssm_decode_step(params: dict, x: torch.Tensor, cache: SSMCache, d_model: int,
-                    cfg: SSMConfig):
-    """One-token recurrent step. x (B,1,d) -> (out (B,1,d), new cache)."""
+                    cfg: SSMConfig, rec=None, cache_rec=None):
+    """One-token recurrent step. x (B,1,d) -> (out (B,1,d), new cache). With
+    `rec`, on this rank's heads (module doc): the conv cache (a block by
+    `cache_rec`) is gathered with the packed weights and its new tail cut
+    back to the block; the state holds this rank's heads."""
     Bsz = x.shape[0]
     d_inner, H, conv_ch = _dims(d_model, cfg)
-    z, xbc, dt = _split_in_proj(params, x, d_model, cfg)           # (B,1,*)
-    window = torch.cat([cache.conv, xbc], dim=1)                   # (B,d_conv,C)
-    conv_out = torch.einsum("bkc,kc->bc", window, params["conv_w"]) + params["conv_b"]
-    xc, Bm, Cm = _heads(F.silu(conv_out), d_inner, H, cfg)  # (B,*), (B,H,ds)
-    dtv, A = _dt(params, dt[:, 0])                                 # (B,H)
-    xh = xc.reshape(Bsz, H, cfg.head_dim).to(torch.float32)
+    sp = _local(params, rec, d_model, cfg, cache.conv, _field(cache_rec, "conv"))
+    p, conv, c, h = sp.params, sp.conv, sp.chans, sp.heads
+    hl, cl = h.stop - h.start, c.stop - c.start
+    dt_cols = slice(d_inner + conv_ch + h.start, d_inner + conv_ch + h.stop)
+    zxbcdt = x @ _cols(p["w_in"], [c, slice(d_inner, d_inner + conv_ch), dt_cols])
+    z, xbc, dt = zxbcdt[..., :cl], zxbcdt[..., cl: cl + conv_ch], zxbcdt[..., -hl:]
+    mine = [c, slice(d_inner, conv_ch)]
+    window = _cols(torch.cat([conv, xbc], dim=1), mine)            # (B,d_conv,C)
+    conv_out = torch.einsum("bkc,kc->bc", window, _cols(p["conv_w"], mine)) + _cols(
+        p["conv_b"], mine)
+    xc, Bm, Cm = _heads(F.silu(conv_out), cl, H, cfg, h)           # (B,*), (B,h,ds)
+    dtv, A = _dt(p, dt[:, 0])                                      # (B,H)
+    xh = xc.reshape(Bsz, hl, cfg.head_dim).to(torch.float32)
     Bm, Cm = Bm.to(torch.float32), Cm.to(torch.float32)
-    h = torch.exp(dtv * A)[:, :, None, None] * cache.h + torch.einsum(
+    hs = torch.exp(dtv * A)[:, :, None, None] * cache.h + torch.einsum(
         "bh,bhd,bhp->bhdp", dtv, Bm, xh)
-    y = torch.einsum("bhd,bhdp->bhp", Cm, h)
-    y = y + params["d_skip"].to(torch.float32)[None, :, None] * xh
-    out = _out(params, y.reshape(Bsz, 1, d_inner), z, x.dtype)
-    return out, SSMCache(conv=torch.cat([cache.conv[:, 1:], xbc], dim=1), h=h)
+    y = torch.einsum("bhd,bhdp->bhp", Cm, hs)
+    y = y + p["d_skip"].to(torch.float32)[None, :, None] * xh
+    out = _out(p, y.reshape(Bsz, 1, cl), z, x.dtype, sp.view)
+    new_conv = dsh.cut_whole(torch.cat([conv[:, 1:], xbc], dim=1), _field(cache_rec, "conv"))
+    return out, SSMCache(conv=new_conv, h=hs)

@@ -1,7 +1,12 @@
 """Serving entry points, the port of `repro/serve/engine.py`.
 
 LM side: prefill_step / decode_step builders and a batched greedy
-generation driver, each run under `torch.inference_mode()`.
+generation loop, each run under `torch.inference_mode()`. A step
+handed `shardings` (the dry run's `in_shardings`, through
+`dist.shardings.run_prefill` / `run_decode`) runs on this rank's blocks of
+the parameters, rows and caches; `greedy_generate` with `shardings` runs
+so in the active mesh context, every rank picking the same tokens from
+logits gathered whole.
 
 Elastic Net side: `ElasticNetEngine` — the shape-bucketed batch server of
 DESIGN.md §6.4, a facade over the continuous-batching runtime
@@ -36,6 +41,7 @@ from repro_torch.core.api import PathConfig, enet_batch
 from repro_torch.core.batch import sven_batch
 from repro_torch.core.sven import SvenConfig
 from repro_torch.device import DeviceLike
+from repro_torch.dist import shardings as dsh
 from repro_torch.models import model as M
 from repro_torch.runtime.cache import PENALIZED, SolutionCache
 from repro_torch.runtime.scheduler import (ContinuousScheduler, EnResult, RuntimeStats,
@@ -46,39 +52,57 @@ EngineStats = RuntimeStats
 
 
 def make_prefill_step(cfg: M.ModelConfig, max_len: int):
-    """prefill_step(params, batch) -> (last_logits, caches)."""
+    """prefill_step(params, batch, shardings=None) -> (last_logits, caches).
+    With `shardings` = (p_sh, b_sh), on this rank's blocks
+    (`dist.shardings.run_prefill`): the caches are its blocks by the
+    records `M.cache_records` resolves in the active mesh context, the
+    logits its rows, whole over the vocabulary."""
 
     @torch.inference_mode()
-    def prefill_step(params, batch):
-        logits, caches = M.prefill(params, cfg, batch, max_len=max_len)
+    def prefill_step(params, batch, shardings=None):
+        p_sh, b_sh = shardings or (None, None)
+        c_sh = None if b_sh is None else M.cache_records(cfg, b_sh["tokens"].shape[0],
+                                                          max_len)
+        logits, caches = M.prefill(params, cfg, batch, max_len=max_len, records=p_sh,
+                                   cache_records=c_sh, last_only=True)
         return logits[:, -1], caches
 
     return prefill_step
 
 
 def make_decode_step(cfg: M.ModelConfig):
-    """decode_step(params, tokens, caches) -> (logits, caches): one new token
-    against the caches; the KV and latent caches are written in place."""
+    """decode_step(params, tokens, caches, shardings=None) -> (logits,
+    caches): one new token against the caches; the KV and latent caches
+    are written in place. With `shardings` = (p_sh, tok_sh, c_sh), on this
+    rank's blocks (`dist.shardings.run_decode`)."""
 
     @torch.inference_mode()
-    def decode_step(params, tokens, caches):
-        return M.decode_step(params, cfg, tokens, caches)
+    def decode_step(params, tokens, caches, shardings=None):
+        p_sh, _, c_sh = shardings or (None, None, None)
+        return M.decode_step(params, cfg, tokens, caches, records=p_sh, cache_records=c_sh)
 
     return decode_step
 
 
 def greedy_generate(params, cfg: M.ModelConfig, batch: dict, *, steps: int,
-                    max_len: int) -> torch.Tensor:
+                    max_len: int, shardings=None) -> torch.Tensor:
     """Prefill then greedy-decode `steps` tokens: (B, steps + 1) token ids,
-    (B, steps + 1, K) for codebooks, the first from the prefill's logits."""
+    (B, steps + 1, K) for codebooks, the first from the prefill's logits.
+    With `shardings` = (p_sh, b_sh), in the active mesh context on this
+    rank's blocks (`run_prefill`, `run_decode`): every rank returns the
+    same tokens."""
     prefill_step = make_prefill_step(cfg, max_len)
     decode_step = make_decode_step(cfg)
-    logits, caches = prefill_step(params, batch)
+    p_sh, b_sh = shardings or (None, None)
+    params = dsh.place(params, p_sh)
+    logits, caches = dsh.run_prefill(prefill_step, shardings, params, batch)
+    c_sh = None if b_sh is None else M.cache_records(cfg, logits.shape[0], max_len)
     tok = torch.argmax(logits, dim=-1)
     outs = []
     for _ in range(steps):
         outs.append(tok)
-        logits, caches = decode_step(params, tok, caches)
+        step_sh = None if shardings is None else (p_sh, dsh.batch_shardings(tok), c_sh)
+        logits, caches = dsh.run_decode(decode_step, step_sh, params, tok, caches)
         tok = torch.argmax(logits, dim=-1)
     outs.append(tok)
     return torch.stack(outs, dim=1)

@@ -30,8 +30,7 @@ The clip's norm counts each global element once (`clip_by_global_norm`
 with records). Moments placed by `dist.zero.zero1_shardings` are updated a
 block a rank, and the parameters are gathered back to their records'
 layout. JAX's `grad_shardings` (the layout each rank keeps of the
-gradients) is honoured as blocks. A record that splits the SSM's channels
-over "model" raises NotImplementedError (`dist.MODEL_AXIS_ITEM`)."""
+gradients) is honoured as blocks."""
 from __future__ import annotations
 
 from typing import Callable, Optional
@@ -235,14 +234,10 @@ def make_train_step(cfg: M.ModelConfig, *, microbatches: int = 1,
     = (p_sh, o_sh, b_sh) says how the operands lie (see the module);
     `donate` lets the update overwrite the parameters and moments it is
     handed (`adamw_update`), as `donate_argnums=(0, 1)` lets JAX's."""
-    if grad_shardings is not None:
-        dsh.check_executable(grad_shardings, "grad_shardings")
 
     def step_fn(params, opt_state: AdamWState, batch: dict, shardings=None,
                 donate: bool = False):
         p_sh, o_sh, b_sh = shardings if shardings is not None else (None, None, None)
-        if p_sh is not None:
-            dsh.check_executable(p_sh, "the parameters' records")
         params, opt_state = dsh.place(params, p_sh), dsh.place(opt_state, o_sh)
         grads, metrics = grads_and_metrics(params, cfg, batch, microbatches, b_sh, p_sh)
         g_sh = p_sh

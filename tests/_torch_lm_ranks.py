@@ -199,15 +199,16 @@ def _not_model_split_sums(view, tree, records) -> list:
     return _checksum(view, leaves)
 
 
-def _layer_model_calls(params, cfg, records) -> int:
-    """The "model" all-reduces of the first layer's forward (no gradient)."""
+def _layer_model_calls(params, cfg, records) -> tuple:
+    """The "model" all-reduces and all-gathers of the first layer's
+    forward (no gradient)."""
     from repro_torch.models import model as TM
 
     x = torch.zeros((1, 4, cfg.d_model), dtype=cfg.dtype)
     dist.reset_counts()
     with torch.no_grad():
         TM._apply_layer(params["layers"][0], x, cfg, *cfg.layer_spec(0), records["layers"][0])
-    return dist.all_reduce.by_axis.get("model", 0)
+    return dist.all_reduce.by_axis.get("model", 0), dist.all_gather.by_axis.get("model", 0)
 
 
 def sharded_case(mesh, arch, jparams, batch, microbatches, model_axis, fsdp):
@@ -218,8 +219,7 @@ def sharded_case(mesh, arch, jparams, batch, microbatches, model_axis, fsdp):
     view in row order, every rank's metrics; then a whole step
     (`run_sharded`, ZeRO-1 moments) and the checksums over each model view
     of the leaves no record splits over "model"; the first layer's "model"
-    all-reduces in a forward and its `wq` block shape. A config whose SSM
-    the "model" axis splits returns the NotImplementedError's message."""
+    all-reduces in a forward and its `wq` block shape."""
     cfg = get_config(arch, smoke=True)
     rules = dict(cfg.rules_override, **({"fsdp": "data"} if fsdp else {}))
     lmesh = make_local_mesh(model_axis)
@@ -243,8 +243,6 @@ def sharded_case(mesh, arch, jparams, batch, microbatches, model_axis, fsdp):
                                       grad_shardings=p_sh)
             (new_p, new_o, metrics), seen = _choices(
                 lambda: dsh.run_sharded(step, (p_sh, o_sh, b_sh), params, opt, tb))
-        except NotImplementedError as e:
-            return dict(refused=str(e))
         finally:
             TS.zero1_update = update
         norm = metrics.pop("grad_norm")
@@ -310,3 +308,109 @@ def tp_fsdp_checkpoint(mesh, arch, jparams, batch, ckpt_dir):
         split = sum(len(r.split_axes()) == 2 for r in tree_leaves(p_sh))
         return dict(restored_blocks_equal=equal, both_axes=split, donated_equal=donated_equal,
                     global_state=dsh.gather_tree((z_p, z_o), (p_sh, o_sh)))
+
+
+# -- prefill and decode on meshes (tests/test_torch_lm_tp_serve.py) -----------
+
+def _serve_rules(cfg, layout):
+    """The rule table of a serving layout: the config's rules under
+    "default", else the dry run's `_rules_for(cfg, layout)`."""
+    from repro_torch.launch.dryrun import _rules_for
+
+    return dict(cfg.rules_override) if layout == "default" else _rules_for(cfg, layout)
+
+
+def _rows_over_data(lmesh, records, seen):
+    """Each recorded MoE choice (this rank's rows) gathered over the data
+    view in row order when the rows split over it."""
+    entry = records.spec[0] if records.spec else None
+    if entry is None or lmesh.shape.get(entry, 1) == 1:
+        return list(seen)
+    return [dist.gather(lmesh.view(entry), c) for c in seen]
+
+
+def serve_case(mesh, arch, jparams, batch, max_len, steps, model_axis, layouts):
+    """`arch`'s SMOKE config on make_local_mesh(model_axis): the sharded
+    prefill (`run_prefill`) in the layout `layouts[0]` ("default": the
+    config's rules; else a shape of the dry run's `_rules_for`), then
+    `steps` greedy decode steps (`run_decode`) in `layouts[1]`, the caches
+    carried from one layout's records to the other's. Returns the whole
+    logits and tokens of every step, each MoE layer's chosen experts a step
+    (gathered over the data view), the caches gathered whole after the
+    prefill and after the last step, every rank's checksums of its logits
+    and tokens (the rows must be equal), the "model" collectives of the
+    first decode step, and (one layout) `greedy_generate`'s tokens."""
+    from repro_torch.models import model as TM
+    from repro_torch.serve.engine import greedy_generate, make_decode_step, make_prefill_step
+
+    cfg = get_config(arch, smoke=True)
+    lmesh = make_local_mesh(model_axis)
+    params = model_params_from_jax(jparams, cfg, device="cpu")
+    tb = _t(batch)
+    rows = tb["tokens"].shape[0]
+    prefill, decode = make_prefill_step(cfg, max_len), make_decode_step(cfg)
+    with dist.mesh_context(lmesh, rules=_serve_rules(cfg, layouts[0])):
+        p_sh, b_sh = dsh.params_shardings(params, cfg), dsh.batch_shardings(tb)
+        (logits, caches), seen = _choices(
+            lambda: dsh.run_prefill(prefill, (p_sh, b_sh), params, tb))
+        c_sh = TM.cache_records(cfg, rows, max_len)
+        pre_caches = tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x,
+                              dsh.gather_tree(caches, c_sh))   # decode writes in place
+        choices = [_rows_over_data(lmesh, b_sh["tokens"], seen)]
+    tok = torch.argmax(logits, dim=-1)
+    all_logits, all_tokens, calls = [logits], [tok], None
+    with dist.mesh_context(lmesh, rules=_serve_rules(cfg, layouts[1])):
+        p_sh = dsh.params_shardings(params, cfg)
+        c_sh = TM.cache_records(cfg, rows, max_len)
+        tok_sh = dsh.batch_shardings(tok)
+        blocks, caches = dsh.place(params, p_sh), dsh.place(caches, c_sh)
+        for s in range(steps):
+            dist.reset_counts()
+            (logits, caches), seen = _choices(
+                lambda: dsh.run_decode(decode, (p_sh, tok_sh, c_sh), blocks, tok, caches))
+            if s == 0:
+                calls = dict(dist.all_reduce.by_axis)
+            choices.append(_rows_over_data(lmesh, tok_sh, seen))
+            tok = torch.argmax(logits, dim=-1)
+            all_logits.append(logits)
+            all_tokens.append(tok)
+        post_caches = dsh.gather_tree(caches, c_sh)
+        held = (sum(x.numel() for x in tree_leaves(caches) if isinstance(x, torch.Tensor)),
+                sum(int(np.prod(dsh.block_shape(r))) for r in tree_leaves(c_sh) if r.shape))
+    out = dict(logits=all_logits, tokens=torch.stack(all_tokens, dim=1), choices=choices,
+               pre_caches=pre_caches, post_caches=post_caches, calls=calls, held=held,
+               shape=lmesh.shape,
+               sums=_checksum(mesh, [torch.stack(all_logits), torch.stack(all_tokens).float()]))
+    if layouts[0] == layouts[1]:
+        with dist.mesh_context(lmesh, rules=_serve_rules(cfg, layouts[0])):
+            out["greedy"] = greedy_generate(params, cfg, tb, steps=steps, max_len=max_len,
+                                            shardings=(dsh.params_shardings(params, cfg),
+                                                       dsh.batch_shardings(tb)))
+    return out
+
+
+def decode_from(mesh, arch, jparams, caches, tokens, max_len, model_axis, layout):
+    """One decode step (`run_decode`) of `arch` on make_local_mesh(model_axis)
+    in `layout`, from whole caches (JAX's prefill cache, carried across by
+    `convert.caches_from_jax`) cut to this rank's blocks: the whole
+    logits."""
+    from repro_torch.models import model as TM
+    from repro_torch.serve.engine import make_decode_step
+
+    cfg = get_config(arch, smoke=True)
+    params = model_params_from_jax(jparams, cfg, device="cpu")
+    tok = torch.from_numpy(np.asarray(tokens))
+    with dist.mesh_context(make_local_mesh(model_axis), rules=_serve_rules(cfg, layout)):
+        shardings = (dsh.params_shardings(params, cfg), dsh.batch_shardings(tok),
+                     TM.cache_records(cfg, tok.shape[0], max_len))
+        logits, _ = dsh.run_decode(make_decode_step(cfg), shardings, params, tok, caches)
+    return logits
+
+
+def serve_cases(mesh, runs, from_jax=None):
+    """`serve_case` for each (key, arguments) of `runs`, on these ranks;
+    with `from_jax` (`decode_from`'s arguments), its logits as "from_jax"."""
+    out = {key: serve_case(mesh, *args) for key, args in runs.items()}
+    if from_jax is not None:
+        out["from_jax"] = decode_from(mesh, *from_jax)
+    return out

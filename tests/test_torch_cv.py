@@ -19,6 +19,7 @@ same for every fold chunk.
 import dataclasses
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -42,6 +43,15 @@ CV_SHAPES = {"dual": (84, 30, 40, False), "primal": (48, 64, 8, True)}
 BATCH_SHAPES = {"dual": (84, 30), "primal": (48, 64)}
 BATCH_CASES = ("stacked", "shared", "multi_response", "warm")
 K = 4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _fresh_jax_traces():
+    """Drop JAX's compiled functions when this module ends: its dual CV
+    problem is tests/test_api_cv.py's, and a cached `enet_cv_scan` trace
+    of it would leave that test's trace count at 0 in the same process."""
+    yield
+    jax.clear_caches()
 
 
 def _cv_problem(shape):

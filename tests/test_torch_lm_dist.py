@@ -41,7 +41,7 @@ from repro_torch.dist.zero import _widen_spec, zero1_shardings
 from repro_torch.launch import mesh as TMesh
 from repro_torch.models import model as TM
 from repro_torch.train import step as TS
-from repro_torch.utils import tree_map, tree_paths
+from repro_torch.utils import tree_leaves, tree_map, tree_paths
 
 MESHES = {"16x16": {"data": 16, "model": 16},
           "2x16x16": {"pod": 2, "data": 16, "model": 16},
@@ -128,7 +128,7 @@ def test_param_and_zero1_records_match_jax(full_width, arch, mesh_name):
             p_sh = dsh.params_shardings(params, cfg)
         what = f"{arch} on {mesh_name}, fsdp {fsdp}"
         _assert_same(p_sh, want, what)
-        assert all(r.mesh is mesh for r in dsh.tree_leaves(p_sh))
+        assert all(r.mesh is mesh for r in tree_leaves(p_sh))
         if "data" not in shape:
             continue
         # ZeRO-1: JAX widens each stacked leaf whole, the stacked dim first
@@ -147,11 +147,11 @@ def test_the_stacked_trap_is_kept():
     mesh = dist.Mesh(axes=("data", "model"), sizes=(16, 16))
     with dist.mesh_context(mesh, rules=cfg.rules_override):
         p_sh = dsh.params_shardings(params, cfg)
-    layer0 = dsh.tree_leaves(p_sh["layers"][0])
+    layer0 = tree_leaves(p_sh["layers"][0])
     assert sum(r.stack == "data" for r in layer0) == len(layer0) == 12
     assert p_sh["final_norm"]["scale"].spec == ("data",)
     assert all("data" not in r.spec for r in layer0 if r.stack == "data")
-    assert [r.stack_index for r in dsh.tree_leaves(p_sh["layers"][47])][0] == 47
+    assert [r.stack_index for r in tree_leaves(p_sh["layers"][47])][0] == 47
     assert p_sh["layers"][0]["mixer"]["wq"].uses("data")
 
 
@@ -256,16 +256,17 @@ def test_spec_only_meshes_and_two_split_axes_are_refused():
     with pytest.raises(RuntimeError, match="resolves specs only"):
         step(params, None, {"tokens": torch.zeros((2, 8), dtype=torch.int64)},
              shardings=(p_sh, None, None))
-    # the SSM's channels over "model" are refused, naming their ROADMAP item
+    # the SSM's channels over "model" execute: the step is built, and on a
+    # mesh no process group backs it reaches its collectives
     ssm = TC.get_config("mamba2_130m", smoke=True)
     s_params = TM.init_model(ssm, device="cpu")
     with dist.mesh_context(dist.Mesh(axes=("data", "model"), sizes=(1, 2))):
         s_sh = dsh.params_shardings(s_params, ssm)
-    with pytest.raises(NotImplementedError, match=dist.MODEL_AXIS_ITEM):
-        TS.make_train_step(ssm, grad_shardings=s_sh)
-    with pytest.raises(NotImplementedError, match="ssm_inner"):
-        TS.make_train_step(ssm)(s_params, None, {"tokens": torch.zeros((2, 8), dtype=torch.int64)},
-                                shardings=(s_sh, None, None))
+    assert s_sh["layers"][0]["mixer"]["w_in"].spec == (None, "model")
+    s_step = TS.make_train_step(ssm, grad_shardings=s_sh)
+    with pytest.raises(RuntimeError, match="resolves specs only"):
+        s_step(s_params, None, {"tokens": torch.zeros((2, 8), dtype=torch.int64)},
+               shardings=(s_sh, None, None))
 
 
 def _tree(seed, shapes=((40, 25), (1000,), (3, 7, 11))):

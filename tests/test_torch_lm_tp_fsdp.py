@@ -19,8 +19,10 @@ on "data":
   bitwise equal across each model view; a rank holds H / M query heads;
   a layer's forward makes 2 "model" all-reduces; an FSDP rank holds part
   of the parameters;
-- mamba2-130m and jamba-v0.1-52b on a "model" axis raise
-  NotImplementedError naming `dist.MODEL_AXIS_ITEM`;
+- mamba2-130m and jamba-v0.1-52b on (1, 2) split the SSM's channels and
+  heads over "model" (its packed leaves all-gathered, the norm's
+  statistic and `w_out`'s outputs all-reduced: 2 "model" all-reduces and
+  1 all-gather a mixer) and meet the same bounds;
 - a TP + FSDP state written by the (2, 2) ranks restores bit for bit on
   those ranks, on one rank and through JAX's `restore_checkpoint`;
 - the update with donated operands (`donate=True`, JAX's `donate_argnums`)
@@ -103,9 +105,8 @@ def ranks(tmp_path_factory):
 
     thread = threading.Thread(target=launches)
     thread.start()
-    for arch, mb, (_, model) in {**TWO, **FOUR}.values():
-        if not (model > 1 and arch in SSM):
-            _reference(arch, mb)
+    for arch, mb, _ in {**TWO, **FOUR}.values():
+        _reference(arch, mb)
     thread.join()
     if failed:
         raise failed[0]
@@ -117,10 +118,6 @@ def ranks(tmp_path_factory):
 def test_sharded_step_matches_jax(ranks, key):
     arch, mb, (data, model) = {**TWO, **FOUR}[key]
     got = ranks[key]
-    if model > 1 and arch in SSM:
-        assert "refused" in got and dist.MODEL_AXIS_ITEM in got["refused"], got
-        assert "ssm_inner" in got["refused"]
-        return
     assert got["shape"] == {"data": data, "model": model}
     assert got["split"] == (data > 1)
     metrics, grads, choices = _reference(arch, mb)
@@ -141,14 +138,19 @@ def test_sharded_step_matches_jax(ranks, key):
         heads = cfg.n_heads // model if cfg.n_heads % model == 0 else cfg.n_heads
         assert got["wq_block"] == (cfg.d_model, heads, cfg.head_dim), got["wq_block"]
     # one all-reduce after each of the first layer's modules that splits
-    # (phi3-medium's 5 heads stay whole on 2 ranks, its MLP splits)
+    # (phi3-medium's 5 heads stay whole on 2 ranks, its MLP splits), 2 for
+    # an SSM mixer (the norm's statistic, `w_out`), whose packed leaves come
+    # by one all-gather
     if model > 1:
-        mlp = cfg.layer_spec(0)[1]
-        d_ff = (cfg.d_ff_dense or cfg.d_ff) if mlp == "dense" else cfg.moe.d_ff_expert
-        assert got["layer_calls"] == int(cfg.n_heads % model == 0) + int(d_ff % model == 0)
-        assert got["layer_calls"] == 2 or arch == "phi3_medium_14b"
+        mixer, mlp = cfg.layer_spec(0)
+        calls = 2 if mixer == "ssm" else int(cfg.n_heads % model == 0)
+        if mlp != "none":
+            d_ff = (cfg.d_ff_dense or cfg.d_ff) if mlp == "dense" else cfg.moe.d_ff_expert
+            calls += int(d_ff % model == 0)
+        assert got["layer_calls"] == (calls, int(mixer == "ssm")), got["layer_calls"]
+        assert calls == 2 or arch in ("phi3_medium_14b",) + SSM
     else:
-        assert got["layer_calls"] == 0
+        assert got["layer_calls"] == (0, 0)
     # a rank holds its blocks only: FSDP splits the layers over "data", and
     # the vocabulary splits over "model"
     total = sum(g.numel() for g in tree_leaves(grads))

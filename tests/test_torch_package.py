@@ -34,7 +34,7 @@ def test_import_leaves_jax_repro_and_triton_out():
             "repro_torch.ckpt.checkpoint, repro_torch.data.pipeline, repro_torch.launch.train, "
             "repro_torch.dist.shardings, repro_torch.dist.zero, repro_torch.dist.compress, "
             "repro_torch.dist.pipeline, repro_torch.launch.mesh, repro_torch.dist.tp, "
-            "repro_torch.dist.fsdp\n"
+            "repro_torch.dist.fsdp, repro_torch.launch.dryrun\n"
             "from repro_torch.configs import ARCHS, get_config\n"
             "[get_config(a) for a in ARCHS]\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
