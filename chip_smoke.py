@@ -59,13 +59,13 @@ port's main path through the entry points a user calls:
      each case again at k = 1, bitwise the same;
  11. the lane-batched penalized stack (float64, default config), each
      fold or lane a lane of one Illinois root-find: (11a)
-     `ElasticNetCV(k=5, n_lambdas=2)` at the GLA-BRA-180 shape (primal
+     `ElasticNetCV(k=3, n_lambdas=2)` at the GLA-BRA-180 shape (primal
      folds) and (11b) `cross_validate(k=5, n_lambdas=2)` at the YMSD
      shape (dual folds), each against the port's sequential
      `cross_validate_reference` on the same data (mse within 1e-10 x max,
      the same index_min, equal evaluations and kept columns per (lambda,
      fold)) and its refit bitwise `enet` at lambda_min; (11c) `enet_batch`
-     on 5 stacked folds of 11a, cold and then warm from the cold carry on
+     on 5 stacked folds of 11a's data, cold and then warm from the cold carry on
      lanes 0, 2 and 4, each lane bitwise the sequential `_enet_point` on
      fresh copies of its operands. The hinge launches, lane-batched plus
      single (one lane left), equal the batched CG steps; the dual launches
@@ -102,7 +102,7 @@ port's main path through the entry points a user calls:
      GLA-BRA X) and of `enet_batch` (`cv_folds` at YMSD, lambda1 = 0.1 x
      each fold's lambda1_max), each lane bitwise the one-device stack's,
      (13d) the fold fan-out of `cross_validate(k=4, n_lambdas=2)` at YMSD
-     bitwise `mesh=None`, and k = 5 with mesh="auto" under the 2-rank
+     bitwise `mesh=None`, and k = 3 with mesh="auto" under the 2-rank
      context declined, (13e) `calibrate` (every field finite and
      positive), the router's decisions and prices at 13a-13c, each no
      dearer than "single", `sven_routed(route="auto")` at 13a's and 13b's
@@ -125,10 +125,11 @@ port's main path through the entry points a user calls:
      accounting, every status "ok", exactly 1 host lost and a batch
      requeued, fault p99 <= 3 x no-fault p99 (JAX's gate), the surviving
      worker on a CUDA device with the hinge kernels launched there, and
-     the fault wave's first 8 betas within 1e-6 of a direct `sven` (printed
-     beside JAX's 1e-10, and beside `sven` on the padded problem
-     warm-started from the shared spill tier's entry at each request's
-     point); it prints each wave's seconds and p50 / p99, the
+     the fault wave's first 8 betas within 1e-6 of a direct `sven` and
+     within JAX's 1e-10 of `sven` on the padded problem started from the
+     warm-start entry each result's worker used (its point and arrays come
+     back with the result), or cold; it prints each
+     wave's seconds and p50 / p99, the
      seconds from spawn to ready, a batch's pipe transport and a request's
      fingerprint; (14b) `python -m repro_torch.runtime.loadgen --hosts 2
      --kill-host 0 --waves 2` as a subprocess on the card, which must exit
@@ -191,8 +192,8 @@ port's main path through the entry points a user calls:
      13): (18a) the sharded train step (parameters by `params_shardings`,
      moments by `zero1_shardings`, `grad_shardings` the parameters'
      records) at internlm2-1.8b's full width and depth, bf16, global batch
-     8 x 128, 2 steps: losses finite and equal on both ranks, the
-     parameters bitwise equal after the last step, each rank's m and v
+     8 x 128, 1 step: losses finite and equal on both ranks, the
+     parameters bitwise equal after the step, each rank's m and v
      half of one rank's, the first loss within 1e-3 of the one-rank
      step's; (18b) float32 parity at 2 layers and for mixtral at 1 layer:
      gradients within 1e-4 x max|g| of one rank's, chosen experts equal,
@@ -208,7 +209,7 @@ port's main path through the entry points a user calls:
      ranks on the one card (`phase_tp`; `--tp` runs it alone,
      `rehearse_tp()` on the CPU): (19a) internlm2-1.8b whole on a (data 1,
      model 2) mesh in 2 microbatches, 2 steps, in phase 18's ranks; (19b)
-     the same on (2, 1) under `{"fsdp": "data"}`, 2 steps, there too;
+     the same on (2, 1) under `{"fsdp": "data"}`, 1 step, there too;
      (19c) mixtral-8x7b at full width, 2 of 32 layers, on (2, 2) under its
      rules, 1 step, in 4 ranks of its own: each first loss within 1e-3
      relative of a one-process loss on the same weights and batch (19c: a
@@ -221,7 +222,7 @@ port's main path through the entry points a user calls:
      the one card (`phase_serve_tp`; `--serve-tp` runs it alone,
      `rehearse_serve_tp()` on the CPU): (20a) internlm2-1.8b whole on (1, 2)
      under the default rules, prefill 4 x 64 and 32 greedy decode steps;
-     (20b) on (2, 2), prefill 4 x 3,072 in prefill_32k's layout, then 4
+     (20b) on (2, 2), prefill 4 x 3,072 in prefill_32k's layout, then 2
      decode steps in decode_32k's (a cache of 4,096 positions split by
      sequence over "model", flash decoding, FSDP over "data"); (20c)
      mamba2-130m whole in float32 on (1, 2), the SSM split over "model": a
@@ -240,6 +241,27 @@ port's main path through the entry points a user calls:
      embedding lookup's + the head's gather). Prints prefill ms, decode
      tok/s, a step's collectives by axis, a traced step's launches and
      idle share, and each rank's bytes and peak.
+  21. the launch tools (`launch/dryrun.py`, `launch/roofline.py`;
+     `phase_launch_tools`, `--launch-tools` runs it alone after 19a and 20a
+     on 2 ranks of their own): (21a) rank 0's block of the dry run's sven
+     cells at (16, 16), `sven_gram_nggp`'s 4,096 x 8,192 X through the
+     CUDA Gram in f32 and bf16 against the plain Gram (1e-5 / 2e-2 x
+     max|K|) and `sven_hess_pggn`'s 4,096 x 4,096 block through
+     `make_distributed_hessian_matvec`'s plain products against float64
+     sums (1e-5 x), each timed beside the roofline terms the dry run
+     counted for its cell, the device terms over the measured time <=
+     1.05; (21b) the dry run counted on the CPU at the shapes and meshes
+     phases 15, 17, 19 and 20 ran: 19a's train step and 20a's decode step
+     on a (1, 2) mesh with no process group, their collectives by kind and
+     axis (calls and bytes) equal to what rank 0 counted there, 19a's
+     parameter and ZeRO-1 moment bytes a rank equal to its blocks', and
+     15a's, 17a's, 19a's and 20a's medians at or above their roofline
+     step (share <= 1.05); (21c) the twins of examples/ in process on the
+     card: quickstart, regpath_genomics (150 x 8,000, 3 points),
+     feature_selection_lm, serve_lm (mixtral SMOKE, 8 steps) and train_lm
+     (internlm2 SMOKE, 10 steps), each passing its own checks.
+
+The run ends with every phase's seconds on one line ("phase seconds: ...").
 
 The CG loop (`repro_torch.core.svm.state.cg_lanes`) reads its test once
 per block of k = `CG_READ_EVERY` steps and launches up to k - 1 dead steps
@@ -323,6 +345,11 @@ runs phase 18 alone, with its checks, and prints no result line.
 
 runs phase 20 alone, with its checks, and prints no result line.
 
+    python3 chip_smoke.py --launch-tools
+
+runs phase 21 alone, after 19a and 20a (2 steps each) on 2 ranks of their
+own to hold its counts against, and prints no result line.
+
     python3 chip_smoke.py --lm-trace [ARCH]
 
 shows where 15a's time goes (or, given ARCH, that arch's: mixtral-8x7b and
@@ -355,10 +382,22 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+#: what phases 15, 17, 19 and 20 measured, for phase 21 to hold against the
+#: dry run's counts: label -> {"step_s", and for 19a and 20a rank 0's
+#: "counts" (`dist.counts()` of a step) and 19a its "param_bytes" and
+#: "moment_bytes"}
+MEASURED: dict = {}
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"f32": 67e12, "tf32": 495e12, "bf16": 989e12, "f64": 67e12}
+
+def peaks():
+    """The H100 SXM's datasheet peaks (dense, at the 700 W limit):
+    `repro_torch/launch/roofline.py`, the dry run's roofline (`HBM_BW`,
+    `PEAK_FLOPS_BY_TYPE`), importable once `main` has put this checkout's
+    `src` on the path."""
+    from repro_torch.launch import roofline
+
+    return roofline
+
 
 YMSD = (463_715, 90)       # UCI YearPredictionMSD: n >> p, dual
 GLA_BRA = (180, 49_151)    # GLA-BRA-180 (scikit-feature): p >> n, primal
@@ -374,6 +413,21 @@ class Smoke:
         print(("  ok    " if ok else "  FAIL  ") + what, flush=True)
         if not ok:
             self.failures.append(what)
+
+
+class PhaseClock:
+    """Each phase's seconds on the host clock: `start(label)` ends the phase
+    running and starts the next."""
+
+    def __init__(self):
+        self.seconds: dict = {}
+        self._label, self._t0 = None, 0.0
+
+    def start(self, label) -> None:
+        now = time.perf_counter()
+        if self._label is not None:
+            self.seconds[self._label] = now - self._t0
+        self._label, self._t0 = label, now
 
 
 def nvidia_smi() -> str:
@@ -471,8 +525,8 @@ def gram_split_child(smoke) -> None:
 
 
 def bound(nbytes: float, flops: float, kind: str):
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    t_bytes = nbytes / peaks().HBM_BW * 1e3
+    t_ops = flops / peaks().PEAK_FLOPS_BY_TYPE[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1603,11 +1657,13 @@ def cv_checks(torch, smoke, label, res, secs, launched, syncs, steps, dead, ref,
 
 #: phase 11's lambdas a path (cut from 10 to 5, to 3, then to 2, for the script's time)
 CV_LAMBDAS = 2
+#: 11a's folds (cut from 5 for the script's time; 11b and 11c keep 5)
+CV_FOLDS_11A = 3
 
 
 def phase_cv(torch, smoke, kernels, svm_state, count, dev) -> None:
     """Phase 11: the penalized stack on float64 data, default config. 11a
-    `ElasticNetCV(k=5, n_lambdas=CV_LAMBDAS)` at the GLA-BRA-180 shape (primal
+    `ElasticNetCV(k=CV_FOLDS_11A, n_lambdas=CV_LAMBDAS)` at the GLA-BRA-180 shape (primal
     folds), 11b `cross_validate` at the YMSD shape (dual folds), each
     against the port's sequential `cross_validate_reference` on the card
     and its refit bitwise `enet`; 11c `enet_batch` on 5 stacked folds, cold
@@ -1624,7 +1680,7 @@ def phase_cv(torch, smoke, kernels, svm_state, count, dev) -> None:
     k, L = 5, CV_LAMBDAS
     t_phase = time.perf_counter()
 
-    def cv_case(label, X, y, fit, dual):
+    def cv_case(label, X, y, fit, dual, k):
         n, p = X.shape
         res, secs, launched, syncs = run_path(torch, kernels, svm_state, fit)
         steps, dead = cg_lanes.steps, cg_lanes.dead
@@ -1642,13 +1698,14 @@ def phase_cv(torch, smoke, kernels, svm_state, count, dev) -> None:
                   refit, dual, L, k)
 
     X, y, _ = make_regression(*GLA_BRA, seed=2, device=dev)
-    print(f"[11a] ElasticNetCV(k={k}, n_lambdas={L}, lambda2={LAMBDA2}).fit, standardize + "
+    k_a = CV_FOLDS_11A
+    print(f"[11a] ElasticNetCV(k={k_a}, n_lambdas={L}, lambda2={LAMBDA2}).fit, standardize + "
           f"intercept, n = {GLA_BRA[0]}, p = {GLA_BRA[1]}", flush=True)
     cv_case("11a", X, y,
-            lambda: ElasticNetCV(k=k, n_lambdas=L, lambda2=LAMBDA2).fit(X, y).cv_result_,
-            dual=False)
+            lambda: ElasticNetCV(k=k_a, n_lambdas=L, lambda2=LAMBDA2).fit(X, y).cv_result_,
+            dual=False, k=k_a)
 
-    Xtr, ytr, _, _ = cv_folds(X, y, k)   # for 11c
+    Xtr, ytr, _, _ = cv_folds(X, y, k)   # 5 folds, for 11c
     del X, y
     torch.cuda.empty_cache()
 
@@ -1656,11 +1713,11 @@ def phase_cv(torch, smoke, kernels, svm_state, count, dev) -> None:
     print(f"[11b] cross_validate(k={k}, n_lambdas={L}, lambda2={LAMBDA2}), standardize + "
           f"intercept, n = {YMSD[0]}, p = {YMSD[1]}", flush=True)
     cv_case("11b", X, y, lambda: cross_validate(X, y, k=k, n_lambdas=L, lambda2=LAMBDA2),
-            dual=True)
+            dual=True, k=k)
     del X, y
     torch.cuda.empty_cache()
 
-    # 11c: enet_batch on 11a's folds, cold and then warm from the cold carry
+    # 11c: enet_batch on 5 folds of 11a's data, cold and then warm from the cold carry
     config = api.resolve_path_config(api.PathConfig(), Xtr)
     heads = [lambda1_max(Xtr[i], ytr[i]).item() for i in range(k)]
     print(f"[11c] enet_batch on cv_folds(X, y, {k}): X {tuple(Xtr.shape)}, lambda1 = "
@@ -2035,6 +2092,7 @@ MULTI_TS = (0.25, 0.5, 0.75, 1.0)
 MULTI_L2S = (0.5, 1.0)
 MULTI_FOLDS = 4
 MULTI_LAMBDAS = 2             # 13d (cut from 10 to 5, to 3, then to 2, for the script's time)
+MULTI_DECLINED_FOLDS = 3      # 13d's k that the 2-rank mesh does not divide (cut from 5)
 #: 13f: the shotgun baseline at its callers' problems (`benchmarks/common.py`:
 #: gla_bra_like and ymsd_like, `bench_pggn.py` / `bench_nggp.py`'s parallel),
 #: and ymsd_like with a full draw (parallel = p). The last field is the
@@ -2115,13 +2173,13 @@ def multi_rank(mesh):
     out["13c_folds"] = pts
     del Xtr, ytr
     torch.cuda.empty_cache()
-    # 13d: fold fan-out; then k = 5 under the context, which the mesh does not divide
+    # 13d: fold fan-out; then a k under the context that the mesh does not divide
     cv, out["13d_run"] = run(lambda: cross_validate(Xd, yd, k=MULTI_FOLDS,
                                                     n_lambdas=MULTI_LAMBDAS, mesh=mesh))
     out["13d"] = cv
     with dist.mesh_context(mesh):
         cv5, out["13d_nested_run"] = run(lambda: cross_validate(
-            Xd, yd, k=MULTI_FOLDS + 1, n_lambdas=MULTI_LAMBDAS, mesh="auto"))
+            Xd, yd, k=MULTI_DECLINED_FOLDS, n_lambdas=MULTI_LAMBDAS, mesh="auto"))
     out["13d_nested"] = cv5
     torch.cuda.empty_cache()
     # 13e: the router on this card
@@ -2263,7 +2321,7 @@ def phase_multi_device(torch, smoke, kernels, svm_state, count, dev) -> None:
     torch.cuda.empty_cache()
 
     # -- 13d: fold fan-out --------------------------------------------------
-    for label, k in (("13d", MULTI_FOLDS), ("13d_nested", MULTI_FOLDS + 1)):
+    for label, k in (("13d", MULTI_FOLDS), ("13d_nested", MULTI_DECLINED_FOLDS)):
         one, one_s, _, _ = run_path(torch, kernels, svm_state, lambda: cross_validate(
             Xd, yd, k=k, n_lambdas=MULTI_LAMBDAS, mesh=None))
         cv = got[label]
@@ -2371,8 +2429,10 @@ MH_REQUESTS = 16           # a wave; the fault wave kills host 0 at half of it
 MH_T_SCALE = 0.01          # x the loadgen's t, as 12a's constrained requests
 MH_P99_RATIO = 3.0         # JAX's gate: fault p99 <= 3 x no-fault p99
 MH_DIRECT = 8              # the fault wave's results held to a direct `sven`
-MH_TOL = 1e-6              # phase 12's bound on warm-started GLA-BRA results
-MH_JAX_TOL = 1e-10         # JAX's bench bound, which JAX checks at 48 x 24 only
+MH_TOL = 1e-6              # phase 12's bound on warm-started GLA-BRA results, against a
+#                            cold direct `sven`
+MH_JAX_TOL = 1e-10         # JAX's bench bound (`run_multihost`): against `sven` from the
+#                            result's own warm start
 MH_HINGE = ("hinge_xtv_lanes_cuda", "hinge_xtv_cuda")
 
 
@@ -2402,7 +2462,6 @@ def phase_multihost(torch, smoke, count, dev, shape=GLA_BRA, cli=True) -> None:
     and a spill directory, float64, default config, at `shape`; (14b) the
     loadgen's `--hosts 2 --kill-host 0` CLI as a subprocess (when `cli`)."""
     import os
-    import shutil
     import tempfile
 
     import numpy as np
@@ -2410,7 +2469,6 @@ def phase_multihost(torch, smoke, count, dev, shape=GLA_BRA, cli=True) -> None:
     from repro_torch.core import routing, sven
     from repro_torch.runtime import (LoadSpec, MultiHostCoordinator, fingerprint_problem,
                                      make_workload, run_open_loop)
-    from repro_torch.runtime.cache import CONSTRAINED, PersistentCacheTier
 
     t_phase = time.perf_counter()
     workload = make_workload(LoadSpec(shapes=(shape,), n_datasets=1, n_requests=MH_REQUESTS,
@@ -2423,7 +2481,7 @@ def phase_multihost(torch, smoke, count, dev, shape=GLA_BRA, cli=True) -> None:
           f"requests on one {shape[0]} x {shape[1]} data set, host 0 killed at request "
           f"{kill_at} of the third", flush=True)
     waves, lost = [], 0
-    with tempfile.TemporaryDirectory() as tmp, tempfile.TemporaryDirectory() as snap:
+    with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         coord = MultiHostCoordinator(n_hosts=MH_HOSTS, max_batch=MH_MAX_BATCH, cache_dir=tmp,
                                      device=dev)
@@ -2433,11 +2491,6 @@ def phase_multihost(torch, smoke, count, dev, shape=GLA_BRA, cli=True) -> None:
                 out = run_open_loop(coord, workload)
                 lost += len(set(out["ids"]) - set(out["results"]))
                 waves.append((name, out["wall_seconds"], out, list(out["results"].values())))
-            # the shared spill tier as the fault wave finds it: every worker
-            # writes each point it solves through to it (the last writer's
-            # entry at a point stays)
-            for f in Path(tmp).glob("*.npz"):
-                shutil.copy2(f, snap)
             # the fault wave: flush at half, so host 0 holds in-flight work,
             # SIGKILL it, submit the rest; detection, requeue and re-solve
             # all land inside the measured window
@@ -2458,9 +2511,6 @@ def phase_multihost(torch, smoke, count, dev, shape=GLA_BRA, cli=True) -> None:
             acct = coord.accounting()
         finally:
             stats = coord.shutdown()
-        spilled = PersistentCacheTier(snap)
-        entries = [spilled.lookup(fingerprint_problem(item.X, item.y), CONSTRAINED, item.lam,
-                                  item.lambda2) for item in workload[:MH_DIRECT]]
     for name, wall, summ, res in waves:
         statuses = sorted({r.status for r in res})
         print(f"    {name}: {wall:.3f} s, p50 {summ['p50_latency_s']:.3f} s, p99 "
@@ -2493,13 +2543,12 @@ def phase_multihost(torch, smoke, count, dev, shape=GLA_BRA, cli=True) -> None:
                 f"stats, the {MH_HOSTS - 1} survivor(s)")
     spill = sum(s["spill_hits"] for s in stats)
     # the fault wave's first results against direct solves of the unpadded
-    # problems (cold), and of the padded ones warm-started from the spill
-    # tier's entry at the request's point. That entry is not always the
-    # surviving worker's warm start (its memory tier holds its own solves,
-    # 8 points a problem, the nearest taken), so the warm comparison is
-    # printed, not gated (ROADMAP Queue 3 item 1a)
+    # problems (cold, MH_TOL), and against `sven` on the padded problem
+    # started from each result's own warm start: the entry its worker took
+    # (`warm_from`, its point; `warm_start`, its arrays), or cold (MH_JAX_TOL)
     dev_max = rel_max = warm_max = 0.0
     n_warm = 0
+    starts = []
     for k, (item, rid) in enumerate(list(zip(workload, ids))[:MH_DIRECT]):
         r = results[rid]
         if r.status != "ok":
@@ -2509,26 +2558,29 @@ def phase_multihost(torch, smoke, count, dev, shape=GLA_BRA, cli=True) -> None:
         d = float(np.abs(r.beta - direct).max())
         dev_max = max(dev_max, d)
         rel_max = max(rel_max, d / max(float(np.abs(direct).max()), 1e-300))
-        entry = entries[k]
-        if entry is None:
-            continue
         (bn, bp), (n, p) = r.bucket, X.shape
         Xp = torch.zeros((bn, bp), dtype=X.dtype, device=dev)
         Xp[:n, :p] = X
         yp = torch.zeros((bn,), dtype=y.dtype, device=dev)
         yp[:n] = y
-        warm = sven(Xp, yp, item.lam, item.lambda2,
-                    warm_alpha=torch.as_tensor(entry.alpha, device=dev),
-                    warm_w=torch.as_tensor(entry.w, device=dev)).beta[:p].cpu().numpy()
+        kw = {}
+        if r.warm_from is not None:
+            alpha, w = r.warm_start
+            kw = {"warm_alpha": torch.as_tensor(alpha, device=dev),
+                  "warm_w": torch.as_tensor(w, device=dev)}
+            n_warm += 1
+        starts.append("cold" if r.warm_from is None else f"{r.warm_from:.4g}")
+        warm = sven(Xp, yp, item.lam, item.lambda2, **kw).beta[:p].cpu().numpy()
         warm_max = max(warm_max, float(np.abs(r.beta - warm).max()))
-        n_warm += 1
     print(f"    the fault wave's first {MH_DIRECT} against a direct sven: max|beta - direct| "
           f"{dev_max:.3e} ({rel_max:.3e} x max|beta|): <= {MH_TOL:g} "
-          f"{dev_max <= MH_TOL}, <= JAX's {MH_JAX_TOL:g} {dev_max <= MH_JAX_TOL}; against "
-          f"sven on the padded problem warm-started from the spill tier's entry at the "
-          f"request's point ({n_warm} of {MH_DIRECT} found): {warm_max:.3e}, <= JAX's "
-          f"{MH_JAX_TOL:g} {warm_max <= MH_JAX_TOL}", flush=True)
+          f"{dev_max <= MH_TOL}; their workers' warm starts (the entries' points, t) "
+          f"{starts} ({n_warm} warm); against sven on the padded problem from that start: "
+          f"{warm_max:.3e}", flush=True)
     smoke.check(dev_max <= MH_TOL, f"14a: max|beta - direct sven| = {dev_max:.3e} <= {MH_TOL:g}")
+    smoke.check(len(starts) == MH_DIRECT and warm_max <= MH_JAX_TOL,
+                f"14a: max|beta - sven from the result's own warm start| = {warm_max:.3e} <= "
+                f"JAX's {MH_JAX_TOL:g} ({len(starts)} results, {n_warm} warm)")
     # the host work apart: a batch through the pipe, a request's fingerprint
     items = [{"req_id": k, "X": it.X, "y": it.y, "form": it.form, "lam": it.lam,
               "lambda2": it.lambda2, "priority": it.priority}
@@ -2694,6 +2746,8 @@ def phase_lm(torch, smoke, kernels, svm_state, count, dev, card: str) -> None:
     15c the card against the CPU at 2 layers; 15d the feature-selection
     flow on the bf16 model's hidden states, solved by `sven` on the hinge
     kernels; 15e the five other dense-family SMOKE configs."""
+    import statistics
+
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as launcher
     from repro_torch.models import model as M
@@ -2717,6 +2771,7 @@ def phase_lm(torch, smoke, kernels, svm_state, count, dev, card: str) -> None:
                 f"15a: tokens {tuple(toks.shape)}, every one in [0, {vocab})")
     smoke.check(torch.equal(runs[0].tokens, runs[1].tokens),
                 "15a: two greedy runs give equal tokens")
+    MEASURED["15a"] = {"step_s": statistics.median(r.decode_s / LM_GEN for r in runs)}
     del runs
     torch.cuda.empty_cache()
 
@@ -2841,8 +2896,8 @@ def decode_bound(params, cfg, moe_mod) -> str:
     nbytes = tree_bytes(params) - tree_bytes(params.get("mtp", {}))
     return (f"A decode step runs every expert on C = {moe_mod._capacity(1, cfg.moe)} slots, "
             f"so it reads every weight but MTP's, {nbytes / 1e9:.3f} GB: bound "
-            f"{nbytes / PEAK_BYTES_PER_S * 1e3:.3f} ms a step = "
-            f"{LM_BATCH * PEAK_BYTES_PER_S / nbytes:.1f} tok/s at batch {LM_BATCH}")
+            f"{nbytes / peaks().HBM_BW * 1e3:.3f} ms a step = "
+            f"{LM_BATCH * peaks().HBM_BW / nbytes:.1f} tok/s at batch {LM_BATCH}")
 
 
 def serve_twice(torch, smoke, launcher, cfg, params, dev, card, label) -> None:
@@ -3267,7 +3322,7 @@ def step_syncs(torch, fn):
 def train_bound_ms(n_params: int, tokens: int, remat: bool) -> float:
     """The least time of a training step: 6 N FLOPs a token (8 N when the
     forward runs twice, under remat) at the card's bf16 peak."""
-    return (8 if remat else 6) * n_params * tokens / PEAK_FLOPS["bf16"] * 1e3
+    return (8 if remat else 6) * n_params * tokens / peaks().PEAK_FLOPS * 1e3
 
 
 def trained_run_text(torch, res, cfg, dev, n_tokens) -> str:
@@ -3281,7 +3336,7 @@ def trained_run_text(torch, res, cfg, dev, n_tokens) -> str:
     return (f"median step {med:.3f} ms (first {res.step_s[0] * 1e3:.3f} ms) = "
             f"{n_tokens / med * 1e3:.1f} tokens/s; bound {bound:.3f} ms = "
             f"{n_tokens / bound * 1e3:.1f} tokens/s ({8 if cfg.remat else 6} N FLOPs a "
-            f"token at {PEAK_FLOPS['bf16'] / 1e12:.0f} TFLOP/s), "
+            f"token at {peaks().PEAK_FLOPS / 1e12:.0f} TFLOP/s), "
             f"{bound / med:.4f} of it; {peak_text(torch, dev)}")
 
 
@@ -3359,6 +3414,7 @@ def phase_train(torch, smoke, kernels, svm_state, count, dev, card: str) -> None
                 f"17a: {TRAIN_STEPS} losses, every one finite")
     smoke.check(last < first, f"17a: the mean of the last 5 losses {last:.4f} < the first "
                 f"5's {first:.4f}")
+    MEASURED["17a"] = {"step_s": statistics.median(res.step_s)}
     step_fn = make_train_step(cfg, lr_schedule=warmup_cosine(args.lr, 10, TRAIN_STEPS))
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq, global_batch=args.batch)
     batch = synthetic_batch(dcfg, TRAIN_STEPS, device=dev)
@@ -3698,7 +3754,8 @@ def lm_trace_only(torch, arch: str = LM_ARCH) -> int:
 
 #: phase 18: data-parallel training over ranks, all on the one card (gloo)
 DIST_WORLD = 2
-DIST_STEPS = 2                # 18a: steps of the sharded step at full width and depth
+DIST_STEPS = 1                # 18a: steps of the sharded step at full width and depth
+#                               (cut from 6 to 2, then to 1, for the script's time)
                               # (cut from 6 for the script's time: ~10 s a step)
 DIST_SHAPE = (8, 128)         # 18a: the global batch (4 rows a rank) and sequence
 DIST_LOSS_TOL = 1e-3          # relative: 18a's first loss against the one-rank step's
@@ -3712,7 +3769,8 @@ TOPK_FRAC = 0.01              # 18e
 #: gloo ranks on the one card. 19a and 19b run in phase 18's 2 ranks;
 #: 19c in 4 ranks of its own. Each: (data, model), microbatches, steps
 TP_A = ((1, 2), 2, 2)         # 19a: internlm2-1.8b whole, tensor parallel
-TP_B = ((2, 1), 1, 2)         # 19b: internlm2-1.8b whole, FSDP (rules {"fsdp": "data"})
+TP_B = ((2, 1), 1, 1)         # 19b: internlm2-1.8b whole, FSDP (rules {"fsdp": "data"});
+#                               1 step (cut from 2 for the script's time)
 TP_C = ((2, 2), 1, 1)         # 19c: mixtral-8x7b's full width, both axes
 TP_C_LAYERS = 2               # 19c's depth cut (32 layers: 93 GB in bf16)
 
@@ -4421,7 +4479,7 @@ def tp_rank(mesh, cfg, shape, steps, microbatches, model_axis, rules, trace):
                 ar_s=dist.all_reduce.seconds, by_axis=dict(dist.all_reduce.by_axis),
                 bc_calls=dist.broadcast.calls, bc_bytes=dist.broadcast.bytes,
                 bc_s=dist.broadcast.seconds, ag_calls=dist.all_gather.calls,
-                ag_bytes=dist.all_gather.bytes))
+                ag_bytes=dist.all_gather.bytes, counts=dist.counts()))
             if traced:
                 prof.__exit__(None, None, None)
                 path = ROOT / "build" / "tp-trace" / "step.json"
@@ -4574,6 +4632,11 @@ def phase_tp(torch, smoke, dev, card: str, res: dict, loss1: float, cfg_c=None,
         smoke.check(held < 2 * r["params"] * 0.75, f"{label}: a rank holds its blocks: "
                     f"{held / 1e9:.3f} GB of the {2 * r['params'] / 1e9:.3f} GB of bf16 "
                     "parameters")
+    st = res["19a"]["steps"]
+    MEASURED["19a"] = {"step_s": statistics.median(x["secs"] for x in st[1:] or st[:1]),
+                       "counts": st[-1]["counts"], "param_bytes": res["19a"]["param_bytes"][0],
+                       "moment_bytes": res["19a"]["moment_bytes"][0],
+                       "n_layers": res["19a"]["n_layers"], "shape": shape}
     want = tp_expected_calls(res["19a"]["n_layers"], TP_A[1])
     got = res["19a"]["steps"][-1]["by_axis"].get("model", 0)
     print(f"    19a: \"model\" all-reduces a step {got}; the design's count "
@@ -4592,7 +4655,8 @@ def phase_tp(torch, smoke, dev, card: str, res: dict, loss1: float, cfg_c=None,
 #: logits are held to one process
 SERVE_TP_A = ((1, 2), ("default", "default"), (LM_BATCH, LM_PROMPT), LM_PROMPT + LM_GEN,
               LM_GEN, 1)
-SERVE_TP_B = ((2, 2), ("prefill_32k", "decode_32k"), (4, 3072), 4096, 4, 1)
+SERVE_TP_B = ((2, 2), ("prefill_32k", "decode_32k"), (4, 3072), 4096, 2, 1)  # 2 decode
+#                                                       steps (cut from 4 for the script's time)
 SERVE_TP_C = ((1, 2), ("default", "default"), (LM_BATCH, LM_PROMPT), LM_PROMPT + 8, 8, 8)
 SERVE_TP_D = ((1, 2), ("default", "default"), (LM_BATCH, LM_PROMPT), LM_PROMPT + 4, 4, 1)
 SERVE_TP_E = ((2, 2), ("long_500k", "long_500k"), (1, 8192), 8192 + 16, 16, 16)
@@ -4659,7 +4723,7 @@ def serve_tp_rank(mesh, cfg, model_axis, layouts, shape, max_len, steps, keep, t
                     bc_calls=dist.broadcast.calls, bc_bytes=dist.broadcast.bytes,
                     bc_s=dist.broadcast.seconds, bc_by_axis=dict(dist.broadcast.by_axis),
                     ag_calls=dist.all_gather.calls, ag_bytes=dist.all_gather.bytes,
-                    ag_s=dist.all_gather.seconds)
+                    ag_s=dist.all_gather.seconds, counts=dist.counts())
 
     if on_card:
         torch.cuda.empty_cache()
@@ -4949,6 +5013,7 @@ def phase_serve_tp(torch, smoke, dev, card: str, cfgs=None, subs=None) -> None:
               f"{[round(x['secs'], 4) for x in st]}, median warm {step_s * 1e3:.1f} ms = "
               f"{B / step_s:.1f} tok/s at batch {B}; {card}", flush=True)
         last = st[-1]
+        MEASURED[label] = {"step_s": step_s, "counts": last["counts"], "n_layers": cfg.n_layers}
         print(f"    a decode step's collectives: all_reduce calls {last['calls']} "
               f"{last['by_axis']}, {last['bytes']} bytes, {last['ar_s']:.3f} s; broadcast "
               f"calls {last['bc_calls']} {last['bc_by_axis']}, {last['bc_bytes']} bytes, "
@@ -5076,6 +5141,265 @@ def rehearse_serve_tp() -> int:
     return serve_tp_only(torch, torch.device("cpu"), cfgs, subs, "CPU rehearsal")
 
 
+#: phase 21: the launch tools (`launch/{dryrun,roofline}.py`) against the card
+LT_GRAM_TOL = {"f32": 1e-5, "bf16": 2e-2}   # x max|K|: the repo's kernel bounds
+LT_HV_TOL = 1e-5                            # x max|H v|: float32 against float64 sums
+LT_SHARE = 1.05            # roofline step / measured time: no reading beats the bound
+LT_TWINS = (("quickstart", []), ("regpath_genomics", ["--points", "3"]),
+            ("feature_selection_lm", []),
+            ("serve_lm", ["--arch", "mixtral-8x7b", "--steps", "8"]),
+            ("train_lm", ["--arch", "internlm2-1.8b", "--steps", "10"]))
+
+
+def counts_text(c: dict) -> str:
+    """A `dist.counts()` record, calls and bytes by axis, on one line."""
+    return "; ".join(f"{kind} " + ", ".join(f"{ax} {n} calls {e['bytes_by_axis'][ax]} B"
+                                            for ax, n in e["by_axis"].items())
+                     for kind, e in c.items()) or "none"
+
+
+def counts_apart(counted: dict, measured: dict) -> str:
+    """The differences in calls and bytes by kind and axis between two
+    `dist.counts()` records ("0" when they are equal)."""
+    out = []
+    for kind in sorted(set(counted) | set(measured)):
+        a, b = counted.get(kind, {}), measured.get(kind, {})
+        for ax in sorted(set(a.get("by_axis", {})) | set(b.get("by_axis", {}))):
+            dc = a.get("by_axis", {}).get(ax, 0) - b.get("by_axis", {}).get(ax, 0)
+            db = a.get("bytes_by_axis", {}).get(ax, 0) - b.get("bytes_by_axis", {}).get(ax, 0)
+            if dc or db:
+                out.append(f"{kind} {ax}: calls {dc:+d}, bytes {db:+d}")
+    return "; ".join(out) or "0"
+
+
+def launch_tool_cells() -> dict:
+    """The dry run's records (`launch/dryrun.py::_lower_one`, on the CPU,
+    one thread) of internlm2-1.8b at the shapes and meshes phases 15, 17,
+    19 and 20 run: 15a's decode step and 17a's train step on (1, 1), 19a's
+    train step and 20a's decode step on (1, 2), each a mesh with no process
+    group (`lower_cell` records), and "seconds". The main run computes
+    them in a process of its own while the card works."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import train as train_launcher
+
+    torch.set_num_threads(1)
+    args = train_launcher._parser().parse_args(TRAIN_ARGV)
+    (d19, m19), mb19, _ = TP_A
+    (d20, m20), layouts20, (B20, _), max_len20, _, _ = SERVE_TP_A
+    cells = {"15a": ("decode_32k", "default", (1, 1), 1, LM_BATCH, LM_PROMPT + LM_GEN),
+             "17a": ("train_4k", "train_4k", (1, 1), args.microbatches, args.batch, args.seq),
+             "19a": ("train_4k", "train_4k", (d19, m19), mb19, *DIST_SHAPE),
+             "20a": ("decode_32k", layouts20[1], (d20, m20), 1, B20, max_len20)}
+    t0 = time.perf_counter()
+    out = {label: D.lower_cell(TRAIN_ARCH, shape, D.spec_mesh(sizes=sizes),
+                               opt_overrides={"microbatches": mb}, global_batch=B, seq_len=S,
+                               layout=layout)
+           for label, (shape, layout, sizes, mb, B, S) in cells.items()}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_launch_tools(torch, smoke, dev, card: str, count, cells=None) -> dict:
+    """Phase 21: (21a) rank 0's block of the dry run's sven cells at (16,
+    16) on the card, each beside the roofline terms the dry run counted for
+    its cell: `sven_gram_nggp`'s 4,096 x 8,192 X through the CUDA Gram in
+    f32 ("blocks") and bf16 ("blocks_bf16") against the plain Gram, and
+    `sven_hess_pggn`'s 4,096 x 4,096 block through the plain products of
+    `make_distributed_hessian_matvec` against float64 sums; (21b) the dry
+    run counted at the shapes and meshes phases 15, 17, 19 and 20 ran
+    (spec-only (1, 1) and (1, 2)): 19a's train step and 20a's decode step,
+    whose collectives by kind and axis and whose bytes a rank must equal
+    what the ranks counted, and each measured median at or above its
+    roofline step; (21c) the twins of examples/ on the card, in process.
+    `cells` are `launch_tool_cells()`'s records (counted here when None).
+    Returns the Gram launches by mode."""
+    from repro_torch import dist, kernels
+    from repro_torch.core.distributed import make_distributed_hessian_matvec
+    from repro_torch.kernels import gram as gram_mod
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import roofline as R
+
+    t_phase = time.perf_counter()
+    modes = {"f32": 0, "bf16": 0}
+    mesh = D.spec_mesh()
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def share_text(label, terms, measured_s, part):
+        """The roofline step of `part` over a measured time, checked."""
+        step = (max(terms["t_compute_s"] or 0.0, terms["t_memory_s"] or 0.0)
+                if part == "device" else terms["roofline_step_s"])
+        share = step / measured_s
+        print(f"    {label}: roofline t_compute {terms['t_compute_s'] * 1e3:.4f} ms, "
+              f"t_memory {terms['t_memory_s'] * 1e3:.4f} ms, t_collective "
+              f"{terms['t_collective_s'] * 1e3:.4f} ms ({terms.get('bottleneck')}); "
+              f"{'the device terms' if part == 'device' else 'the step'} {step * 1e3:.4f} ms "
+              f"against {measured_s * 1e3:.4f} ms measured: share {share:.4f}; {card}",
+              flush=True)
+        smoke.check(share <= LT_SHARE, f"{label}: roofline {step * 1e3:.4f} ms / measured "
+                    f"{measured_s * 1e3:.4f} ms = {share:.4f} <= {LT_SHARE}")
+
+    # -- 21a: the sven cells' per-device work -------------------------------------
+    t0 = time.perf_counter()
+    for variant, prec in (("blocks", "f32"), ("blocks_bf16", "bf16")):
+        rec = D.lower_sven_cell("sven_gram_nggp", mesh, variant)
+        fl = D.sven_floor("sven_gram_nggp", mesh.size, variant)
+        n, p = fl["n_loc"], fl["p"]
+        X = torch.randn((n, p), generator=gen, device=dev, dtype=torch.float32)
+        y = torch.randn((n,), generator=gen, device=dev, dtype=torch.float32)
+        if prec == "bf16":
+            X, y = X.to(torch.bfloat16), y.to(torch.bfloat16)
+        before = kernels.shifted_gram_cuda.launches
+        K = kernels.shifted_gram(X, y, 1.5, precision=prec)
+        modes[prec] += kernels.shifted_gram_cuda.launches - before
+        plain = kernels.shifted_gram(X, y, 1.5, backend="ref", precision=prec)
+        torch.cuda.synchronize()
+        scale = plain.abs().max().item()
+        err = (K - plain).abs().max().item()
+        del K, plain
+        torch.cuda.empty_cache()
+        ms = cuda_ms(torch, lambda: gram_mod._launch(X, y, 1.5, prec, True), min_reps=3,
+                     min_ms=30.0)
+        print(f"[21a] sven_gram_nggp ({variant}) rank 0's block at pod16x16: X {n} x {p} "
+              f"{X.dtype}, K {2 * p} x {2 * p} float32 by the CUDA Gram ({prec}): "
+              f"{ms:.4f} ms; max|K - plain| {err:.3e} (bound {LT_GRAM_TOL[prec]:g} x "
+              f"max|K| = {LT_GRAM_TOL[prec] * scale:.3e}); the dry run's cell: "
+              f"{rec['flops']:.4e} FLOPs, {rec['bytes_accessed']:.4e} B a device (floors), "
+              f"collectives {rec['collectives']}", flush=True)
+        smoke.check(err <= LT_GRAM_TOL[prec] * scale, f"21a {variant}: max|K - plain| "
+                    f"{err:.3e} <= {LT_GRAM_TOL[prec]:g} x max|K|")
+        share_text(f"21a {variant}", R.roofline_terms(rec), ms / 1e3, "device")
+        del X, y
+        torch.cuda.empty_cache()
+    rec = D.lower_sven_cell("sven_hess_pggn", mesh)
+    fl = D.sven_floor("sven_hess_pggn", mesh.size)
+    n, p = fl["n"], fl["p_loc"]
+    X = torch.randn((n, p), generator=gen, device=dev, dtype=torch.float32)
+    y = torch.randn((n,), generator=gen, device=dev, dtype=torch.float32)
+    v = torch.randn((n,), generator=gen, device=dev, dtype=torch.float32)
+    act = (torch.randn((2 * p,), generator=gen, device=dev) > 0).to(torch.float32)
+    one = dist.Mesh(device=dev)
+    hv = make_distributed_hessian_matvec(one, X, y, 1.5, 10.0)
+    got = hv(v, act).double()
+    want = make_distributed_hessian_matvec(one, X.double(), y.double(), 1.5, 10.0)(
+        v.double(), act.double())
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    ms = cuda_ms(torch, lambda: hv(v, act))
+    print(f"[21a] sven_hess_pggn rank 0's block at pod16x16: X {n} x {p} float32, H v by "
+          f"the plain products: {ms:.4f} ms; max|Hv - float64| {err:.3e} (bound "
+          f"{LT_HV_TOL:g} x max|Hv| = {LT_HV_TOL * scale:.3e}); the dry run's cell: "
+          f"{rec['flops']:.4e} FLOPs, {rec['bytes_accessed']:.4e} B a device (floors), "
+          f"collectives {rec['collectives']}", flush=True)
+    smoke.check(err <= LT_HV_TOL * scale, f"21a sven_hess_pggn: max|Hv - float64| {err:.3e} "
+                f"<= {LT_HV_TOL:g} x max|Hv|")
+    share_text("21a sven_hess_pggn", R.roofline_terms(rec), ms / 1e3, "device")
+    del X, y, v, act, got, want
+    torch.cuda.empty_cache()
+    print(f"    21a {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- 21b: the dry run at the shapes phases 15-20 ran ----------------------------
+    t0 = time.perf_counter()
+    cells = launch_tool_cells() if cells is None else cells
+    print(f"[21b] the dry run on {TRAIN_ARCH} at the shapes and meshes phases 15, 17, 19 and "
+          f"20 ran (no process group; counted on the CPU in {cells['seconds']:.1f} s)",
+          flush=True)
+    for label, what in (("19a", "the train step"), ("20a", "a decode step")):
+        rec, m = cells[label], MEASURED.get(label)
+        print(f"    {label} {what} counted: {counts_text(rec['collectives_by_axis'])}",
+              flush=True)
+        if m is None:
+            smoke.check(False, f"21b {label}: phase {label[:2]} measured nothing to compare")
+            continue
+        print(f"    {label} {what} on the ranks (rank 0): {counts_text(m['counts'])}; "
+              f"counted - measured: {counts_apart(rec['collectives_by_axis'], m['counts'])}",
+              flush=True)
+        smoke.check(rec["collectives_by_axis"] == m["counts"], f"21b {label}: the counted "
+                    f"collectives equal the ranks' by kind and axis, calls and bytes "
+                    f"({counts_apart(rec['collectives_by_axis'], m['counts'])})")
+    m = MEASURED.get("19a")
+    if m is not None:
+        rec = cells["19a"]
+        print(f"    19a a rank's blocks: parameters counted {rec['param_bytes']} B, held "
+              f"{m['param_bytes']:.0f} B; ZeRO-1 moments counted {rec['moment_bytes']} B, "
+              f"held {m['moment_bytes']:.0f} B", flush=True)
+        smoke.check(rec["param_bytes"] == m["param_bytes"]
+                    and rec["moment_bytes"] == m["moment_bytes"],
+                    "21b 19a: the counted parameter and moment bytes a rank equal the blocks "
+                    "phase 19's rank 0 holds")
+    for label in ("15a", "17a", "19a", "20a"):
+        rec, m = cells[label], MEASURED.get(label)
+        if m is None:
+            print(f"    {label}: not measured in this run", flush=True)
+            continue
+        share_text(f"21b {label} ({rec['kind']}, {rec['global_batch']} x {rec['seq_len']}, "
+                   f"mesh {rec['mesh']}, {rec['flops']:.4e} FLOPs)", R.roofline_terms(rec),
+                   m["step_s"], "step")
+    print(f"    21b {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- 21c: the twins of examples/ -------------------------------------------------
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(ROOT / "examples"))
+    for name, argv in LT_TWINS:
+        t1 = time.perf_counter()
+        before = kernels.launches()
+        try:
+            importlib.import_module(f"{name}_torch").main(argv + ["--device", str(dev)])
+            ok, why = True, "exited normally"
+        except (Exception, SystemExit) as e:  # noqa: BLE001 — a twin's failure is a check
+            ok, why = False, f"{type(e).__name__}: {e}"
+        torch.cuda.synchronize()
+        count({k: v - before[k] for k, v in kernels.launches().items()})
+        print(f"[21c] examples/{name}_torch.py {' '.join(argv)}: {why} in "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+        smoke.check(ok, f"21c {name}_torch: {why}")
+        torch.cuda.empty_cache()
+    print(f"    21c {time.perf_counter() - t0:.1f} s; phase 21: "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+    return modes
+
+
+def launch_tools_only(torch) -> int:
+    """`--launch-tools`: phase 21 alone (the kernels built first), with 19a
+    and 20a run first on 2 ranks of their own (2 steps each) to hold the
+    counts against; prints no result line. Exits 1 if a check failed."""
+    import statistics
+
+    from repro_torch import dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+
+    card = nvidia_smi()
+    print(f"card: {card}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    dev = torch.device("cuda", 0)
+    smoke = Smoke()
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    (_, model), mb, _ = TP_A
+    (_, model20), layouts, shape, max_len, _, _ = SERVE_TP_A
+    subs = [("19a", "train", (cfg, DIST_SHAPE, 2, mb, model, {}, False)),
+            ("20a", "serve", (cfg, model20, layouts, shape, max_len, 2, 0, False))]
+    res = dist.launch(serve_tp_ranks, 2, args=(subs,), device="cuda", timeout=900)
+    st = res["19a"]["steps"]
+    MEASURED["19a"] = {"step_s": st[-1]["secs"], "counts": st[-1]["counts"],
+                       "param_bytes": res["19a"]["param_bytes"][0],
+                       "moment_bytes": res["19a"]["moment_bytes"][0], "shape": DIST_SHAPE}
+    st = res["20a"]["steps"]
+    MEASURED["20a"] = {"step_s": statistics.median(x["secs"] for x in st[1:]),
+                       "counts": st[-1]["counts"]}
+    print(f"19a and 20a on 2 ranks: {time.perf_counter() - t0:.1f} s", flush=True)
+    phase_launch_tools(torch, smoke, dev, card, lambda launched: None)
+    print(f"total {time.perf_counter() - t0:.1f} s; {len(smoke.failures)} check(s) failed",
+          flush=True)
+    for f in smoke.failures:
+        print(f"  FAILED {f}", flush=True)
+    return 1 if smoke.failures else 0
+
+
 def run_path(torch, kernels, svm_state, fn):
     """Run fn with every launch counter, the sync counter and the CG loop's
     counters (`cg_lanes.steps`, `.dead`) at 0; return (result, seconds,
@@ -5180,6 +5504,8 @@ def main() -> int:
         return tp_only(torch)
     if sys.argv[1:] == ["--serve-tp"]:
         return serve_tp_only(torch)
+    if sys.argv[1:] == ["--launch-tools"]:
+        return launch_tools_only(torch)
     if sys.argv[1:2] == ["--lm-trace"] and len(sys.argv) <= 3:
         from repro_torch.configs import ALIASES
         if sys.argv[2:] and sys.argv[2] not in ALIASES:
@@ -5201,6 +5527,15 @@ def main() -> int:
     smoke = Smoke()
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    clock = PhaseClock()
+    clock.start("1")
+    # phase 21's dry-run counts, on one CPU core while the card works
+    import concurrent.futures
+    import multiprocessing
+
+    counting_pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    counting = counting_pool.submit(launch_tool_cells)
 
     # -- 1. setup -------------------------------------------------------------
     card = nvidia_smi()
@@ -5221,6 +5556,7 @@ def main() -> int:
                 print(f"    {stem}: {line.strip()}", flush=True)
 
     # -- 2. kernels vs plain ----------------------------------------------------
+    clock.start("2")
     print("[2] kernels vs their plain versions", flush=True)
     gen = torch.Generator().manual_seed(0)
     rows = phase_kernels(torch, smoke, dev, gen)
@@ -5232,6 +5568,7 @@ def main() -> int:
             path_launches[k] += v
 
     # -- 3. dual at the YMSD shape ---------------------------------------------
+    clock.start("3")
     n, p = YMSD
     print(f"[3] dual solve, n = {n}, p = {p}", flush=True)
     X, y, beta_true = make_regression(n, p, seed=1, device=dev)
@@ -5292,6 +5629,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 4. primal at the GLA-BRA-180 shape ------------------------------------
+    clock.start("4")
     n, p = GLA_BRA
     print(f"[4] primal solve, n = {n}, p = {p}", flush=True)
     X, y, beta_true = make_regression(n, p, seed=2, device=dev)
@@ -5334,6 +5672,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 5. sven_path at the primal shape --------------------------------------
+    clock.start("5")
     ts = [t * f for f in (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)]
     print(f"[5] sven_path, {len(ts)} points, n = {n}, p = {p}", flush=True)
     betas, secs, launched, syncs = run_path(
@@ -5364,6 +5703,7 @@ def main() -> int:
     del betas, ref_betas, plain_betas, plain_sols, sol, ref_sol
 
     # -- 6. the hinge-stats op vs plain ------------------------------------------
+    clock.start("6")
     print("[6] kernels.hinge_stats vs its plain version", flush=True)
     Xr, yr, _ = make_regression(*RAGGED, seed=3, device=dev)
     wr = torch.randn(RAGGED[0], generator=gen, dtype=torch.float64).to(dev) * 0.3
@@ -5374,55 +5714,65 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 7. the penalized front end --------------------------------------------
+    clock.start("7")
     phase_front_end(torch, smoke, kernels, svm_state, count, ymsd_case[1:3],
                     glabra_case[1:3])
     del ymsd_case, glabra_case
     torch.cuda.empty_cache()
 
     # -- 8. a float32 problem --------------------------------------------------
+    clock.start("8")
     gram_modes["f32"] = phase_float32(torch, smoke, kernels, svm_state, dev)
     torch.cuda.empty_cache()
 
     # -- 9. batched solves -----------------------------------------------------
+    clock.start("9")
     print("[9] sven_batch: lane-batched solves vs sequential sven", flush=True)
     rows.update(phase_batch(torch, smoke, kernels, svm_state, count, dev, gen))
     torch.cuda.empty_cache()
 
     # -- 11. batched penalized solves and cross-validation ---------------------
+    clock.start("11")
     print("[11] enet_batch and cross-validation: lane-batched root-finds vs sequential",
           flush=True)
     phase_cv(torch, smoke, kernels, svm_state, count, dev)
     torch.cuda.empty_cache()
 
     # -- 12. the serving runtime -----------------------------------------------
+    clock.start("12")
     print("[12] the serving runtime: open-loop waves vs the cold reference drain, and "
           "the online session", flush=True)
     phase_serving(torch, smoke, kernels, svm_state, count, dev)
     torch.cuda.empty_cache()
 
     # -- 13. the multi-device layer --------------------------------------------
+    clock.start("13")
     phase_multi_device(torch, smoke, kernels, svm_state, count, dev)
     torch.cuda.empty_cache()
 
     # -- 14. the multi-host serving coordinator --------------------------------
+    clock.start("14")
     print("[14] the multi-host serving coordinator: worker processes on the card, one "
           "killed", flush=True)
     phase_multihost(torch, smoke, count, dev)
     torch.cuda.empty_cache()
 
     # -- 15. the LM serving path -----------------------------------------------
+    clock.start("15")
     print("[15] the LM serving path: internlm2-1.8b at full width, and sven on its hidden "
           "states", flush=True)
     phase_lm(torch, smoke, kernels, svm_state, count, dev, card)
     torch.cuda.empty_cache()
 
     # -- 16. the MoE, SSM and MLA serving path ---------------------------------
+    clock.start("16")
     print("[16] the MoE, SSM and MLA serving path: mixtral-8x7b and deepseek-v3 at full "
           "width, mamba2-130m whole", flush=True)
     phase_lm_moe(torch, smoke, dev, card)
     torch.cuda.empty_cache()
 
     # -- 17. the LM training path ----------------------------------------------
+    clock.start("17")
     print("[17] the LM training path: internlm2-1.8b trained at full width and depth, "
           "mamba2-130m through a fault and a restart, mixtral-8x7b's MoE at full width",
           flush=True)
@@ -5430,6 +5780,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 18-19. training over ranks --------------------------------------------
+    clock.start("18-19")
     print("[18] data-parallel training: internlm2-1.8b's sharded step at full width and "
           "depth on 2 ranks, parity, the launcher across ranks, the pipeline, compression; "
           "then [19] FSDP and the \"model\" axis", flush=True)
@@ -5437,12 +5788,26 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 20. prefill and decode on meshes --------------------------------------
+    clock.start("20")
     print("[20] prefill and decode on (data, model) meshes in the dry run's serving layouts: "
           "internlm2-1.8b whole, mamba2-130m whole, jamba-v0.1-52b and mixtral-8x7b at full "
           "width", flush=True)
     phase_serve_tp(torch, smoke, dev, card)
 
+    # -- 21. the launch tools ------------------------------------------------------
+    clock.start("21")
+    print("[21] the launch tools: the dry run's sven cells run at pod16x16's block on the "
+          "card, its counts against phases 15-20, the twins of examples/", flush=True)
+    cells = counting.result()
+    counting_pool.shutdown()
+    for prec, n_launch in phase_launch_tools(torch, smoke, dev, card, count, cells).items():
+        gram_modes[prec] = gram_modes.get(prec, 0) + n_launch
+    torch.cuda.empty_cache()
+
     # -- summary ---------------------------------------------------------------
+    clock.start(None)
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in clock.seconds.items()),
+          flush=True)
     for name, n_launch in path_launches.items():
         smoke.check(n_launch > 0, f"{name} launched on the main path ({n_launch})")
     for prec, n_launch in gram_modes.items():

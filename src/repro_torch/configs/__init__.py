@@ -73,11 +73,12 @@ def get_meta(name: str) -> ArchMeta:
     return _mod(name).META
 
 
-def input_specs(cfg, shape_name: str) -> dict:
+def input_specs(cfg, shape_name: str, shape: dict = None) -> dict:
     """Stand-ins for the model inputs of a shape cell: tensors on the meta
     device, which carry a shape and a dtype and allocate nothing (the
-    counterpart of `jax.ShapeDtypeStruct`)."""
-    sh = SHAPES[shape_name]
+    counterpart of `jax.ShapeDtypeStruct`). `shape` replaces the cell's
+    entry of SHAPES (a batch or sequence override)."""
+    sh = SHAPES[shape_name] if shape is None else shape
     B, S = sh["global_batch"], sh["seq_len"]
 
     def tok(*shape):

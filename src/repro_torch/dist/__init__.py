@@ -17,9 +17,14 @@ group, this process's rank in it and the rank's device. Functions that
 take a mesh keep their own block of the work and return the same
 replicated result on every rank. A mesh of one rank (no process group, or
 `data_mesh(1)`) issues no collective at all; a mesh of more ranks that no
-process group backs (the production 16 x 16, say) resolves specs only,
-and a collective on it raises. So `constrain` is the identity inside a
-context too: each rank already holds its own block.
+process group backs (the production 16 x 16, say) resolves specs, and
+counts: a collective on it of an operand on the "meta" device (a shape
+and a dtype, no data) records what it would move in the counters the
+executed collectives keep and returns a meta result of the right shape,
+while a collective of a real tensor on it raises, so a count never passes
+for a run (`launch/dryrun.py` runs rank 0's step on meta tensors so). So
+`constrain` is the identity inside a context too: each rank already holds
+its own block.
 
 **Axis views.** A mesh of several axes (`launch.mesh.make_local_mesh`,
 `with_views`) holds one process group for each slice of ranks along an
@@ -339,24 +344,37 @@ def data_parallel_mesh() -> Optional[Mesh]:
 
 def all_reduce(mesh: Mesh, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
     """x summed (or maxed) over the ranks, the same bits on every rank; x
-    itself on a mesh of one rank. Raises on a mesh that no process group
-    backs. `all_reduce.calls`, `.bytes` and `.seconds` count the
-    collectives issued (`all_reduce_`'s too), their operands' bytes and
-    the host seconds spent in them, and `.by_axis` the calls by the mesh's
-    axes ("model" for the model view; plain numbers, `reset_counts`)."""
+    itself on a mesh of one rank. On a mesh that no process group backs, a
+    meta x is counted (`_counted`) and a real one raises.
+    `all_reduce.calls`, `.bytes` and `.seconds` count the collectives
+    issued (`all_reduce_`'s too), their operands' bytes and the host
+    seconds spent in them, `.by_axis` the calls and `.bytes_by_axis` the
+    bytes by the mesh's axes ("model" for the model view; plain numbers,
+    `reset_counts`)."""
     if mesh.size == 1:
         return x
     return all_reduce_(mesh, x.clone(), op)
 
 
+def _counted(fn, mesh: Mesh, x: torch.Tensor) -> bool:
+    """Whether a collective `fn` of x on `mesh` is only counted: on a mesh
+    that no process group backs, a meta x is (`fn`'s counters take the call
+    and x's bytes) and a real x raises."""
+    if mesh.group is not None:
+        return False
+    if not x.is_meta:
+        raise RuntimeError(f"{fn.__name__}: no process group backs this mesh of shape "
+                           f"{mesh.shape}; it resolves specs only (and counts the "
+                           "collectives of meta tensors)")
+    _count(fn, mesh, x, time.perf_counter())
+    return True
+
+
 def all_reduce_(mesh: Mesh, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
     """`all_reduce` in place: x itself, overwritten with the result (for a
     tensor the caller owns, such as a rank's own gradients)."""
-    if mesh.size == 1:
+    if mesh.size == 1 or _counted(all_reduce, mesh, x):
         return x
-    if mesh.group is None:
-        raise RuntimeError(f"all_reduce: no process group backs this mesh of shape "
-                           f"{mesh.shape}; it resolves specs only")
     import torch.distributed as tdist
 
     t0 = time.perf_counter()
@@ -367,31 +385,45 @@ def all_reduce_(mesh: Mesh, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
 
 
 def _count(fn, mesh: Mesh, x: torch.Tensor, t0: float) -> None:
+    nbytes = x.numel() * x.element_size()
     fn.calls += 1
-    fn.bytes += x.numel() * x.element_size()
+    fn.bytes += nbytes
     fn.seconds += time.perf_counter() - t0
     key = "+".join(mesh.axes)
     fn.by_axis[key] = fn.by_axis.get(key, 0) + 1
+    fn.bytes_by_axis[key] = fn.bytes_by_axis.get(key, 0) + nbytes
+
+
+def _collectives() -> dict:
+    """The collectives by kind, under JAX's HLO names."""
+    return {"all-reduce": all_reduce, "broadcast": broadcast, "all-gather": all_gather}
 
 
 def reset_counts() -> None:
     """Every collective's counters to 0."""
-    for fn in (all_reduce, broadcast, all_gather):
+    for fn in _collectives().values():
         fn.calls = fn.bytes = 0
         fn.seconds = 0.0
         fn.by_axis = {}
+        fn.bytes_by_axis = {}
+
+
+def counts() -> dict:
+    """The collectives' counters since `reset_counts`, by kind:
+    {kind: {"count", "bytes", "by_axis", "bytes_by_axis"}} for each kind
+    called at least once (the record `launch/dryrun.py` keeps)."""
+    return {kind: {"count": fn.calls, "bytes": fn.bytes, "by_axis": dict(fn.by_axis),
+                   "bytes_by_axis": dict(fn.bytes_by_axis)}
+            for kind, fn in _collectives().items() if fn.calls}
 
 
 def broadcast(mesh: Mesh, x: torch.Tensor, src: int) -> torch.Tensor:
     """x overwritten in place with the x of the rank at index `src` of
     `mesh` (the FSDP layer gather's move of a whole layer from its owner);
-    x itself on one rank. `broadcast.calls`, `.bytes`, `.seconds` and
-    `.by_axis` (calls by the mesh's axes) count as `all_reduce`'s do."""
-    if mesh.size == 1:
+    x itself on one rank. `broadcast.calls`, `.bytes`, `.seconds`,
+    `.by_axis` and `.bytes_by_axis` count as `all_reduce`'s do."""
+    if mesh.size == 1 or _counted(broadcast, mesh, x):
         return x
-    if mesh.group is None:
-        raise RuntimeError(f"broadcast: no process group backs this mesh of shape "
-                           f"{mesh.shape}; it resolves specs only")
     import torch.distributed as tdist
 
     t0 = time.perf_counter()
@@ -403,12 +435,12 @@ def broadcast(mesh: Mesh, x: torch.Tensor, src: int) -> torch.Tensor:
 def all_gather(mesh: Mesh, x: torch.Tensor) -> list:
     """Every rank's x (all of one shape), in the mesh's rank order; [x] on
     one rank. `all_gather.calls`, `.bytes` (this rank's operand, the block
-    it sends), `.seconds` and `.by_axis` count as `all_reduce`'s do."""
+    it sends), `.seconds`, `.by_axis` and `.bytes_by_axis` count as
+    `all_reduce`'s do."""
     if mesh.size == 1:
         return [x]
-    if mesh.group is None:
-        raise RuntimeError(f"all_gather: no process group backs this mesh of shape "
-                           f"{mesh.shape}; it resolves specs only")
+    if _counted(all_gather, mesh, x):
+        return [torch.empty_like(x) for _ in range(mesh.size)]
     import torch.distributed as tdist
 
     t0 = time.perf_counter()

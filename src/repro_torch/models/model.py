@@ -155,9 +155,13 @@ def init_model(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
     """Random parameters of `cfg` on `device` (CUDA when none is named),
     drawn from `generator` (a generator on that device seeded 0 when none
     is given): the embedding, the codebook embeddings, each layer in order,
-    then the MTP module when `cfg.mtp_depth` is set."""
+    then the MTP module when `cfg.mtp_depth` is set. On the "meta" device
+    the same tree of shapes and dtypes, no data and no generator (the
+    counterpart of `jax.eval_shape(init_model)`)."""
     dev = resolve_device(device)
-    if generator is None:
+    if dev.type == "meta":
+        generator = None
+    elif generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     dt = cfg.param_dtype
     params: dict = {

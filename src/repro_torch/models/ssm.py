@@ -20,11 +20,15 @@ norm's scale and the state `h` follow the heads (d_inner = H x head_dim):
 the norm's statistic is all-reduced over the view (`tp.rms_norm_split`),
 and `w_out`'s partial outputs are summed after it (`tp.reduce_product`). The
 replicated per-head leaves (`dt_bias`, `a_log`, `d_skip`) enter through
-`tp.copy_to` before the rank takes its heads, and so does the input, so
+`tp.copy_to` before the rank takes its heads, and so do the input and any
+packed leaf whose record leaves it whole (a dim the view does not divide), so
 every gradient is whole: B and C feed only the rank's heads, and their
 partial gradients sum over the view. The conv cache's new tail is
 computed whole (its pre-conv channels are one product) and cut back to
-the rank's block.
+the rank's block. Where the view divides d_inner and not the heads
+(mamba2-130m's 24 heads over 16 ranks), every rank runs every head, and
+takes its block of the channels into the split norm and `w_out`'s rows;
+the state is then whole on every rank, as its record leaves it.
 """
 from __future__ import annotations
 
@@ -170,9 +174,12 @@ def _dt(params, dt):
     return dtv, -torch.exp(params["a_log"].to(f32))
 
 
-def _out(params, y, z, x_dtype, view=None):
+def _out(params, y, z, x_dtype, view=None, chans: Optional[slice] = None):
     """The gated, normed output projection of y (B,S,d_inner) float32 (this
-    rank's channels under `view`, the partial outputs summed over it)."""
+    rank's channels under `view`, the partial outputs summed over it);
+    `chans` narrows whole y and z to this rank's block first."""
+    if chans is not None:
+        y, z = y[..., chans], z[..., chans]
     y = tp.rms_norm_split(y.to(x_dtype) * F.silu(z), params["norm"]["scale"], view)
     return tp.reduce_product(view, y, params["w_out"])
 
@@ -184,6 +191,7 @@ class _Split(NamedTuple):
     chans: slice          # their d_inner channels
     params: dict          # w_in / conv_w / conv_b whole, the per-head leaves local
     conv: Optional[torch.Tensor]   # the conv cache whole (decode)
+    out_chans: Optional[slice] = None   # this rank's block of whole channels into w_out
 
 
 def _local(params, rec, d_model, cfg: SSMConfig, conv=None, conv_rec=None) -> _Split:
@@ -191,7 +199,8 @@ def _local(params, rec, d_model, cfg: SSMConfig, conv=None, conv_rec=None) -> _S
     cache, each whole where its record splits it over "model") in one
     all-gather, and take this rank's heads of `dt_bias`, `a_log` and
     `d_skip` (through `tp.copy_to`). The heads split as `w_out`'s rows;
-    raises NotImplementedError where the view does not divide the heads."""
+    where the view does not divide the heads, the rank keeps every head and
+    `out_chans` is its block of the channels (the module doc)."""
     d_inner, H, _ = _dims(d_model, cfg)
     items = [(params["w_in"], tp.records(rec, "w_in"), 1),
              (params["conv_w"], tp.records(rec, "conv_w"), 1),
@@ -200,20 +209,27 @@ def _local(params, rec, d_model, cfg: SSMConfig, conv=None, conv_rec=None) -> _S
         items.append((conv, conv_rec, 2))
     views = [tp.model_view(r, d) for _, r, d in items]
     split = [i for i, v in enumerate(views) if v is not None]
-    whole = [t for t, _, _ in items]
+    view = tp.model_view(tp.records(rec, "w_out"), 0)
+    # a leaf its record leaves whole feeds only this rank's part of the
+    # layer, so its gradient sums over the view
+    whole = [t if view is None or i in split or i == 3 else tp.copy_to(view, t)
+             for i, (t, _, _) in enumerate(items)]
     if split:
         got = tp.gather_packed(views[split[0]], [items[i][0] for i in split],
                                [items[i][2] for i in split])
         for i, g in zip(split, got):
             whole[i] = g
     out = dict(params, w_in=whole[0], conv_w=whole[1], conv_b=whole[2])
-    view = tp.model_view(tp.records(rec, "w_out"), 0)
     if view is None:
         return _Split(None, slice(0, H), slice(0, d_inner), out,
                       whole[3] if conv is not None else None)
     if H % view.size:
-        raise NotImplementedError(f"the SSM's {H} heads do not split over {view.size} "
-                                  "\"model\" ranks, and its channels do")
+        for name in ("dt_bias", "a_log", "d_skip"):
+            out[name] = tp.copy_to(view, params[name])
+        n = d_inner // view.size
+        return _Split(view, slice(0, H), slice(0, d_inner), out,
+                      whole[3] if conv is not None else None,
+                      slice(view.rank * n, (view.rank + 1) * n))
     hl = H // view.size
     heads = slice(view.rank * hl, (view.rank + 1) * hl)
     chans = slice(heads.start * cfg.head_dim, heads.stop * cfg.head_dim)
@@ -256,7 +272,7 @@ def ssm_forward(params: dict, x: torch.Tensor, d_model: int, cfg: SSMConfig,
     xh = xc.reshape(Bsz, S, hl, cfg.head_dim)
     y, h_final = _ssd_scan(xh, dtv * A, dtv, Bm, Cm, cfg)
     y = y + p["d_skip"].to(torch.float32)[None, None, :, None] * xh.to(torch.float32)
-    out = _out(p, y.reshape(Bsz, S, cl), z, x.dtype, view)
+    out = _out(p, y.reshape(Bsz, S, cl), z, x.dtype, view, sp.out_chans)
     if not return_cache:
         return out
     tail = cfg.d_conv - 1
@@ -264,7 +280,7 @@ def ssm_forward(params: dict, x: torch.Tensor, d_model: int, cfg: SSMConfig,
         xbc = x[:, max(S - tail, 0):] @ p["w_in"][:, d_inner: d_inner + conv_ch]
     n = xbc.shape[1]
     conv_tail = xbc[:, n - tail:, :].clone() if n >= tail else F.pad(xbc, (0, 0, tail - n, 0))
-    if view is not None and cache_rec is not None and tp.model_view(cache_rec.h, 1) is None:
+    if hl < H and cache_rec is not None and tp.model_view(cache_rec.h, 1) is None:
         raise NotImplementedError("the SSM's heads split over \"model\" and its state's "
                                   "record does not split them")
     return out, SSMCache(conv=dsh.cut_whole(conv_tail, _field(cache_rec, "conv")), h=h_final)
@@ -300,6 +316,6 @@ def ssm_decode_step(params: dict, x: torch.Tensor, cache: SSMCache, d_model: int
         "bh,bhd,bhp->bhdp", dtv, Bm, xh)
     y = torch.einsum("bhd,bhdp->bhp", Cm, hs)
     y = y + p["d_skip"].to(torch.float32)[None, :, None] * xh
-    out = _out(p, y.reshape(Bsz, 1, cl), z, x.dtype, sp.view)
+    out = _out(p, y.reshape(Bsz, 1, cl), z, x.dtype, sp.view, sp.out_chans)
     new_conv = dsh.cut_whole(torch.cat([conv[:, 1:], xbc], dim=1), _field(cache_rec, "conv"))
     return out, SSMCache(conv=new_conv, h=hs)

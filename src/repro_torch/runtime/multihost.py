@@ -165,7 +165,8 @@ def _worker_main(host_id: int, conn, cfg: dict) -> None:
                         "beta": (None if res.beta is None
                                  else np.asarray(res.beta)),
                         "iters": int(res.iters), "kkt": float(res.kkt),
-                        "bucket": tuple(res.bucket), "status": res.status}
+                        "bucket": tuple(res.bucket), "status": res.status,
+                        "warm_from": res.warm_from, "warm_start": res.warm_start}
                 conn.send(("result", host_id, batch_id, payload,
                            sched.registry.counter_deltas()))
             except Exception:  # noqa: BLE001 — report, let the parent requeue
@@ -234,7 +235,10 @@ class MultiHostCoordinator:
     Every worker solves on `device` (the CUDA device when none is named;
     with no CUDA device and none named this raises, as
     `repro_torch.device.resolve_device` does) in `dtype` (float64 or
-    float32).
+    float32). Each result names the point of the warm-start entry its
+    worker started from (`EnResult.warm_from`, None: cold) and carries that
+    entry's arrays back (`EnResult.warm_start`), so the solve can be
+    repeated from exactly the survivor's start.
     """
 
     def __init__(self, n_hosts: int = 2, *, max_batch: int = 8,
@@ -652,7 +656,8 @@ class MultiHostCoordinator:
             self._results[r.req_id] = EnResult(
                 beta=out["beta"], iters=np.int64(out["iters"]),
                 kkt=out["kkt"], bucket=tuple(out["bucket"]),
-                status=out["status"])
+                status=out["status"], warm_from=out.get("warm_from"),
+                warm_start=out.get("warm_start"))
             self._terminal.inc(status=out["status"])
             done.append(r.req_id)
         if done:

@@ -127,6 +127,9 @@ class EnResult(NamedTuple):
     kkt: Any                  # EN KKT violation of the padded problem
     bucket: tuple             # (n_bucket, p_bucket) shape this ran on
     status: str = "ok"        # "ok" | "deadline_exceeded" | "aborted"
+    warm_from: Optional[float] = None  # the point (t or lambda1) of the warm-
+    #                           start cache entry the solve started from; None: cold
+    warm_start: Optional[tuple] = None  # that entry's (alpha, w), padded geometry
 
 
 #: RuntimeStats attribute -> (instrument kind, metric name, fixed labels).
@@ -226,6 +229,7 @@ class _InFlight(NamedTuple):
     t_dispatch: float = 0.0   # scheduler clock at dispatch (solve telemetry)
     modeled_s: float = 0.0    # cost-model price of this launch (0 = unpriced)
     route_path: str = "single"  # router decision this launch ran under
+    warm: tuple = ()          # each request's warm-start entry (None: cold)
 
 
 def _urgency(req: EnRequest) -> tuple:
@@ -276,7 +280,10 @@ class ContinuousScheduler:
     Runs on `device` (the CUDA device when none is named; with no CUDA
     device and none named it raises, `repro_torch.device.resolve_device`).
     `dtype` is the torch dtype the requests are solved in (float64 or
-    float32).
+    float32). Each result names the point of the cache entry its solve
+    was warm-started from (`EnResult.warm_from`) and holds that entry's
+    arrays (`EnResult.warm_start`, the cache's own, not copied), so a
+    caller can repeat the solve from exactly that start.
     """
 
     def __init__(self, config: SvenConfig = SvenConfig(), *,
@@ -609,7 +616,8 @@ class ContinuousScheduler:
 
     def _warm_arrays(self, reqs: List[EnRequest], bn: int, bp: int,
                      b_pad: int, form: str):
-        """Stack cache hits into warm-start operands (zeros where cold).
+        """Stack cache hits into warm-start operands (zeros where cold),
+        with each request's entry (None where cold).
 
         Host (numpy) buffers filled in place; cached entries are stored as
         numpy at harvest, so a hit is a memcpy, not a device round trip."""
@@ -619,12 +627,14 @@ class ContinuousScheduler:
         t_prev = np.zeros((b_pad,), self.np_dtype)
         nu_prev = np.zeros((b_pad,), self.np_dtype)
         hot = np.zeros((b_pad,), bool)
+        used = [None] * len(reqs)
         if self.cache is not None:
             with self.tracer.span("warm_start", b=len(reqs)) as sp:
                 for i, r in enumerate(reqs):
                     entry = self.cache.lookup(r.fingerprint, form, r.lam,
                                               r.lambda2)
                     if entry is not None:
+                        used[i] = entry
                         alpha[i], w[i], beta[i] = (entry.alpha, entry.w,
                                                    entry.beta)
                         t_prev[i], nu_prev[i] = entry.t, entry.nu
@@ -638,7 +648,7 @@ class ContinuousScheduler:
                                             lambda2=entry.lambda2)
                 if sp.args is not None:
                     sp.args["hits"] = int(hot[:len(reqs)].sum())
-        return alpha, w, beta, t_prev, nu_prev, hot
+        return alpha, w, beta, t_prev, nu_prev, hot, tuple(used)
 
     def _predict_candidates(self, reqs, form: str) -> list:
         """Predicted next crawl points for this chunk's fingerprints.
@@ -727,7 +737,7 @@ class ContinuousScheduler:
         fill = [1.0] * (b_pad - b_real)
         lamb = np.asarray([r.lam for r in reqs] + fill, self.np_dtype)
         l2b = np.asarray([r.lambda2 for r in reqs] + fill, self.np_dtype)
-        wa, ww, wb, wt, wnu, hot = self._warm_arrays(reqs, bn, bp, b_pad, form)
+        wa, ww, wb, wt, wnu, hot, used = self._warm_arrays(reqs, bn, bp, b_pad, form)
         spec = ()
         if cands:
             spec = self._fill_spec_slots(cands, key, b_real, Xb, yb, lamb,
@@ -780,6 +790,7 @@ class ContinuousScheduler:
                                 w=sol.w, t_out=lamd, nu_out=torch.zeros_like(lamd),
                                 spec=spec, t_dispatch=t_disp,
                                 modeled_s=modeled_s, route_path=route_path)
+        inf = inf._replace(warm=used)
         if self.device.type == "cuda":
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
@@ -812,9 +823,11 @@ class ContinuousScheduler:
                                    inf.w, inf.t_out, inf.nu_out))
             for i, req in enumerate(inf.reqs):
                 p = req.X.shape[1]
+                entry = inf.warm[i] if inf.warm else None
                 self._results[req.req_id] = EnResult(
                     beta=beta[i, :p], iters=iters[i], kkt=kkt[i],
-                    bucket=(bn, bp))
+                    bucket=(bn, bp), warm_from=None if entry is None else entry.lam,
+                    warm_start=None if entry is None else (entry.alpha, entry.w))
                 if self.cache is not None:
                     self.cache.insert(req.fingerprint, form, WarmEntry(
                         lam=req.lam, lambda2=req.lambda2, alpha=alpha[i],

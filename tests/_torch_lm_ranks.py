@@ -414,3 +414,119 @@ def serve_cases(mesh, runs, from_jax=None):
     if from_jax is not None:
         out["from_jax"] = decode_from(mesh, *from_jax)
     return out
+
+
+# -- the dry run's counts against executed steps (tests/test_torch_launch_tools.py)
+
+def executed_counts(mesh, arch, model_axis, shape, microbatches):
+    """`arch`'s SMOKE config (random weights, seed 0) on
+    make_local_mesh(model_axis): one sharded train step (`run_sharded`,
+    ZeRO-1 moments, `grad_shardings` = the parameters' records) under the
+    train_4k rules, a prefill (`run_prefill`) under prefill_32k's and a
+    decode step (`run_decode`) from fresh caches under decode_32k's, at the
+    global batch and sequence `shape`. Returns rank 0's `dist.counts()` of
+    each step and every rank's bytes of its parameter and moment blocks."""
+    from repro_torch.launch.dryrun import _rules_for
+    from repro_torch.models import model as TM
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+
+    cfg = get_config(arch, smoke=True)
+    lmesh = make_local_mesh(model_axis)
+    B, S = shape
+    params = TM.init_model(cfg, device="cpu")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=torch.Generator().manual_seed(1))}
+    out = {}
+
+    def nbytes(tree):
+        return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+    with dist.mesh_context(lmesh, rules=_rules_for(cfg, "train_4k")):
+        p_sh = dsh.params_shardings(params, cfg)
+        m_sh = zero1_shardings(p_sh, params)
+        blocks = dsh.place(params, p_sh)
+        zeros = lambda r: torch.zeros(dsh.block_shape(r))  # noqa: E731
+        count = torch.zeros((), dtype=torch.int32)
+        opt = AdamWState(m=tree_map(zeros, m_sh), v=tree_map(zeros, m_sh), count=count)
+        o_sh = AdamWState(m=m_sh, v=m_sh, count=dsh.replicated(count))
+        held = [nbytes(blocks), nbytes(opt.m) + nbytes(opt.v)]
+        step = TS.make_train_step(cfg, microbatches=microbatches, learning_rate=1e-3,
+                                  grad_shardings=p_sh)
+        dist.reset_counts()
+        dsh.run_sharded(step, (p_sh, o_sh, dsh.batch_shardings(batch)), blocks, opt, batch,
+                        donate=True)
+        out["train"] = dist.counts()
+    with dist.mesh_context(lmesh, rules=_rules_for(cfg, "prefill_32k")):
+        p_sh = dsh.params_shardings(params, cfg)
+        dist.reset_counts()
+        dsh.run_prefill(make_prefill_step(cfg, S), (p_sh, dsh.batch_shardings(batch)), params,
+                        batch)
+        out["prefill"] = dist.counts()
+    with dist.mesh_context(lmesh, rules=_rules_for(cfg, "decode_32k")):
+        p_sh = dsh.params_shardings(params, cfg)
+        c_sh = TM.cache_records(cfg, B, S)
+        caches = TM.init_cache(params, cfg, B, S, records=c_sh)
+        tok = batch["tokens"][:, 0]
+        dist.reset_counts()
+        dsh.run_decode(make_decode_step(cfg), (p_sh, dsh.batch_shardings(tok), c_sh), params,
+                       tok, caches)
+        out["decode"] = dist.counts()
+    out["held"] = dist.gather(mesh, torch.tensor([held], dtype=torch.float64)).tolist()
+    return out
+
+
+def executed_counts_cases(mesh, runs):
+    """`executed_counts` for each (key, arguments) of `runs`, on these ranks."""
+    return {key: executed_counts(mesh, *args) for key, args in runs.items()}
+
+
+def ssm_odd_heads(mesh, steps):
+    """mamba2-130m's SMOKE block at 3 heads of 32 channels (d_model 48) on
+    make_local_mesh(2): the view divides d_inner (96) and not the heads,
+    as 16 ranks do mamba2-130m's 24. Returns the largest deviations from
+    one process on the same weights of a train step's loss and new
+    parameters, and of a prefill's and `steps` decode steps' logits."""
+    from repro_torch.models import model as TM
+    from repro_torch.models.ssm import SSMConfig
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+
+    cfg = dataclasses.replace(get_config("mamba2_130m", smoke=True), d_model=48,
+                              ssm=SSMConfig(d_state=16, d_conv=4, expand=2, head_dim=32,
+                                            n_groups=1, chunk=16))
+    params = TM.init_model(cfg, device="cpu")
+    B, S = 2, 16
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=torch.Generator().manual_seed(1))}
+    step = TS.make_train_step(cfg, learning_rate=1e-3)
+    one, _, m_one = step(params, adamw_init(params), batch)
+    lmesh = make_local_mesh(2)
+    out = {}
+    with dist.mesh_context(lmesh, rules={**dist.DEFAULT_RULES, **cfg.rules_override}):
+        p_sh = dsh.params_shardings(params, cfg)
+        assert p_sh["layers"][0]["mixer"]["w_out"].spec[0] == "model"
+        new, _, m = TS.make_train_step(cfg, learning_rate=1e-3, grad_shardings=p_sh)(
+            dsh.place(params, p_sh), dsh.place(adamw_init(params), AdamWState(
+                m=p_sh, v=p_sh, count=dsh.replicated(torch.zeros((), dtype=torch.int32)))),
+            batch, shardings=(p_sh, AdamWState(m=p_sh, v=p_sh, count=dsh.replicated(
+                torch.zeros((), dtype=torch.int32))), dsh.batch_shardings(batch)))
+        whole = dsh.gather_tree(new, p_sh)
+        out["loss"] = abs(float(m["loss"]) - float(m_one["loss"]))
+        out["params"] = max(float((a - b).abs().max()) for a, b in
+                            zip(tree_leaves(whole), tree_leaves(one)))
+        prefill, decode = make_prefill_step(cfg, S + steps), make_decode_step(cfg)
+        b_sh = dsh.batch_shardings(batch)
+        logits, caches = dsh.run_prefill(prefill, (p_sh, b_sh), params, batch)
+        ref, ref_c = prefill(params, batch)
+        devs = [float((logits - ref).abs().max())]
+        c_sh = TM.cache_records(cfg, B, S + steps)
+        caches = dsh.place(caches, c_sh)
+        tok = torch.argmax(ref, dim=-1)
+        for _ in range(steps):
+            logits, caches = dsh.run_decode(decode, (p_sh, dsh.batch_shardings(tok), c_sh),
+                                            params, tok, caches)
+            ref, ref_c = decode(params, tok, ref_c)
+            devs.append(float((logits - ref).abs().max()))
+            tok = torch.argmax(ref, dim=-1)
+        out["logits"] = max(devs)
+        out["scale"] = float(ref.abs().max())
+    return out

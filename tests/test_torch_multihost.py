@@ -176,6 +176,42 @@ def test_results_match_direct_solves_of_both_packages(coordinator_factory):
             assert float(np.abs(got - want).max()) <= TOL * scale
 
 
+def test_warm_results_equal_sven_from_the_entry_their_worker_used(coordinator_factory,
+                                                                  tmp_path):
+    """A warm wave with host 0 killed mid-drain: each "ok" result names the
+    point of the warm-start entry its worker started from (or None, cold)
+    and carries that entry back; `sven` on the padded problem
+    warm-started from it lies within 1e-10 of the result (JAX's
+    `run_multihost` bound), and the cold direct `sven` within 1e-6."""
+    X, y = _problem(6, n=30, p=40)
+    ts = [0.6 + 0.05 * k for k in range(8)]
+    coord = coordinator_factory(n_hosts=2, max_batch=4, cache_dir=str(tmp_path / "spill"))
+    cold = [coord.submit(X, y, t=t) for t in ts]
+    out = coord.drain()
+    assert all(out[r].warm_from is None or out[r].warm_start is not None for r in cold)
+    ids = [coord.submit(X, y, t=t + 0.01) for t in ts]
+    coord.flush()
+    coord.kill_host(0)
+    out = coord.drain()
+    assert {out[r].status for r in ids} == {"ok"}
+    warm = 0
+    for t, rid in zip(ts, ids):
+        r = out[rid]
+        (bn, bp), (n, p) = r.bucket, X.shape
+        Xp, yp = np.zeros((bn, bp)), np.zeros(bn)
+        Xp[:n, :p], yp[:n] = X, y
+        kw = {}
+        if r.warm_from is not None:
+            warm += 1
+            alpha, w = r.warm_start
+            kw = {"warm_alpha": torch.tensor(alpha), "warm_w": torch.tensor(w)}
+        again = npy(sven(torch.tensor(Xp), torch.tensor(yp), t + 0.01, 1.0, **kw).beta)[:p]
+        assert float(np.abs(r.beta - again).max()) <= TOL
+        direct = npy(sven(torch.tensor(X), torch.tensor(y), t + 0.01, 1.0).beta)
+        assert float(np.abs(r.beta - direct).max()) <= 1e-6
+    assert warm > 0
+
+
 @pytest.mark.slow
 def test_wide_batches_and_results_do_not_block_the_pipe(coordinator_factory):
     """Two batches of two 24 x 32,768 requests (a 12.6 MB message each) on
